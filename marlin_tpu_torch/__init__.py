@@ -1,0 +1,34 @@
+"""marlin_tpu_torch — marlin_tpu ported to PyTorch and CUDA on one NVIDIA H100.
+
+The JAX package ``marlin_tpu`` stays beside this one as the reference. This
+package keeps its module and public names so each counterpart is easy to
+find, imports neither JAX nor ``marlin_tpu``, and runs its entry points on
+``cuda`` unless the caller asks for the CPU (``config_context(device="cpu")``
+or a ``device=`` argument). Ported so far: the dense distributed multiply,
+end to end, with the hand-written CUDA GEMM and masked-fill kernels
+(``ops/pallas_kernels.py``).
+
+Quick start::
+
+    import marlin_tpu_torch as mt
+
+    a = mt.DenseVecMatrix.random(0, 8000, 8000)   # generated on the card
+    b = mt.DenseVecMatrix.random(1, 8000, 8000)
+    c = mt.evaluate(a.multiply(b))                # adaptive: broadcast vs RMM
+"""
+
+from .config import MarlinConfig, config_context, get_config, set_config  # noqa: F401
+from .mesh import COLS, ROWS, create_mesh, default_mesh, set_default_mesh  # noqa: F401
+from .matrix import (  # noqa: F401
+    BlockMatrix,
+    DenseMatrix,
+    DenseVecMatrix,
+    DistributedIntVector,
+    DistributedMatrix,
+    DistributedVector,
+)
+from .parallel import matmul, rmm_matmul, split_method, tune_multiply  # noqa: F401
+from .utils import evaluate, timer  # noqa: F401
+from . import random  # noqa: F401
+
+__version__ = "0.1.0"

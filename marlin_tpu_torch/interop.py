@@ -1,0 +1,72 @@
+"""Carry state across from the JAX package.
+
+The JAX package hands its state out as numpy arrays (``to_numpy()`` of its
+matrices and vectors); this module turns such arrays into the port's tensors
+and matrices on the port's device, keeping the dtype — bf16 included, which
+numpy holds as the ``ml_dtypes`` type ``bfloat16`` and torch cannot read
+directly. Later slices extend it (transformer parameters, KV pages).
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from .config import resolve_device
+
+
+def torch_dtype(dtype: Any) -> torch.dtype | None:
+    """A torch dtype for a torch dtype, a numpy dtype or a name."""
+    if dtype is None or isinstance(dtype, torch.dtype):
+        return dtype
+    name = np.dtype(dtype).name if not isinstance(dtype, str) else dtype
+    if name == "bfloat16":
+        return torch.bfloat16
+    return torch.from_numpy(np.empty(0, dtype=np.dtype(name))).dtype
+
+
+def to_tensor(arr, dtype: Any = None, device=None) -> torch.Tensor:
+    """``arr`` (a tensor, a numpy array — bf16 included — or anything numpy
+    reads) as a tensor on ``device`` (default: the configured one), cast to
+    ``dtype`` when given. A tensor already there in that dtype is returned
+    as it is."""
+    dev = resolve_device(device) if device is not None or \
+        not isinstance(arr, torch.Tensor) else arr.device
+    if not isinstance(arr, torch.Tensor):
+        a = np.asarray(arr)
+        if a.dtype.name == "bfloat16":
+            arr = torch.from_numpy(
+                np.ascontiguousarray(a).view(np.uint16)).view(torch.bfloat16)
+        else:
+            arr = torch.from_numpy(np.ascontiguousarray(a))
+    return arr.to(device=dev, dtype=torch_dtype(dtype) or arr.dtype)
+
+
+_KINDS = ("DenseVecMatrix", "BlockMatrix", "DenseMatrix", "DistributedVector",
+          "DistributedIntVector")
+
+
+def matrices_from_numpy(arrays: dict[str, np.ndarray],
+                        kind: str = "DenseVecMatrix",
+                        device=None) -> dict[str, Any]:
+    """Turn the JAX package's matrices, as ``to_numpy()`` gives them, into the
+    port's: ``{name: array}`` → ``{name: <kind>}`` on ``device``, dtype kept.
+    ``kind`` names the port's class: a matrix class for 2-D arrays, a vector
+    class for 1-D ones."""
+    from . import matrix
+    from .mesh import create_mesh
+
+    if kind not in _KINDS:
+        raise ValueError(f"unknown kind {kind!r} (one of {_KINDS})")
+    klass = getattr(matrix, kind)
+    mesh = create_mesh(device=device)
+    want = 1 if "Vector" in kind else 2
+    out = {}
+    for name, arr in arrays.items():
+        if np.ndim(arr) != want:
+            raise ValueError(f"{name}: a {kind} needs a {want}-D array, got "
+                             f"shape {np.shape(arr)}")
+        out[name] = klass.from_array(to_tensor(arr, device=mesh.device), mesh)
+    return out
