@@ -3,14 +3,29 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written kernels from ``marlin_tpu_torch/csrc/``, holds each
-against its plain PyTorch version, drives the dense 20000² multiply end to end
-through the public entry points, times the kernels, and prints:
+Builds the hand-written kernels from ``marlin_tpu_torch/csrc/`` (one ``nvcc``
+per source, all at once), holds each against its plain PyTorch version, and
+drives the two ported paths end to end through the public entry points:
 
-- the card's name, count and power limit;
-- one ``{"kernels": [...]}`` line (launches on the main path, max error,
-  kernel / plain / bound / library times);
-- last, ``{"ok": true, "device": {...}}``.
+- phases 1-5: the dense 20000² multiply (GEMM and masked-fill kernels);
+- phases 6-7: the paged decode-attention and flash-panel kernels against
+  their plain versions at the serving shapes (f32 and bf16, GQA, ragged and
+  dummy rows, the strided (P, heads, d) views that prefill passes, two
+  panels with carried state and offsets), every element within tolerance;
+- phase 8: the serving path at full width — ``TransformerLM(vocab=4096,
+  d_model=512, heads=8, layers=4)`` (the repo's decode benchmark model,
+  ``bench_all.py`` ``config_decode``), 8 requests of 512 tokens through
+  ``paged_serve_loop.serve_bucket``: ``PagedKVPool`` (prefix match, insert,
+  copy-on-write) → chunked ``lm_prefill_paged`` → 64
+  ``lm_decode_paged(kernel="pallas")`` steps → release and audit, then
+  ``generate`` on one 16384-token prompt through the flash kernel in every
+  layer; greedy tokens held against the gather backend, per-request
+  ``lm_generate`` and the plain flash version;
+- phase 9: kernel, plain, bound and library times.
+
+It prints the card's name, count and power limit, one ``{"kernels": [...]}``
+line (launches on the main path, max error, kernel / plain / bound / library
+times), and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result
 line. It also exits non-zero where ``torch.cuda.is_available()`` is false and
@@ -33,6 +48,20 @@ F32_TOL = 1e-4            # f32: max |kernel - plain| <= 1e-4 * max |plain|
 # differ by a rounding step of the output: two bf16 ulps (2^-7) of max |plain|
 BF16_TOL = 2.0 ** -7
 F64_TOL = 1e-4            # f32 product vs f64 on sampled rows, relative to max |ref|
+ATTN_F32_TOL = 1e-5       # attention kernels vs plain, f32, absolute
+# attention kernels vs plain, bf16, per element: two bf16 ulps of the plain
+# element plus this floor. Each side rounds p to bf16 before P·V at its own
+# running maximum, so an output near 0 may still differ by a few p roundings
+# times |v|; the floor is about 2.7x the largest such difference measured
+# on an H100, and below the typical |output| (0.01-0.05) of these shapes.
+BF16_ATTN_ATOL = 2.0 ** -8
+# the serving path: bench_all.py config_decode's model, one bucket of 8 rows,
+# pages of 16 tokens, 256 prompt tokens per prefill iteration (the JAX
+# engine's defaults), the pool sized by kvpool.auto_num_pages
+LM = dict(vocab=4096, d_model=512, heads=8, layers=4, seed=0)
+PROMPT, SHARED, DECODE_STEPS, ROWS = 512, 256, 64, 8
+PAGE_LEN, PREFILL_CHUNK = 16, 256
+LONG_PROMPT, LONG_STEPS = 16384, 8
 
 
 def log(msg: str) -> None:
@@ -84,6 +113,164 @@ def check_fill(torch, pk, x, rows, cols) -> float:
     if not same:
         raise AssertionError(f"masked_fill {tuple(x.shape)} {x.dtype} differs")
     return float((got.double() - want.double()).abs().max())
+
+
+def attn_close(torch, label, got, want, dtype) -> float:
+    """Max |got - want|. Raises unless every element of ``got`` is finite and
+    within the tolerance of ``dtype``: ATTN_F32_TOL for f32; for bf16, two
+    bf16 ulps of the element's |want| plus BF16_ATTN_ATOL."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    if dtype == torch.float32:
+        tol, desc = torch.full_like(want, ATTN_F32_TOL), f"{ATTN_F32_TOL:g}"
+    else:
+        # |want| = m * 2^e with m in [0.5, 1): one bf16 ulp is 2^(e - 8)
+        _, e = torch.frexp(want)
+        ulps2 = torch.where(want != 0, torch.exp2((e - 7).float()), 0.0)
+        tol, desc = ulps2 + BF16_ATTN_ATOL, f"2 ulps + {BF16_ATTN_ATOL:g}"
+    err = float(diff.max())
+    worst = float((diff / tol).max())
+    log(f"  {label}: max|err| {err:.3e}, max err/tol {worst:.3f} "
+        f"(tol {desc})")
+    if not (bool(torch.isfinite(got).all()) and worst <= 1.0):
+        raise AssertionError(f"{label}: max|err| {err}, err/tol {worst}")
+    return err
+
+
+def cuda_ms_cold(torch, fn, reps: int) -> float:
+    """Milliseconds per call with L2 flushed before each call (a 64 MB write
+    exceeds the 50 MB L2), timed by CUDA events around the call alone."""
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def paged_inputs(torch, gen, B, kvh, group, dh, page_len, W, dtype):
+    """A slab with distinct pages per row, ragged lengths (1, a page
+    boundary, the full table, random), and an all-dummy row when B > 3."""
+    n_pages = B * W + 1
+    q = torch.randn((B, kvh, group, dh), generator=gen, device="cuda").to(dtype)
+    kp = torch.randn((n_pages, page_len, kvh, dh), generator=gen,
+                     device="cuda").to(dtype)
+    vp = torch.randn((n_pages, page_len, kvh, dh), generator=gen,
+                     device="cuda").to(dtype)
+    tables = (1 + torch.randperm(n_pages - 1, generator=gen, device="cuda")
+              [:B * W]).reshape(B, W).to(torch.int32)
+    lengths = torch.randint(1, W * page_len + 1, (B,), generator=gen,
+                            device="cuda").to(torch.int32)
+    lengths[0], lengths[1], lengths[-1] = 1, page_len, W * page_len
+    if B > 3:
+        tables[2] = 0
+    return q, kp, vp, tables, lengths
+
+
+def check_paged(torch, pa, gen, B, kvh, group, dh, page_len, W, dtype) -> float:
+    q, kp, vp, tables, lengths = paged_inputs(torch, gen, B, kvh, group, dh,
+                                              page_len, W, dtype)
+    got = pa.paged_decode_attention(q, kp, vp, tables, lengths)
+    want = pa.paged_decode_attention_plain(q, kp, vp, tables, lengths)
+    torch.cuda.synchronize()
+    if got.dtype != dtype or got.shape != q.shape:
+        raise AssertionError(f"paged_decode_attention B={B}: got {got.dtype} "
+                             f"{tuple(got.shape)}")
+    return attn_close(torch, f"paged_decode_attention B={B} kvh={kvh} "
+                      f"group={group} dh={dh} page_len={page_len} W={W} "
+                      f"{str(dtype)[6:]}", got, want, dtype)
+
+
+def check_flash(torch, fa, gen, H, P, d, valid, dtype) -> float:
+    """One panel at (H, P, d) with valid_len < P; the same through
+    ``flash_attention_single_panel`` on the strided views ``_prefill_attn``
+    passes (head stride d, row stride H * d); then a two-panel run with
+    carried state and nonzero offsets that are no multiple of the tile. The
+    plain version tiles by 1024 and the kernel by 64, so in bf16 they round
+    p at different running maxima (see BF16_ATTN_ATOL)."""
+    import math
+
+    import torch.nn.functional as F
+    scale = 1.0 / math.sqrt(d)
+    dt = str(dtype)[6:]
+    q, k, v = (torch.randn((H, P, d), generator=gen, device="cuda").to(dtype)
+               for _ in range(3))
+    m = torch.full((H, P), -1e30, device="cuda")
+    l = torch.zeros((H, P), device="cuda")
+    acc = torch.zeros((H, P, d), device="cuda")
+    got = fa.flash_attention_panel(q, k, v, m, l, acc, 0, 0, valid,
+                                   causal=True, scale=scale)
+    want = fa.flash_attention_panel_plain(q, k, v, m, l, acc, 0, 0, valid,
+                                          causal=True, scale=scale)
+    outs = [st[2] / st[1].clamp(min=1e-30)[..., None] for st in (got, want)]
+    torch.cuda.synchronize()
+    m_err = float((got[0] - want[0]).abs().max())
+    log(f"  flash_attention_panel H={H} P={P} d={d} valid={valid} {dt} one "
+        f"panel: max|err| m {m_err:.3e} (tol {ATTN_F32_TOL:g})")
+    if not m_err <= ATTN_F32_TOL:
+        raise AssertionError(f"flash one panel P={P} {dtype}: m {m_err}")
+    err = attn_close(torch, f"flash_attention_panel H={H} P={P} {dt} one "
+                     f"panel out", outs[0], outs[1], dtype)
+    del got, want, outs, m, l, acc
+    # (valid, H, d) activations padded to P and viewed as (H, P, d)
+    qs, ks, vs = (F.pad(torch.randn((valid, H, d), generator=gen,
+                                    device="cuda").to(dtype),
+                        (0, 0, 0, 0, 0, P - valid)).permute(1, 0, 2)
+                  for _ in range(3))
+    if qs.stride() != (d, H * d, 1):
+        raise AssertionError(f"strided views have strides {qs.stride()}")
+    got, _ = fa.flash_attention_single_panel(qs, ks, vs, valid, causal=True,
+                                             scale=scale)
+    want, _ = fa.flash_attention_single_panel_plain(qs, ks, vs, valid,
+                                                    causal=True, scale=scale)
+    torch.cuda.synchronize()
+    e1 = attn_close(torch, f"flash_attention_single_panel on (P, H, d) "
+                    f"views P={P} valid={valid} {dt}", got, want, dtype)
+    del qs, ks, vs, got, want
+    m = torch.full((H, P), -1e30, device="cuda")
+    l = torch.zeros((H, P), device="cuda")
+    acc = torch.zeros((H, P, d), device="cuda")
+    half = P // 2
+    k2 = torch.randn((H, half, d), generator=gen, device="cuda").to(dtype)
+    v2 = torch.randn((H, half, d), generator=gen, device="cuda").to(dtype)
+    qo, ko = 777, 131
+    st_g = st_w = (m, l, acc)
+    for kk, vv, off in ((k[:, :half], v[:, :half], ko), (k2, v2, ko + half)):
+        st_g = fa.flash_attention_panel(q, kk, vv, *st_g, qo, off, valid,
+                                        causal=True, scale=scale)
+        st_w = fa.flash_attention_panel_plain(q, kk, vv, *st_w, qo, off, valid,
+                                              causal=True, scale=scale)
+    outs = [st[2] / st[1].clamp(min=1e-30)[..., None] for st in (st_g, st_w)]
+    torch.cuda.synchronize()
+    e2 = attn_close(torch, f"flash_attention_panel two panels q_offset={qo} "
+                    f"k_offset={ko} {dt}", outs[0], outs[1], dtype)
+    return max(err, e1, e2)
+
+
+def serve(params, prompts, kernel):
+    """Serve ``prompts`` (greedy, request i seeded i) as one bucket of the
+    paged pool through ``paged_serve_loop.serve_bucket``: warm-up, admit with
+    prefix match, chunked ``lm_prefill_paged``, ``DECODE_STEPS`` steps of
+    ``lm_decode_paged(kernel=kernel)``, release. Request 1 forces a
+    copy-on-write split of its last shared page. Returns the streams in
+    request order, the pool's audit after release, and the decode steps and
+    their host-clock seconds."""
+    from marlin_tpu_torch.models import transformer as tt
+    from marlin_tpu_torch.serving import kvpool
+    from paged_serve_loop import serve_bucket
+
+    requests = [(p, DECODE_STEPS + 1, i, 0.0) for i, p in enumerate(prompts)]
+    streams, _, audit, steps, secs = serve_bucket(
+        kvpool, tt, params, LM["heads"], PAGE_LEN, requests,
+        (PROMPT, DECODE_STEPS), ROWS, PREFILL_CHUNK, kernel)
+    return [streams[i] for i in range(len(prompts))], audit, steps, secs
 
 
 def main() -> int:
@@ -148,7 +335,7 @@ def main() -> int:
     # ------------------------------------------ 4. the slice at full size
     log(f"phase 4: DenseVecMatrix.random x2 -> multiply at {N}^2 f32")
     torch.cuda.reset_peak_memory_stats()
-    pk.reset_launch_counts()
+    ops.reset_launch_counts()
     a = mt.DenseVecMatrix.random(0, N, N)
     b = mt.DenseVecMatrix.random(1, N, N)
     t0 = time.perf_counter()
@@ -187,7 +374,8 @@ def main() -> int:
         raise AssertionError("best_gemm re-timed instead of reading the cache")
     log(f"  best_gemm: {best} from the cache in "
         f"{(time.perf_counter() - t0) * 1e3:.3f} ms")
-    launches = pk.launch_counts()
+    launches = {k: v for k, v in ops.launch_counts().items()
+                if k in ("pallas_matmul", "masked_fill")}
     log(f"  launches on the main path: {launches}")
     for kname, n_launch in launches.items():
         if n_launch <= 0:
@@ -219,7 +407,160 @@ def main() -> int:
     log(f"  peak device memory: "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
 
-    # ---------------------------------------------------- 6. kernels line
+    del a, b, c, g, ad, bd
+    torch.cuda.empty_cache()
+
+    import math
+
+    import numpy as np
+    from marlin_tpu_torch.models import transformer as tt
+    from marlin_tpu_torch.ops import flash_attention as fa
+    from marlin_tpu_torch.ops import paged_attention as pa
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the f32 references would not be f32")
+
+    # ------------------------------- 6. paged decode kernel vs plain version
+    log("phase 6: paged_decode_attention vs its plain version")
+    page_len = PAGE_LEN
+    W = -(-(PROMPT + DECODE_STEPS) // page_len)  # 36: the bucket's table
+    paged_err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, kvh, group in ((ROWS, 8, 1), (64, 8, 1), (ROWS, 2, 4)):
+            e = check_paged(torch, pa, gen, B, kvh, group, 64, page_len, W,
+                            dtype)
+            if dtype == torch.float32 and (B, group) == (ROWS, 1):
+                paged_err = e
+
+    # ----------------------------------- 7. flash panel kernel vs plain version
+    log("phase 7: flash_attention_panel vs its plain version")
+    flash_err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for P in (4096, LONG_PROMPT):
+            e = check_flash(torch, fa, gen, 8, P, 64, P - 100, dtype)
+            if dtype == torch.float32 and P == LONG_PROMPT:
+                flash_err = e
+    torch.cuda.empty_cache()
+
+    # ------------------------------------- 8. the serving path at full width
+    log(f"phase 8: TransformerLM{tuple(LM.values())} f32: {ROWS} requests "
+        f"of {PROMPT} tokens through PagedKVPool -> lm_prefill_paged -> "
+        f"{DECODE_STEPS} x lm_decode_paged(kernel='pallas'), then generate "
+        f"on {LONG_PROMPT} tokens")
+    lm = tt.TransformerLM(**LM)
+    params = lm.init_params()
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, LM["vocab"], PROMPT).astype(np.int32)
+               for _ in range(ROWS)]
+    prompts[1][:SHARED] = prompts[0][:SHARED]  # a shared 256-token prefix
+    long_prompt = rng.integers(0, LM["vocab"], LONG_PROMPT).astype(np.int32)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    if tt.resolve_decode_kernel("auto", "cuda") != "pallas":
+        raise AssertionError("decode kernel 'auto' must pick the kernel on a "
+                             "CUDA device")
+    streams, audit, steps, decode_s = serve(params, prompts, "pallas")
+    t0 = time.perf_counter()
+    long_out = lm.generate(params, long_prompt, steps=LONG_STEPS)
+    torch.cuda.synchronize()
+    long_s = time.perf_counter() - t0
+    path_counts = ops.launch_counts()
+    log(f"  launches on the main path: {path_counts}")
+    for kname in ("paged_decode_attention", "flash_attention_panel"):
+        if path_counts[kname] <= 0:
+            raise AssertionError(f"{kname} never launched on the main path")
+    tok = ROWS * steps
+    log(f"  decode: {tok} tokens in {decode_s:.3f} s = {tok / decode_s:.1f} "
+        f"tok/s, {decode_s / steps * 1e3:.3f} ms per step (batch {ROWS}, "
+        f"host clock, one sync per step)")
+    log(f"  pool after release: {audit}")
+    if not audit["ok"] or steps != DECODE_STEPS or audit["hits"] != 1 or \
+            audit["cow_copies"] != 1 or audit["used"] != audit["cached"]:
+        raise AssertionError(f"pool bookkeeping: {steps} steps, {audit}")
+    log(f"  generate({LONG_PROMPT} tokens, {LONG_STEPS} steps): {long_s:.3f} s")
+    log(f"  peak device memory: "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+
+    # references on the same card
+    gather, _, _, gather_s = serve(params, prompts, "gather")
+    log(f"  gather backend: {tok / gather_s:.1f} tok/s, "
+        f"{gather_s / steps * 1e3:.3f} ms per step")
+    if streams != gather:
+        bad = [i for i in range(ROWS) if streams[i] != gather[i]]
+        raise AssertionError(f"pallas vs gather streams differ in rows {bad}")
+    for i, prompt in enumerate(prompts):
+        ref = tt.lm_generate(params, prompt, 0, heads=LM["heads"],
+                             max_len=PROMPT + DECODE_STEPS + 1,
+                             steps=DECODE_STEPS + 1)[PROMPT:].tolist()
+        if streams[i] != ref:
+            raise AssertionError(f"request {i}: paged stream != lm_generate")
+        if not all(0 <= t < LM["vocab"] for t in ref):
+            raise AssertionError(f"request {i}: token out of range")
+    log(f"  greedy streams: pallas == gather == lm_generate for all {ROWS} "
+        f"requests ({DECODE_STEPS + 1} tokens each)")
+    kernel_panel = fa.flash_attention_single_panel
+    fa.flash_attention_single_panel = fa.flash_attention_single_panel_plain
+    try:
+        long_ref = lm.generate(params, long_prompt, steps=LONG_STEPS)
+    finally:
+        fa.flash_attention_single_panel = kernel_panel
+    if long_out.tolist() != long_ref.tolist():
+        raise AssertionError("16k generate: kernel flash != plain flash tokens")
+    log(f"  generate {LONG_PROMPT}: tokens {long_out[LONG_PROMPT:].tolist()} "
+        f"== the plain flash version's")
+    del params
+    torch.cuda.empty_cache()
+
+    # -------------------------------------------------------- 9. times
+    log("phase 9: attention kernel times (CUDA events)")
+    B, kvh, dh = ROWS, LM["heads"], LM["d_model"] // LM["heads"]
+    q, kp, vp, tables, _ = paged_inputs(torch, gen, B, kvh, 1, dh, page_len,
+                                        W, torch.float32)
+    tables = (1 + torch.arange(B * W, device="cuda")).reshape(B, W).int()
+    lengths = torch.full((B,), W * page_len, dtype=torch.int32, device="cuda")
+    mask = (torch.arange(W * page_len, device="cuda")[None, :]
+            < lengths[:, None])[:, None, None, :]
+
+    def sdpa_paged():
+        k = kp[tables.long()].reshape(B, -1, kvh, dh).transpose(1, 2)
+        v = vp[tables.long()].reshape(B, -1, kvh, dh).transpose(1, 2)
+        return torch.nn.functional.scaled_dot_product_attention(
+            q.reshape(B, kvh, 1, dh), k, v, attn_mask=mask)
+
+    ms_paged = cuda_ms_cold(torch, lambda: pa.paged_decode_attention(
+        q, kp, vp, tables, lengths), 20)
+    plain_paged = cuda_ms_cold(torch, lambda: pa.paged_decode_attention_plain(
+        q, kp, vp, tables, lengths), 5)
+    lib_paged = cuda_ms_cold(torch, sdpa_paged, 20)
+    live = int(lengths.sum())
+    paged_bytes = (2.0 * live * kvh * dh + 2.0 * B * kvh * dh) * 4 \
+        + 4.0 * B * (W + 1)
+    bound_paged = 1e3 * paged_bytes / HBM_BYTES_PER_S
+    log(f"  paged_decode_attention B={B} W={W} f32, L2 flushed: "
+        f"{ms_paged:.4f} ms, plain {plain_paged:.4f} ms, gather+SDPA "
+        f"{lib_paged:.4f} ms, bound {bound_paged:.4f} ms (bytes, "
+        f"{paged_bytes / 1e6:.2f} MB)")
+    H, P = LM["heads"], LONG_PROMPT
+    qf, kf, vf = (torch.randn((H, P, dh), generator=gen, device="cuda")
+                  for _ in range(3))
+    scale = 1.0 / math.sqrt(dh)
+    ms_flash = cuda_ms(torch, lambda: fa.flash_attention_single_panel(
+        qf, kf, vf, P, causal=True, scale=scale), 5)
+    plain_flash = cuda_ms(torch, lambda: fa.flash_attention_single_panel_plain(
+        qf, kf, vf, P, causal=True, scale=scale), 2)
+    lib_flash = cuda_ms(torch, lambda: torch.nn.functional
+                        .scaled_dot_product_attention(qf[None], kf[None],
+                                                      vf[None], is_causal=True),
+                        5)
+    flash_ops = 4.0 * dh * H * P * (P + 1) / 2  # live (query, key) pairs
+    bound_flash = 1e3 * max(flash_ops / F32_PEAK,
+                            6.0 * H * P * dh * 4 / HBM_BYTES_PER_S)
+    log(f"  flash_attention_single_panel H={H} P={P} d={dh} causal f32: "
+        f"{ms_flash:.3f} ms ({flash_ops / ms_flash / 1e9:.1f} TFLOP/s), plain "
+        f"{plain_flash:.3f} ms, SDPA {lib_flash:.3f} ms, bound "
+        f"{bound_flash:.3f} ms (operations)")
+
+    # ---------------------------------------------------- 10. kernels line
     kernels = [
         {"name": "pallas_matmul", "route": "cuda",
          "source": "marlin_tpu_torch/csrc/gemm.cu",
@@ -233,6 +574,19 @@ def main() -> int:
          "launches": launches["masked_fill"], "max_abs_err": fill_err,
          "ms": ms_fill, "plain_ms": plain_fill, "bound_ms": bound_fill,
          "bound_by": "bytes", "library_ms": lib_fill},
+        {"name": "paged_decode_attention", "route": "cuda",
+         "source": "marlin_tpu_torch/csrc/paged_attention.cu",
+         "replaces": "marlin_tpu/ops/paged_attention.py:91",
+         "launches": path_counts["paged_decode_attention"],
+         "max_abs_err": paged_err, "ms": ms_paged, "plain_ms": plain_paged,
+         "bound_ms": bound_paged, "bound_by": "bytes", "library_ms": lib_paged},
+        {"name": "flash_attention_panel", "route": "cuda",
+         "source": "marlin_tpu_torch/csrc/flash_attention.cu",
+         "replaces": "marlin_tpu/ops/flash_attention.py:93",
+         "launches": path_counts["flash_attention_panel"],
+         "max_abs_err": flash_err, "ms": ms_flash, "plain_ms": plain_flash,
+         "bound_ms": bound_flash, "bound_by": "operations",
+         "library_ms": lib_flash},
     ]
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(smi)

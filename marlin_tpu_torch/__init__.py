@@ -6,7 +6,10 @@ find, imports neither JAX nor ``marlin_tpu``, and runs its entry points on
 ``cuda`` unless the caller asks for the CPU (``config_context(device="cpu")``
 or a ``device=`` argument). Ported so far: the dense distributed multiply,
 end to end, with the hand-written CUDA GEMM and masked-fill kernels
-(``ops/pallas_kernels.py``).
+(``ops/pallas_kernels.py``); and the serving half of the transformer LM
+(``models/``, ``serving/kvpool.py``) with the paged decode-attention and
+flash forward kernels (``ops/paged_attention.py``,
+``ops/flash_attention.py``).
 
 Quick start::
 

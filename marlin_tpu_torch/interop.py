@@ -4,7 +4,8 @@ The JAX package hands its state out as numpy arrays (``to_numpy()`` of its
 matrices and vectors); this module turns such arrays into the port's tensors
 and matrices on the port's device, keeping the dtype — bf16 included, which
 numpy holds as the ``ml_dtypes`` type ``bfloat16`` and torch cannot read
-directly. Later slices extend it (transformer parameters, KV pages).
+directly. :func:`lm_params_from_numpy` carries the transformer LM's
+parameters across, so that both packages compute with the same weights.
 """
 
 from __future__ import annotations
@@ -69,4 +70,32 @@ def matrices_from_numpy(arrays: dict[str, np.ndarray],
             raise ValueError(f"{name}: a {kind} needs a {want}-D array, got "
                              f"shape {np.shape(arr)}")
         out[name] = klass.from_array(to_tensor(arr, device=mesh.device), mesh)
+    return out
+
+
+_LM_LAYER_KEYS = ("wq", "wk", "wv", "wo", "ln1", "ln2", "w1", "w2")
+
+
+def lm_params_from_numpy(params_np: dict, device=None, dtype: Any = None
+                         ) -> dict:
+    """The JAX package's transformer params (``emb``, ``l{i}`` with
+    ``wq, wk, wv, wo, ln1, ln2, w1, w2``, ``ln_f``; numpy arrays, e.g.
+    ``jax.tree.map(np.asarray, params)``) as the port's params dict, 1:1, on
+    ``device`` (default: the configured one), in ``dtype`` when given, else
+    each array's own. Raises on a key the port does not know (MoE layers)."""
+    out = {}
+    for name, value in params_np.items():
+        if name in ("emb", "ln_f"):
+            out[name] = to_tensor(np.array(value), dtype, device)
+        elif name.startswith("l") and name[1:].isdigit():
+            extra = set(value) - set(_LM_LAYER_KEYS)
+            if extra:
+                raise NotImplementedError(
+                    f"{name}: parameters {sorted(extra)} have no counterpart "
+                    f"in the port (mixture-of-experts layers: ROADMAP queue "
+                    f"10)")
+            out[name] = {k: to_tensor(np.array(value[k]), dtype, device)
+                         for k in _LM_LAYER_KEYS}
+        else:
+            raise ValueError(f"unknown transformer parameter {name!r}")
     return out

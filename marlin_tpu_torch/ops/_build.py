@@ -101,6 +101,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.marlin_gemm.restype = i
     lib.marlin_masked_fill.argtypes = [p, p, ll, ll, ll, ll, i, p]
     lib.marlin_masked_fill.restype = i
+    f = ctypes.c_float
+    lib.marlin_paged_attention.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i,
+                                           i, f, p]
+    lib.marlin_paged_attention.restype = i
+    lib.marlin_flash_fwd.argtypes = [i, p, p, p, p, p, p, p, p, p, i, i, i, i,
+                                     ll, ll, ll, ll, ll, ll, i, i, i, i, f, p]
+    lib.marlin_flash_fwd.restype = i
     lib.marlin_error_string.argtypes = [i]
     lib.marlin_error_string.restype = ctypes.c_char_p
     return lib

@@ -138,13 +138,3 @@ def masked_fill(x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
 
 masked_fill.launches = 0
 
-
-def reset_launch_counts() -> None:
-    """Set every kernel wrapper's launch count to 0."""
-    pallas_matmul.launches = 0
-    masked_fill.launches = 0
-
-
-def launch_counts() -> dict[str, int]:
-    return {"pallas_matmul": pallas_matmul.launches,
-            "masked_fill": masked_fill.launches}

@@ -1,0 +1,128 @@
+"""JAX's threefry2x32 PRNG in torch integer ops, for sampling that replays.
+
+The JAX package samples tokens with ``jax.random``: a row's stream is
+``fold_in(key(seed), step)`` (``transformer._row_key``), ``lm_generate``
+splits its key once per step, and ``categorical`` is the Gumbel-max trick over
+``uniform`` bits. Integer arithmetic is exact on every device, so porting the
+hash gives the same bits, and the same sampled tokens wherever the logits
+agree. The layout is that of ``jax_threefry_partitionable=True`` (the default
+of the JAX the reference runs on): ``split``, ``fold_in`` and
+``random_bits`` hash the 64-bit counter ``i`` as the pair ``(i >> 32, i)``.
+
+A key is an int64 tensor of shape ``(..., 2)`` holding two uint32 words
+(``jax.random.key_data``); leading axes batch independent keys. Words live in
+int64 so that sums and shifts never overflow, and are masked to 32 bits after
+each step.
+"""
+
+from __future__ import annotations
+
+import numbers
+
+import torch
+
+__all__ = ["threefry2x32", "prng_key", "as_key", "fold_in", "split",
+           "random_bits", "uniform", "gumbel", "categorical"]
+
+_M32 = 0xFFFFFFFF
+_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+_F32_TINY = torch.finfo(torch.float32).tiny
+
+
+def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) | (x >> (32 - r))) & _M32
+
+
+def threefry2x32(k1, k2, x1, x2):
+    """The Threefry-2x32 hash (20 rounds) of counter words ``(x1, x2)`` under
+    key words ``(k1, k2)``; all broadcastable int64 tensors of uint32 values.
+    Returns the two output words."""
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    a = (x1 + ks[0]) & _M32
+    b = (x2 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            a = (a + b) & _M32
+            b = _rotl(b, r) ^ a
+        a = (a + ks[(i + 1) % 3]) & _M32
+        b = (b + ks[(i + 2) % 3] + i + 1) & _M32
+    return a, b
+
+
+def prng_key(seed: int, device=None) -> torch.Tensor:
+    """``jax.random.key(seed)`` as key words ``(seed >> 32, seed & 0xffffffff)``
+    (a seed below 2**32 gives ``(0, seed)``)."""
+    seed = int(seed)
+    hi = (seed >> 32) & _M32 if seed >= 0 else 0
+    return torch.tensor([hi, seed & _M32], dtype=torch.int64, device=device)
+
+
+def as_key(key, device=None) -> torch.Tensor:
+    """An int seed, or key words (numpy, list or tensor), as an int64 key
+    tensor on ``device``."""
+    if isinstance(key, numbers.Integral):
+        return prng_key(int(key), device)
+    t = torch.as_tensor(key, device=device)
+    if t.shape[-1:] != (2,):
+        raise ValueError(f"a key has two words, got shape {tuple(t.shape)}")
+    return t.to(torch.int64) & _M32
+
+
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """``jax.random.fold_in``: hash ``data`` (int or int tensor, broadcast
+    against the key's leading axes) under ``key``."""
+    d = torch.as_tensor(data, device=key.device).to(torch.int64) & _M32
+    a, b = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(d), d)
+    return torch.stack([a, b], dim=-1)
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split``: ``num`` new keys, shape ``(num, 2)`` for one key
+    (``(..., num, 2)`` for a batch)."""
+    i = torch.arange(num, dtype=torch.int64, device=key.device)
+    a, b = threefry2x32(key[..., 0, None], key[..., 1, None], i >> 32,
+                        i & _M32)
+    return torch.stack([a, b], dim=-1)
+
+
+def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.bits`` (32-bit) of ``shape`` for each key: the counter runs
+    over the flattened shape. Returns int64 values below 2**32, shaped
+    ``key.shape[:-1] + shape``."""
+    shape = tuple(int(s) for s in shape)
+    n = 1
+    for s in shape:
+        n *= s
+    i = torch.arange(n, dtype=torch.int64, device=key.device)
+    lead = key.shape[:-1]
+    k1 = key[..., 0].reshape(*lead, 1)
+    k2 = key[..., 1].reshape(*lead, 1)
+    a, b = threefry2x32(k1, k2, i >> 32, i & _M32)
+    return (a ^ b).reshape(*lead, *shape)
+
+
+def uniform(key: torch.Tensor, shape, minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform`` in f32: 23 random mantissa bits under the
+    exponent of 1.0, minus 1, scaled to ``[minval, maxval)``."""
+    bits = random_bits(key, shape)
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    return torch.maximum(lo, f * (hi - lo) + lo)
+
+
+def gumbel(key: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.gumbel`` (its default "low" mode) in f32."""
+    return -torch.log(-torch.log(uniform(key, shape, _F32_TINY, 1.0)))
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical`` over the last axis: the Gumbel-max trick,
+    ``argmax(gumbel + logits)`` with ties to the first index. One key per
+    call, or one per row when ``key`` carries the logits' leading axes."""
+    if key.dim() == 1:
+        g = gumbel(key, logits.shape)
+    else:
+        g = gumbel(key, logits.shape[-1:])
+    return torch.argmax(g + logits.float(), dim=-1)

@@ -25,6 +25,7 @@ import jax.numpy as jnp
 from marlin_tpu.ops.local import gemm as jax_gemm
 from marlin_tpu.ops.pallas_kernels import masked_fill as jax_masked_fill
 from marlin_tpu.ops.pallas_kernels import pallas_matmul as jax_pallas_matmul
+from marlin_tpu_torch import ops
 from marlin_tpu_torch.ops import _build
 from marlin_tpu_torch.ops import pallas_kernels as pk
 from marlin_tpu_torch.ops.local import gemm
@@ -160,24 +161,35 @@ def test_unsupported_device_raises_instead_of_falling_back():
 
 
 def test_cpu_path_counts_no_launch():
-    pk.reset_launch_counts()
+    ops.reset_launch_counts()
     pk.pallas_matmul(torch.ones(8, 8), torch.ones(8, 8))
     pk.masked_fill(torch.ones(8, 8), 4, 4)
-    assert pk.launch_counts() == {"pallas_matmul": 0, "masked_fill": 0}
+    assert ops.launch_counts() == {
+        "pallas_matmul": 0, "masked_fill": 0, "paged_decode_attention": 0,
+        "flash_attention_panel": 0}
 
 
 def test_ctypes_binding_passes_pointers_as_void_p():
     """A pointer or stream left to ctypes' default int conversion is cut to
     32 bits; every one must be declared c_void_p."""
     lib = types.SimpleNamespace(**{f: types.SimpleNamespace() for f in (
-        "marlin_gemm", "marlin_masked_fill", "marlin_error_string")})
+        "marlin_gemm", "marlin_masked_fill", "marlin_paged_attention",
+        "marlin_flash_fwd", "marlin_error_string")})
     _build._bind(lib)
     g = lib.marlin_gemm.argtypes
     assert g[4:7] == [ctypes.c_void_p] * 3 and g[-1] is ctypes.c_void_p
     assert g[7:10] == [ctypes.c_longlong] * 3
     f = lib.marlin_masked_fill.argtypes
     assert f[:2] == [ctypes.c_void_p] * 2 and f[-1] is ctypes.c_void_p
-    assert lib.marlin_gemm.restype is ctypes.c_int
+    p = lib.marlin_paged_attention.argtypes
+    assert p[1:7] == [ctypes.c_void_p] * 6 and p[-1] is ctypes.c_void_p
+    assert p[-2] is ctypes.c_float
+    fl = lib.marlin_flash_fwd.argtypes
+    assert fl[1:10] == [ctypes.c_void_p] * 9 and fl[-1] is ctypes.c_void_p
+    assert fl[14:20] == [ctypes.c_longlong] * 6 and fl[-2] is ctypes.c_float
+    for fn in ("marlin_gemm", "marlin_masked_fill", "marlin_paged_attention",
+               "marlin_flash_fwd"):
+        assert getattr(lib, fn).restype is ctypes.c_int
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -194,7 +206,8 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 def test_build_dir_is_keyed_by_sources():
     d = _build.build_dir()
     assert d.parent == _build.BUILD_ROOT and len(d.name) == 16
-    assert {p.name for p in _build._sources()} == {"gemm.cu", "masked_fill.cu"}
+    assert {p.name for p in _build._sources()} == {
+        "gemm.cu", "masked_fill.cu", "paged_attention.cu", "flash_attention.cu"}
     assert d == _build.build_dir()
 
 

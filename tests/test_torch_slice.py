@@ -24,6 +24,7 @@ from marlin_tpu import ops as jops
 from marlin_tpu.parallel import autotune as jautotune
 from marlin_tpu_torch import interop, ops as tops
 from marlin_tpu_torch.mesh import create_mesh
+from marlin_tpu_torch.models import TransformerLM, usable_hbm_bytes
 from marlin_tpu_torch.parallel import autotune as tautotune
 from marlin_tpu_torch.random import ensure_key
 
@@ -81,6 +82,23 @@ def test_slice_random_inputs_agree_with_numpy():
             rtol=TOL, atol=TOL)
 
 
+# modules the walk must reach (each slice adds its own), and the root
+# scripts that drive the port on the card
+PORT_MODULES = (
+    "marlin_tpu_torch.ops.pallas_kernels",
+    "marlin_tpu_torch.ops.paged_attention",
+    "marlin_tpu_torch.ops.flash_attention",
+    "marlin_tpu_torch.threefry",
+    "marlin_tpu_torch.models.transformer",
+    "marlin_tpu_torch.models.planner",
+    "marlin_tpu_torch.serving.batcher",
+    "marlin_tpu_torch.serving.kvpool",
+    "marlin_tpu_torch.interop",
+    "paged_serve_loop",
+    "chip_smoke",
+)
+
+
 def test_port_imports_neither_jax_nor_marlin_tpu():
     code = (
         "import importlib, pkgutil, sys\n"
@@ -88,10 +106,13 @@ def test_port_imports_neither_jax_nor_marlin_tpu():
         "for m in pkgutil.walk_packages(marlin_tpu_torch.__path__, "
         "'marlin_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "import chip_smoke, paged_serve_loop\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
         "('jax', 'jaxlib', 'marlin_tpu'))\n"
-        "print(bad)\n"
-        "sys.exit(1 if bad else 0)\n"
+        "missing = [m for m in " + repr(PORT_MODULES) + " if m not in "
+        "sys.modules]\n"
+        "print(bad, missing)\n"
+        "sys.exit(1 if bad or missing else 0)\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), env=env,
@@ -108,7 +129,12 @@ def test_entry_points_refuse_cpu_unless_asked(monkeypatch):
                  lambda: create_mesh(),
                  lambda: ensure_key(0),
                  lambda: tautotune.tune_gemm(np.ones((2, 2), np.float32),
-                                             np.ones((2, 2), np.float32))):
+                                             np.ones((2, 2), np.float32)),
+                 lambda: TransformerLM(vocab=8, d_model=8, heads=2,
+                                       layers=1).init_params(),
+                 lambda: interop.lm_params_from_numpy(
+                     {"emb": np.ones((8, 8), np.float32)}),
+                 lambda: usable_hbm_bytes()):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
     # asked for explicitly, the CPU works
