@@ -21,7 +21,22 @@ drives the two ported paths end to end through the public entry points:
   ``generate`` on one 16384-token prompt through the flash kernel in every
   layer; greedy tokens held against the gather backend, per-request
   ``lm_generate`` and the plain flash version;
-- phase 9: kernel, plain, bound and library times.
+- phase 9: kernel, plain, bound and library times;
+- phase 10: the flash forward (output and lse) and backward kernels (dK/dV
+  and dQ) against their plain versions, element by element: the training
+  shape (2 heads × 32768 × 128, causal, ``valid_len`` 32767) in f32 and
+  bf16, on contiguous tensors and the strided (S, heads, d) views ``_block``
+  hands ring attention; for the backward also two panels with offsets, a
+  non-causal case and d = 64;
+- phase 11: the training path at full width — ``bench_all.py``
+  ``config_lct``'s ``TransformerLM(vocab=512, d_model=256, heads=2,
+  layers=2)``, f32, Adam at 3e-3, ``attn="ring"``: one warm-up step, then 3
+  steps of ``TransformerLM.train`` on one 32768-token stream through the
+  flash forward, dK/dV and dQ kernels; the first step's gradients and the 3
+  steps' losses and params held against the same run with the plain flash
+  versions swapped in; one step each with ``attn="ulysses"`` and with
+  ``remat=True, loss_chunk=16384`` held against the ring step;
+- phase 12: the flash kernels' times at the training shape.
 
 It prints the card's name, count and power limit, one ``{"kernels": [...]}``
 line (launches on the main path, max error, kernel / plain / bound / library
@@ -35,6 +50,7 @@ where the package is not beside it.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -62,6 +78,40 @@ LM = dict(vocab=4096, d_model=512, heads=8, layers=4, seed=0)
 PROMPT, SHARED, DECODE_STEPS, ROWS = 512, 256, 64, 8
 PAGE_LEN, PREFILL_CHUNK = 16, 256
 LONG_PROMPT, LONG_STEPS = 16384, 8
+# the training path: bench_all.py config_lct's model and stream
+LCT = dict(vocab=512, d_model=256, heads=2, layers=2, seed=0)
+TRAIN_SEQ, TRAIN_STEPS = 32768, 3
+# flash backward kernels vs plain, per element: f32 |err| <= BWD_F32_ATOL *
+# max|plain| + BWD_F32_RTOL * |plain|. Each dk/dv element sums up to 32768
+# rows whose terms cancel (each row's ds sums to 0), in 64-row tiles on the
+# card and 1024-row products in the plain version; the largest difference
+# measured on an H100 was 8.7e-6 of max|plain|, and a typical |plain| is a
+# few tenths of the max.
+BWD_F32_ATOL, BWD_F32_RTOL = 4e-5, 1e-5
+# bf16: two bf16 ulps of the plain element plus BWD_BF16_ATOL * max|plain|:
+# p and ds round to bf16 on both sides from f32 scores that differ by a few
+# ulps, so a rounding may land one step apart and the sums carry it. With
+# 2.5e-4 the largest err/bound measured on an H100 was 0.82 (two panels at
+# 4096 rows, where max|plain| is 0.2 and a typical |plain| 0.05); 1e-3 of
+# max|plain| is still a 250th of a typical element there.
+BWD_BF16_ATOL = 1e-3
+# the flash forward at the training shape: lse (= m + log l, which the
+# backward reads) per element within LSE_TOL. Both sides sum l from f32 p in
+# other orders and rescale at other maxima; |lse| stays below 16 here, where
+# an f32 ulp is 1.9e-6, so the bound is about 10 ulps. An H100 read 1.9e-6
+# (one ulp) in f32 and bf16, on contiguous tensors and on the views.
+LSE_TOL = 2e-5
+# training with the kernels vs with the plain versions: the first loss and
+# step-1 gradients (per leaf, |err| <= TRAIN_GRAD_TOL * max|grad|) see only
+# the kernels' rounding; after that Adam steps every element by about
+# lr * g / |g|, so the few elements whose gradient is within rounding of 0
+# may step differently. Params after 3 steps: at most TRAIN_OUTLIER_SHARE of
+# the elements off by more than lr / 10, and the whole difference below
+# TRAIN_DIFF_SHARE of the distance the params moved. An H100 read 1 element
+# of 1,705,216 off (17 allowed) and a difference of 8.1e-5 of the distance
+# (1e-3 allowed).
+TRAIN_LOSS0_RTOL, TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL = 1e-5, 1e-4, 1e-4
+TRAIN_OUTLIER_SHARE, TRAIN_DIFF_SHARE = 1e-5, 1e-3
 
 
 def log(msg: str) -> None:
@@ -254,6 +304,98 @@ def check_flash(torch, fa, gen, H, P, d, valid, dtype) -> float:
     return max(err, e1, e2)
 
 
+def bwd_close(torch, label, got, want, dtype) -> tuple[float, float]:
+    """Max |got - want| and max err/bound; raises unless every element of
+    ``got`` is finite and within the bound of ``dtype`` (BWD_* above)."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    scale = float(want.abs().max())
+    if dtype == torch.float32:
+        tol = BWD_F32_ATOL * scale + BWD_F32_RTOL * want.abs()
+        desc = f"{BWD_F32_ATOL:g} max + {BWD_F32_RTOL:g} |plain|"
+    else:
+        _, e = torch.frexp(want)
+        ulps2 = torch.where(want != 0, torch.exp2((e - 7).float()), 0.0)
+        tol = ulps2 + BWD_BF16_ATOL * scale
+        desc = f"2 ulps + {BWD_BF16_ATOL:g} max"
+    err = float(diff.max())
+    worst = float((diff / tol.clamp(min=1e-30)).max())
+    log(f"  {label}: max|err| {err:.3e} (max|plain| {scale:.3e}), max "
+        f"err/bound {worst:.3f} (bound {desc})")
+    if not (bool(torch.isfinite(got).all()) and worst <= 1.0):
+        raise AssertionError(f"{label}: max|err| {err}, err/bound {worst}")
+    return err, worst
+
+
+def bwd_inputs(torch, fa, gen, H, sq, skv, d, dtype, strided, panels, q_off,
+               valid, causal):
+    """q and dO (H, sq, d); K/V panels (H, skv, d) with their key offsets;
+    ``lse`` and ``delta`` from the plain forward over all panels. With
+    ``strided``, (seq, heads, d) tensors viewed as (heads, seq, d), as
+    ``_block`` hands them to ring attention."""
+    def make(n):
+        if strided:
+            t = torch.randn((n, H, d), generator=gen, device="cuda")
+            return t.to(dtype).permute(1, 0, 2)
+        return torch.randn((H, n, d), generator=gen, device="cuda").to(dtype)
+
+    scale = 1.0 / d ** 0.5
+    q, do = make(sq), make(sq)
+    kv = [(make(skv), make(skv), off) for off in panels]
+    st = (torch.full((H, sq), -1e30, device="cuda"),
+          torch.zeros((H, sq), device="cuda"),
+          torch.zeros((H, sq, d), device="cuda"))
+    for k, v, off in kv:
+        st = fa.flash_attention_panel_plain(q, k, v, *st, q_off, off, valid,
+                                            causal=causal, scale=scale)
+    m, l, acc = st
+    lf = l.clamp(min=1e-30)
+    lse = m + torch.log(lf)
+    delta = (do.float() * (acc / lf[..., None]).to(dtype).float()).sum(-1)
+    return q, do, kv, lse, delta, scale
+
+
+def check_bwd(torch, fa, gen, label, H, sq, d, valid, dtype, causal=True,
+              strided=False, panels=(0,), skv=None, q_off=0):
+    """The dK/dV and dQ kernels against the plain backward on each K/V
+    panel; returns the largest |err| of dq, dk and dv, and the largest
+    err/bound."""
+    q, do, kv, lse, delta, scale = bwd_inputs(
+        torch, fa, gen, H, sq, skv or sq, d, dtype, strided, panels, q_off,
+        valid, causal)
+    if strided and q.stride()[:2] != (d, H * d):
+        raise AssertionError(f"strided views have strides {q.stride()}")
+    errs, worst = dict(dq=0.0, dk=0.0, dv=0.0), 0.0
+    for k, v, off in kv:
+        args = (q, k, v, do, lse, delta, q_off, off, valid)
+        got = fa.flash_attention_panel_bwd(*args, causal=causal, scale=scale)
+        want = fa.flash_attention_panel_bwd_plain(*args, causal=causal,
+                                                  scale=scale)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            e, r = bwd_close(torch, f"{label} k_offset={off} {name}", g, w,
+                             dtype)
+            errs[name], worst = max(errs[name], e), max(worst, r)
+    return errs, worst
+
+
+def flat(tree, prefix=""):
+    """{path: tensor} over a params dict."""
+    out = {}
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            out.update(flat(val, f"{prefix}{key}/"))
+        else:
+            out[prefix + key] = val
+    return out
+
+
+def live_pairs(P: int, valid: int) -> int:
+    """Live (query, key) pairs of one causal head over a panel of ``P`` rows
+    whose keys past ``valid`` are masked."""
+    return valid * (valid + 1) // 2 + (P - valid) * valid
+
+
 def serve(params, prompts, kernel):
     """Serve ``prompts`` (greedy, request i seeded i) as one bucket of the
     paged pool through ``paged_serve_loop.serve_bucket``: warm-up, admit with
@@ -271,6 +413,242 @@ def serve(params, prompts, kernel):
         kvpool, tt, params, LM["heads"], PAGE_LEN, requests,
         (PROMPT, DECODE_STEPS), ROWS, PREFILL_CHUNK, kernel)
     return [streams[i] for i in range(len(prompts))], audit, steps, secs
+
+
+def train_shape() -> tuple[int, int, int]:
+    """(heads, head dim, panel) of the training path's attention: the
+    stream's TRAIN_SEQ - 1 positions padded to one TRAIN_SEQ panel."""
+    return LCT["heads"], LCT["d_model"] // LCT["heads"], TRAIN_SEQ
+
+
+def check_fwd_train(torch, fa, gen, dtype) -> None:
+    """The flash forward at the training shape (H, P, d) with valid_len P - 1:
+    ``flash_attention_single_panel`` against its plain version on contiguous
+    tensors and on (P, H, d) views, the output per element (attn_close) and
+    lse within LSE_TOL."""
+    H, d, P = train_shape()
+    scale = 1.0 / math.sqrt(d)
+    for strided in (False, True):
+        if strided:  # (seq, heads, d) projections viewed as (heads, seq, d)
+            q, k, v = (torch.randn((P, H, d), generator=gen, device="cuda")
+                       .to(dtype).permute(1, 0, 2) for _ in range(3))
+        else:
+            q, k, v = (torch.randn((H, P, d), generator=gen, device="cuda")
+                       .to(dtype) for _ in range(3))
+        got, got_lse = fa.flash_attention_single_panel(
+            q, k, v, P - 1, causal=True, scale=scale)
+        want, want_lse = fa.flash_attention_single_panel_plain(
+            q, k, v, P - 1, causal=True, scale=scale)
+        torch.cuda.synchronize()
+        label = (f"flash_attention_single_panel H={H} P={P} d={d} "
+                 f"valid={P - 1}{' (P, H, d) views' if strided else ''} "
+                 f"{str(dtype)[6:]}")
+        attn_close(torch, label + " out", got, want, dtype)
+        lse_err = float((got_lse - want_lse).abs().max())
+        log(f"  {label} lse: max|err| {lse_err:.3e} (max|plain| "
+            f"{float(want_lse.abs().max()):.3f}, tol {LSE_TOL:g})")
+        if not (bool(torch.isfinite(got_lse).all()) and lse_err <= LSE_TOL):
+            raise AssertionError(f"{label}: lse max|err| {lse_err}")
+
+
+def backward_checks(torch, fa, gen):
+    """Phase 10: the flash forward at the training shape, then the dK/dV
+    and dQ kernels against the plain backward. Returns the f32
+    training-shape backward errors {dq, dk, dv} and the largest err/bound of
+    every backward case."""
+    log("phase 10: the flash forward at the training shape, and "
+        "flash_attention_panel_bwd (dK/dV and dQ kernels) vs its plain "
+        "version")
+    H_T, D_T, P_T = train_shape()
+    bwd_errs, bwd_worst = {}, 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype)[6:]
+        check_fwd_train(torch, fa, gen, dtype)
+        e, r = check_bwd(torch, fa, gen, f"training shape H={H_T} P={P_T} "
+                         f"d={D_T} valid={P_T - 1} {dt}", H_T, P_T, D_T,
+                         P_T - 1, dtype)
+        if dtype == torch.float32:
+            bwd_errs = e
+        bwd_worst = max(bwd_worst, r)
+        cases = (
+            (f"(S, heads, d) views P={P_T} {dt}", H_T, P_T, D_T, P_T,
+             dict(strided=True)),
+            (f"two panels q_offset=5000 {dt}", H_T, 4096, D_T, 7000,
+             dict(panels=(131, 131 + 2048), skv=2048, q_off=5000)),
+            (f"non-causal P=4096 valid=4000 {dt}", H_T, 4096, D_T, 4000,
+             dict(causal=False)),
+            (f"d=64 H=4 P=4096 valid=4001 {dt}", 4, 4096, 64, 4001, {}),
+        )
+        for label, H, P, d, valid, kw in cases:
+            _, r = check_bwd(torch, fa, gen, label, H, P, d, valid, dtype,
+                             **kw)
+            bwd_worst = max(bwd_worst, r)
+        torch.cuda.empty_cache()
+    log(f"  largest err/bound over the backward checks: {bwd_worst:.3f}")
+    return bwd_errs, bwd_worst
+
+
+def train_path(torch, np, tt, fa, ops):
+    """Phase 11: config_lct's model trained on the card through the flash
+    kernels, held against the plain versions; returns the main path's
+    launch counts."""
+    H_T, D_T, P_T = train_shape()
+    log(f"phase 11: TransformerLM{tuple(LCT.values())} f32, Adam "
+        f"{tt.TransformerLM.learning_rate:g}, attn='ring': 1 warm-up + "
+        f"{TRAIN_STEPS} steps on a {TRAIN_SEQ}-token stream")
+    from marlin_tpu_torch.parallel.ring_attention import (
+        resolve_attention_backend)
+
+    if resolve_attention_backend("auto", "cuda") != "flash":
+        raise AssertionError("ring attention 'auto' must pick the flash "
+                             "kernels on a CUDA device")
+    lct = tt.TransformerLM(**LCT)
+    stream = np.random.default_rng(0).integers(
+        0, LCT["vocab"], TRAIN_SEQ).astype(np.int32)
+    params0 = lct.init_params()
+    lct.train(stream, steps=1, params=params0)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    params_k, losses_k = lct.train(stream, steps=TRAIN_STEPS, params=params0)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_counts = ops.launch_counts()
+    train_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"  launches on the main path: {train_counts}")
+    for kname in ("flash_attention_panel", "flash_attention_bwd_dkv",
+                  "flash_attention_bwd_dq"):
+        if train_counts[kname] != LCT["layers"] * TRAIN_STEPS:
+            raise AssertionError(f"{kname}: {train_counts[kname]} launches, "
+                                 f"want {LCT['layers']} per step")
+    ktok_s = TRAIN_SEQ * TRAIN_STEPS / train_s / 1e3
+    log(f"  losses {losses_k}; {ktok_s:.3f} ktok/s, "
+        f"{train_s / TRAIN_STEPS * 1e3:.3f} ms per step (host clock, one "
+        f"sync per step), peak device memory {train_peak:.2f} GiB")
+    if not all(math.isfinite(x) for x in losses_k) or \
+            abs(losses_k[0] - math.log(LCT["vocab"])) > 0.25:
+        raise AssertionError(f"losses {losses_k}: want finite, the first "
+                             f"near ln {LCT['vocab']}")
+    loss_g, grads_k = tt.lm_value_and_grad(params0, stream,
+                                           heads=LCT["heads"], attn="ring")
+    kernel_fwd, kernel_bwd = (fa.flash_attention_single_panel,
+                              fa.flash_attention_panel_bwd)
+    fa.flash_attention_single_panel = fa.flash_attention_single_panel_plain
+    fa.flash_attention_panel_bwd = fa.flash_attention_panel_bwd_plain
+    try:
+        ops.reset_launch_counts()
+        loss_gp, grads_p = tt.lm_value_and_grad(
+            params0, stream, heads=LCT["heads"], attn="ring")
+        params_p, losses_p = lct.train(stream, steps=TRAIN_STEPS,
+                                       params=params0)
+        if any(ops.launch_counts().values()):
+            raise AssertionError("the plain run launched a kernel")
+    finally:
+        fa.flash_attention_single_panel = kernel_fwd
+        fa.flash_attention_panel_bwd = kernel_bwd
+    log(f"  plain flash versions: losses {losses_p}")
+    if abs(losses_k[0] - losses_p[0]) > TRAIN_LOSS0_RTOL * abs(losses_p[0]) \
+            or any(abs(a - b) > TRAIN_LOSS_RTOL * abs(b)
+                   for a, b in zip(losses_k, losses_p)):
+        raise AssertionError(f"kernel losses {losses_k} vs plain {losses_p}")
+    grads_k, grads_p = flat(grads_k), flat(grads_p)
+    grad_worst = 0.0
+    for path, gp in grads_p.items():
+        gk = grads_k[path]
+        grad_worst = max(grad_worst, float((gk - gp).abs().max())
+                         / max(float(gp.abs().max()), 1e-30))
+    log(f"  step-1 gradients: largest |kernel - plain| / max|plain| over the "
+        f"leaves {grad_worst:.3e} (tol {TRAIN_GRAD_TOL:g}); losses "
+        f"{float(loss_g)} vs {float(loss_gp)}")
+    if not grad_worst <= TRAIN_GRAD_TOL:
+        raise AssertionError(f"step-1 gradients differ by {grad_worst}")
+    fk, fp, f0 = flat(params_k), flat(params_p), flat(params0)
+    lr = lct.learning_rate
+    n_el = sum(t.numel() for t in fp.values())
+    n_off = sum(int(((fk[k] - fp[k]).abs() > lr / 10).sum()) for k in fp)
+    diff = math.sqrt(sum(float(((fk[k] - fp[k]) ** 2).sum()) for k in fp))
+    moved = math.sqrt(sum(float(((fp[k] - f0[k]) ** 2).sum()) for k in fp))
+    log(f"  params after {TRAIN_STEPS} steps: {n_off} of {n_el} elements off "
+        f"by more than lr/10; |kernel - plain| = {diff / moved:.3e} of the "
+        f"distance moved")
+    if n_off > TRAIN_OUTLIER_SHARE * n_el or diff > TRAIN_DIFF_SHARE * moved:
+        raise AssertionError("kernel and plain params differ")
+    del params_p, grads_k, grads_p
+    for knobs in (dict(attn="ulysses"), dict(remat=True, loss_chunk=16384)):
+        ops.reset_launch_counts()
+        _, (loss1,) = tt.TransformerLM(**LCT, **knobs).train(
+            stream, steps=1, params=params0)
+        log(f"  one step with {knobs}: loss {loss1!r} (ring {losses_k[0]!r}),"
+            f" launches {ops.launch_counts()}")
+        if abs(loss1 - losses_k[0]) > TRAIN_LOSS0_RTOL * abs(losses_k[0]):
+            raise AssertionError(f"{knobs}: loss {loss1} vs {losses_k[0]}")
+    del params0, params_k
+    torch.cuda.empty_cache()
+    return train_counts
+
+
+def train_times(torch, fa, gen):
+    """Phase 12: kernel, plain, bound and library times of the flash kernels
+    at the training shape; returns them by name."""
+    H_T, D_T, P_T = train_shape()
+    log(f"phase 12: flash kernel times at H={H_T} P={P_T} d={D_T} causal f32 "
+        f"valid={P_T - 1} (CUDA events)")
+    q, do, kv, lse, delta, scale = bwd_inputs(
+        torch, fa, gen, H_T, P_T, P_T, D_T, torch.float32, False, (0,), 0,
+        P_T - 1, True)
+    k, v, _ = kv[0]
+    bargs = (q, k, v, do, lse, delta, 0, 0, P_T - 1)
+    kw = dict(causal=True, scale=scale)
+    ms_dkv = cuda_ms(torch, lambda: fa.flash_attention_bwd_dkv(*bargs, **kw),
+                     5)
+    ms_dq = cuda_ms(torch, lambda: fa.flash_attention_bwd_dq(*bargs, **kw), 5)
+    plain_bwd = cuda_ms(torch, lambda: fa.flash_attention_panel_bwd_plain(
+        *bargs, **kw), 2)
+    ms_fwd_t = cuda_ms(torch, lambda: fa.flash_attention_single_panel(
+        q, k, v, P_T - 1, **kw), 5)
+    plain_fwd_t = cuda_ms(torch, lambda: fa.flash_attention_single_panel_plain(
+        q, k, v, P_T - 1, **kw), 2)
+    qs, ks, vs = (t.detach()[None].requires_grad_() for t in (q, k, v))
+    lib_fwd_t = cuda_ms(torch, lambda: torch.nn.functional
+                        .scaled_dot_product_attention(qs, ks, vs,
+                                                      is_causal=True), 5)
+    o_sdpa = torch.nn.functional.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=True)
+    lib_bwd = cuda_ms(torch, lambda: torch.autograd.grad(
+        o_sdpa, (qs, ks, vs), do[None], retain_graph=True), 5)
+    try:
+        from torch.nn.attention import SDPBackend
+        sdpa_backend = SDPBackend(torch._fused_sdp_choice(
+            qs, ks, vs, None, 0.0, True)).name
+    except Exception as exc:  # a private helper: name what went wrong
+        sdpa_backend = f"unknown ({type(exc).__name__})"
+    del o_sdpa, qs, ks, vs
+    pairs = H_T * live_pairs(P_T, P_T - 1)
+    io_bytes = 4.0 * H_T * P_T * D_T * 4  # q, k, v, dO read once (f32)
+    bound_dkv = 1e3 * max(8.0 * D_T * pairs / F32_PEAK,
+                          (io_bytes + 2.0 * H_T * P_T * (4 + D_T * 4))
+                          / HBM_BYTES_PER_S)
+    bound_dq = 1e3 * max(6.0 * D_T * pairs / F32_PEAK,
+                         (io_bytes + H_T * P_T * (8 + D_T * 4))
+                         / HBM_BYTES_PER_S)
+    bound_fwd_t = 1e3 * max(4.0 * D_T * pairs / F32_PEAK,
+                            6.0 * H_T * P_T * D_T * 4 / HBM_BYTES_PER_S)
+    log(f"  {pairs} live (query, key) pairs")
+    log(f"  flash_attention_bwd_dkv {ms_dkv:.3f} ms "
+        f"({8.0 * D_T * pairs / ms_dkv / 1e9:.1f} TFLOP/s), bound "
+        f"{bound_dkv:.3f} ms (operations, 8*d per pair)")
+    log(f"  flash_attention_bwd_dq {ms_dq:.3f} ms "
+        f"({6.0 * D_T * pairs / ms_dq / 1e9:.1f} TFLOP/s), bound "
+        f"{bound_dq:.3f} ms (operations, 6*d per pair)")
+    log(f"  plain backward (dq, dk, dv) {plain_bwd:.3f} ms; SDPA backward "
+        f"(torch.autograd.grad of scaled_dot_product_attention, backend "
+        f"{sdpa_backend}) {lib_bwd:.3f} ms")
+    log(f"  flash_attention_single_panel {ms_fwd_t:.3f} ms, plain "
+        f"{plain_fwd_t:.3f} ms, SDPA forward {lib_fwd_t:.3f} ms, bound "
+        f"{bound_fwd_t:.3f} ms (operations, 4*d per pair)")
+    return dict(ms_dkv=ms_dkv, ms_dq=ms_dq, plain_bwd=plain_bwd,
+                lib_bwd=lib_bwd, bound_dkv=bound_dkv, bound_dq=bound_dq)
 
 
 def main() -> int:
@@ -409,8 +787,6 @@ def main() -> int:
 
     del a, b, c, g, ad, bd
     torch.cuda.empty_cache()
-
-    import math
 
     import numpy as np
     from marlin_tpu_torch.models import transformer as tt
@@ -560,7 +936,14 @@ def main() -> int:
         f"{plain_flash:.3f} ms, SDPA {lib_flash:.3f} ms, bound "
         f"{bound_flash:.3f} ms (operations)")
 
-    # ---------------------------------------------------- 10. kernels line
+    del qf, kf, vf
+    torch.cuda.empty_cache()
+
+    bwd_errs, bwd_worst = backward_checks(torch, fa, gen)
+    train_counts = train_path(torch, np, tt, fa, ops)
+    t = train_times(torch, fa, gen)
+
+    # ---------------------------------------------------- 13. kernels line
     kernels = [
         {"name": "pallas_matmul", "route": "cuda",
          "source": "marlin_tpu_torch/csrc/gemm.cu",
@@ -587,6 +970,22 @@ def main() -> int:
          "max_abs_err": flash_err, "ms": ms_flash, "plain_ms": plain_flash,
          "bound_ms": bound_flash, "bound_by": "operations",
          "library_ms": lib_flash},
+        {"name": "flash_attention_bwd_dkv", "route": "cuda",
+         "source": "marlin_tpu_torch/csrc/flash_attention_bwd.cu",
+         "replaces": "marlin_tpu/ops/flash_attention.py:195",
+         "launches": train_counts["flash_attention_bwd_dkv"],
+         "max_abs_err": max(bwd_errs["dk"], bwd_errs["dv"]),
+         "ms": t["ms_dkv"], "plain_ms": t["plain_bwd"],
+         "bound_ms": t["bound_dkv"], "bound_by": "operations",
+         "library_ms": t["lib_bwd"]},
+        {"name": "flash_attention_bwd_dq", "route": "cuda",
+         "source": "marlin_tpu_torch/csrc/flash_attention_bwd.cu",
+         "replaces": "marlin_tpu/ops/flash_attention.py:232",
+         "launches": train_counts["flash_attention_bwd_dq"],
+         "max_abs_err": bwd_errs["dq"], "ms": t["ms_dq"],
+         "plain_ms": t["plain_bwd"], "bound_ms": t["bound_dq"],
+         "bound_by": "operations",
+         "library_ms": t["lib_bwd"]},
     ]
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(smi)

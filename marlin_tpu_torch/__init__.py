@@ -6,10 +6,12 @@ find, imports neither JAX nor ``marlin_tpu``, and runs its entry points on
 ``cuda`` unless the caller asks for the CPU (``config_context(device="cpu")``
 or a ``device=`` argument). Ported so far: the dense distributed multiply,
 end to end, with the hand-written CUDA GEMM and masked-fill kernels
-(``ops/pallas_kernels.py``); and the serving half of the transformer LM
+(``ops/pallas_kernels.py``); the serving half of the transformer LM
 (``models/``, ``serving/kvpool.py``) with the paged decode-attention and
 flash forward kernels (``ops/paged_attention.py``,
-``ops/flash_attention.py``).
+``ops/flash_attention.py``); and its training half at world size 1
+(``lm_loss``, ``lm_train_step``, ``TransformerLM.train``) through ring and
+Ulysses attention (``parallel/``), with the flash backward kernels.
 
 Quick start::
 
@@ -30,7 +32,15 @@ from .matrix import (  # noqa: F401
     DistributedMatrix,
     DistributedVector,
 )
-from .parallel import matmul, rmm_matmul, split_method, tune_multiply  # noqa: F401
+from .parallel import (  # noqa: F401
+    attention_reference,
+    matmul,
+    ring_attention,
+    rmm_matmul,
+    split_method,
+    tune_multiply,
+    ulysses_attention,
+)
 from .utils import evaluate, timer  # noqa: F401
 from . import random  # noqa: F401
 

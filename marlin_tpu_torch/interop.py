@@ -5,7 +5,9 @@ matrices and vectors); this module turns such arrays into the port's tensors
 and matrices on the port's device, keeping the dtype — bf16 included, which
 numpy holds as the ``ml_dtypes`` type ``bfloat16`` and torch cannot read
 directly. :func:`lm_params_from_numpy` carries the transformer LM's
-parameters across, so that both packages compute with the same weights.
+parameters across, so that both packages compute with the same weights, and
+:func:`adam_state_from_numpy` its ``optax.adam`` state, so that training
+resumes where the JAX package left it.
 """
 
 from __future__ import annotations
@@ -99,3 +101,24 @@ def lm_params_from_numpy(params_np: dict, device=None, dtype: Any = None
         else:
             raise ValueError(f"unknown transformer parameter {name!r}")
     return out
+
+
+def adam_state_from_numpy(state, device=None):
+    """An ``optax.adam`` state of the JAX package's transformer as the port's
+    :class:`~marlin_tpu_torch.models.transformer.AdamState`, so that a run
+    resumed from JAX params and optimizer state takes the same next step.
+    ``state`` is ``(count, mu, nu)`` as numpy (``mu``/``nu`` params-shaped),
+    or the optax state itself through ``jax.tree.map(np.asarray, ...)``: the
+    ``ScaleByAdamState`` or the chain tuple that holds it first. The moments
+    go to ``device`` (default: the configured one) as f32."""
+    from .models.transformer import AdamState
+
+    if isinstance(state, tuple) and not hasattr(state, "mu") and state \
+            and hasattr(state[0], "mu"):
+        state = state[0]  # optax.adam = chain(scale_by_adam, scale_by_lr)
+    if hasattr(state, "mu"):
+        state = (state.count, state.mu, state.nu)
+    count, mu, nu = state
+    return AdamState(int(np.asarray(count)),
+                     lm_params_from_numpy(mu, device, np.float32),
+                     lm_params_from_numpy(nu, device, np.float32))

@@ -1,23 +1,28 @@
-"""The causal transformer LM, serving half: generation and paged decode.
+"""The causal transformer LM: training at world size 1, generation and paged
+decode.
 
-Counterpart of ``marlin_tpu/models/transformer.py`` for what serving runs:
-init, the dense and flash prefill, the cached decode step, ``lm_generate`` /
+Counterpart of ``marlin_tpu/models/transformer.py``: init, the training half
+(``transformer_forward``, ``lm_loss`` with the chunked LM head,
+``lm_train_step`` with Adam, ``TransformerLM.train``; ``remat`` and
+``mlp_chunk`` recompute through ``torch.utils.checkpoint``), the dense and
+flash prefill, the cached decode step, ``lm_generate`` /
 ``lm_generate_batch``, and the paged trio ``init_kv_pages`` /
 ``lm_prefill_paged`` / ``lm_decode_paged`` with ``kv_page_copy``. Names,
 parameter layout (``emb``, ``l{i}.{wq,wk,wv,wo,ln1,ln2,w1,w2}``, ``ln_f``) and
-contracts are the JAX package's; training (``lm_loss``, ``lm_train_step``,
-ring/Ulysses attention), mixture-of-experts layers and the dense-slab
-programs (``init_kv_slab``, ``lm_prefill_slot``, ``lm_decode_rows``) are not
-ported yet (ROADMAP).
+contracts are the JAX package's. Training runs ring and Ulysses attention at
+world size 1 (``parallel/``); mixture-of-experts layers, ``offload_residuals``,
+multi-device training and the dense-slab programs (``init_kv_slab``,
+``lm_prefill_slot``, ``lm_decode_rows``) are not ported yet (ROADMAP).
 
 Differences that follow from PyTorch:
 
 - No jit and no buffer donation. Programs run eagerly, and the KV caches and
   the page slab are updated IN PLACE (``index_put_`` / ``copy_``); the
   functions still return them, so callers read as with JAX.
-- Two attention kernels are hand-written CUDA (``ops/``): the paged decode
-  kernel behind ``lm_decode_paged(kernel="pallas")`` and the flash panel
-  behind prompts of ``_PREFILL_FLASH_MIN`` tokens or more. Everything else is
+- The attention kernels are hand-written CUDA (``ops/``): the paged decode
+  kernel behind ``lm_decode_paged(kernel="pallas")``, the flash panel behind
+  prompts of ``_PREFILL_FLASH_MIN`` tokens or more and behind training's
+  attention, and the flash backward kernels in training. Everything else is
   plain PyTorch; products run in IEEE f32 (TF32 off inside every entry
   point), as the JAX package's f32 products do on the CPU.
 - Sampling replays the JAX package's streams: the keys, splits and Gumbel
@@ -31,25 +36,35 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .. import threefry
 from ..config import get_config, resolve_device
 from ..ops import flash_attention as _flash
 from ..ops.local import precision_scope
 from ..ops.paged_attention import paged_decode_attention
+from ..parallel.ring_attention import ring_attention
+from ..parallel.ulysses import ulysses_attention
 
-__all__ = ["TransformerLM", "init_transformer", "lm_generate",
-           "lm_generate_batch", "init_kv_pages", "lm_prefill_paged",
-           "lm_decode_paged", "kv_page_copy", "resolve_decode_kernel",
-           "synthetic_stream"]
+__all__ = ["TransformerLM", "init_transformer", "transformer_forward",
+           "lm_loss", "lm_value_and_grad", "lm_train_step", "AdamState",
+           "adam_init",
+           "lm_generate", "lm_generate_batch", "init_kv_pages",
+           "lm_prefill_paged", "lm_decode_paged", "kv_page_copy",
+           "resolve_decode_kernel", "synthetic_stream"]
 
 _MASKED = -1e30
 _NO_MOE = ("mixture-of-experts layers (models/moe.py) are not ported yet "
            "(ROADMAP queue 10)")
+_NO_OFFLOAD = ("offload_residuals (remat checkpoints parked in host memory) "
+               "is not ported yet (ROADMAP queue 10)")
+_NO_CKPT = ("checkpoint_dir: the checkpoint subsystem (io/checkpoint.py) is "
+            "not ported yet (ROADMAP queue 9)")
 
 
 def synthetic_stream(seq: int, vocab: int = 64, seed: int = 0,
@@ -129,8 +144,27 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def _mlp(h, lp, cd):
-    return _gelu(h @ lp["w1"].to(cd)) @ lp["w2"].to(cd)
+def _mlp(h, lp, cd, chunk: int | None = None):
+    """The position-wise FFN, optionally over ``chunk``-token slices, each
+    recomputed in the backward (``torch.utils.checkpoint``): the (seq, d_ff)
+    GELU intermediate then never exceeds (chunk, d_ff). Positions are
+    independent, so slicing is exact."""
+    if chunk is not None and chunk < 1:
+        raise ValueError(f"mlp_chunk must be >= 1 or None, got {chunk}")
+    w1, w2 = lp["w1"].to(cd), lp["w2"].to(cd)
+
+    def one(hc):
+        return _gelu(hc @ w1) @ w2
+
+    if chunk is None or h.shape[0] <= chunk:
+        return one(h)
+    seq = h.shape[0]
+    n_full = seq // chunk
+    outs = [checkpoint(one, h[i * chunk:(i + 1) * chunk], use_reentrant=False)
+            for i in range(n_full)]
+    if seq % chunk:
+        outs.append(one(h[n_full * chunk:]))
+    return torch.cat(outs)
 
 
 def _f32_einsum(eq: str, a, b):
@@ -664,11 +698,219 @@ def kv_page_copy(pages, src: int, dst: int):
     return pages
 
 
+# ---------------------------------------------------------------- training
+# One long token stream per step (the context-parallel regime), at world size
+# 1: the mesh's axes all have size 1 and ring/Ulysses attention run their
+# home panel. Parameters stay in the params dict; gradients come from
+# torch.autograd, through the flash kernels' autograd function.
+
+
+_ATTN_BACKENDS = {"ring": "auto", "ring_flash": "flash", "ring_xla": "xla"}
+
+
+def _block(lp, x, heads: int, mesh, attn: str, precision: str,
+           mlp_chunk: int | None = None):
+    """One pre-norm block over the (seq, d) stream: attention through ring
+    (``attn`` names its backend) or Ulysses attention over (heads, seq, dh)
+    views of the projections, then the FFN."""
+    seq, d = x.shape
+    dh = d // heads
+    cd = x.dtype  # activations carry the compute dtype; params stay f32
+    h = _rmsnorm(x, lp["ln1"])
+
+    def split_heads(w):
+        nh = w.shape[1] // dh  # kv_heads < heads under GQA
+        return (h @ w.to(cd)).reshape(seq, nh, dh).transpose(0, 1)
+
+    q, k, v = split_heads(lp["wq"]), split_heads(lp["wk"]), split_heads(lp["wv"])
+    if k.shape[0] != heads:
+        # GQA: each group of query heads attends to its shared K/V head; the
+        # gradient of the repeat sums over the group
+        group = heads // k.shape[0]
+        k, v = (t.repeat_interleave(group, dim=0) for t in (k, v))
+    if attn in _ATTN_BACKENDS:
+        o = ring_attention(q, k, v, mesh, causal=True, precision=precision,
+                           backend=_ATTN_BACKENDS[attn])
+    else:
+        o = ulysses_attention(q, k, v, mesh, causal=True, precision=precision)
+    x = x + o.transpose(0, 1).reshape(seq, d).to(cd) @ lp["wo"].to(cd)
+    return x + _mlp(_rmsnorm(x, lp["ln2"]), lp, cd, mlp_chunk)
+
+
+def _trunk(params, tokens, mesh, heads, attn, remat, precision,
+           compute_dtype=None, mlp_chunk=None, offload_residuals=False):
+    """Final-norm hidden states (seq, d_model): the forward minus the LM
+    head. ``remat`` recomputes each block in the backward
+    (``torch.utils.checkpoint``), keeping only the block inputs. ``mesh``
+    None is the default mesh, a world of one."""
+    if attn not in (*_ATTN_BACKENDS, "ulysses"):
+        raise ValueError(f"unknown attention strategy: {attn!r}")
+    if offload_residuals:
+        if not remat:
+            raise ValueError("offload_residuals requires remat=True (without "
+                             "remat there are no residual checkpoints to "
+                             "offload)")
+        raise NotImplementedError(_NO_OFFLOAD)
+    x = params["emb"][_ints(tokens, params["emb"].device)]
+    if compute_dtype is not None:
+        x = x.to(_cdtype(compute_dtype, params))
+    blk = functools.partial(_block, heads=heads, mesh=mesh, attn=attn,
+                            precision=precision, mlp_chunk=mlp_chunk)
+    for i in range(_n_layers(params)):
+        lp = _layer(params, i)
+        x = checkpoint(blk, lp, x, use_reentrant=False) if remat else blk(lp, x)
+    return _rmsnorm(x, params["ln_f"])
+
+
+def transformer_forward(params: dict, tokens, mesh=None, heads: int = 4,
+                        attn: str = "ring", remat: bool = False,
+                        precision: str = "high", compute_dtype=None,
+                        mlp_chunk: int | None = None,
+                        offload_residuals: bool = False, moe=None):
+    """f32 logits (seq, vocab) for next-token prediction over ``tokens``
+    (seq,). ``attn``: ``"ring"`` (backend picked by
+    :func:`~marlin_tpu_torch.parallel.ring_attention.resolve_attention_backend`),
+    ``"ring_flash"`` / ``"ring_xla"`` (pinned), or ``"ulysses"``. ``moe`` is
+    read by mixture-of-experts layers only, which are not ported."""
+    with precision_scope("highest"):
+        x = _trunk(params, tokens, mesh, heads, attn, remat, precision,
+                   compute_dtype, mlp_chunk, offload_residuals)
+        return _head_logits(x, params["emb"])
+
+
+def _chunked_nll(x, emb, targets, chunk: int):
+    """Summed next-token NLL over ``chunk``-token slices of the LM head, each
+    recomputed in the backward, so the (seq, vocab) logits are never held
+    whole; the remainder is projected after the full chunks."""
+
+    def nll_sum(xc, tc):
+        logp = torch.log_softmax(_head_logits(xc, emb), dim=-1)
+        return -torch.gather(logp, 1, tc[:, None]).sum()
+
+    seq = x.shape[0]
+    n_full = seq // chunk
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n_full):
+        s = slice(i * chunk, (i + 1) * chunk)
+        total = total + checkpoint(nll_sum, x[s], targets[s],
+                                   use_reentrant=False)
+    if seq % chunk:
+        total = total + nll_sum(x[n_full * chunk:], targets[n_full * chunk:])
+    return total
+
+
+def lm_loss(params, tokens, mesh=None, heads: int = 4, attn: str = "ring",
+            remat: bool = False, precision: str = "high",
+            loss_chunk: int | None = None, compute_dtype=None,
+            mlp_chunk: int | None = None, offload_residuals: bool = False,
+            moe=None, moe_aux_weight: float = 1e-2):
+    """Mean next-token cross-entropy over the stream, an f32 scalar tensor
+    with its autograd graph. ``loss_chunk`` runs the LM head over that many
+    tokens at a time (:func:`_chunked_nll`); ``compute_dtype`` runs the
+    activations in that dtype (the loss stays f32). Mixture-of-experts
+    layers (``moe``, ``moe_aux_weight``) are not ported: a dense model's
+    load-balance term is an exact zero, as in the JAX package."""
+    if loss_chunk is not None and loss_chunk < 1:
+        raise ValueError(f"loss_chunk must be >= 1 or None, got {loss_chunk}")
+    emb = params["emb"]
+    tokens = _ints(tokens, emb.device)
+    tgt = tokens[1:]
+    with precision_scope("highest"):
+        x = _trunk(params, tokens[:-1], mesh, heads, attn, remat, precision,
+                   compute_dtype, mlp_chunk, offload_residuals)
+        if loss_chunk is None:
+            logp = torch.log_softmax(_head_logits(x, emb), dim=-1)
+            return -torch.gather(logp, 1, tgt[:, None]).mean()
+        return _chunked_nll(x, emb, tgt, loss_chunk) / tgt.shape[0]
+
+
+class AdamState(NamedTuple):
+    """Adam's state, laid out as ``optax.scale_by_adam``'s: the step
+    ``count`` (a host int) and the first and second moments ``mu``/``nu``,
+    each a params-shaped dict of f32 tensors."""
+
+    count: int
+    mu: dict
+    nu: dict
+
+
+_ADAM_B1, _ADAM_B2, _ADAM_EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults
+
+
+def _tree_map(fn, *trees):
+    """``fn`` over the leaves of params-shaped nested dicts."""
+    if isinstance(trees[0], dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for k in tree for x in _leaves(tree[k])]
+    return [tree]
+
+
+def adam_init(params: dict) -> AdamState:
+    """Zero moments for ``params`` — ``optax.adam(lr).init(params)``."""
+    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)  # noqa: E731
+    return AdamState(0, _tree_map(zeros, params), _tree_map(zeros, params))
+
+
+@torch.no_grad()
+def _adam_update(params, grads, state: AdamState, lr: float):
+    """One ``optax.adam(lr)`` step, optax's formula term by term:
+    ``mu = (1-b1)·g + b1·mu``, ``nu = (1-b2)·g² + b2·nu``, bias corrections
+    ``1 - b^count`` in f32, ``update = mu_hat / (sqrt(nu_hat) + eps)``,
+    ``param + (-lr)·update``."""
+    count = state.count + 1
+    bc1 = float(1 - np.float32(_ADAM_B1) ** np.float32(count))
+    bc2 = float(1 - np.float32(_ADAM_B2) ** np.float32(count))
+    mu = _tree_map(lambda g, m: (1 - _ADAM_B1) * g + _ADAM_B1 * m,
+                   grads, state.mu)
+    nu = _tree_map(lambda g, n: (1 - _ADAM_B2) * (g * g) + _ADAM_B2 * n,
+                   grads, state.nu)
+
+    def step(p, m, n):
+        u = (m / bc1) / (torch.sqrt(n / bc2) + _ADAM_EPS)
+        return (p + (-lr) * u).to(p.dtype)
+
+    return _tree_map(step, params, mu, nu), AdamState(count, mu, nu)
+
+
+def lm_value_and_grad(params, tokens, *args, **kwargs):
+    """:func:`lm_loss` (same arguments) and its gradient by autograd — what
+    ``jax.value_and_grad(lm_loss)`` gives. Returns ``(loss, grads)``: the
+    loss a 0-d tensor on the device, ``grads`` params-shaped. Forward and
+    backward run with TF32 off."""
+    leaves = _tree_map(lambda p: p.detach().requires_grad_(True), params)
+    with precision_scope("highest"):
+        loss = lm_loss(leaves, tokens, *args, **kwargs)
+        grads = iter(torch.autograd.grad(loss, _leaves(leaves)))
+    return loss.detach(), _tree_map(lambda _: next(grads), leaves)
+
+
+def lm_train_step(params, opt_state: AdamState, tokens, mesh, heads: int,
+                  attn: str, remat: bool, precision: str, lr: float,
+                  loss_chunk: int | None = None, compute_dtype=None,
+                  mlp_chunk: int | None = None,
+                  offload_residuals: bool = False, moe=None,
+                  moe_aux_weight=1e-2):
+    """One Adam step on the stream ``tokens``: :func:`lm_value_and_grad`,
+    then the update. Returns ``(params, opt_state, loss)`` — new params and
+    state (the inputs are left as they were) and the loss as a 0-d tensor on
+    the device."""
+    loss, grads = lm_value_and_grad(
+        params, tokens, mesh, heads, attn, remat, precision, loss_chunk,
+        compute_dtype, mlp_chunk, offload_residuals, moe, moe_aux_weight)
+    params, opt_state = _adam_update(params, grads, opt_state, lr)
+    return params, opt_state, loss
+
+
 @dataclasses.dataclass
 class TransformerLM:
-    """Serving facade in the style of the JAX package's ``TransformerLM``:
-    ``init_params``, ``generate``, ``generate_batch``. ``train`` waits for
-    the training slice."""
+    """Trainer and serving facade in the style of the JAX package's
+    ``TransformerLM``: ``init_params``, ``train``, ``generate``,
+    ``generate_batch``."""
 
     vocab: int = 256
     d_model: int = 64
@@ -677,8 +919,16 @@ class TransformerLM:
     d_ff: int | None = None
     learning_rate: float = 3e-3
     seed: int = 0
+    attn: str = "ring"  # "ring" | "ring_flash" | "ring_xla" | "ulysses"
+    remat: bool = False
+    precision: str = "high"  # "default" = bf16 operands in attention
+    loss_chunk: int | None = None  # the LM head over chunks of tokens
     # activations and KV caches in this dtype (e.g. "bfloat16"); params f32
     compute_dtype: str | None = None
+    # the FFN over chunks of tokens: caps the (seq, d_ff) GELU intermediate
+    mlp_chunk: int | None = None
+    # remat checkpoints in host memory: not ported (ROADMAP queue 10)
+    offload_residuals: bool = False
     # grouped-query attention: heads // kv_heads query heads per K/V head
     kv_heads: int | None = None
     n_experts: int | None = None
@@ -690,10 +940,29 @@ class TransformerLM:
                                 self.kv_heads, self.n_experts, self.moe_every,
                                 device=device)
 
-    def train(self, *args, **kwargs):
-        raise NotImplementedError(
-            "training (lm_loss, lm_train_step, ring/Ulysses attention) is not "
-            "ported yet (ROADMAP queue 10)")
+    def train(self, tokens, steps: int = 20, mesh=None, params=None,
+              checkpoint_dir: str | None = None, checkpoint_every: int = 0,
+              log_every: int = 0):
+        """Train on one long token stream with Adam at ``learning_rate``
+        (:func:`lm_train_step`); returns ``(params, losses)``. Params start
+        from ``init_params()`` on the configured device unless given; the
+        tokens go to the params' device."""
+        if checkpoint_dir:
+            raise NotImplementedError(_NO_CKPT)
+        params = params if params is not None else self.init_params()
+        tokens = _ints(tokens, params["emb"].device)
+        opt_state = adam_init(params)
+        losses = []
+        for it in range(steps):
+            params, opt_state, loss = lm_train_step(
+                params, opt_state, tokens, mesh, self.heads, self.attn,
+                self.remat, self.precision, self.learning_rate,
+                self.loss_chunk, self.compute_dtype, self.mlp_chunk,
+                self.offload_residuals)
+            losses.append(float(loss))
+            if log_every and (it + 1) % log_every == 0:
+                print(f"step {it + 1}: loss {losses[-1]:.4f}")
+        return params, losses
 
     def generate(self, params, prompt, steps: int = 32,
                  max_len: int | None = None, temperature=0.0, top_p=None,

@@ -11,11 +11,17 @@ from .local import (  # noqa: F401
 )
 from .pallas_kernels import masked_fill, pallas_matmul  # noqa: F401
 from .paged_attention import paged_decode_attention  # noqa: F401
-from .flash_attention import flash_attention_panel  # noqa: F401
+from .flash_attention import (  # noqa: F401
+    flash_attention_bwd_dkv,
+    flash_attention_bwd_dq,
+    flash_attention_panel,
+    flash_attention_panel_bwd,
+)
 
 # every wrapper that launches a hand-written kernel; each counts its launches
 KERNEL_WRAPPERS = (pallas_matmul, masked_fill, paged_decode_attention,
-                   flash_attention_panel)
+                   flash_attention_panel, flash_attention_bwd_dkv,
+                   flash_attention_bwd_dq)
 
 
 def reset_launch_counts() -> None:

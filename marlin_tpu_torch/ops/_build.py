@@ -108,6 +108,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.marlin_flash_fwd.argtypes = [i, p, p, p, p, p, p, p, p, p, i, i, i, i,
                                      ll, ll, ll, ll, ll, ll, i, i, i, i, f, p]
     lib.marlin_flash_fwd.restype = i
+    # dtype, q, k, v, dout, lse, delta, outputs..., then the shared tail
+    bwd_tail = [i, i, i, i, ll, ll, ll, ll, ll, ll, ll, ll, i, i, i, i, f, p]
+    lib.marlin_flash_bwd_dkv.argtypes = [i] + [p] * 8 + bwd_tail
+    lib.marlin_flash_bwd_dkv.restype = i
+    lib.marlin_flash_bwd_dq.argtypes = [i] + [p] * 7 + bwd_tail
+    lib.marlin_flash_bwd_dq.restype = i
     lib.marlin_error_string.argtypes = [i]
     lib.marlin_error_string.restype = ctypes.c_char_p
     return lib

@@ -166,7 +166,8 @@ def test_cpu_path_counts_no_launch():
     pk.masked_fill(torch.ones(8, 8), 4, 4)
     assert ops.launch_counts() == {
         "pallas_matmul": 0, "masked_fill": 0, "paged_decode_attention": 0,
-        "flash_attention_panel": 0}
+        "flash_attention_panel": 0, "flash_attention_bwd_dkv": 0,
+        "flash_attention_bwd_dq": 0}
 
 
 def test_ctypes_binding_passes_pointers_as_void_p():
@@ -174,7 +175,8 @@ def test_ctypes_binding_passes_pointers_as_void_p():
     32 bits; every one must be declared c_void_p."""
     lib = types.SimpleNamespace(**{f: types.SimpleNamespace() for f in (
         "marlin_gemm", "marlin_masked_fill", "marlin_paged_attention",
-        "marlin_flash_fwd", "marlin_error_string")})
+        "marlin_flash_fwd", "marlin_flash_bwd_dkv", "marlin_flash_bwd_dq",
+        "marlin_error_string")})
     _build._bind(lib)
     g = lib.marlin_gemm.argtypes
     assert g[4:7] == [ctypes.c_void_p] * 3 and g[-1] is ctypes.c_void_p
@@ -187,8 +189,15 @@ def test_ctypes_binding_passes_pointers_as_void_p():
     fl = lib.marlin_flash_fwd.argtypes
     assert fl[1:10] == [ctypes.c_void_p] * 9 and fl[-1] is ctypes.c_void_p
     assert fl[14:20] == [ctypes.c_longlong] * 6 and fl[-2] is ctypes.c_float
+    for fn, n_ptr in (("marlin_flash_bwd_dkv", 8), ("marlin_flash_bwd_dq", 7)):
+        b = getattr(lib, fn).argtypes
+        assert b[0] is ctypes.c_int and b[-1] is ctypes.c_void_p
+        assert b[1:1 + n_ptr] == [ctypes.c_void_p] * n_ptr
+        assert b[5 + n_ptr:13 + n_ptr] == [ctypes.c_longlong] * 8
+        assert b[-2] is ctypes.c_float and len(b) == n_ptr + 19
     for fn in ("marlin_gemm", "marlin_masked_fill", "marlin_paged_attention",
-               "marlin_flash_fwd"):
+               "marlin_flash_fwd", "marlin_flash_bwd_dkv",
+               "marlin_flash_bwd_dq"):
         assert getattr(lib, fn).restype is ctypes.c_int
 
 
@@ -207,7 +216,8 @@ def test_build_dir_is_keyed_by_sources():
     d = _build.build_dir()
     assert d.parent == _build.BUILD_ROOT and len(d.name) == 16
     assert {p.name for p in _build._sources()} == {
-        "gemm.cu", "masked_fill.cu", "paged_attention.cu", "flash_attention.cu"}
+        "gemm.cu", "masked_fill.cu", "paged_attention.cu", "flash_attention.cu",
+        "flash_attention_bwd.cu"}
     assert d == _build.build_dir()
 
 

@@ -24,6 +24,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from marlin_tpu import mesh as jax_mesh
 from marlin_tpu.models import TransformerLM as JaxLM
 from marlin_tpu.models import planner as jplanner
 from marlin_tpu.models import transformer as jt
@@ -244,8 +245,15 @@ def test_facade_matches_jax(jparams, tparams):
     for a, b in zip(tlm.generate_batch(tparams, prompts, steps=4),
                     jlm.generate_batch(jparams, prompts, steps=4)):
         assert a.tolist() == np.asarray(b).tolist()
+    # train: the first step's loss is the JAX package's lm_loss (training is
+    # held against JAX in tests/test_torch_train.py); checkpoints wait
+    toks = np.arange(10) % 64
+    _, losses = tlm.train(toks, steps=1, params=tparams)
+    want = jt.lm_loss(jparams, toks, jax_mesh.create_mesh((1, 1)),
+                      heads=HEADS)
+    np.testing.assert_allclose(losses[0], float(want), rtol=1e-5)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlm.train(np.arange(10))
+        tlm.train(toks, checkpoint_dir="ckpt")
     assert tlm.init_params(device="cpu")["l1"]["wk"].shape == (32, 16)
 
 
