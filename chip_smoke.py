@@ -5,7 +5,7 @@
 
 Builds the hand-written kernels from ``marlin_tpu_torch/csrc/`` (one ``nvcc``
 per source, all at once), holds each against its plain PyTorch version, and
-drives the two ported paths end to end through the public entry points:
+drives the ported paths end to end through the public entry points:
 
 - phases 1-5: the dense 20000² multiply (GEMM and masked-fill kernels);
 - phases 6-7: the paged decode-attention and flash-panel kernels against
@@ -36,7 +36,18 @@ drives the two ported paths end to end through the public entry points:
   steps' losses and params held against the same run with the plain flash
   versions swapped in; one step each with ``attn="ulysses"`` and with
   ``remat=True, loss_chunk=16384`` held against the ring step;
-- phase 12: the flash kernels' times at the training shape.
+- phase 12: the flash kernels' times at the training shape;
+- phase 13: the BSR SpMM kernel against its plain version, element by element:
+  block sizes 8, 32, 64 and 128 with ragged m, n and p, empty block rows and a
+  hot block column, in f32 and bf16; no block at all; more than 65535 block
+  rows; the main shape;
+- phase 14: the sparse path at full width — ``bench_all.py`` ``config_bsr``
+  (32768², bs 128, block density 0.05, p 256): ``BsrMatrix.multiply(
+  backend="auto")`` tunes over the chunked formulation and the kernel, a second
+  call reads the cache, and every backend is held against f64 on sampled rows;
+  then ``SparseVecMatrix.multiply`` from COO triplets at 8192² (format "bsr")
+  and on a 100000² matrix at density 1e-4 (formats "ell", "bcoo", "auto");
+- phase 15: the BSR kernel's times at the main shape.
 
 It prints the card's name, count and power limit, one ``{"kernels": [...]}``
 line (launches on the main path, max error, kernel / plain / bound / library
@@ -112,6 +123,18 @@ LSE_TOL = 2e-5
 # (1e-3 allowed).
 TRAIN_LOSS0_RTOL, TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL = 1e-5, 1e-4, 1e-4
 TRAIN_OUTLIER_SHARE, TRAIN_DIFF_SHARE = 1e-5, 1e-3
+# the sparse path: bench_all.py config_bsr — a (grid·bs)² matrix holding
+# BSR_DENSITY of its bs×bs blocks times a dense (n, p) panel; grid 64 for the
+# SparseVecMatrix built from COO triplets; the ELL/BCOO matrix is BASELINE.md
+# config 5's density at 10^5 rows (10^6 there) and its 256 columns
+BSR_GRID, BSR_BS, BSR_P, BSR_DENSITY = 256, 128, 256, 0.05
+SPMV_GRID, ELL_N, ELL_DENSITY = 64, 100_000, 1e-4
+# BSR kernel vs plain, per element: f32 |err| <= BSR_F32_ATOL * max|plain| +
+# BSR_F32_RTOL * |plain| (both sum the same f32 products of up to a block row's
+# blocks, in other orders: the kernel in one FMA chain, the plain version in
+# cuBLAS's bmm, then index_add_); bf16 two bf16 ulps of the plain element plus
+# BSR_BF16_ATOL * max|plain| (each side rounds its f32 sum once)
+BSR_F32_ATOL, BSR_F32_RTOL, BSR_BF16_ATOL = 1e-5, 1e-5, 1e-5
 
 
 def log(msg: str) -> None:
@@ -304,20 +327,24 @@ def check_flash(torch, fa, gen, H, P, d, valid, dtype) -> float:
     return max(err, e1, e2)
 
 
-def bwd_close(torch, label, got, want, dtype) -> tuple[float, float]:
+def bwd_close(torch, label, got, want, dtype, f32_atol=BWD_F32_ATOL,
+              f32_rtol=BWD_F32_RTOL, bf16_atol=BWD_BF16_ATOL
+              ) -> tuple[float, float]:
     """Max |got - want| and max err/bound; raises unless every element of
-    ``got`` is finite and within the bound of ``dtype`` (BWD_* above)."""
+    ``got`` is finite and within the bound of ``dtype``: f32 ``f32_atol *
+    max|want| + f32_rtol * |want|``; bf16 two bf16 ulps of the element plus
+    ``bf16_atol * max|want|`` (the flash backward's BWD_* by default)."""
     got, want = got.float(), want.float()
     diff = (got - want).abs()
     scale = float(want.abs().max())
     if dtype == torch.float32:
-        tol = BWD_F32_ATOL * scale + BWD_F32_RTOL * want.abs()
-        desc = f"{BWD_F32_ATOL:g} max + {BWD_F32_RTOL:g} |plain|"
+        tol = f32_atol * scale + f32_rtol * want.abs()
+        desc = f"{f32_atol:g} max + {f32_rtol:g} |plain|"
     else:
         _, e = torch.frexp(want)
         ulps2 = torch.where(want != 0, torch.exp2((e - 7).float()), 0.0)
-        tol = ulps2 + BWD_BF16_ATOL * scale
-        desc = f"2 ulps + {BWD_BF16_ATOL:g} max"
+        tol = ulps2 + bf16_atol * scale
+        desc = f"2 ulps + {bf16_atol:g} max"
     err = float(diff.max())
     worst = float((diff / tol.clamp(min=1e-30)).max())
     log(f"  {label}: max|err| {err:.3e} (max|plain| {scale:.3e}), max "
@@ -651,6 +678,243 @@ def train_times(torch, fa, gen):
                 lib_bwd=lib_bwd, bound_dkv=bound_dkv, bound_dq=bound_dq)
 
 
+def bsr_config(np, grid):
+    """bench_all.py config_bsr's generator at ``grid``: sorted distinct block
+    ids, standard-normal blocks and B, from default_rng(0). Returns (n, block
+    rows, block cols, blocks, b) as numpy."""
+    rng = np.random.default_rng(0)
+    n = grid * BSR_BS
+    nnzb = max(1, int(grid * grid * BSR_DENSITY))
+    ids = np.sort(rng.choice(grid * grid, nnzb, replace=False))
+    blocks = rng.standard_normal((nnzb, BSR_BS, BSR_BS)).astype(np.float32)
+    b = rng.standard_normal((n, BSR_P)).astype(np.float32)
+    return n, ids // grid, ids % grid, blocks, b
+
+
+def bsr_rows_ref(np, brows, bcols, blocks, b, rows):
+    """Rows ``rows`` of the block-sparse product in f64 on the host, from the
+    numpy blocks (block rows sorted)."""
+    bs = blocks.shape[1]
+    out = np.zeros((len(rows), b.shape[1]))
+    for i, r in enumerate(rows):
+        for j in np.flatnonzero(brows == r // bs):
+            c0 = int(bcols[j]) * bs
+            out[i] += blocks[j, r % bs].astype(np.float64) @ \
+                b[c0:c0 + bs].astype(np.float64)
+    return out
+
+
+def coo_rows_ref(torch, coo, b, rows):
+    """Rows ``rows`` of ``coo @ b`` in f64, from a coalesced sparse COO
+    tensor's entries."""
+    idx, vals = coo.indices(), coo.values()
+    out = torch.zeros((len(rows), b.shape[1]), dtype=torch.float64,
+                      device=b.device)
+    for i, r in enumerate(rows):
+        sel = idx[0] == r
+        out[i] = (vals[sel].double()[:, None]
+                  * b[idx[1][sel]].double()).sum(0)
+    return out
+
+
+def check_rows(label, out, shape, ref_rows, got_rows) -> float:
+    """Raises unless ``out`` has ``shape``, is finite on the sampled rows, and
+    its max error there against the f64 rows is within F64_TOL of max|ref|."""
+    import numpy as np
+
+    ref = np.asarray(ref_rows, dtype=np.float64)
+    got = np.asarray(got_rows, dtype=np.float64)
+    rel = float(np.abs(got - ref).max() / np.abs(ref).max())
+    log(f"  {label} vs f64 on {len(ref)} rows: max rel err {rel:.3e} "
+        f"(tol {F64_TOL})")
+    if tuple(out.shape) != tuple(shape) or not np.isfinite(got).all() \
+            or not rel <= F64_TOL:
+        raise AssertionError(f"{label}: shape {tuple(out.shape)}, rel err "
+                             f"{rel}")
+    return rel
+
+
+def bsr_case(torch, sb, gen, m, n, p, bs, keep, dtype, empty_rows=(),
+             hot_col=None):
+    """A random BSR matrix on the card: each block of the (m/bs × n/bs) grid
+    stored with probability ``keep``, none in ``empty_rows``, every other
+    block row holding block column ``hot_col``; and a random B (n, p)."""
+    nbr, nbc = -(-m // bs), -(-n // bs)
+    mask = torch.rand((nbr, nbc), generator=gen, device="cuda") < keep
+    if hot_col is not None:
+        mask[:, hot_col] = True
+    mask[list(empty_rows)] = False
+    rows, cols = mask.nonzero(as_tuple=True)
+    blocks = torch.randn((len(rows), bs, bs), generator=gen,
+                         device="cuda").to(dtype)
+    b = torch.randn((n, p), generator=gen, device="cuda").to(dtype)
+    return sb.BsrMatrix(blocks, rows.int(), cols.int(), (m, n), bs), b
+
+
+def check_bsr(torch, sb, label, bsr, b) -> tuple[float, float]:
+    """``bsr_spmm_pallas`` against its plain version, per element (BSR_*
+    bounds); returns the max |err| and the max err/bound."""
+    got = sb.bsr_spmm_pallas(bsr, b)
+    want = sb.bsr_spmm_pallas_plain(bsr, b)
+    torch.cuda.synchronize()
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{label}: got {got.dtype} {tuple(got.shape)}, "
+                             f"want {want.dtype} {tuple(want.shape)}")
+    return bwd_close(torch, f"{label} nnzb={bsr.nnzb}", got, want, b.dtype,
+                     BSR_F32_ATOL, BSR_F32_RTOL, BSR_BF16_ATOL)
+
+
+def bsr_checks(torch, sb, gen, main_bsr, main_b):
+    """Phase 13; returns the main shape's max |err| and the largest
+    err/bound over the cases."""
+    log("phase 13: bsr_spmm_pallas vs its plain version")
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype)[6:]
+        cases = (  # (label, m, n, p, bs, keep, empty block rows, hot column)
+            ("bs=8 ragged", 8 * 37 + 5, 8 * 21 + 3, 77, 8, 0.3, (2, 5), 3),
+            ("bs=32 ragged", 32 * 13 + 7, 32 * 9 + 31, 129, 32, 0.3, (0,), 0),
+            ("bs=64 ragged", 64 * 9 + 1, 64 * 7 + 5, 259, 64, 0.4, (4,), 2),
+            ("bs=128 ragged", 128 * 5 + 100, 128 * 6 + 1, 69, 128, 0.5, (1,),
+             5),
+            ("no block", 192, 192, 10, 64, 0.0, (), None),
+            # more block rows than a 2-D grid's y axis (65535) could hold
+            ("bs=8, 65538 block rows", 65537 * 8 + 13, 64, 5, 8, 5e-4, (),
+             None),
+        )
+        for label, m, n, p, bs, keep, empty, hot in cases:
+            bsr, b = bsr_case(torch, sb, gen, m, n, p, bs, keep, dtype, empty,
+                              hot)
+            _, r = check_bsr(torch, sb, f"{label} {m}x{n} p={p} {dt}", bsr, b)
+            worst = max(worst, r)
+    err, r = check_bsr(torch, sb, f"main shape {main_bsr.shape} bs={BSR_BS} "
+                       f"p={BSR_P} float32", main_bsr, main_b)
+    worst = max(worst, r)
+    log(f"  largest err/bound over the BSR checks: {worst:.3f}")
+    return err, worst
+
+
+def sparse_path(torch, np, mt, sb, autotune, ops, bsr, b, data):
+    """Phase 14: the sparse path at full width; returns the main path's
+    launch counts."""
+    n, brows, bcols, blocks, b_np = data
+    flops = 2.0 * bsr.nnzb * BSR_BS ** 2 * BSR_P
+    log(f"phase 14: BsrMatrix {bsr.shape} bs={BSR_BS} nnzb={bsr.nnzb} "
+        f"(block density {BSR_DENSITY}) @ ({n}, {BSR_P}) f32, "
+        f"backend='auto', then SparseVecMatrix.multiply")
+    rankings = []
+    tune = autotune.tune_bsr
+    autotune.tune_bsr = lambda *a, **k: rankings.append(tune(*a, **k)) or \
+        rankings[-1]
+    try:
+        autotune.clear_cache()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out_auto = bsr.multiply(b, backend="auto")
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        if len(rankings) != 1:
+            raise AssertionError("the first 'auto' call did not tune")
+        ranking = rankings[0]
+        log(f"  first multiply (tunes): {first_s:.3f} s; ranking: " + ", ".join(
+            f"{nm} {sec * 1e3:.3f} ms ({flops / sec / 1e9:.1f} GFLOP/s)"
+            for nm, sec in ranking))
+        winner = ranking[0][0]
+        before = ops.launch_counts()["bsr_spmm_pallas"]
+        t0 = time.perf_counter()
+        out_auto = bsr.multiply(b, backend="auto")
+        torch.cuda.synchronize()
+        auto_s = time.perf_counter() - t0
+        added = ops.launch_counts()["bsr_spmm_pallas"] - before
+        log(f"  second multiply (cached winner {winner}): {auto_s * 1e3:.3f} "
+            f"ms = {flops / auto_s / 1e9:.1f} GFLOP/s (host clock with sync); "
+            f"kernel launches added {added}")
+        if len(rankings) != 1 or added != (winner == "pallas"):
+            raise AssertionError("the second 'auto' call did not read the "
+                                 "cache")
+    finally:
+        autotune.tune_bsr = tune
+    out_pallas = bsr.multiply(b, backend="pallas")
+    out_chunked = bsr.multiply(b, backend="chunked")
+    rows = [0, 1, n // 7, n // 3, n // 2 + 5, 2 * n // 3, n - 2, n - 1]
+    ref = bsr_rows_ref(np, brows, bcols, blocks, b_np, rows)
+    for label, out in (("auto", out_auto), ("pallas", out_pallas),
+                       ("chunked", out_chunked)):
+        check_rows(f"backend={label!r}", out, (n, BSR_P), ref,
+                   out[rows].double().cpu().numpy())
+    del out_auto, out_pallas, out_chunked
+
+    n8, br8, bc8, bl8, b8 = bsr_config(np, SPMV_GRID)
+    r = (br8[:, None, None] * BSR_BS + np.arange(BSR_BS)[None, :, None])
+    c = (bc8[:, None, None] * BSR_BS + np.arange(BSR_BS)[None, None, :])
+    shape = (bl8.shape[0], BSR_BS, BSR_BS)
+    sp = mt.CoordinateMatrix(np.broadcast_to(r, shape).ravel(),
+                             np.broadcast_to(c, shape).ravel(), bl8.ravel(),
+                             shape=(n8, n8)).to_sparse_vec_matrix()
+    t0 = time.perf_counter()
+    out = sp.multiply(mt.BlockMatrix.from_array(b8), format="bsr")
+    torch.cuda.synchronize()
+    log(f"  SparseVecMatrix {sp.shape} nnz={sp.nnz} from COO triplets, "
+        f"multiply(format='bsr'): {time.perf_counter() - t0:.3f} s (with "
+        f"to_bsr and tuning)")
+    rows8 = [0, BSR_BS - 1, BSR_BS, n8 // 2 + 1, n8 - 1]
+    check_rows("SparseVecMatrix format='bsr'", out, (n8, BSR_P),
+               bsr_rows_ref(np, br8, bc8, bl8, b8, rows8),
+               out.data[rows8].double().cpu().numpy())
+    del sp, out
+
+    sp = mt.SparseVecMatrix.random(7, ELL_N, ELL_N, ELL_DENSITY)
+    dense = mt.DenseVecMatrix.random(8, ELL_N, BSR_P)
+    rows = [0, 1, ELL_N // 3, ELL_N // 2 + 1, ELL_N - 1]
+    ref = coo_rows_ref(torch, sp.bcoo, dense.data, rows).cpu().numpy()
+    for fmt in ("ell", "bcoo", "auto"):
+        t0 = time.perf_counter()
+        out = sp.multiply(dense, format=fmt)
+        torch.cuda.synchronize()
+        log(f"  SparseVecMatrix {sp.shape} nnz={sp.nnz} "
+            f"multiply(format={fmt!r}): {time.perf_counter() - t0:.3f} s")
+        check_rows(f"SparseVecMatrix format={fmt!r}", out, (ELL_N, BSR_P),
+                   ref, out.data[rows].double().cpu().numpy())
+    counts = ops.launch_counts()
+    log(f"  launches on the main path: {counts}")
+    if counts["bsr_spmm_pallas"] <= 0:
+        raise AssertionError("bsr_spmm_pallas never launched on the main path")
+    del sp, dense, out
+    torch.cuda.empty_cache()
+    return counts
+
+
+def bsr_times(torch, sb, bsr, b):
+    """Phase 15: kernel, plain, chunked, library and bound times at the main
+    shape; returns them by name."""
+    log(f"phase 15: BSR times at {bsr.shape} bs={BSR_BS} nnzb={bsr.nnzb} "
+        f"p={BSR_P} f32 (CUDA events)")
+    ms = cuda_ms(torch, lambda: sb.bsr_spmm_pallas(bsr, b), 10)
+    plain = cuda_ms(torch, lambda: sb.bsr_spmm_pallas_plain(bsr, b), 5)
+    chunked = cuda_ms(torch, lambda: sb.bsr_spmm(bsr, b), 5)
+    m, n = bsr.shape
+    nbr = -(-m // BSR_BS)
+    row_ptr = torch.zeros((nbr + 1,), dtype=torch.int64, device="cuda")
+    torch.cumsum(torch.bincount(bsr.block_rows, minlength=nbr), 0,
+                 out=row_ptr[1:])
+    t = torch.sparse_bsr_tensor(row_ptr, bsr.block_cols.long(), bsr.blocks,
+                                (m, n), check_invariants=False)
+    lib_err = float((t @ b - sb.bsr_spmm_pallas_plain(bsr, b)).abs().max())
+    lib = cuda_ms(torch, lambda: t @ b, 5)
+    log(f"  library: torch.sparse_bsr_tensor @ b {lib:.3f} ms (max|err| vs "
+        f"plain {lib_err:.3e})")
+    flops = 2.0 * bsr.nnzb * BSR_BS ** 2 * BSR_P
+    io_bytes = 4.0 * (bsr.nnzb * BSR_BS ** 2 + n * BSR_P + m * BSR_P) \
+        + 8.0 * bsr.nnzb
+    bound = 1e3 * max(flops / F32_PEAK, io_bytes / HBM_BYTES_PER_S)
+    log(f"  bsr_spmm_pallas {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+        f"plain {plain:.3f} ms, chunked {chunked:.3f} ms, bound {bound:.3f} ms "
+        f"(operations: {flops / 1e9:.2f} GFLOP; bytes "
+        f"{1e3 * io_bytes / HBM_BYTES_PER_S:.3f} ms for "
+        f"{io_bytes / 1e6:.1f} MB)")
+    return dict(ms=ms, plain=plain, chunked=chunked, lib=lib, bound=bound)
+
+
 def main() -> int:
     import torch
 
@@ -942,8 +1206,24 @@ def main() -> int:
     bwd_errs, bwd_worst = backward_checks(torch, fa, gen)
     train_counts = train_path(torch, np, tt, fa, ops)
     t = train_times(torch, fa, gen)
+    torch.cuda.empty_cache()
 
-    # ---------------------------------------------------- 13. kernels line
+    # the main shape's 215 MB of blocks are made once, for phases 13-15
+    from marlin_tpu_torch.ops import sparse_bsr as sb
+
+    data = bsr_config(np, BSR_GRID)
+    n_bsr, brows, bcols, blocks, b_np = data
+    main_bsr = sb.BsrMatrix(torch.from_numpy(blocks).cuda(),
+                            torch.from_numpy(brows).cuda(),
+                            torch.from_numpy(bcols).cuda(), (n_bsr, n_bsr),
+                            BSR_BS)
+    main_b = torch.from_numpy(b_np).cuda()
+    bsr_err, _ = bsr_checks(torch, sb, gen, main_bsr, main_b)
+    sparse_counts = sparse_path(torch, np, mt, sb, autotune, ops, main_bsr,
+                                main_b, data)
+    tb = bsr_times(torch, sb, main_bsr, main_b)
+
+    # ---------------------------------------------------- kernels line
     kernels = [
         {"name": "pallas_matmul", "route": "cuda",
          "source": "marlin_tpu_torch/csrc/gemm.cu",
@@ -986,6 +1266,13 @@ def main() -> int:
          "plain_ms": t["plain_bwd"], "bound_ms": t["bound_dq"],
          "bound_by": "operations",
          "library_ms": t["lib_bwd"]},
+        {"name": "bsr_spmm_pallas", "route": "cuda",
+         "source": "marlin_tpu_torch/csrc/bsr_spmm.cu",
+         "replaces": "marlin_tpu/ops/sparse_bsr.py:203",
+         "launches": sparse_counts["bsr_spmm_pallas"],
+         "max_abs_err": bsr_err, "ms": tb["ms"], "plain_ms": tb["plain"],
+         "bound_ms": tb["bound"], "bound_by": "operations",
+         "library_ms": tb["lib"]},
     ]
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(smi)

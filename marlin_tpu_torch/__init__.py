@@ -11,7 +11,10 @@ end to end, with the hand-written CUDA GEMM and masked-fill kernels
 flash forward kernels (``ops/paged_attention.py``,
 ``ops/flash_attention.py``); and its training half at world size 1
 (``lm_loss``, ``lm_train_step``, ``TransformerLM.train``) through ring and
-Ulysses attention (``parallel/``), with the flash backward kernels.
+Ulysses attention (``parallel/``), with the flash backward kernels; and the
+sparse × dense multiply (``SparseVecMatrix``, ``CoordinateMatrix``; the
+ELL, BCOO and BSR formats) with the BSR SpMM kernel
+(``ops/sparse_bsr.py``).
 
 Quick start::
 
@@ -26,11 +29,13 @@ from .config import MarlinConfig, config_context, get_config, set_config  # noqa
 from .mesh import COLS, ROWS, create_mesh, default_mesh, set_default_mesh  # noqa: F401
 from .matrix import (  # noqa: F401
     BlockMatrix,
+    CoordinateMatrix,
     DenseMatrix,
     DenseVecMatrix,
     DistributedIntVector,
     DistributedMatrix,
     DistributedVector,
+    SparseVecMatrix,
 )
 from .parallel import (  # noqa: F401
     attention_reference,

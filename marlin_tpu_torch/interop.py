@@ -7,7 +7,10 @@ numpy holds as the ``ml_dtypes`` type ``bfloat16`` and torch cannot read
 directly. :func:`lm_params_from_numpy` carries the transformer LM's
 parameters across, so that both packages compute with the same weights, and
 :func:`adam_state_from_numpy` its ``optax.adam`` state, so that training
-resumes where the JAX package left it.
+resumes where the JAX package left it. The sparse matrices cross as their
+arrays: :func:`bsr_from_numpy` (a ``BsrMatrix``),
+:func:`sparse_vec_matrix_from_numpy` (a ``SparseVecMatrix`` from its BCOO's
+``indices``/``data``) and :func:`coordinate_matrix_from_numpy`.
 """
 
 from __future__ import annotations
@@ -45,6 +48,18 @@ def to_tensor(arr, dtype: Any = None, device=None) -> torch.Tensor:
         else:
             arr = torch.from_numpy(np.ascontiguousarray(a))
     return arr.to(device=dev, dtype=torch_dtype(dtype) or arr.dtype)
+
+
+def to_host(x) -> tuple[np.ndarray, torch.dtype | None]:
+    """``x`` as a numpy array on the host, and the torch dtype to give it back
+    on the device: a bf16 tensor comes back as float32 (numpy has no bf16 of
+    its own) with ``torch.bfloat16``; anything else keeps its dtype (None)."""
+    if not isinstance(x, torch.Tensor):
+        return np.asarray(x), None
+    x = x.detach().cpu()
+    if x.dtype == torch.bfloat16:
+        return x.float().numpy(), torch.bfloat16
+    return x.numpy(), None
 
 
 _KINDS = ("DenseVecMatrix", "BlockMatrix", "DenseMatrix", "DistributedVector",
@@ -122,3 +137,46 @@ def adam_state_from_numpy(state, device=None):
     return AdamState(int(np.asarray(count)),
                      lm_params_from_numpy(mu, device, np.float32),
                      lm_params_from_numpy(nu, device, np.float32))
+
+
+def bsr_from_numpy(blocks, block_rows, block_cols, shape, block_size: int,
+                   device=None):
+    """The JAX package's ``BsrMatrix`` (its ``blocks``, ``block_rows``,
+    ``block_cols`` as numpy, its ``shape`` and ``block_size``) as the port's,
+    on ``device`` (default: the configured one)."""
+    from .ops.sparse_bsr import BsrMatrix
+
+    dev = resolve_device(device)
+    return BsrMatrix(to_tensor(np.asarray(blocks), device=dev),
+                     to_tensor(np.asarray(block_rows), torch.int32, dev),
+                     to_tensor(np.asarray(block_cols), torch.int32, dev),
+                     shape, block_size)
+
+
+def sparse_vec_matrix_from_numpy(indices, data, shape, device=None):
+    """The JAX package's ``SparseVecMatrix`` from its BCOO's ``indices``
+    ``(nse, 2)`` and ``data`` ``(nse,)`` as numpy, on ``device`` (default: the
+    configured one). BCOO padding entries (an index equal to the dimension)
+    are dropped; duplicates are summed."""
+    from .matrix.sparse import SparseVecMatrix
+    from .mesh import create_mesh
+
+    idx = np.asarray(indices).astype(np.int64)
+    data = np.asarray(data)
+    keep = (idx[:, 0] < shape[0]) & (idx[:, 1] < shape[1])
+    mesh = create_mesh(device=device)
+    coo = torch.sparse_coo_tensor(to_tensor(idx[keep].T, device=mesh.device),
+                                  to_tensor(data[keep], device=mesh.device),
+                                  tuple(shape), check_invariants=True)
+    return SparseVecMatrix(coo, tuple(shape), mesh)
+
+
+def coordinate_matrix_from_numpy(rows, cols, vals, shape, device=None):
+    """The JAX package's ``CoordinateMatrix`` from its (rows, cols, vals)
+    (``triplets()``) as numpy, on ``device`` (default: the configured one)."""
+    from .matrix.sparse import CoordinateMatrix
+    from .mesh import create_mesh
+
+    return CoordinateMatrix(np.asarray(rows), np.asarray(cols),
+                            np.asarray(vals), shape=shape,
+                            mesh=create_mesh(device=device))

@@ -14,9 +14,8 @@ padding arises only from data built that way). The invariant *pad region is
 always zero* holds as in the JAX package: ops that would break it (scalar
 add, divides) re-mask.
 
-Not here yet (they reach linalg, sparse, IO or pandas): the factorizations,
-``solve``, ``lr``, ``to_sparse_vec_matrix``, ``to_dataframe`` and the
-``save_*`` methods.
+Not here yet (they reach linalg, IO or pandas): the factorizations,
+``solve``, ``lr``, ``to_dataframe`` and the ``save_*`` methods.
 """
 
 from __future__ import annotations
@@ -439,6 +438,19 @@ class DenseMatrix(DistributedMatrix):
     def to_dense_vec_matrix(self, mesh: Mesh | None = None) -> "DenseVecMatrix":
         """The row layout (BlockMatrix.toDenseVecMatrix, BlockMatrix.scala:575-594)."""
         return DenseVecMatrix.from_array(self.logical(), mesh or self.mesh)
+
+    def to_sparse_vec_matrix(self, tol: float = 0.0):
+        """Dense → sparse conversion (DenseVecMatrix.toSparseVecMatrix,
+        DenseVecMatrix.scala:1333-1353). Entries with |x| <= tol are
+        dropped."""
+        from .sparse import SparseVecMatrix
+
+        arr = self.logical()
+        if tol > 0.0:
+            arr = torch.where(arr.abs() > tol, arr,
+                              torch.zeros((), dtype=arr.dtype,
+                                          device=arr.device))
+        return SparseVecMatrix.from_dense(arr, self.mesh)
 
     def multiply_by(self, local_matrix, precision: str | None = None):
         """``local @ self`` with the local operand replicated — the mirror of

@@ -114,6 +114,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.marlin_flash_bwd_dkv.restype = i
     lib.marlin_flash_bwd_dq.argtypes = [i] + [p] * 7 + bwd_tail
     lib.marlin_flash_bwd_dq.restype = i
+    # dtype, blocks, bcols, row_ptr, b, out, m, n, p, bs, n_block_rows, stream
+    lib.marlin_bsr_spmm.argtypes = [i, p, p, p, p, p, ll, ll, ll, i, ll, p]
+    lib.marlin_bsr_spmm.restype = i
     lib.marlin_error_string.argtypes = [i]
     lib.marlin_error_string.restype = ctypes.c_char_p
     return lib

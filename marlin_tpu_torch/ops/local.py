@@ -1,11 +1,17 @@
-"""Single-device block math (the reference's L2, SURVEY.md §2.2), dense half.
+"""Single-device block math (the reference's L2, SURVEY.md §2.2).
 
-Counterpart of the dense half of ``marlin_tpu/ops/local.py``. The reference's
-per-block hot path is Breeze ``BDM * BDM`` → netlib dgemm
-(matrix/SubMatrix.scala:87-105); the JAX package lowers it to the MXU through
-XLA, and here it goes to ``torch.matmul`` — or, with ``backend="pallas"``, to
-the hand-written kernel. The sparse kernels of that module wait for the
-sparse slice.
+Counterpart of ``marlin_tpu/ops/local.py``. The reference's per-block hot
+path is Breeze ``BDM * BDM`` → netlib dgemm (matrix/SubMatrix.scala:87-105);
+the JAX package lowers it to the MXU through XLA, and here it goes to
+``torch.matmul`` — or, with ``backend="pallas"``, to the hand-written kernel.
+
+Sparse blocks are sparse COO tensors where the JAX package has BCOOs: sparse ×
+dense is ``torch.sparse.mm``, and sparse × sparse is ``torch.sparse.mm`` on the
+device below ``config.spsp_device_max_products`` worst-case products and
+scipy's CSR kernel on the host above it. The JAX package's ``jax.jit`` routes
+(``_spsp_host_jit`` through ``jax.pure_callback``, ``_is_tracing``) have no
+counterpart in eager PyTorch: every call here runs eagerly, with an
+exact-sized result.
 
 ``precision`` follows ``config.TF32_BY_PRECISION``: the TF32 flag is set for
 the one product and restored after it, so the process-wide setting is never
@@ -19,6 +25,7 @@ from __future__ import annotations
 import contextlib
 from typing import Any
 
+import numpy as np
 import torch
 
 from ..config import get_config, tf32_for
@@ -104,11 +111,114 @@ def triu_to_full(u: torch.Tensor) -> torch.Tensor:
     return torch.triu(u) + torch.triu(u, 1).T
 
 
+def _to_bcoo(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as a sparse COO tensor (a dense one through ``to_sparse``)."""
+    return x if x.is_sparse else x.to_sparse()
+
+
+def _same_dtype(a: torch.Tensor, b: torch.Tensor):
+    """Both operands in their promoted dtype (``torch.sparse.mm`` takes one
+    dtype; the JAX package's BCOO products promote)."""
+    dtype = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dtype), b.to(dtype)
+
+
+def mult_sparse_dense(sp: torch.Tensor, dense: torch.Tensor) -> torch.Tensor:
+    """Sparse × dense block multiply with dense output — the role of
+    ``LibMatrixMult.multSparseDense`` (LibMatrixMult.scala:43-77)."""
+    sp, dense = _same_dtype(_to_bcoo(sp), dense)
+    return torch.sparse.mm(sp, dense)
+
+
+def mult_dense_sparse(dense: torch.Tensor, sp: torch.Tensor) -> torch.Tensor:
+    """Dense × sparse block multiply (``LibMatrixMult.multDenseSparse``,
+    LibMatrixMult.scala:15-41), as ``(spᵀ @ denseᵀ)ᵀ``."""
+    sp, dense = _same_dtype(_to_bcoo(sp), dense)
+    return torch.sparse.mm(sp.t(), dense.t()).t()
+
+
+def _np_spsp(rows_a, cols_a, vals_a, shape_a, rows_b, cols_b, vals_b, shape_b):
+    """NumPy/scipy CSR×CSR core of the host route. Returns the COO triplet
+    (row, col, val) of the product, duplicates summed."""
+    import scipy.sparse as sps
+
+    def to_csr(rows, cols, vals, shape):
+        # entries with out-of-range indices (the JAX package's BCOO padding)
+        # carry zero values; scipy rejects them, so drop them first.
+        # In-range duplicates are summed by scipy.
+        rows, cols, vals = np.asarray(rows), np.asarray(cols), np.asarray(vals)
+        keep = (rows < shape[0]) & (cols < shape[1])
+        if not keep.all():
+            rows, cols, vals = rows[keep], cols[keep], vals[keep]
+        return sps.csr_matrix((vals, (rows, cols)), shape=shape)
+
+    C = (to_csr(rows_a, cols_a, vals_a, shape_a)
+         @ to_csr(rows_b, cols_b, vals_b, shape_b)).tocoo()
+    return C.row, C.col, C.data
+
+
+def _triplets(x: torch.Tensor):
+    """Host (rows, cols, vals) of a sparse COO tensor, duplicates kept."""
+    idx = x._indices().cpu().numpy()
+    return idx[0], idx[1], x._values().detach().cpu().numpy()
+
+
+def _spsp_host(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Host CSR×CSR for the large regime, where the device contraction's
+    worst-case nse_a × nse_b buffer would not fit; the CSR merge algorithm
+    does O(flops) work — the regime the reference always runs
+    (Matrices.scala:129-152). The result lands on ``a``'s device, coalesced."""
+    dtype = torch.promote_types(a.dtype, b.dtype)
+    row, col, val = _np_spsp(*_triplets(a.to(dtype)), a.shape,
+                             *_triplets(b.to(dtype)), b.shape)
+    idx = torch.from_numpy(np.stack([row, col]).astype(np.int64))
+    return torch.sparse_coo_tensor(
+        idx, torch.from_numpy(np.asarray(val)), (a.shape[0], b.shape[1]),
+        dtype=dtype, check_invariants=False).coalesce().to(a.device)
+
+
+def mult_sparse_sparse_bound(a, b) -> int:
+    """An upper bound on the nonzeros of :func:`mult_sparse_sparse`'s result
+    — the classic SpGEMM product bound: result row i holds at most
+    min(Σ_{k ∈ row i of A} nnz(B row k), n) nonzeros. Computed on the host
+    from the index arrays (O(nse))."""
+    a, b = _to_bcoo(a), _to_bcoo(b)
+    m, n = int(a.shape[0]), int(b.shape[1])
+    ar, ak, _ = _triplets(a)
+    bk = _triplets(b)[0]
+    # out-of-range (padding) entries contribute nothing
+    a_live = ar < m
+    b_live = bk < b.shape[0]
+    rowcount_b = np.bincount(bk[b_live], minlength=int(a.shape[1]) + 1)
+    prods = rowcount_b[np.minimum(ak[a_live], int(a.shape[1]))]
+    per_row = np.bincount(ar[a_live], weights=prods, minlength=m)
+    return int(max(1, np.minimum(per_row, n).sum()))
+
+
+def mult_sparse_sparse(a, b, out_nse: int | None = None) -> torch.Tensor:
+    """Sparse × sparse multiply with a coalesced (deduplicated, sorted)
+    sparse result (CSC×CSC in the reference, Matrices.scala:129-152).
+    Below ``config.spsp_device_max_products`` worst-case products it runs
+    ``torch.sparse.mm`` on the device; past it, scipy's CSR kernel on the
+    host (:func:`_spsp_host`). ``out_nse`` sizes the JAX package's result
+    under ``jax.jit``; eagerly, there as here, it is accepted and
+    ignored."""
+    del out_nse
+    a, b = _to_bcoo(a), _to_bcoo(b)
+    if a._nnz() * b._nnz() > get_config().spsp_device_max_products:
+        return _spsp_host(a, b)
+    a, b = _same_dtype(a, b)
+    return torch.sparse.mm(a, b).coalesce()
+
+
 def block_multiply(a: torch.Tensor, b: torch.Tensor,
                    precision: str | None = None) -> torch.Tensor:
-    """Dense × dense block multiply, the dense quarter of
-    ``SubMatrix.multiply``'s four-way dispatch (SubMatrix.scala:87-105); the
-    sparse operands arrive with the sparse slice."""
-    if a.is_sparse or b.is_sparse:
-        raise TypeError("sparse block operands are not supported yet")
+    """Four-way dense/sparse dispatch, the analog of ``SubMatrix.multiply``
+    (SubMatrix.scala:87-105)."""
+    if a.is_sparse and b.is_sparse:
+        return mult_sparse_sparse(a, b)
+    if a.is_sparse:
+        return mult_sparse_dense(a, b)
+    if b.is_sparse:
+        return mult_dense_sparse(a, b)
     return gemm(a, b, precision)

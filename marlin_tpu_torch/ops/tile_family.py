@@ -1,6 +1,6 @@
-"""The tiling family of the hand-written GEMM, for sm_90.
+"""The tiling families of the hand-written GEMM and of the BSR SpMM.
 
-Counterpart of ``marlin_tpu/ops/tile_family.py`` (its gemm half). There the
+Counterpart of ``marlin_tpu/ops/tile_family.py``. For the GEMM, there the
 family is every MXU-aligned power-of-two (bm, bn, bk) block shape pruned by a
 12 MiB VMEM budget. Here the axes are the CTA tiles ``csrc/gemm.cu`` is
 instantiated for, so the family proposes exactly the kernels the library
@@ -10,13 +10,18 @@ against the 227 KB a Hopper block can have. The surviving tiles are ranked by
 the same analytic traffic model and handed to ``autotune.tune_gemm`` to time.
 
 Candidate names keep the ``"pallas:BMxBNxBK"`` spelling, so autotune cache
-entries parse the same way in both packages. Pure arithmetic: no torch, no
-device.
+entries parse the same way in both packages.
+
+The BSR family (:func:`bsr_candidates`) is the JAX package's as it is: the
+chunked formulation at chunk sizes around its default buffer budget, plus the
+kernel, spelled ``"chunked:N"`` and ``"pallas"``. Pure arithmetic: no torch,
+no device.
 """
 
 from __future__ import annotations
 
 __all__ = ["TileCandidate", "gemm_candidates", "parse_gemm_candidate",
+           "bsr_candidates", "parse_bsr_candidate",
            "smem_bytes", "gemm_traffic_bytes", "select_tile",
            "SMEM_BUDGET_BYTES", "BM_AXIS", "BN_AXIS", "BK_AXIS"]
 
@@ -72,6 +77,16 @@ def parse_gemm_candidate(name: str) -> TileCandidate:
     if len(parts) != 3:
         raise ValueError(f"malformed gemm candidate: {name!r}")
     return TileCandidate(*(int(p) for p in parts))
+
+
+def parse_bsr_candidate(name: str) -> int | None:
+    """``"chunked:N"`` → N, ``"pallas"`` → None (the BSR kernel has no
+    free tiling — its block shape is the matrix's)."""
+    if name == "pallas":
+        return None
+    if not isinstance(name, str) or not name.startswith("chunked:"):
+        raise ValueError(f"not a bsr candidate: {name!r}")
+    return int(name[len("chunked:"):])
 
 
 def smem_bytes(bm: int, bn: int, bk: int) -> int:
@@ -152,3 +167,24 @@ def gemm_candidates(m: int, k: int, n: int, itemsize: int = 4,
                                              itemsize)
     ranked = sorted(seen.items(), key=lambda kv: (kv[1], kv[0]))
     return [c for c, _ in ranked[:max_candidates]]
+
+
+def bsr_candidates(block_size: int, nnzb: int, p: int, itemsize: int = 4,
+                   max_candidates: int = 5) -> list[str]:
+    """The BSR SpMM family: the chunked formulation at power-of-two
+    ``chunk_blocks`` sizes bracketing its default ~32 MB-buffer rule
+    (:func:`~marlin_tpu_torch.ops.sparse_bsr.bsr_spmm`'s default — smaller
+    chunks cut the gather and product buffers, larger ones launch fewer
+    batches), plus the kernel. Strings, ready for the autotune cache; decode
+    with :func:`parse_bsr_candidate`. ``itemsize`` is accepted for the JAX
+    package's signature; the budget counts elements, as there."""
+    if block_size < 1 or nnzb < 1 or p < 1:
+        raise ValueError(
+            f"degenerate bsr problem: bs={block_size} nnzb={nnzb} p={p}")
+    default = max(1, (1 << 23) // (block_size * max(p, block_size)))
+    sizes = sorted({max(1, min(c, nnzb))
+                    for c in (default // 4, default // 2, default,
+                              default * 2)})
+    out = [f"chunked:{c}" for c in sizes]
+    out.append("pallas")
+    return out[:max_candidates]

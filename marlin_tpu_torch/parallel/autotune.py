@@ -1,19 +1,22 @@
-"""Empirical multiply-strategy and GEMM-tile autotuning.
+"""Empirical multiply-strategy, GEMM-tile and BSR-backend autotuning.
 
-Counterpart of ``marlin_tpu/parallel/autotune.py`` (without its BSR half,
-which comes with the sparse slice). The reference picks its multiply
-statically (DenseVecMatrix.scala:196-231, MTUtils.scala:150-175) and ships
-``RMMcompare`` for a human to time the candidates; here each viable engine
-— a multiply strategy, or a tile of the hand-written GEMM against
-``torch.matmul`` — is timed on the live operands once per configuration, and
-the winner is cached in-process and on disk (``config.autotune_cache_path``).
+Counterpart of ``marlin_tpu/parallel/autotune.py``. The reference picks its
+multiply statically (DenseVecMatrix.scala:196-231, MTUtils.scala:150-175) and
+ships ``RMMcompare`` for a human to time the candidates; here each viable
+engine — a multiply strategy, a tile of the hand-written GEMM against
+``torch.matmul``, or a BSR SpMM backend (the chunked formulation at a few
+chunk sizes against the BSR kernel) — is timed on the live operands once per
+configuration, and the winner is cached in-process and on disk
+(``config.autotune_cache_path``).
 
 Every candidate the tuners time must run: on the card the tile family
-proposes only tiles the kernel library was built with, so a candidate that
-raises is a bug and its error propagates (the JAX tuner skips such a
-candidate, because its generator can propose a tile Mosaic rejects). Only
+proposes only tiles the kernel library was built with and the BSR family
+only the kernel and the chunked path, so a candidate that raises is a bug and
+its error propagates (the JAX tuner skips such a candidate, because its
+generator can propose a tile Mosaic rejects). Only
 :class:`~marlin_tpu_torch.parallel.matmul.UnknownStrategyError` from a
-multiply strategy is skipped.
+multiply strategy is skipped. On the CPU the ``"pallas"`` candidates run the
+kernels' plain versions, as every kernel wrapper does for CPU tensors.
 
 Timing: one untimed call first, then ``reps`` calls back to back, forced once
 by ``utils.profiling.evaluate`` (``torch.cuda.synchronize`` on the card).
@@ -36,7 +39,7 @@ from ..config import get_config, resolve_device
 from .matmul import UnknownStrategyError
 
 __all__ = ["tune_multiply", "best_strategy", "tune_gemm", "best_gemm",
-           "clear_cache"]
+           "tune_bsr", "best_bsr_strategy", "clear_cache"]
 
 _CACHE: dict[tuple, str] = {}
 
@@ -312,6 +315,78 @@ def best_gemm(a, b, reps: int = 3) -> str:
             _CACHE[key] = persisted
         else:
             tune_gemm(a, b, reps=reps)
+    return _CACHE[key]
+
+
+def _bsr_key(bsr, p: int, dtype, device: torch.device) -> tuple:
+    return ("bsr", bsr.shape, bsr.block_size, bsr.nnzb, int(p), str(dtype),
+            *_device_sig(device))
+
+
+def tune_bsr(bsr, b, candidates=None, reps: int = 2) -> list[tuple[str, float]]:
+    """Time the BSR SpMM family (the chunked formulation at a few
+    ``chunk_blocks`` and the kernel,
+    :func:`~marlin_tpu_torch.ops.tile_family.bsr_candidates`) for
+    ``bsr @ b`` and return ``[(candidate, seconds)]`` fastest-first, caching
+    the winner (memory + disk, device-name keyed) for
+    :func:`best_bsr_strategy`. The ranking, not a preference, decides whether
+    ``"auto"`` runs the kernel. An explicit ``candidates`` subset is timed
+    without touching the cache."""
+    from ..ops import tile_family
+    from ..ops.sparse_bsr import _dense_operand
+
+    arr = _dense_operand(b)
+    p = arr.shape[1] if arr.ndim == 2 else 1
+    explicit = candidates is not None
+    if candidates is None:
+        candidates = tile_family.bsr_candidates(bsr.block_size, bsr.nnzb, p,
+                                                arr.element_size())
+
+    def run(name):
+        cb = tile_family.parse_bsr_candidate(name)
+        if cb is None:
+            return bsr.multiply(arr, backend="pallas")
+        return bsr.multiply(arr, chunk_blocks=cb)
+
+    results = sorted(((name, _time(lambda: run(name), reps))
+                      for name in candidates), key=lambda kv: kv[1])
+    if not results:
+        raise ValueError("no bsr candidate to time")
+    if not explicit:
+        key = _bsr_key(bsr, p, arr.dtype, arr.device)
+        _CACHE[key] = results[0][0]
+        _persist(key, results[0][0])
+    return results
+
+
+def _valid_bsr_name(name) -> bool:
+    try:
+        from ..ops import tile_family
+
+        tile_family.parse_bsr_candidate(name)
+        return True
+    except (TypeError, ValueError):
+        return False
+
+
+def best_bsr_strategy(bsr, b, reps: int = 2) -> str:
+    """Cached winning BSR candidate (``"chunked:N"`` or ``"pallas"``) for
+    this (shape, block structure, panel width, dtype, device) configuration,
+    tuning on a miss in both cache layers — the consultation point of
+    ``BsrMatrix.multiply(backend="auto")``. Persisted names are validated
+    before trust."""
+    from ..ops.sparse_bsr import _dense_operand
+
+    arr = _dense_operand(b)
+    p = arr.shape[1] if arr.ndim == 2 else 1
+    key = _bsr_key(bsr, p, arr.dtype, arr.device)
+    if key not in _CACHE:
+        with _DISK_LOCK:
+            persisted = _disk_layer().get(repr(key))
+        if _valid_bsr_name(persisted):
+            _CACHE[key] = persisted
+        else:
+            tune_bsr(bsr, arr, reps=reps)
     return _CACHE[key]
 
 

@@ -22,7 +22,7 @@ import numbers
 import torch
 
 __all__ = ["threefry2x32", "prng_key", "as_key", "fold_in", "split",
-           "random_bits", "uniform", "gumbel", "categorical"]
+           "random_bits", "uniform", "randint", "gumbel", "categorical"]
 
 _M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -110,6 +110,36 @@ def uniform(key: torch.Tensor, shape, minval: float = 0.0,
     lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
     hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
     return torch.maximum(lo, f * (hi - lo) + lo)
+
+
+def _mul32(a: torch.Tensor, b: int) -> torch.Tensor:
+    """``a * b mod 2**32`` for uint32 values ``a`` held in int64 and a uint32
+    ``b``, without the 64-bit product overflowing: ``b`` is split into
+    16-bit halves."""
+    lo = a * (b & 0xFFFF)
+    hi = ((a * (b >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def randint(key: torch.Tensor, shape, minval: int, maxval: int
+            ) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval, dtype=jnp.int32)``:
+    two words of random bits per value (one from each half of
+    ``split(key)``), folded into ``[minval, maxval)`` by uint32 remainders,
+    with JAX's uint32 wrap-around. Returns int32 values of ``shape``."""
+    i32 = torch.iinfo(torch.int32)
+    minval, maxval = int(minval), int(maxval)
+    if not (i32.min <= minval <= i32.max and i32.min <= maxval <= i32.max):
+        raise OverflowError(f"randint bounds [{minval}, {maxval}) leave int32")
+    k1, k2 = split(key, 2).unbind(-2)
+    higher, lower = random_bits(k1, shape), random_bits(k2, shape)
+    span = maxval - minval if maxval > minval else 1
+    mult = (2 ** 16) % span
+    mult = ((mult * mult) & _M32) % span  # a uint32 product: it wraps
+    offset = ((_mul32(higher % span, mult) + lower % span) & _M32) % span
+    # minval + offset as an int32 add that wraps, as lax does
+    out = (minval + offset + 2 ** 31) % 2 ** 32 - 2 ** 31
+    return out.to(torch.int32)
 
 
 def gumbel(key: torch.Tensor, shape) -> torch.Tensor:

@@ -328,8 +328,12 @@ def test_local_ops_match_jax():
     close(tlocal.triu_to_full(torch.from_numpy(s)), jlocal.triu_to_full(jnp.asarray(s)))
     close(tlocal.block_multiply(ta, torch.from_numpy(s)),
           jlocal.block_multiply(jnp.asarray(a), jnp.asarray(s)))
-    with pytest.raises(TypeError):
-        tlocal.block_multiply(ta.to_sparse(), torch.from_numpy(s))
+    from jax.experimental import sparse as jsparse
+
+    # a sparse operand now takes the sparse quarter of the dispatch
+    close(tlocal.block_multiply(ta.to_sparse(), torch.from_numpy(s)),
+          jlocal.block_multiply(jsparse.BCOO.fromdense(jnp.asarray(a)),
+                                jnp.asarray(s)))
 
 
 def test_evaluate_and_timer(capsys, arrays):

@@ -167,7 +167,7 @@ def test_cpu_path_counts_no_launch():
     assert ops.launch_counts() == {
         "pallas_matmul": 0, "masked_fill": 0, "paged_decode_attention": 0,
         "flash_attention_panel": 0, "flash_attention_bwd_dkv": 0,
-        "flash_attention_bwd_dq": 0}
+        "flash_attention_bwd_dq": 0, "bsr_spmm_pallas": 0}
 
 
 def test_ctypes_binding_passes_pointers_as_void_p():
@@ -176,7 +176,7 @@ def test_ctypes_binding_passes_pointers_as_void_p():
     lib = types.SimpleNamespace(**{f: types.SimpleNamespace() for f in (
         "marlin_gemm", "marlin_masked_fill", "marlin_paged_attention",
         "marlin_flash_fwd", "marlin_flash_bwd_dkv", "marlin_flash_bwd_dq",
-        "marlin_error_string")})
+        "marlin_bsr_spmm", "marlin_error_string")})
     _build._bind(lib)
     g = lib.marlin_gemm.argtypes
     assert g[4:7] == [ctypes.c_void_p] * 3 and g[-1] is ctypes.c_void_p
@@ -195,9 +195,13 @@ def test_ctypes_binding_passes_pointers_as_void_p():
         assert b[1:1 + n_ptr] == [ctypes.c_void_p] * n_ptr
         assert b[5 + n_ptr:13 + n_ptr] == [ctypes.c_longlong] * 8
         assert b[-2] is ctypes.c_float and len(b) == n_ptr + 19
+    s = lib.marlin_bsr_spmm.argtypes
+    assert s[0] is ctypes.c_int and s[1:6] == [ctypes.c_void_p] * 5
+    assert s[6:9] == [ctypes.c_longlong] * 3 and s[9] is ctypes.c_int
+    assert s[10] is ctypes.c_longlong and s[-1] is ctypes.c_void_p
     for fn in ("marlin_gemm", "marlin_masked_fill", "marlin_paged_attention",
                "marlin_flash_fwd", "marlin_flash_bwd_dkv",
-               "marlin_flash_bwd_dq"):
+               "marlin_flash_bwd_dq", "marlin_bsr_spmm"):
         assert getattr(lib, fn).restype is ctypes.c_int
 
 
@@ -217,7 +221,7 @@ def test_build_dir_is_keyed_by_sources():
     assert d.parent == _build.BUILD_ROOT and len(d.name) == 16
     assert {p.name for p in _build._sources()} == {
         "gemm.cu", "masked_fill.cu", "paged_attention.cu", "flash_attention.cu",
-        "flash_attention_bwd.cu"}
+        "flash_attention_bwd.cu", "bsr_spmm.cu"}
     assert d == _build.build_dir()
 
 
