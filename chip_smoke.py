@@ -795,45 +795,99 @@ def bsr_checks(torch, sb, gen, main_bsr, main_b):
 
 
 def sparse_path(torch, np, mt, sb, autotune, ops, bsr, b, data):
-    """Phase 14: the sparse path at full width; returns the main path's
-    launch counts."""
+    """Phase 14: the sparse path at full width, through the calls a user
+    makes: ``BsrMatrix.multiply(backend="auto")`` twice (the first tunes),
+    then ``SparseVecMatrix.multiply`` in every format. Returns the launch
+    counts of that path alone, the tuner's timing calls included; the
+    explicit ``backend="pallas"``/``"chunked"`` calls that check it run after
+    the counts are read."""
     n, brows, bcols, blocks, b_np = data
     flops = 2.0 * bsr.nnzb * BSR_BS ** 2 * BSR_P
     log(f"phase 14: BsrMatrix {bsr.shape} bs={BSR_BS} nnzb={bsr.nnzb} "
         f"(block density {BSR_DENSITY}) @ ({n}, {BSR_P}) f32, "
         f"backend='auto', then SparseVecMatrix.multiply")
-    rankings = []
+    rankings, by_tuner = [], [0]
     tune = autotune.tune_bsr
-    autotune.tune_bsr = lambda *a, **k: rankings.append(tune(*a, **k)) or \
-        rankings[-1]
+
+    def counted_tune(m, *args, **kw):
+        before = sb.bsr_spmm_pallas.launches
+        rankings.append(tune(m, *args, **kw))
+        by_tuner[0] += sb.bsr_spmm_pallas.launches - before
+        op = 2.0 * m.nnzb * m.block_size ** 2 * BSR_P
+        log(f"  tune_bsr {m.shape} nnzb={m.nnzb} (CUDA events, median of "
+            f"rounds; winner first): " + ", ".join(
+                f"{nm} {sec * 1e3:.3f} ms ({op / sec / 1e9:.1f} GFLOP/s)"
+                for nm, sec in rankings[-1]))
+        return rankings[-1]
+
+    def timed(label, call, tunes, via_bsr=True):
+        """Runs one user call; raises unless it tuned ``tunes`` times and
+        launched the kernel for its product exactly when it goes through
+        ``BsrMatrix.multiply("auto")`` and the winner is the kernel. Returns
+        (result, seconds)."""
+        n_rank, launches = len(rankings), sb.bsr_spmm_pallas.launches
+        tuned = by_tuner[0]
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        tuned = by_tuner[0] - tuned
+        by_product = sb.bsr_spmm_pallas.launches - launches - tuned
+        winner = rankings[-1][0][0] if via_bsr else None
+        log(f"  {label}: {secs:.3f} s" + (f"; ran {winner}" if via_bsr else "")
+            + f"; kernel launches {tuned} by the tuner, {by_product} by the "
+            f"product")
+        if len(rankings) - n_rank != tunes or \
+                by_product != int(winner == "pallas"):
+            raise AssertionError(f"{label}: tuned {len(rankings) - n_rank} "
+                                 f"times (want {tunes}), {by_product} product "
+                                 f"launches with winner {winner}")
+        return out, secs
+
+    autotune.tune_bsr = counted_tune
     try:
         autotune.clear_cache()
         ops.reset_launch_counts()
-        t0 = time.perf_counter()
-        out_auto = bsr.multiply(b, backend="auto")
-        torch.cuda.synchronize()
-        first_s = time.perf_counter() - t0
-        if len(rankings) != 1:
-            raise AssertionError("the first 'auto' call did not tune")
-        ranking = rankings[0]
-        log(f"  first multiply (tunes): {first_s:.3f} s; ranking: " + ", ".join(
-            f"{nm} {sec * 1e3:.3f} ms ({flops / sec / 1e9:.1f} GFLOP/s)"
-            for nm, sec in ranking))
-        winner = ranking[0][0]
-        before = ops.launch_counts()["bsr_spmm_pallas"]
-        t0 = time.perf_counter()
-        out_auto = bsr.multiply(b, backend="auto")
-        torch.cuda.synchronize()
-        auto_s = time.perf_counter() - t0
-        added = ops.launch_counts()["bsr_spmm_pallas"] - before
-        log(f"  second multiply (cached winner {winner}): {auto_s * 1e3:.3f} "
-            f"ms = {flops / auto_s / 1e9:.1f} GFLOP/s (host clock with sync); "
-            f"kernel launches added {added}")
-        if len(rankings) != 1 or added != (winner == "pallas"):
-            raise AssertionError("the second 'auto' call did not read the "
-                                 "cache")
+        # ------------------------------------------- the path, counted
+        out_auto, _ = timed("first multiply (tunes)",
+                            lambda: bsr.multiply(b, backend="auto"), 1)
+        out_auto, auto_s = timed("second multiply (cached winner)",
+                                 lambda: bsr.multiply(b, backend="auto"), 0)
+        log(f"  second multiply: {auto_s * 1e3:.3f} ms = "
+            f"{flops / auto_s / 1e9:.1f} GFLOP/s (host clock with sync)")
+
+        n8, br8, bc8, bl8, b8 = bsr_config(np, SPMV_GRID)
+        r = (br8[:, None, None] * BSR_BS + np.arange(BSR_BS)[None, :, None])
+        c = (bc8[:, None, None] * BSR_BS + np.arange(BSR_BS)[None, None, :])
+        shape = (bl8.shape[0], BSR_BS, BSR_BS)
+        sp = mt.CoordinateMatrix(np.broadcast_to(r, shape).ravel(),
+                                 np.broadcast_to(c, shape).ravel(),
+                                 bl8.ravel(),
+                                 shape=(n8, n8)).to_sparse_vec_matrix()
+        out8, _ = timed(f"SparseVecMatrix {sp.shape} nnz={sp.nnz} from COO "
+                        f"triplets, multiply(format='bsr') (with to_bsr)",
+                        lambda: sp.multiply(mt.BlockMatrix.from_array(b8),
+                                            format="bsr"), 1)
+        del sp
+
+        sp = mt.SparseVecMatrix.random(7, ELL_N, ELL_N, ELL_DENSITY)
+        dense = mt.DenseVecMatrix.random(8, ELL_N, BSR_P)
+        outs = {}
+        for fmt in ("ell", "bcoo", "auto"):  # "auto" picks ELL below 1 %
+            outs[fmt], _ = timed(
+                f"SparseVecMatrix {sp.shape} nnz={sp.nnz} "
+                f"multiply(format={fmt!r})",
+                lambda: sp.multiply(dense, format=fmt), 0, via_bsr=False)
+        counts = ops.launch_counts()
     finally:
         autotune.tune_bsr = tune
+    log(f"  launches on the main path: {counts} (bsr_spmm_pallas: "
+        f"{by_tuner[0]} by the tuner, "
+        f"{counts['bsr_spmm_pallas'] - by_tuner[0]} by the products)")
+    if counts["bsr_spmm_pallas"] <= 0:
+        raise AssertionError("bsr_spmm_pallas never launched on the main path")
+
+    # ------------------------------------- checks, outside the counted path
     out_pallas = bsr.multiply(b, backend="pallas")
     out_chunked = bsr.multiply(b, backend="chunked")
     rows = [0, 1, n // 7, n // 3, n // 2 + 5, 2 * n // 3, n - 2, n - 1]
@@ -843,43 +897,16 @@ def sparse_path(torch, np, mt, sb, autotune, ops, bsr, b, data):
         check_rows(f"backend={label!r}", out, (n, BSR_P), ref,
                    out[rows].double().cpu().numpy())
     del out_auto, out_pallas, out_chunked
-
-    n8, br8, bc8, bl8, b8 = bsr_config(np, SPMV_GRID)
-    r = (br8[:, None, None] * BSR_BS + np.arange(BSR_BS)[None, :, None])
-    c = (bc8[:, None, None] * BSR_BS + np.arange(BSR_BS)[None, None, :])
-    shape = (bl8.shape[0], BSR_BS, BSR_BS)
-    sp = mt.CoordinateMatrix(np.broadcast_to(r, shape).ravel(),
-                             np.broadcast_to(c, shape).ravel(), bl8.ravel(),
-                             shape=(n8, n8)).to_sparse_vec_matrix()
-    t0 = time.perf_counter()
-    out = sp.multiply(mt.BlockMatrix.from_array(b8), format="bsr")
-    torch.cuda.synchronize()
-    log(f"  SparseVecMatrix {sp.shape} nnz={sp.nnz} from COO triplets, "
-        f"multiply(format='bsr'): {time.perf_counter() - t0:.3f} s (with "
-        f"to_bsr and tuning)")
     rows8 = [0, BSR_BS - 1, BSR_BS, n8 // 2 + 1, n8 - 1]
-    check_rows("SparseVecMatrix format='bsr'", out, (n8, BSR_P),
+    check_rows("SparseVecMatrix format='bsr'", out8, (n8, BSR_P),
                bsr_rows_ref(np, br8, bc8, bl8, b8, rows8),
-               out.data[rows8].double().cpu().numpy())
-    del sp, out
-
-    sp = mt.SparseVecMatrix.random(7, ELL_N, ELL_N, ELL_DENSITY)
-    dense = mt.DenseVecMatrix.random(8, ELL_N, BSR_P)
+               out8.data[rows8].double().cpu().numpy())
     rows = [0, 1, ELL_N // 3, ELL_N // 2 + 1, ELL_N - 1]
     ref = coo_rows_ref(torch, sp.bcoo, dense.data, rows).cpu().numpy()
-    for fmt in ("ell", "bcoo", "auto"):
-        t0 = time.perf_counter()
-        out = sp.multiply(dense, format=fmt)
-        torch.cuda.synchronize()
-        log(f"  SparseVecMatrix {sp.shape} nnz={sp.nnz} "
-            f"multiply(format={fmt!r}): {time.perf_counter() - t0:.3f} s")
+    for fmt, out in outs.items():
         check_rows(f"SparseVecMatrix format={fmt!r}", out, (ELL_N, BSR_P),
                    ref, out.data[rows].double().cpu().numpy())
-    counts = ops.launch_counts()
-    log(f"  launches on the main path: {counts}")
-    if counts["bsr_spmm_pallas"] <= 0:
-        raise AssertionError("bsr_spmm_pallas never launched on the main path")
-    del sp, dense, out
+    del sp, dense, out8, outs
     torch.cuda.empty_cache()
     return counts
 

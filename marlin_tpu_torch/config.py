@@ -44,11 +44,6 @@ class MarlinConfig:
     autotune_cache_path: str | None = None
     # Device entry points create their tensors on: "cuda" or "cpu".
     device: str = "cuda"
-    # sparse x sparse: above this worst-case product count (nse_a * nse_b)
-    # the multiply runs scipy's CSR kernel on the host instead of
-    # torch.sparse.mm on the device (ops.local.mult_sparse_sparse), as the JAX
-    # package routes past the buffer XLA's BCOO contraction would allocate.
-    spsp_device_max_products: int = 1 << 27
 
 
 _config = MarlinConfig()

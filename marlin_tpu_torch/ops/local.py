@@ -6,12 +6,13 @@ the JAX package lowers it to the MXU through XLA, and here it goes to
 ``torch.matmul`` — or, with ``backend="pallas"``, to the hand-written kernel.
 
 Sparse blocks are sparse COO tensors where the JAX package has BCOOs: sparse ×
-dense is ``torch.sparse.mm``, and sparse × sparse is ``torch.sparse.mm`` on the
-device below ``config.spsp_device_max_products`` worst-case products and
-scipy's CSR kernel on the host above it. The JAX package's ``jax.jit`` routes
-(``_spsp_host_jit`` through ``jax.pure_callback``, ``_is_tracing``) have no
-counterpart in eager PyTorch: every call here runs eagerly, with an
-exact-sized result.
+dense and sparse × sparse are ``torch.sparse.mm`` on the operands' device.
+The JAX package routes a large sparse × sparse product to scipy on the host
+(``config.spsp_device_max_products``), past the nse_a × nse_b buffer XLA's
+BCOO contraction would allocate; ``torch.sparse.mm`` allocates no such
+buffer, so that route has no counterpart here, and neither have its
+``jax.jit`` routes (``_spsp_host_jit`` through ``jax.pure_callback``,
+``_is_tracing``): every call here runs eagerly, with an exact-sized result.
 
 ``precision`` follows ``config.TF32_BY_PRECISION``: the TF32 flag is set for
 the one product and restored after it, so the process-wide setting is never
@@ -137,44 +138,10 @@ def mult_dense_sparse(dense: torch.Tensor, sp: torch.Tensor) -> torch.Tensor:
     return torch.sparse.mm(sp.t(), dense.t()).t()
 
 
-def _np_spsp(rows_a, cols_a, vals_a, shape_a, rows_b, cols_b, vals_b, shape_b):
-    """NumPy/scipy CSR×CSR core of the host route. Returns the COO triplet
-    (row, col, val) of the product, duplicates summed."""
-    import scipy.sparse as sps
-
-    def to_csr(rows, cols, vals, shape):
-        # entries with out-of-range indices (the JAX package's BCOO padding)
-        # carry zero values; scipy rejects them, so drop them first.
-        # In-range duplicates are summed by scipy.
-        rows, cols, vals = np.asarray(rows), np.asarray(cols), np.asarray(vals)
-        keep = (rows < shape[0]) & (cols < shape[1])
-        if not keep.all():
-            rows, cols, vals = rows[keep], cols[keep], vals[keep]
-        return sps.csr_matrix((vals, (rows, cols)), shape=shape)
-
-    C = (to_csr(rows_a, cols_a, vals_a, shape_a)
-         @ to_csr(rows_b, cols_b, vals_b, shape_b)).tocoo()
-    return C.row, C.col, C.data
-
-
 def _triplets(x: torch.Tensor):
     """Host (rows, cols, vals) of a sparse COO tensor, duplicates kept."""
     idx = x._indices().cpu().numpy()
     return idx[0], idx[1], x._values().detach().cpu().numpy()
-
-
-def _spsp_host(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Host CSR×CSR for the large regime, where the device contraction's
-    worst-case nse_a × nse_b buffer would not fit; the CSR merge algorithm
-    does O(flops) work — the regime the reference always runs
-    (Matrices.scala:129-152). The result lands on ``a``'s device, coalesced."""
-    dtype = torch.promote_types(a.dtype, b.dtype)
-    row, col, val = _np_spsp(*_triplets(a.to(dtype)), a.shape,
-                             *_triplets(b.to(dtype)), b.shape)
-    idx = torch.from_numpy(np.stack([row, col]).astype(np.int64))
-    return torch.sparse_coo_tensor(
-        idx, torch.from_numpy(np.asarray(val)), (a.shape[0], b.shape[1]),
-        dtype=dtype, check_invariants=False).coalesce().to(a.device)
 
 
 def mult_sparse_sparse_bound(a, b) -> int:
@@ -197,17 +164,12 @@ def mult_sparse_sparse_bound(a, b) -> int:
 
 def mult_sparse_sparse(a, b, out_nse: int | None = None) -> torch.Tensor:
     """Sparse × sparse multiply with a coalesced (deduplicated, sorted)
-    sparse result (CSC×CSC in the reference, Matrices.scala:129-152).
-    Below ``config.spsp_device_max_products`` worst-case products it runs
-    ``torch.sparse.mm`` on the device; past it, scipy's CSR kernel on the
-    host (:func:`_spsp_host`). ``out_nse`` sizes the JAX package's result
-    under ``jax.jit``; eagerly, there as here, it is accepted and
-    ignored."""
+    sparse result (CSC×CSC in the reference, Matrices.scala:129-152), by
+    ``torch.sparse.mm`` on the operands' device. ``out_nse`` sizes the JAX
+    package's result under ``jax.jit``; eagerly, there as here, it is
+    accepted and ignored."""
     del out_nse
-    a, b = _to_bcoo(a), _to_bcoo(b)
-    if a._nnz() * b._nnz() > get_config().spsp_device_max_products:
-        return _spsp_host(a, b)
-    a, b = _same_dtype(a, b)
+    a, b = _same_dtype(_to_bcoo(a), _to_bcoo(b))
     return torch.sparse.mm(a, b).coalesce()
 
 

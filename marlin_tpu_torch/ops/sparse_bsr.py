@@ -239,9 +239,11 @@ def bsr_spmm_pallas(bsr: BsrMatrix, b) -> torch.Tensor:
     blocks = bsr.blocks.to(kdtype).contiguous()
     bb = b.to(kdtype).contiguous()
     bcols = bsr.block_cols.contiguous()
-    row_ptr = torch.zeros((nbr + 1,), dtype=torch.int64, device=b.device)
-    torch.cumsum(torch.bincount(bsr.block_rows, minlength=nbr)[:nbr], 0,
-                 out=row_ptr[1:])
+    # row_ptr[r] = blocks before block row r, from the sorted block rows
+    # (torch.bincount would wait on the card for the largest block row)
+    row_ptr = torch.searchsorted(
+        bsr.block_rows, torch.arange(nbr + 1, dtype=torch.int32,
+                                     device=b.device))
     out = torch.empty((m, p), dtype=kdtype, device=b.device)
     lib = _build.load_library()
     with torch.cuda.device(b.device):

@@ -169,15 +169,14 @@ def gemm_candidates(m: int, k: int, n: int, itemsize: int = 4,
     return [c for c, _ in ranked[:max_candidates]]
 
 
-def bsr_candidates(block_size: int, nnzb: int, p: int, itemsize: int = 4,
-                   max_candidates: int = 5) -> list[str]:
+def bsr_candidates(block_size: int, nnzb: int, p: int) -> list[str]:
     """The BSR SpMM family: the chunked formulation at power-of-two
     ``chunk_blocks`` sizes bracketing its default ~32 MB-buffer rule
     (:func:`~marlin_tpu_torch.ops.sparse_bsr.bsr_spmm`'s default — smaller
     chunks cut the gather and product buffers, larger ones launch fewer
     batches), plus the kernel. Strings, ready for the autotune cache; decode
-    with :func:`parse_bsr_candidate`. ``itemsize`` is accepted for the JAX
-    package's signature; the budget counts elements, as there."""
+    with :func:`parse_bsr_candidate`. The budget counts elements, as in the
+    JAX package."""
     if block_size < 1 or nnzb < 1 or p < 1:
         raise ValueError(
             f"degenerate bsr problem: bs={block_size} nnzb={nnzb} p={p}")
@@ -185,6 +184,4 @@ def bsr_candidates(block_size: int, nnzb: int, p: int, itemsize: int = 4,
     sizes = sorted({max(1, min(c, nnzb))
                     for c in (default // 4, default // 2, default,
                               default * 2)})
-    out = [f"chunked:{c}" for c in sizes]
-    out.append("pallas")
-    return out[:max_candidates]
+    return [f"chunked:{c}" for c in sizes] + ["pallas"]

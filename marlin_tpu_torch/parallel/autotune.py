@@ -19,7 +19,12 @@ multiply strategy is skipped. On the CPU the ``"pallas"`` candidates run the
 kernels' plain versions, as every kernel wrapper does for CPU tensors.
 
 Timing: one untimed call first, then ``reps`` calls back to back, forced once
-by ``utils.profiling.evaluate`` (``torch.cuda.synchronize`` on the card).
+by ``utils.profiling.evaluate`` (``torch.cuda.synchronize`` on the card). The
+BSR tuner times card tensors with CUDA events instead, in several rounds, and
+counts candidates whose rounds overlap the fastest's as tied (see
+:func:`tune_bsr`): at ``bench_all.py`` ``config_bsr``'s shape the kernel and
+the best chunk size lie within a few per cent of each other, where two
+host-clock repetitions ranked them in either order from one run to the next.
 """
 
 from __future__ import annotations
@@ -323,24 +328,72 @@ def _bsr_key(bsr, p: int, dtype, device: torch.device) -> tuple:
             *_device_sig(device))
 
 
-def tune_bsr(bsr, b, candidates=None, reps: int = 2) -> list[tuple[str, float]]:
+# card tensors: rounds of back-to-back calls per BSR candidate, timed with
+# CUDA events (CPU tensors keep the JAX package's one round of 2 calls)
+_BSR_CARD_ROUNDS = 5
+_BSR_CARD_REPS = 5
+
+
+def _rounds(run, reps: int, rounds: int, device: torch.device) -> list[float]:
+    """Seconds per call of ``run`` in each of ``rounds`` rounds of ``reps``
+    back-to-back calls, after one untimed call: CUDA events on the card, the
+    host clock (:func:`_time`) elsewhere."""
+    if device.type != "cuda":
+        return [_time(run, reps) for _ in range(rounds)]
+    with torch.cuda.device(device):
+        run()
+        out = []
+        for _ in range(rounds):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(reps):
+                run()
+            end.record()
+            end.synchronize()
+            out.append(start.elapsed_time(end) / 1e3 / reps)
+    return out
+
+
+def _bsr_winner(samples: dict[str, list[float]]) -> str:
+    """The BSR candidate ``"auto"`` runs, from each candidate's per-round
+    seconds: the fastest by median, unless the kernel's rounds overlap the
+    fastest's (its quickest round no slower than their slowest). Within that
+    spread the two are a tie, and the kernel takes it: every output element
+    has one writer (the chunked path's ``index_add_`` sums with atomics on
+    the card), and it allocates no chunk buffer."""
+    fastest = min(samples, key=lambda nm: float(np.median(samples[nm])))
+    kernel = samples.get("pallas")
+    if kernel is not None and min(kernel) <= max(samples[fastest]):
+        return "pallas"
+    return fastest
+
+
+def tune_bsr(bsr, b, candidates=None,
+             reps: int | None = None) -> list[tuple[str, float]]:
     """Time the BSR SpMM family (the chunked formulation at a few
     ``chunk_blocks`` and the kernel,
     :func:`~marlin_tpu_torch.ops.tile_family.bsr_candidates`) for
-    ``bsr @ b`` and return ``[(candidate, seconds)]`` fastest-first, caching
-    the winner (memory + disk, device-name keyed) for
-    :func:`best_bsr_strategy`. The ranking, not a preference, decides whether
-    ``"auto"`` runs the kernel. An explicit ``candidates`` subset is timed
-    without touching the cache."""
+    ``bsr @ b`` and return ``[(candidate, median seconds)]``, the winner
+    (:func:`_bsr_winner`) first and the rest fastest-first, caching the
+    winner (memory + disk, device-name keyed) for :func:`best_bsr_strategy`.
+    Card tensors are timed in 5 rounds of ``reps`` (default 5) calls by CUDA
+    events; CPU tensors in one round of ``reps`` (default 2) calls by the host
+    clock. An explicit ``candidates`` subset is timed without
+    touching the cache."""
     from ..ops import tile_family
     from ..ops.sparse_bsr import _dense_operand
 
     arr = _dense_operand(b)
     p = arr.shape[1] if arr.ndim == 2 else 1
+    on_card = arr.device.type == "cuda"
+    reps = reps or (_BSR_CARD_REPS if on_card else 2)
+    rounds = _BSR_CARD_ROUNDS if on_card else 1
     explicit = candidates is not None
     if candidates is None:
-        candidates = tile_family.bsr_candidates(bsr.block_size, bsr.nnzb, p,
-                                                arr.element_size())
+        candidates = tile_family.bsr_candidates(bsr.block_size, bsr.nnzb, p)
+    if not candidates:
+        raise ValueError("no bsr candidate to time")
 
     def run(name):
         cb = tile_family.parse_bsr_candidate(name)
@@ -348,14 +401,16 @@ def tune_bsr(bsr, b, candidates=None, reps: int = 2) -> list[tuple[str, float]]:
             return bsr.multiply(arr, backend="pallas")
         return bsr.multiply(arr, chunk_blocks=cb)
 
-    results = sorted(((name, _time(lambda: run(name), reps))
-                      for name in candidates), key=lambda kv: kv[1])
-    if not results:
-        raise ValueError("no bsr candidate to time")
+    samples = {name: _rounds(lambda: run(name), reps, rounds, arr.device)
+               for name in candidates}
+    winner = _bsr_winner(samples)
+    results = sorted(((name, float(np.median(s))) for name, s in
+                      samples.items()),
+                     key=lambda kv: (kv[0] != winner, kv[1]))
     if not explicit:
         key = _bsr_key(bsr, p, arr.dtype, arr.device)
-        _CACHE[key] = results[0][0]
-        _persist(key, results[0][0])
+        _CACHE[key] = winner
+        _persist(key, winner)
     return results
 
 
@@ -369,7 +424,7 @@ def _valid_bsr_name(name) -> bool:
         return False
 
 
-def best_bsr_strategy(bsr, b, reps: int = 2) -> str:
+def best_bsr_strategy(bsr, b, reps: int | None = None) -> str:
     """Cached winning BSR candidate (``"chunked:N"`` or ``"pallas"``) for
     this (shape, block structure, panel width, dtype, device) configuration,
     tuning on a miss in both cache layers — the consultation point of

@@ -318,6 +318,42 @@ def test_tune_bsr_times_every_candidate_and_caches(tmp_path, monkeypatch):
         autotune.clear_cache()
 
 
+@pytest.mark.parametrize("samples,want", [
+    # the kernel's quickest round within the fastest's rounds: a tie, which
+    # the kernel takes
+    ({"chunked:512": [1.80, 1.83], "pallas": [1.82, 1.86]}, "pallas"),
+    ({"chunked:256": [1.9, 1.9], "pallas": [1.9, 2.0]}, "pallas"),
+    # apart by more than the rounds spread: the fastest by median
+    ({"chunked:512": [1.80, 1.81], "pallas": [1.84, 1.85]}, "chunked:512"),
+    ({"chunked:512": [1.90], "pallas": [1.80]}, "pallas"),
+    ({"chunked:64": [3.0, 3.1, 2.9], "chunked:128": [2.0, 2.2, 2.1]},
+     "chunked:128"),
+])
+def test_bsr_winner_gives_ties_to_the_kernel(samples, want):
+    assert autotune._bsr_winner(samples) == want
+
+
+@pytest.mark.parametrize("reps,calls_per_candidate", [
+    (None, 3),  # CPU default: one warm-up call, one round of 2
+    (4, 5),
+])
+def test_tune_bsr_rounds_on_the_cpu(reps, calls_per_candidate, tmp_path,
+                                    monkeypatch):
+    a = _block_sparse(64, 64, 16, 0.5, 3)
+    b = torch.ones((64, 8))
+    tb = tbsr.bsr_from_dense(a, block_size=16)
+    calls = []
+    plain = tbsr.bsr_spmm_pallas_plain
+    monkeypatch.setattr(tbsr, "bsr_spmm_pallas_plain",
+                        lambda *args: calls.append(1) or plain(*args))
+    with config_context(autotune_cache_path=str(tmp_path / "tune.json")):
+        autotune.clear_cache()
+        ranking = autotune.tune_bsr(tb, b, candidates=["pallas"], reps=reps)
+        assert [nm for nm, _ in ranking] == ["pallas"]
+        assert len(calls) == calls_per_candidate
+        assert not autotune._CACHE  # an explicit subset leaves the cache
+
+
 # ---------------------------------------------------------------- interop
 
 def test_bsr_from_numpy_round_trips_jax():
