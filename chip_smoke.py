@@ -36,7 +36,10 @@ drives the ported paths end to end through the public entry points:
   steps' losses and params held against the same run with the plain flash
   versions swapped in; one step each with ``attn="ulysses"`` and with
   ``remat=True, loss_chunk=16384`` held against the ring step;
-- phase 12: the flash kernels' times at the training shape;
+- phase 12: the backward kernels' registers and spills from ptxas (a spill
+  fails the run); the flash kernels' times at the training shape in f32,
+  and the backward pair's in bf16, each beside SDPA's backward and the
+  tensor-core bound (3xTF32 at 495/3 TFLOP/s for f32, 989 for bf16);
 - phase 13: the BSR SpMM kernel against its plain version, element by element:
   block sizes 8, 32, 64 and 128 with ragged m, n and p, empty block rows and a
   hot block column, in f32 and bf16; no block at all; more than 65535 block
@@ -69,6 +72,8 @@ import time
 
 N = 20000                 # the north-star multiply: 20000 x 20000 x 20000
 F32_PEAK = 67e12          # H100 SXM f32 FLOP/s outside the tensor cores (data sheet)
+TF32_PEAK = 495e12        # H100 SXM dense TF32 tensor-core FLOP/s (data sheet)
+BF16_PEAK = 989e12        # H100 SXM dense bf16 tensor-core FLOP/s (data sheet)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (data sheet)
 F32_TOL = 1e-4            # f32: max |kernel - plain| <= 1e-4 * max |plain|
 # bf16: both sides accumulate in f32 and round once to bf16, so they may
@@ -615,67 +620,126 @@ def train_path(torch, np, tt, fa, ops):
     return train_counts
 
 
-def train_times(torch, fa, gen):
-    """Phase 12: kernel, plain, bound and library times of the flash kernels
-    at the training shape; returns them by name."""
+def bwd_ptxas(_build) -> dict:
+    """Registers and spill bytes of every instance of the flash backward
+    kernel, from the build's ptxas report, by label; raises if one spills."""
+    import re
+
+    report = _build.ptxas_report().split("== flash_attention_bwd.cu", 1)[1]
+    report = report.split("\n== ", 1)[0]
+    out, label = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            a = re.search(r"flash_bwd_kernelI(f|13__nv_bfloat16)Li(\d+)ELb"
+                          r"([01])ELb([01])E", m.group(1))
+            label = (f"{'dkv' if a.group(4) == '1' else 'dq'} "
+                     f"{'f32' if a.group(1) == 'f' else 'bf16'} d<={a.group(2)}"
+                     f"{'' if a.group(3) == '1' else ' element-wise'}")
+            out[label] = dict(registers=None, spill=None)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and label:
+            out[label]["spill"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and label:
+            out[label]["registers"] = int(m.group(1))
+    if len(out) != 16 or any(v["registers"] is None for v in out.values()):
+        raise AssertionError(f"ptxas report of the backward kernels: {out}")
+    for label, v in out.items():
+        log(f"  ptxas {label}: {v['registers']} registers, {v['spill']} "
+            f"bytes spilled")
+    spilled = [k for k, v in out.items() if v["spill"]]
+    if spilled:
+        raise AssertionError(f"backward kernels spill: {spilled}")
+    return out
+
+
+def bwd_times(torch, fa, gen, dtype, pairs):
+    """CUDA-event times of the dK/dV and dQ kernels and SDPA's backward at
+    the training shape in ``dtype``, with their bounds; returns them by name
+    and the kernels' arguments."""
     H_T, D_T, P_T = train_shape()
-    log(f"phase 12: flash kernel times at H={H_T} P={P_T} d={D_T} causal f32 "
-        f"valid={P_T - 1} (CUDA events)")
     q, do, kv, lse, delta, scale = bwd_inputs(
-        torch, fa, gen, H_T, P_T, P_T, D_T, torch.float32, False, (0,), 0,
-        P_T - 1, True)
+        torch, fa, gen, H_T, P_T, P_T, D_T, dtype, False, (0,), 0, P_T - 1,
+        True)
     k, v, _ = kv[0]
     bargs = (q, k, v, do, lse, delta, 0, 0, P_T - 1)
     kw = dict(causal=True, scale=scale)
-    ms_dkv = cuda_ms(torch, lambda: fa.flash_attention_bwd_dkv(*bargs, **kw),
-                     5)
-    ms_dq = cuda_ms(torch, lambda: fa.flash_attention_bwd_dq(*bargs, **kw), 5)
-    plain_bwd = cuda_ms(torch, lambda: fa.flash_attention_panel_bwd_plain(
-        *bargs, **kw), 2)
-    ms_fwd_t = cuda_ms(torch, lambda: fa.flash_attention_single_panel(
-        q, k, v, P_T - 1, **kw), 5)
-    plain_fwd_t = cuda_ms(torch, lambda: fa.flash_attention_single_panel_plain(
-        q, k, v, P_T - 1, **kw), 2)
-    qs, ks, vs = (t.detach()[None].requires_grad_() for t in (q, k, v))
-    lib_fwd_t = cuda_ms(torch, lambda: torch.nn.functional
-                        .scaled_dot_product_attention(qs, ks, vs,
-                                                      is_causal=True), 5)
+    t = dict(ms_dkv=cuda_ms(torch, lambda: fa.flash_attention_bwd_dkv(
+        *bargs, **kw), 5))
+    t["ms_dq"] = cuda_ms(torch, lambda: fa.flash_attention_bwd_dq(
+        *bargs, **kw), 5)
+    qs, ks, vs = (x.detach()[None].requires_grad_() for x in (q, k, v))
     o_sdpa = torch.nn.functional.scaled_dot_product_attention(
         qs, ks, vs, is_causal=True)
-    lib_bwd = cuda_ms(torch, lambda: torch.autograd.grad(
+    t["lib_bwd"] = cuda_ms(torch, lambda: torch.autograd.grad(
         o_sdpa, (qs, ks, vs), do[None], retain_graph=True), 5)
     try:
         from torch.nn.attention import SDPBackend
-        sdpa_backend = SDPBackend(torch._fused_sdp_choice(
+        backend = SDPBackend(torch._fused_sdp_choice(
             qs, ks, vs, None, 0.0, True)).name
     except Exception as exc:  # a private helper: name what went wrong
-        sdpa_backend = f"unknown ({type(exc).__name__})"
+        backend = f"unknown ({type(exc).__name__})"
     del o_sdpa, qs, ks, vs
-    pairs = H_T * live_pairs(P_T, P_T - 1)
-    io_bytes = 4.0 * H_T * P_T * D_T * 4  # q, k, v, dO read once (f32)
-    bound_dkv = 1e3 * max(8.0 * D_T * pairs / F32_PEAK,
-                          (io_bytes + 2.0 * H_T * P_T * (4 + D_T * 4))
-                          / HBM_BYTES_PER_S)
-    bound_dq = 1e3 * max(6.0 * D_T * pairs / F32_PEAK,
-                         (io_bytes + H_T * P_T * (8 + D_T * 4))
-                         / HBM_BYTES_PER_S)
-    bound_fwd_t = 1e3 * max(4.0 * D_T * pairs / F32_PEAK,
-                            6.0 * H_T * P_T * D_T * 4 / HBM_BYTES_PER_S)
-    log(f"  {pairs} live (query, key) pairs")
-    log(f"  flash_attention_bwd_dkv {ms_dkv:.3f} ms "
-        f"({8.0 * D_T * pairs / ms_dkv / 1e9:.1f} TFLOP/s), bound "
-        f"{bound_dkv:.3f} ms (operations, 8*d per pair)")
-    log(f"  flash_attention_bwd_dq {ms_dq:.3f} ms "
-        f"({6.0 * D_T * pairs / ms_dq / 1e9:.1f} TFLOP/s), bound "
-        f"{bound_dq:.3f} ms (operations, 6*d per pair)")
-    log(f"  plain backward (dq, dk, dv) {plain_bwd:.3f} ms; SDPA backward "
+    dt = str(dtype)[6:]
+    peak, rate = ((TF32_PEAK / 3, "3xTF32 tensor cores, 165 TFLOP/s")
+                  if dtype == torch.float32
+                  else (BF16_PEAK, "bf16 tensor cores, 989 TFLOP/s"))
+    # bytes: q, k, v, dO read once, lse and delta read and the f32
+    # gradients written once; the operations bound them here
+    io_bytes = 4.0 * H_T * P_T * D_T * q.element_size() + 8.0 * H_T * P_T
+    for name, per_pair, n_out in (("dkv", 8.0, 2), ("dq", 6.0, 1)):
+        ops_ = per_pair * D_T * pairs
+        ms = t[f"ms_{name}"]
+        t[f"bound_{name}"] = 1e3 * max(
+            ops_ / peak, (io_bytes + n_out * 4.0 * H_T * P_T * D_T)
+            / HBM_BYTES_PER_S)
+        log(f"  flash_attention_bwd_{name} {dt} {ms:.3f} ms "
+            f"({ops_ / ms / 1e9:.1f} TFLOP/s), bound {t[f'bound_' + name]:.3f}"
+            f" ms (operations, {per_pair:g}*d per pair, {rate})"
+            + (f"; CUDA-core f32 bound {1e3 * ops_ / F32_PEAK:.3f} ms "
+               f"(67 TFLOP/s)" if dtype == torch.float32 else ""))
+    both = t["ms_dkv"] + t["ms_dq"]
+    log(f"  dK/dV + dQ {dt} {both:.3f} ms; SDPA backward {dt} "
         f"(torch.autograd.grad of scaled_dot_product_attention, backend "
-        f"{sdpa_backend}) {lib_bwd:.3f} ms")
-    log(f"  flash_attention_single_panel {ms_fwd_t:.3f} ms, plain "
-        f"{plain_fwd_t:.3f} ms, SDPA forward {lib_fwd_t:.3f} ms, bound "
-        f"{bound_fwd_t:.3f} ms (operations, 4*d per pair)")
-    return dict(ms_dkv=ms_dkv, ms_dq=ms_dq, plain_bwd=plain_bwd,
-                lib_bwd=lib_bwd, bound_dkv=bound_dkv, bound_dq=bound_dq)
+        f"{backend}) {t['lib_bwd']:.3f} ms: kernels "
+        f"{'below' if both < t['lib_bwd'] else 'above'} SDPA")
+    return t, bargs, kw
+
+
+def train_times(torch, fa, gen, _build):
+    """Phase 12: the backward kernels' registers and spills; kernel, plain,
+    bound and library times of the flash kernels at the training shape, f32
+    (the main path's type), then the backward pair in bf16. Returns the f32
+    times by name."""
+    H_T, D_T, P_T = train_shape()
+    log(f"phase 12: flash kernel times at H={H_T} P={P_T} d={D_T} causal "
+        f"valid={P_T - 1} (CUDA events)")
+    bwd_ptxas(_build)
+    pairs = H_T * live_pairs(P_T, P_T - 1)
+    log(f"  {pairs} live (query, key) pairs")
+    t, bargs, kw = bwd_times(torch, fa, gen, torch.float32, pairs)
+    q, k, v = bargs[:3]
+    t["plain_bwd"] = cuda_ms(torch, lambda: fa.flash_attention_panel_bwd_plain(
+        *bargs, **kw), 2)
+    ms_fwd = cuda_ms(torch, lambda: fa.flash_attention_single_panel(
+        q, k, v, P_T - 1, **kw), 5)
+    plain_fwd = cuda_ms(torch, lambda: fa.flash_attention_single_panel_plain(
+        q, k, v, P_T - 1, **kw), 2)
+    lib_fwd = cuda_ms(torch, lambda: torch.nn.functional
+                      .scaled_dot_product_attention(q[None], k[None], v[None],
+                                                    is_causal=True), 5)
+    bound_fwd = 1e3 * max(4.0 * D_T * pairs / F32_PEAK,
+                          6.0 * H_T * P_T * D_T * 4 / HBM_BYTES_PER_S)
+    log(f"  plain backward (dq, dk, dv) f32 {t['plain_bwd']:.3f} ms")
+    log(f"  flash_attention_single_panel {ms_fwd:.3f} ms, plain "
+        f"{plain_fwd:.3f} ms, SDPA forward {lib_fwd:.3f} ms, bound "
+        f"{bound_fwd:.3f} ms (operations, 4*d per pair)")
+    del bargs, q, k, v
+    torch.cuda.empty_cache()
+    bwd_times(torch, fa, gen, torch.bfloat16, pairs)
+    torch.cuda.empty_cache()
+    return t
 
 
 def bsr_config(np, grid):
@@ -1232,7 +1296,7 @@ def main() -> int:
 
     bwd_errs, bwd_worst = backward_checks(torch, fa, gen)
     train_counts = train_path(torch, np, tt, fa, ops)
-    t = train_times(torch, fa, gen)
+    t = train_times(torch, fa, gen, _build)
     torch.cuda.empty_cache()
 
     # the main shape's 215 MB of blocks are made once, for phases 13-15

@@ -1,5 +1,5 @@
 // The two flash-attention backward kernels of one panel, hand-written for
-// Hopper (sm_90a).
+// Hopper (sm_90a) on its tensor cores.
 //
 // Replaces: marlin_tpu/ops/flash_attention.py `_bwd_dkv_kernel` and
 // `_bwd_dq_kernel` (both reached through `flash_attention_panel_bwd`), the
@@ -21,353 +21,83 @@
 // kernels cast them down before each dot. q, k, v, dO are f32 or bf16; lse and
 // delta (H, sq) f32; dq (H, sq, d), dk and dv (H, skv, d) f32 out.
 //
+// Bound on an H100 SXM (NVIDIA data sheet, 700 W): operations — 8 * d per
+// live (query, key) pair for dK/dV (the s and dO.V recomputes, p.dO and ds.Q)
+// and 6 * d for dQ (s, dO.V, ds.K) — at 495 / 3 = 165 TFLOP/s for f32 (three
+// TF32 passes) and 989 TFLOP/s for bf16.
+//
 // Design:
 // - Two kernels, as on the TPU, so every output element has one writer: no
-//   atomics, and the results do not change from run to run.
-// - dK/dV: a block per (64-key tile, head), 256 threads. K and V stay in
-//   shared memory, the dK and dV accumulators in registers (4 key rows x d/16
-//   columns each per thread); a loop over 64-row q tiles takes the place of
-//   the TPU's sequential q grid axis. It starts at the causal frontier (the
-//   first q tile holding a row at or past the tile's first key) and a key tile
-//   wholly past valid_len runs no iteration: skipping a tile with no live
-//   entry is exact, it would add p = ds = 0.
-// - dQ: a block per (64-row q tile, head); Q and dO stay in shared memory, the
-//   loop over 64-key tiles ends at the last tile holding a live key (valid_len
-//   and the causal frontier of the tile's last row), as the forward's does.
-//   Blocks take the q tiles last to first, so the longest loops start first
-//   (the dK/dV kernel's first key tiles are its longest already).
-// - Every tile sits in shared memory as f32, row-major with a row stride of
-//   d + 4 floats. For the score tiles a thread owns rows t + 16 i of one side
-//   and t' + 16 j of the other, read as float4 along d: lanes of a half-warp
-//   then read 16-byte slots in distinct banks. p and ds go through shared
-//   memory once, transposed, for the second products.
-// - f32 inputs are multiplied with plain f32 FMA: no TF32 (the TPU kernels pin
-//   Precision.HIGHEST). bf16 inputs are widened on their way into shared
-//   memory; products of two bf16 values are exact in f32.
-// - Ragged edges (sq, skv not multiples of 64, d below the compiled width)
-//   are masked with zero fill; strides for q, k, v and dO let the caller pass
-//   a (seq, heads, d) layout without a transposed copy. Offsets are 64-bit.
-//
-// Bound on an H100 SXM (NVIDIA data sheet, 700 W): operations, at 67 TFLOP/s
-// for f32 outside the tensor cores — 8 * d per live (query, key) pair for
-// dK/dV (the s and dO.V recomputes, p.dO and ds.Q) and 6 * d for dQ (s, dO.V,
-// ds.K). The kernels run on CUDA cores; wgmma (3xTF32 for f32, bf16 directly)
-// with TMA-fed stages, or one fused kernel with atomic dQ, is the later step.
+//   atomics, and the results do not change from run to run. They share one
+//   body: a block keeps BR = 128 rows of two matrices resident in shared
+//   memory (dK/dV: K and V of a key tile; dQ: Q and dO of a query tile) and
+//   streams 32-row tiles of the other two (dK/dV: Q and dO; dQ: K and V)
+//   through a ring of STAGES shared-memory buffers filled by cp.async, the
+//   next tile's copy in flight while the current one computes. 8 warps; warp
+//   w owns resident rows 16w..16w+15 against every row of the streamed tile.
+// - Products on the tensor cores with mma.sync (m16n8k8 TF32, m16n8k16 bf16),
+//   fragments loaded from shared memory by the threads. wgmma was not taken:
+//   it reads TF32 operands from shared memory only K-major, and three of the
+//   five products (p.dO, ds.Q, ds.K) contract over the rows of a tile stored
+//   [row][d]; register fragments take any layout.
+// - Each warp computes its score tile with the resident rows as M (dK/dV:
+//   S^T = K Q^T, keys as M), so p and ds come out in the accumulator layout
+//   and serve directly as the A operand of the second products (dV += P^T dO,
+//   dK += dS^T Q; dQ += dS K): p and ds never touch shared memory. The
+//   accumulator's column pairs (2t, 2t+1) become the A fragment's k slots
+//   (t, t+4) for TF32, or its pairs for bf16, and B is loaded to match.
+// - f32 inputs take three TF32 passes (tensor_core.cuh): f32 accuracy (the
+//   TPU kernels pin Precision.HIGHEST; one TF32 pass would be ~1e-3 off).
+//   The resident operand and p and ds are split in registers as their
+//   fragments load; each streamed tile is split once for all warps as it
+//   arrives, its big halves in place and its small halves in a buffer beside
+//   the ring. The rounding is done with integer operations: cvt.rna.tf32
+//   issues at a quarter of that rate and, with it, the splits and not the
+//   products set the kernels' speed. bf16 inputs stay bf16 in shared memory
+//   and take one bf16 pass; p and ds are rounded to bf16 as they are packed,
+//   and each bf16 product is exact in the f32 accumulator.
+// - The tensor cores do not round their f32 sums to nearest: the second
+//   products add each tile's 32 rows into a fresh accumulator and that into
+//   the output's in IEEE f32 (see accumulate).
+// - Shared memory, f32 at d = 128: 2 x 64 KB resident + 2 stages x 2 x 16
+//   KB streamed + 32 KB of small halves = 224 KB, one block per SM; bf16 96
+//   KB. 16-byte chunks are XOR-swizzled by row so the fragment loads hit
+//   distinct banks.
+// - Registers: the dK/dV accumulators take 128 of a thread's 255. dK/dV
+//   finishes dV += P^T dO before the dO.V scores, so p and ds are never both
+//   held through a product, and the file is built with ptxas -O1
+//   (ops/_build.py), whose schedule keeps every instance free of spills.
+// - dK/dV starts each key tile's loop at the causal frontier (the first q
+//   tile holding a row at or past the tile's first key), and a key tile wholly
+//   past valid_len runs no iteration; dQ ends its loop at the last key tile
+//   holding a live key (valid_len and the causal frontier of the tile's last
+//   row). Skipping a tile with no live entry is exact: it would add p = ds =
+//   0. Tiles wholly live skip the mask. The 1-D grid puts a tile's heads
+//   together and the longest loops first (dK/dV's first key tiles, dQ's last
+//   q tiles), so the short ones fill the tail of the launch.
+// - Ragged edges (sq, skv not multiples of the tiles, d below the compiled
+//   width) are zero-filled by the copies and masked; strides for q, k, v and
+//   dO let the caller pass a (seq, heads, d) layout without a transposed
+//   copy; offsets are 64-bit. The 16-byte copies need 16-byte-aligned base
+//   pointers, strides and rows (d * element size); for other inputs the host
+//   picks the same kernel with element-wise synchronous copies (VEC = false).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <limits.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "tensor_core.cuh"
 
 namespace {
 
-constexpr int BT = 64;        // rows of a q tile, keys of a kv tile
-constexpr int NT = 256;
-constexpr int LDP = BT + 4;   // row stride of the p / ds tiles (floats)
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ float in_type(float x);
-template <> __device__ __forceinline__ float in_type<float>(float x) { return x; }
-template <> __device__ __forceinline__ float in_type<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// rows [r0, r0 + BT) of an (n, d) matrix with row stride si, into a
-// [BT][DP + 4] f32 tile; zero past n and past d
-template <typename T, int DP>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, int r0,
-                                          int n, int d, int64_t si) {
-  constexpr int LD = DP + 4;
-  for (int idx = threadIdx.x; idx < BT * DP; idx += NT) {
-    const int r = idx / DP;
-    const int c = idx - r * DP;
-    const int row = r0 + r;
-    dst[r * LD + c] = (row < n && c < d) ? to_f(src[(int64_t)row * si + c]) : 0.f;
-  }
-}
-
-// s[i][j] = sum_c A[ra + 16 i][c] * B[rb + 16 j][c] for two [BT][DP + 4] tiles
-template <int DP>
-__device__ __forceinline__ void tile_dots(float (&s)[4][4], const float* A,
-                                          const float* B, int ra, int rb) {
-  constexpr int LD = DP + 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 2
-  for (int c = 0; c < DP; c += 4) {
-    float4 a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      a[i] = *reinterpret_cast<const float4*>(A + (ra + 16 * i) * LD + c);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      b[j] = *reinterpret_cast<const float4*>(B + (rb + 16 * j) * LD + c);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(a[i].x, b[j].x, s[i][j]);
-        s[i][j] = fmaf(a[i].y, b[j].y, s[i][j]);
-        s[i][j] = fmaf(a[i].z, b[j].z, s[i][j]);
-        s[i][j] = fmaf(a[i].w, b[j].w, s[i][j]);
-      }
-  }
-}
-
-__device__ __forceinline__ bool is_live(int qi, int kj, int sq, int skv, int q_offset,
-                                        int k_offset, int valid_len, int causal) {
-  const int64_t qpos = (int64_t)q_offset + qi;
-  const int64_t kpos = (int64_t)k_offset + kj;
-  return qi < sq && kj < skv && kpos < valid_len && (!causal || qpos >= kpos);
-}
-
-template <int DP>
-constexpr size_t dkv_smem_floats() {
-  return 4 * (size_t)BT * (DP + 4) + 2 * (size_t)BT * LDP + 2 * BT;
-}
-
-template <int DP>
-constexpr size_t dq_smem_floats() {
-  return 4 * (size_t)BT * (DP + 4) + (size_t)BT * LDP + 2 * BT;
-}
-
-template <typename T, int DP>
-__global__ void __launch_bounds__(NT)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     float* __restrict__ dk, float* __restrict__ dv, int sq, int skv,
-                     int d, int64_t q_sh, int64_t q_si, int64_t k_sh, int64_t k_si,
-                     int64_t v_sh, int64_t v_si, int64_t o_sh, int64_t o_si, int q_offset,
-                     int k_offset, int valid_len, int causal, float scale) {
-  constexpr int LD = DP + 4;
-  constexpr int NC = DP / 64;  // float4 column groups per thread
-  extern __shared__ float4 smem4[];
-  float* Ks = reinterpret_cast<float*>(smem4);  // [BT][LD]
-  float* Vs = Ks + BT * LD;                     // [BT][LD]
-  float* Qs = Vs + BT * LD;                     // [BT][LD]
-  float* Os = Qs + BT * LD;                     // dO, [BT][LD]
-  float* Pt = Os + BT * LD;                     // p, [q][key]
-  float* St = Pt + BT * LDP;                    // ds, [q][key]
-  float* lse_s = St + BT * LDP;
-  float* dlt_s = lse_s + BT;
-
-  const int h = blockIdx.y;
-  const int k0 = blockIdx.x * BT;
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const T* qh = q + (int64_t)h * q_sh;
-  const T* oh = dout + (int64_t)h * o_sh;
-  const int64_t qrow0 = (int64_t)h * sq;
-
-  load_tile<T, DP>(Ks, k + (int64_t)h * k_sh, k0, skv, d, k_si);
-  load_tile<T, DP>(Vs, v + (int64_t)h * v_sh, k0, skv, d, v_si);
-
-  float dka[4][4 * NC], dva[4][4 * NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < 4 * NC; ++c) {
-      dka[i][c] = 0.f;
-      dva[i][c] = 0.f;
-    }
-
-  // rows before q_begin see none of this tile's keys; a tile whose first key
-  // is at or past valid_len has no live entry at all
-  int64_t q_begin = 0;
-  if (causal) {
-    q_begin = (int64_t)k_offset + k0 - q_offset;
-    q_begin = q_begin < 0 ? 0 : q_begin;
-  }
-  const bool any = (int64_t)k_offset + k0 < valid_len && q_begin < sq;
-  const int q_stop = any ? sq : 0;
-  const int q_first = any ? (int)(q_begin / BT) * BT : 0;
-
-  for (int q0 = q_first; q0 < q_stop; q0 += BT) {
-    __syncthreads();  // the previous tile's Q, dO, p and ds are no longer read
-    load_tile<T, DP>(Qs, qh, q0, sq, d, q_si);
-    load_tile<T, DP>(Os, oh, q0, sq, d, o_si);
-    if (tid < BT) {
-      const int qi = q0 + tid;
-      lse_s[tid] = qi < sq ? lse[qrow0 + qi] : 0.f;
-      dlt_s[tid] = qi < sq ? delta[qrow0 + qi] : 0.f;
-    }
-    __syncthreads();
-
-    // score tile: key ty + 16 i against query tx + 16 j
-    float s[4][4], dp[4][4];
-    tile_dots<DP>(s, Ks, Qs, ty, tx);
-    tile_dots<DP>(dp, Vs, Os, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kl = ty + 16 * i;
-        const int ql = tx + 16 * j;
-        const bool live =
-            is_live(q0 + ql, k0 + kl, sq, skv, q_offset, k_offset, valid_len, causal);
-        const float p = live ? expf(s[i][j] * scale - lse_s[ql]) : 0.f;
-        const float ds = p * (dp[i][j] - dlt_s[ql]);
-        Pt[ql * LDP + kl] = in_type<T>(p);
-        St[ql * LDP + kl] = in_type<T>(ds);
-      }
-    __syncthreads();
-
-    // dV += p^T dO, dK += ds^T Q: key rows ty * 4 + i, columns g * 64 + tx * 4 + e
-#pragma unroll 2
-    for (int r = 0; r < BT; ++r) {
-      const float4 p4 = *reinterpret_cast<const float4*>(Pt + r * LDP + ty * 4);
-      const float4 s4 = *reinterpret_cast<const float4*>(St + r * LDP + ty * 4);
-      const float pr[4] = {p4.x, p4.y, p4.z, p4.w};
-      const float sr[4] = {s4.x, s4.y, s4.z, s4.w};
-#pragma unroll
-      for (int g = 0; g < NC; ++g) {
-        const float4 o4 = *reinterpret_cast<const float4*>(Os + r * LD + g * 64 + tx * 4);
-        const float4 q4 = *reinterpret_cast<const float4*>(Qs + r * LD + g * 64 + tx * 4);
-        const float ov[4] = {o4.x, o4.y, o4.z, o4.w};
-        const float qv[4] = {q4.x, q4.y, q4.z, q4.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            dva[i][g * 4 + e] = fmaf(pr[i], ov[e], dva[i][g * 4 + e]);
-            dka[i][g * 4 + e] = fmaf(sr[i], qv[e], dka[i][g * 4 + e]);
-          }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kj = k0 + ty * 4 + i;
-    if (kj >= skv) continue;
-    const int64_t row = ((int64_t)h * skv + kj) * d;
-#pragma unroll
-    for (int g = 0; g < NC; ++g)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = g * 64 + tx * 4 + e;
-        if (c < d) {
-          dk[row + c] = dka[i][g * 4 + e] * scale;
-          dv[row + c] = dva[i][g * 4 + e];
-        }
-      }
-  }
-}
-
-template <typename T, int DP>
-__global__ void __launch_bounds__(NT)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    float* __restrict__ dq, int sq, int skv, int d, int64_t q_sh,
-                    int64_t q_si, int64_t k_sh, int64_t k_si, int64_t v_sh, int64_t v_si,
-                    int64_t o_sh, int64_t o_si, int q_offset, int k_offset, int valid_len,
-                    int causal, float scale) {
-  constexpr int LD = DP + 4;
-  constexpr int NC = DP / 64;
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);  // [BT][LD]
-  float* Os = Qs + BT * LD;                     // dO, [BT][LD]
-  float* Ks = Os + BT * LD;                     // [BT][LD]
-  float* Vs = Ks + BT * LD;                     // [BT][LD]
-  float* St = Vs + BT * LD;                     // ds, [key][q]
-  float* lse_s = St + BT * LDP;
-  float* dlt_s = lse_s + BT;
-
-  const int h = blockIdx.y;
-  // the last q tiles see the most keys under a causal mask: they are handed
-  // out first, so that the short tiles fill the tail of the launch
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BT;
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const T* kh = k + (int64_t)h * k_sh;
-  const T* vh = v + (int64_t)h * v_sh;
-  const int64_t qrow0 = (int64_t)h * sq;
-
-  load_tile<T, DP>(Qs, q + (int64_t)h * q_sh, q0, sq, d, q_si);
-  load_tile<T, DP>(Os, dout + (int64_t)h * o_sh, q0, sq, d, o_si);
-  if (tid < BT) {
-    const int qi = q0 + tid;
-    lse_s[tid] = qi < sq ? lse[qrow0 + qi] : 0.f;
-    dlt_s[tid] = qi < sq ? delta[qrow0 + qi] : 0.f;
-  }
-
-  float dqa[4][4 * NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < 4 * NC; ++c) dqa[i][c] = 0.f;
-
-  // keys at or past k_end hold no live entry for any row of this tile
-  int64_t k_end = skv;
-  k_end = k_end < (int64_t)valid_len - k_offset ? k_end : (int64_t)valid_len - k_offset;
-  if (causal) {
-    const int64_t q_last = (int64_t)q_offset + (q0 + BT < sq ? q0 + BT : sq) - 1;
-    const int64_t f = q_last - k_offset + 1;
-    k_end = k_end < f ? k_end : f;
-  }
-
-  for (int k0 = 0; k0 < k_end; k0 += BT) {
-    __syncthreads();  // the previous tile's K, V and ds are no longer read
-    load_tile<T, DP>(Ks, kh, k0, skv, d, k_si);
-    load_tile<T, DP>(Vs, vh, k0, skv, d, v_si);
-    __syncthreads();
-
-    // score tile: query ty + 16 i against key tx + 16 j
-    float s[4][4], dp[4][4];
-    tile_dots<DP>(s, Qs, Ks, ty, tx);
-    tile_dots<DP>(dp, Os, Vs, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int ql = ty + 16 * i;
-        const int kl = tx + 16 * j;
-        const bool live =
-            is_live(q0 + ql, k0 + kl, sq, skv, q_offset, k_offset, valid_len, causal);
-        const float p = live ? expf(s[i][j] * scale - lse_s[ql]) : 0.f;
-        St[kl * LDP + ql] = in_type<T>(p * (dp[i][j] - dlt_s[ql]));
-      }
-    __syncthreads();
-
-    // dQ += ds K: query rows ty * 4 + i, columns g * 64 + tx * 4 + e
-#pragma unroll 2
-    for (int r = 0; r < BT; ++r) {
-      const float4 s4 = *reinterpret_cast<const float4*>(St + r * LDP + ty * 4);
-      const float sr[4] = {s4.x, s4.y, s4.z, s4.w};
-#pragma unroll
-      for (int g = 0; g < NC; ++g) {
-        const float4 k4 = *reinterpret_cast<const float4*>(Ks + r * LD + g * 64 + tx * 4);
-        const float kv[4] = {k4.x, k4.y, k4.z, k4.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            dqa[i][g * 4 + e] = fmaf(sr[i], kv[e], dqa[i][g * 4 + e]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + ty * 4 + i;
-    if (qi >= sq) continue;
-    const int64_t row = (qrow0 + qi) * d;
-#pragma unroll
-    for (int g = 0; g < NC; ++g)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = g * 64 + tx * 4 + e;
-        if (c < d) dq[row + c] = dqa[i][g * 4 + e] * scale;
-      }
-  }
-}
+constexpr int NT = 256;       // 8 warps
+constexpr int BR = 128;       // resident rows of a block, 16 per warp
+constexpr int BC = 32;        // rows of a streamed tile
+constexpr int NJ = BC / 8;    // 8-column accumulator tiles of a warp's score tile
+constexpr int STAGES = 2;
 
 struct Args {
   const void *q, *k, *v, *dout;
@@ -380,51 +110,456 @@ struct Args {
   cudaStream_t stream;
 };
 
+__device__ __forceinline__ bool is_live(int qi, int kj, const Args& a) {
+  const int64_t qpos = (int64_t)a.q_offset + qi;
+  const int64_t kpos = (int64_t)a.k_offset + kj;
+  return qi < a.sq && kj < a.skv && kpos < a.valid_len && (!a.causal || qpos >= kpos);
+}
+
+// rows [r0, r0 + nrows) of an (n, d) matrix with row stride si into a
+// swizzled [nrows][DP] tile; zeros past n and past d
+template <typename T, int DP, bool VEC>
+__device__ __forceinline__ void load_rows(T* dst, const T* __restrict__ src, int64_t si,
+                                          int r0, int nrows, int n, int d) {
+  if constexpr (VEC) {
+    constexpr int E = 16 / (int)sizeof(T);
+    constexpr int CPR = DP / E;
+    for (int idx = threadIdx.x; idx < nrows * CPR; idx += NT) {
+      const int r = idx / CPR;
+      const int c = (idx % CPR) * E;
+      const int row = r0 + r;
+      const bool ok = row < n && c < d;
+      tc::cp_async16(dst + tc::swz_at<T, DP>(r, c), ok ? src + (int64_t)row * si + c : src,
+                     ok ? 16 : 0);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < nrows * DP; idx += NT) {
+      const int r = idx / DP;
+      const int c = idx % DP;
+      const int row = r0 + r;
+      dst[tc::swz_at<T, DP>(r, c)] =
+          (row < n && c < d) ? src[(int64_t)row * si + c] : static_cast<T>(0.f);
+    }
+  }
+}
+
+// acc[j] = X[16w + (g, g+8)] . Y[8j + g] over d: the warp's 16 x BC score
+// tile. Thread t reads 16-byte chunk 4kc + t of each row; its two k steps map
+// the fragment's k slots onto the chunk's elements (0, 1) and (2, 3) for
+// TF32, the pairs (0-1, 2-3) and (4-5, 6-7) for bf16. The NJ accumulators
+// are independent, so the products are issued pass by pass across them.
+// Every row read has row % 8 == g, so chunk 4kc + t of it sits at chunk
+// 4 (kc ^ b) + ((t ^ sg) & 3), sg = swz(g), b = sg / 4: an offset of 4E kc
+// plus one of two per-thread constants, by the parity of kc.
 template <typename T, int DP>
-cudaError_t launch_dkv(const Args& a) {
-  const size_t smem = dkv_smem_floats<DP>() * sizeof(float);
-  auto kern = flash_bwd_dkv_kernel<T, DP>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((unsigned)((a.skv + BT - 1) / BT), (unsigned)a.H);
-  kern<<<grid, NT, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), a.lse, a.delta, a.out0, a.out1, a.sq, a.skv, a.d,
-      a.q_sh, a.q_si, a.k_sh, a.k_si, a.v_sh, a.v_si, a.o_sh, a.o_si, a.q_offset,
-      a.k_offset, a.valid_len, a.causal, a.scale);
-  return cudaGetLastError();
+__device__ __forceinline__ void score_tile(float (&acc)[NJ][4], const T* X, const T* Y,
+                                           const float* Ysm, int w, int g, int t) {
+  constexpr int E = 16 / (int)sizeof(T);
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  const int sg = tc::swz(g);
+  const int lo = E * ((t ^ sg) & 3) + g * DP;
+  const int lo_par[2] = {lo + 4 * E * (sg >> 2), lo - 4 * E * (sg >> 2)};
+  const T* xr = X + 16 * w * DP;
+#pragma unroll
+  for (int kc = 0; kc < DP / (4 * E); ++kc) {
+    const int c = 4 * E * kc + lo_par[kc & 1];
+    const uint4 xa = tc::lds128(xr + c);
+    const uint4 xb = tc::lds128(xr + 8 * DP + c);
+    uint4 y[NJ];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) y[j] = tc::lds128(Y + 8 * j * DP + c);
+    if constexpr (std::is_same_v<T, float>) {
+      // the passes that read B's big halves, then the small halves' pass, so
+      // the two are not held at once
+      tc::Split<4> as[2];
+#pragma unroll
+      for (int st = 0; st < 2; ++st) {
+        const uint32_t a[4] = {st ? xa.z : xa.x, st ? xb.z : xb.x, st ? xa.w : xa.y,
+                               st ? xb.w : xb.y};
+        as[st] = tc::split_tf32(a);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const uint32_t b[2] = {st ? y[j].z : y[j].x, st ? y[j].w : y[j].y};
+          tc::mma_tf32(acc[j], as[st].small, b);
+        }
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const uint32_t b[2] = {st ? y[j].z : y[j].x, st ? y[j].w : y[j].y};
+          tc::mma_tf32(acc[j], as[st].big, b);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) y[j] = tc::lds128(Ysm + 8 * j * DP + c);
+#pragma unroll
+      for (int st = 0; st < 2; ++st)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const uint32_t b[2] = {st ? y[j].z : y[j].x, st ? y[j].w : y[j].y};
+          tc::mma_tf32(acc[j], as[st].big, b);
+        }
+    } else {
+#pragma unroll
+      for (int st = 0; st < 2; ++st) {
+        const uint32_t a[4] = {st ? xa.z : xa.x, st ? xb.z : xb.x, st ? xa.w : xa.y,
+                               st ? xb.w : xb.y};
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const uint32_t b[2] = {st ? y[j].z : y[j].x, st ? y[j].w : y[j].y};
+          tc::mma_bf16(acc[j], a, b);
+        }
+      }
+    }
+  }
+}
+
+// acc[i] += A . Y over the BC rows of Y, A the warp's 16 x BC p or ds tile in
+// the accumulator layout of score_tile. TF32: k step j takes accumulator tile
+// j, slots (t, t+4) = columns (8j + 2t, 8j + 2t + 1); output tile i holds
+// columns 32 (i / 4) + 4 n + i % 4, so one 16-byte read of rows 8j + 2t and
+// 8j + 2t + 1 gives B for four tiles. bf16: k step jj takes tiles 2jj and
+// 2jj + 1 (their pairs, in order), B by ldmatrix.trans, tile i = columns
+// 8i..8i+7.
+// The tensor cores add into their f32 accumulator without rounding to
+// nearest, so a sum over thousands of rows in one accumulator drifts (5x
+// chip_smoke's f32 bound at 32768 rows): four output tiles at a time sum
+// the tile's BC rows in a fresh accumulator, which is then added to acc in
+// IEEE f32.
+// Rows 8j + 2t (+ 1) and 16jj + lane % 8 (+ 8) keep their swizzle over j and
+// jj, so each thread's offsets are a few per-thread bases plus constants.
+template <typename T, int DP>
+__device__ __forceinline__ void accumulate(float (&acc)[DP / 8][4], const float (&A)[NJ][4],
+                                           const T* Y, const float* Ysm, int lane) {
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  float part[4][4];
+  if constexpr (std::is_same_v<T, float>) {
+    // column 32 ig + 4g of row r: chunk 8 ig + (g ^ swz(r))
+    const int base0 = 2 * t * DP + 4 * (g ^ tc::swz(2 * t));
+    const int base1 = (2 * t + 1) * DP + 4 * (g ^ tc::swz(2 * t + 1));
+    tc::Split<4> as[NJ];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const float af[4] = {A[j][0], A[j][2], A[j][1], A[j][3]};
+      as[j] = tc::split_tf32(af);
+    }
+#pragma unroll
+    for (int ig = 0; ig < DP / 32; ++ig) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) part[e][x] = 0.f;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int o0 = base0 + 8 * j * DP + 32 * ig;
+        const int o1 = base1 + 8 * j * DP + 32 * ig;
+        const uint4 u = tc::lds128(Y + o0), v = tc::lds128(Y + o1);
+        const uint4 us = tc::lds128(Ysm + o0), vs = tc::lds128(Ysm + o1);
+        const tc::Split<2> bs[4] = {{{u.x, v.x}, {us.x, vs.x}},
+                                    {{u.y, v.y}, {us.y, vs.y}},
+                                    {{u.z, v.z}, {us.z, vs.z}},
+                                    {{u.w, v.w}, {us.w, vs.w}}};
+        tc::mma_3xtf32<4>(part, as[j], bs);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) acc[4 * ig + e][x] += part[e][x];
+    }
+  } else {
+    uint32_t a[NJ / 2][4];
+#pragma unroll
+    for (int jj = 0; jj < NJ / 2; ++jj) {
+      a[jj][0] = tc::pack_bf16(A[2 * jj][0], A[2 * jj][1]);
+      a[jj][1] = tc::pack_bf16(A[2 * jj][2], A[2 * jj][3]);
+      a[jj][2] = tc::pack_bf16(A[2 * jj + 1][0], A[2 * jj + 1][1]);
+      a[jj][3] = tc::pack_bf16(A[2 * jj + 1][2], A[2 * jj + 1][3]);
+    }
+    // lane l reads row 16jj + l % 8 + 8 ((l / 8) % 2), chunk i + l / 16 (+ 2),
+    // i a multiple of 4: at chunk 4 ((i / 4) ^ b) + ((l / 16 (+ 2)) ^ sr) % 4
+    const int sr = tc::swz(lane & 7);
+    const int rb = ((lane & 7) + ((lane >> 3) & 1) * 8) * DP;
+    const int q0 = 8 * (((lane >> 4) ^ sr) & 3);
+    const int q1 = 8 * (((2 + (lane >> 4)) ^ sr) & 3);
+    const int bp = 32 * (sr >> 2);
+    const int ob[2][2] = {{rb + q0 + bp, rb + q1 + bp}, {rb + q0 - bp, rb + q1 - bp}};
+#pragma unroll
+    for (int i = 0; i < DP / 8; i += 4) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) part[e][x] = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < NJ / 2; ++jj) {
+        const int o = 16 * jj * DP + 8 * i;
+        uint32_t b[2][4];
+        tc::ldmatrix_x4_trans(b[0], Y + o + ob[(i / 4) & 1][0]);
+        tc::ldmatrix_x4_trans(b[1], Y + o + ob[(i / 4) & 1][1]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const uint32_t bb[2] = {b[e >> 1][2 * (e & 1)], b[e >> 1][2 * (e & 1) + 1]};
+          tc::mma_bf16(part[e], a[jj], bb);
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) acc[i + e][x] += part[e][x];
+    }
+  }
+}
+
+// the column of d that accumulate's output tile i, element e holds
+template <typename T>
+__device__ __forceinline__ int out_col(int i, int e, int t) {
+  if constexpr (std::is_same_v<T, float>) return 32 * (i / 4) + 8 * t + 4 * (e & 1) + i % 4;
+  return 8 * i + 2 * t + (e & 1);
 }
 
 template <typename T, int DP>
-cudaError_t launch_dq(const Args& a) {
-  const size_t smem = dq_smem_floats<DP>() * sizeof(float);
-  auto kern = flash_bwd_dq_kernel<T, DP>;
+constexpr size_t smem_bytes() {
+  return (2 * (size_t)BR * DP + (size_t)STAGES * 2 * BC * DP) * sizeof(T) +
+         (size_t)STAGES * 2 * BC * sizeof(float) +
+         (std::is_same_v<T, float> ? 2 * (size_t)BC * DP * sizeof(float) : 0);
+}
+
+// DKV: the dK/dV kernel (resident K, V; streamed Q, dO; out0 = dk, out1 =
+// dv). Otherwise the dQ kernel (resident Q, dO; streamed K, V; out0 = dq).
+template <typename T, int DP, bool VEC, bool DKV>
+__global__ void __launch_bounds__(NT, 1) flash_bwd_kernel(const Args a) {
+  constexpr int NI = DP / 8;
+  extern __shared__ uint4 smem[];
+  T* X0 = reinterpret_cast<T*>(smem);  // K or Q, [BR][DP]
+  T* X1 = X0 + BR * DP;                // V or dO
+  T* Ys = X1 + BR * DP;                // [STAGES][2][BC][DP]: Q, dO or K, V
+  float* lse_s = reinterpret_cast<float*>(Ys + STAGES * 2 * BC * DP);  // [STAGES][BC]
+  float* dlt_s = lse_s + STAGES * BC;
+  float* Ysm = dlt_s + STAGES * BC;  // f32: the small TF32 halves of the current tile
+
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int nr = DKV ? a.skv : a.sq;  // rows of the resident matrices
+  const int nc = DKV ? a.sq : a.skv;  // rows of the streamed ones
+  const int h = blockIdx.x % a.H;
+  const int tile = DKV ? blockIdx.x / a.H : (nr + BR - 1) / BR - 1 - blockIdx.x / a.H;
+  const int r0 = tile * BR;
+
+  const T* q = static_cast<const T*>(a.q) + (int64_t)h * a.q_sh;
+  const T* k = static_cast<const T*>(a.k) + (int64_t)h * a.k_sh;
+  const T* v = static_cast<const T*>(a.v) + (int64_t)h * a.v_sh;
+  const T* o = static_cast<const T*>(a.dout) + (int64_t)h * a.o_sh;
+  const float* lse = a.lse + (int64_t)h * a.sq;
+  const float* delta = a.delta + (int64_t)h * a.sq;
+  const T* x0 = DKV ? k : q;
+  const T* x1 = DKV ? v : o;
+  const T* y0 = DKV ? q : k;
+  const T* y1 = DKV ? o : v;
+  const int64_t x0_si = DKV ? a.k_si : a.q_si;
+  const int64_t x1_si = DKV ? a.v_si : a.o_si;
+  const int64_t y0_si = DKV ? a.q_si : a.k_si;
+  const int64_t y1_si = DKV ? a.o_si : a.v_si;
+
+  // the streamed rows [c_first, c_end) that hold a live entry for this tile
+  int64_t c_first = 0, c_end;
+  if (DKV) {
+    // rows before qb see none of this tile's keys; a tile whose first key is
+    // at or past valid_len has no live entry at all
+    int64_t qb = a.causal ? (int64_t)a.k_offset + r0 - a.q_offset : 0;
+    qb = qb < 0 ? 0 : qb;
+    const bool any = (int64_t)a.k_offset + r0 < a.valid_len && qb < a.sq;
+    c_first = any ? qb / BC * BC : 0;
+    c_end = any ? a.sq : 0;
+  } else {
+    // keys at or past c_end hold no live entry for any row of this tile
+    c_end = a.skv;
+    c_end = c_end < (int64_t)a.valid_len - a.k_offset ? c_end
+                                                       : (int64_t)a.valid_len - a.k_offset;
+    if (a.causal) {
+      const int64_t q_last = (int64_t)a.q_offset + (r0 + BR < a.sq ? r0 + BR : a.sq) - 1;
+      const int64_t f = q_last - a.k_offset + 1;
+      c_end = c_end < f ? c_end : f;
+    }
+  }
+  const int ntiles = c_end > c_first ? (int)((c_end - c_first + BC - 1) / BC) : 0;
+
+  load_rows<T, DP, VEC>(X0, x0, x0_si, r0, BR, nr, a.d);
+  load_rows<T, DP, VEC>(X1, x1, x1_si, r0, BR, nr, a.d);
+  tc::cp_async_commit();
+
+  auto load_stage = [&](int s, int c0) {
+    T* Y0 = Ys + s * 2 * BC * DP;
+    load_rows<T, DP, VEC>(Y0, y0, y0_si, c0, BC, nc, a.d);
+    load_rows<T, DP, VEC>(Y0 + BC * DP, y1, y1_si, c0, BC, nc, a.d);
+    if (DKV && threadIdx.x < 2 * BC) {
+      const int i = threadIdx.x % BC;
+      const bool ok = c0 + i < a.sq;
+      const float* src = threadIdx.x < BC ? lse : delta;
+      float* dst = threadIdx.x < BC ? lse_s : dlt_s;
+      tc::cp_async4(dst + s * BC + i, ok ? src + c0 + i : src, ok ? 4 : 0);
+    }
+  };
+
+  // dQ: lse and delta of the warp's rows 16w + g and 16w + g + 8
+  float lse_r[2] = {0.f, 0.f}, dlt_r[2] = {0.f, 0.f};
+  if (!DKV) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = r0 + 16 * w + g + 8 * hh;
+      if (row < a.sq) {
+        lse_r[hh] = lse[row];
+        dlt_r[hh] = delta[row];
+      }
+    }
+  }
+
+  float acc_p[DKV ? NI : 1][4];   // dV: P^T dO
+  float acc_ds[NI][4];            // dK: dS^T Q, or dQ: dS K
+#pragma unroll
+  for (int i = 0; i < NI; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc_ds[i][e] = 0.f;
+      if constexpr (DKV) acc_p[i][e] = 0.f;
+    }
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < ntiles) load_stage(s, (int)c_first + s * BC);
+    tc::cp_async_commit();
+  }
+  for (int it = 0; it < ntiles; ++it) {
+    const int nxt = it + STAGES - 1;
+    if (nxt < ntiles) load_stage(nxt % STAGES, (int)c_first + nxt * BC);
+    tc::cp_async_commit();
+    tc::cp_async_wait<STAGES - 1>();
+    __syncthreads();
+
+    const int s = it % STAGES;
+    const int c0 = (int)c_first + it * BC;
+    T* Y0 = Ys + s * 2 * BC * DP;
+    T* Y1 = Y0 + BC * DP;
+    if constexpr (std::is_same_v<T, float>) {
+      // split the streamed tile once for all warps: the big halves in place,
+      // the small ones beside them
+      uint4* yb = reinterpret_cast<uint4*>(Y0);
+      uint4* ysm = reinterpret_cast<uint4*>(Ysm);
+      for (int i = threadIdx.x; i < 2 * BC * DP / 4; i += NT) {
+        const uint4 x = yb[i];
+        const uint32_t xs[4] = {x.x, x.y, x.z, x.w};
+        const tc::Split<4> sp = tc::split_tf32(xs);
+        yb[i] = make_uint4(sp.big[0], sp.big[1], sp.big[2], sp.big[3]);
+        ysm[i] = make_uint4(sp.small[0], sp.small[1], sp.small[2], sp.small[3]);
+      }
+      __syncthreads();
+    }
+    // p, then (dK/dV) dV += P^T dO before the dO.V scores, so p and ds are
+    // never both held through a product: the accumulators take 128 of the
+    // 255 registers a thread may have
+    float P[NJ][4], dS[NJ][4];
+    score_tile<T, DP>(P, X0, Y0, Ysm, w, g, t);
+    const int64_t q_lo = DKV ? c0 : r0, q_hi = DKV ? c0 + BC : r0 + BR;
+    const int64_t k_lo = DKV ? r0 : c0, k_hi = DKV ? r0 + BR : c0 + BC;
+    const bool full = q_hi <= a.sq && k_hi <= a.skv && a.k_offset + k_hi <= a.valid_len &&
+                      (!a.causal || a.q_offset + q_lo >= a.k_offset + k_hi - 1);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int cl = 8 * j + 2 * t + (e & 1);  // streamed row in the tile
+        P[j][e] = P[j][e] * a.scale - (DKV ? lse_s[s * BC + cl] : lse_r[e >> 1]);
+      }
+    if (!full) {  // every entry of a full tile is live: no mask
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int rl = r0 + 16 * w + g + 8 * (e >> 1);  // resident row
+          const int cl = c0 + 8 * j + 2 * t + (e & 1);    // streamed row
+          if (!(DKV ? is_live(cl, rl, a) : is_live(rl, cl, a))) P[j][e] = __uint_as_float(0xff800000u);  // -inf: exp gives 0
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) P[j][e] = expf(P[j][e]);
+    if constexpr (DKV) accumulate<T, DP>(acc_p, P, Y1, Ysm + BC * DP, lane);
+    score_tile<T, DP>(dS, X1, Y1, Ysm + BC * DP, w, g, t);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float dl = DKV ? dlt_s[s * BC + 8 * j + 2 * t + (e & 1)] : dlt_r[e >> 1];
+        dS[j][e] = P[j][e] * (dS[j][e] - dl);
+      }
+    accumulate<T, DP>(acc_ds, dS, Y0, Ysm, lane);
+    __syncthreads();  // stage s is refilled by the next iteration's copy
+  }
+
+  float* out_ds = a.out0;  // dk or dq
+  const int64_t base = (int64_t)h * nr;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = r0 + 16 * w + g + 8 * hh;
+    if (row >= nr) continue;
+    const int64_t off = (base + row) * a.d;
+#pragma unroll
+    for (int i = 0; i < NI; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = out_col<T>(i, e, t);
+        if (c < a.d) {
+          out_ds[off + c] = acc_ds[i][2 * hh + e] * a.scale;
+          if constexpr (DKV) a.out1[off + c] = acc_p[i][2 * hh + e];
+        }
+      }
+  }
+}
+
+template <typename T, int DP, bool VEC, bool DKV>
+cudaError_t launch(const Args& a) {
+  const size_t smem = smem_bytes<T, DP>();
+  auto kern = flash_bwd_kernel<T, DP, VEC, DKV>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((unsigned)((a.sq + BT - 1) / BT), (unsigned)a.H);
-  kern<<<grid, NT, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), a.lse, a.delta, a.out0, a.sq, a.skv, a.d, a.q_sh,
-      a.q_si, a.k_sh, a.k_si, a.v_sh, a.v_si, a.o_sh, a.o_si, a.q_offset, a.k_offset,
-      a.valid_len, a.causal, a.scale);
+  const int64_t blocks = (int64_t)(((DKV ? a.skv : a.sq) + BR - 1) / BR) * a.H;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  kern<<<(unsigned)blocks, NT, smem, a.stream>>>(a);
   return cudaGetLastError();
+}
+
+// 16-byte copies need 16-byte-aligned base pointers, head and row strides and
+// rows of d elements
+bool aligned16(const Args& a, int elt) {
+  const void* ptrs[4] = {a.q, a.k, a.v, a.dout};
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return false;
+  const int64_t strides[8] = {a.q_sh, a.q_si, a.k_sh, a.k_si, a.v_sh, a.v_si, a.o_sh, a.o_si};
+  for (int64_t s : strides)
+    if (s * elt % 16) return false;
+  return (int64_t)a.d * elt % 16 == 0;
 }
 
 template <bool DKV, typename T>
-cudaError_t dispatch_width(const Args& a) {
-  if (a.d <= 64) return DKV ? launch_dkv<T, 64>(a) : launch_dq<T, 64>(a);
-  if (a.d <= 128) return DKV ? launch_dkv<T, 128>(a) : launch_dq<T, 128>(a);
+cudaError_t dispatch(const Args& a) {
+  const bool vec = aligned16(a, (int)sizeof(T));
+  if (a.d <= 64)
+    return vec ? launch<T, 64, true, DKV>(a) : launch<T, 64, false, DKV>(a);
+  if (a.d <= 128)
+    return vec ? launch<T, 128, true, DKV>(a) : launch<T, 128, false, DKV>(a);
   return cudaErrorInvalidValue;
 }
 
 template <bool DKV>
 int run(int dtype, const Args& a) {
   if (a.H <= 0 || (DKV ? a.skv : a.sq) <= 0) return (int)cudaSuccess;
-  if (a.d <= 0 || a.sq < 0 || a.skv < 0 || a.H > 65535) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return (int)dispatch_width<DKV, float>(a);
-  if (dtype == 1) return (int)dispatch_width<DKV, __nv_bfloat16>(a);
+  if (a.d <= 0 || a.sq < 0 || a.skv < 0) return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return (int)dispatch<DKV, float>(a);
+  if (dtype == 1) return (int)dispatch<DKV, __nv_bfloat16>(a);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -24,9 +24,12 @@ d)``, ``m`` ``(H, sq)`` — and one kernel launch covers all heads (the JAX
 callers ``vmap`` over heads). ``m``/``l`` stay 1-D per head: the TPU's packed
 ``(sq//128, 128)`` form exists only for its (8, 128) tiling.
 
-f32 inputs are multiplied in IEEE f32 on both versions (the TPU kernels pin
-``Precision.HIGHEST``; TF32 is never used); ``p`` and ``ds`` are rounded to
-the input type before their products, as the TPU kernels cast them down.
+f32 inputs keep f32 accuracy everywhere (the TPU kernels pin
+``Precision.HIGHEST``): the forward kernel and the plain versions multiply in
+IEEE f32, the backward kernels on the tensor cores in three TF32 passes (a
+single TF32 pass would be ~1e-3 off); bf16 inputs run bf16 products. ``p``
+and ``ds`` are rounded to the input type before their products, as the TPU
+kernels cast them down.
 
 :func:`flash_attention_panel` runs the kernel for CUDA tensors (raising on a
 failed build or launch) and :func:`flash_attention_panel_plain` for CPU

@@ -14,8 +14,10 @@ rtol and atol 1e-5 against the JAX package (both sides f32, another
 summation order); bf16 inputs per element, two bf16 ulps of the reference
 plus 2^-8 · max |reference| (p and ds are rounded to bf16 on both sides at
 points where their f32 scores differ by a few ulps, so a rounding may land
-one step apart). The ``cuda``-marked tests hold the CUDA kernels against the
-plain versions on the card and skip where there is none.
+one step apart). An emulation of TF32 rounding shows on the CPU why the f32
+kernels multiply in three TF32 passes. The ``cuda``-marked tests hold the
+CUDA kernels against the plain versions on the card and skip where there is
+none.
 """
 
 import importlib
@@ -135,6 +137,76 @@ def test_panel_bwd_plain_matches_jax(sq, skv, q_off, k_off, valid, causal,
         else:
             np.testing.assert_allclose(_np(g), np.asarray(w), rtol=F32_TOL,
                                        atol=F32_TOL, err_msg=name)
+
+
+def _tf32(x):
+    """f32 ``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` does: to 10 explicit
+    mantissa bits, ties away from zero. Adding half of the last kept bit to
+    the bit pattern and clearing the 13 low bits rounds the magnitude and
+    leaves the sign."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_tf32(a, b, passes):
+    """``a @ b`` of f32 matrices as the backward kernel's tensor cores form
+    it: each operand split into TF32 ``big`` and ``small = tf32(x - big)``;
+    one pass is big·big, three add small·big and big·small. Every product of
+    two TF32 values is exact in the f32 sum."""
+    ab, bb = _tf32(a), _tf32(b)
+    if passes == 1:
+        return ab @ bb
+    return _tf32(a - ab) @ bb + ab @ _tf32(b - bb) + ab @ bb
+
+
+def _bwd_products(q, k, v, do, lse, delta, live, scale, mm):
+    """The backward's five products through ``mm`` in the inputs' dtype:
+    S = Q·Kᵀ, dP = dO·Vᵀ, dV = Pᵀ·dO, dK = dSᵀ·Q, dQ = dS·K."""
+    s = mm(q, k.T) * scale
+    p = torch.where(live, torch.exp(s - lse[:, None]), 0.0)
+    ds = p * (mm(do, v.T) - delta[:, None])
+    return mm(ds, k) * scale, mm(ds.T, q) * scale, mm(p.T, do)
+
+
+@pytest.mark.parametrize("passes", [1, 3])
+@pytest.mark.parametrize("causal,valid", [(True, 256), (False, 200)])
+def test_tf32_passes_against_f64(passes, causal, valid):
+    """Why the f32 kernels take three TF32 passes: with an emulation of the
+    tensor cores' TF32 products, three passes keep (dq, dk, dv) within
+    ``chip_smoke.py``'s f32 backward bound of float64, at the order of the
+    f32 plain version's own error; one pass does not."""
+    from chip_smoke import BWD_F32_ATOL, BWD_F32_RTOL
+
+    rng = np.random.default_rng(valid + passes)
+    sq = skv = 256
+    d, scale = 64, 1.0 / 8.0
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((n, d)).astype(
+        np.float32)) for n in (sq, skv, skv, sq))
+    pos = torch.arange(sq)
+    live = (pos[None, :] < valid).expand(sq, skv)
+    if causal:
+        live = live & (pos[:, None] >= pos[None, :])
+    q64, k64, v64, do64 = (t.double() for t in (q, k, v, do))
+    s64 = torch.where(live, q64 @ k64.T * scale, -torch.inf)
+    lse64 = torch.logsumexp(s64, -1)
+    delta64 = (do64 * (torch.softmax(s64, -1) @ v64)).sum(-1)
+    want = _bwd_products(q64, k64, v64, do64, lse64, delta64, live, scale,
+                         torch.matmul)
+    lse, delta = lse64.float(), delta64.float()
+    got = _bwd_products(q, k, v, do, lse, delta, live, scale,
+                        lambda a, b: _mm_tf32(a, b, passes))
+    plain = fa.flash_attention_panel_bwd_plain(
+        q, k, v, do, lse, delta, 0, 0, valid, causal=causal, scale=scale,
+        bq=128, bkv=128)
+    for name, g, p, w in zip(("dq", "dk", "dv"), got, plain, want):
+        bound = BWD_F32_ATOL * w.abs().max() + BWD_F32_RTOL * w.abs()
+        worst = float(((g.double() - w).abs() / bound).max())
+        err, err_plain = (float((t.double() - w).abs().max()) for t in (g, p))
+        if passes == 3:
+            assert worst <= 1.0, (name, worst)
+            assert err <= 10 * err_plain, (name, err, err_plain)
+        else:
+            assert worst > 1.0, (name, worst)
 
 
 def test_panel_bwd_heads_axis_and_wrapper():
@@ -362,29 +434,52 @@ def _cuda_case(H, sq, skv, d, dtype, strided, gen):
     return make(sq), make(skv), make(skv), make(sq)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("strided,causal,d,q_off,k_off,valid", [
-    (False, True, 128, 0, 0, 300),
-    (True, True, 128, 0, 0, 299),
-    (False, False, 64, 0, 0, 250),
-    (False, True, 96, 777, 131, 1500),
-])
-def test_bwd_kernels_match_plain_on_card(cuda, dtype, strided, causal, d,
-                                         q_off, k_off, valid):
-    gen = torch.Generator(device="cuda").manual_seed(d + valid)
-    q, k, v, do = _cuda_case(2, 300, 300 if q_off == 0 else 257, d, dtype,
-                             strided, gen)
+def _bwd_case(dtype, strided, causal, d, sq, skv, q_off, k_off, valid):
+    """The backward's inputs for 2 heads: q, k, v, dO and lse, delta from the
+    plain forward panel; returns the positional args and the scale."""
+    gen = torch.Generator(device="cuda").manual_seed(d + sq + skv + valid)
+    q, k, v, do = _cuda_case(2, sq, skv, d, dtype, strided, gen)
     scale = 1.0 / math.sqrt(d)
     m, l, acc = fa.flash_attention_panel_plain(
-        q, k, v, torch.full((2, 300), -1e30, device=cuda),
-        torch.zeros((2, 300), device=cuda), torch.zeros((2, 300, d),
-                                                         device=cuda),
-        q_off, k_off, valid, causal=causal, scale=scale)
+        q, k, v, torch.full((2, sq), -1e30, device="cuda"),
+        torch.zeros((2, sq), device="cuda"),
+        torch.zeros((2, sq, d), device="cuda"), q_off, k_off, valid,
+        causal=causal, scale=scale)
     lf = l.clamp(min=1e-30)
     lse = m + torch.log(lf)
     delta = (do.float() * (acc / lf[..., None]).to(dtype).float()).sum(-1)
-    args = (q, k, v, do, lse, delta, q_off, k_off, valid)
+    if sq == skv == 1:
+        # with one key the forward's delta makes ds exactly 0, and dq and dk
+        # would hold rounding noise alone; a shifted delta gives them values
+        delta = delta + 1.0
+    return (q, k, v, do, lse, delta, q_off, k_off, valid), scale
+
+
+# The kernels keep 128 rows resident and stream 32-row tiles. d = 40 takes
+# the 16-byte copies (40 elements are 160 or 80 bytes); d = 41 (odd row
+# strides) the element-wise variant.
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("strided,causal,d,sq,skv,q_off,k_off,valid", [
+    (False, True, 128, 300, 300, 0, 0, 300),
+    (True, True, 128, 300, 300, 0, 0, 299),
+    (False, False, 64, 300, 300, 0, 0, 250),
+    (False, True, 96, 300, 257, 777, 131, 1500),
+    (False, True, 128, 1, 1, 0, 0, 1),           # sq = skv = 1
+    (False, True, 128, 161, 161, 0, 0, 161),     # 128 + 33 rows
+    (False, True, 128, 300, 20, 0, 0, 20),       # skv inside one tile
+    (False, True, 64, 300, 300, 0, 0, 5),        # valid_len in the first tile
+    (False, True, 40, 300, 300, 0, 0, 299),
+    (True, True, 40, 300, 300, 0, 0, 299),
+    (False, True, 41, 300, 300, 0, 0, 299),
+    (True, False, 41, 200, 150, 0, 0, 150),
+    (False, True, 128, 200, 333, 1000, 700, 1500),  # sq != skv, offsets
+    (False, False, 128, 333, 200, 64, 0, 180),
+])
+def test_bwd_kernels_match_plain_on_card(cuda, dtype, strided, causal, d, sq,
+                                         skv, q_off, k_off, valid):
+    args, scale = _bwd_case(dtype, strided, causal, d, sq, skv, q_off,
+                            k_off, valid)
     before = ops.launch_counts()
     got = fa.flash_attention_panel_bwd(*args, causal=causal, scale=scale)
     after = ops.launch_counts()
@@ -399,6 +494,20 @@ def test_bwd_kernels_match_plain_on_card(cuda, dtype, strided, causal, d,
                                        atol=F32_TOL)
         else:
             assert_bf16_close(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_kernels_bit_identical_across_launches(cuda, dtype):
+    """One writer per output element and no atomics: two launches on the
+    same inputs give the same bits."""
+    args, scale = _bwd_case(dtype, False, True, 128, 1000, 1000, 0, 0, 999)
+    kw = dict(causal=True, scale=scale)
+    first = fa.flash_attention_panel_bwd(*args, **kw)
+    second = fa.flash_attention_panel_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

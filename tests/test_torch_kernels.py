@@ -225,6 +225,21 @@ def test_build_dir_is_keyed_by_sources():
     assert d == _build.build_dir()
 
 
+def test_build_dir_is_keyed_by_headers(monkeypatch, tmp_path):
+    """An edited ``*.cuh`` header moves the build directory, as an edited
+    source does, so the kernels that include it rebuild."""
+    import shutil
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    headers = sorted(csrc.glob("*.cuh"))
+    assert headers
+    before = _build.build_dir()
+    headers[0].write_text(headers[0].read_text() + "\n// edited\n")
+    assert _build.build_dir() != before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_kernels_match_plain(cuda, dtype):
