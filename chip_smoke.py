@@ -9,9 +9,11 @@ drives the ported paths end to end through the public entry points:
 
 - phases 1-5: the dense 20000² multiply (GEMM and masked-fill kernels);
 - phases 6-7: the paged decode-attention and flash-panel kernels against
-  their plain versions at the serving shapes (f32 and bf16, GQA, ragged and
+  their plain versions at the serving shapes (f32 and bf16, GQA, a group of
+  16 heads of 256 that the paged kernel takes in two launches, ragged and
   dummy rows, the strided (P, heads, d) views that prefill passes, two
-  panels with carried state and offsets), every element within tolerance;
+  panels with carried state and offsets), and the flash panel at head dims
+  192 and 256, every element within tolerance;
 - phase 8: the serving path at full width — ``TransformerLM(vocab=4096,
   d_model=512, heads=8, layers=4)`` (the repo's decode benchmark model,
   ``bench_all.py`` ``config_decode``), 8 requests of 512 tokens through
@@ -19,9 +21,12 @@ drives the ported paths end to end through the public entry points:
   copy-on-write) → chunked ``lm_prefill_paged`` → 64
   ``lm_decode_paged(kernel="pallas")`` steps → release and audit, then
   ``generate`` on one 16384-token prompt through the flash kernel in every
-  layer; greedy tokens held against the gather backend, per-request
-  ``lm_generate`` and the plain flash version;
-- phase 9: kernel, plain, bound and library times;
+  layer, and on a 4096-token prompt of a ``TransformerLM(vocab=4096,
+  d_model=1024, heads=4, layers=2)`` (head dim 256); greedy tokens held
+  against the gather backend, per-request ``lm_generate`` and the plain
+  flash version;
+- phase 9: kernel, plain, bound and library times; the flash forward also
+  in bf16 beside SDPA's bf16 forward;
 - phase 10: the flash forward (output and lse) and backward kernels (dK/dV
   and dQ) against their plain versions, element by element: the training
   shape (2 heads × 32768 × 128, causal, ``valid_len`` 32767) in f32 and
@@ -35,11 +40,13 @@ drives the ported paths end to end through the public entry points:
   flash forward, dK/dV and dQ kernels; the first step's gradients and the 3
   steps' losses and params held against the same run with the plain flash
   versions swapped in; one step each with ``attn="ulysses"`` and with
-  ``remat=True, loss_chunk=16384`` held against the ring step;
-- phase 12: the backward kernels' registers and spills from ptxas (a spill
-  fails the run); the flash kernels' times at the training shape in f32,
-  and the backward pair's in bf16, each beside SDPA's backward and the
-  tensor-core bound (3xTF32 at 495/3 TFLOP/s for f32, 989 for bf16);
+  ``remat=True, loss_chunk=16384`` held against the ring step; then one step
+  of the model widened to head dim 256 with ``attn="ring"`` (which resolves
+  to the tiled formulation, named in the log) and ``"ulysses"``;
+- phase 12: the forward and backward kernels' registers and spills from
+  ptxas (a spill fails the run); the flash kernels' times at the training
+  shape in f32 and bf16, each beside SDPA's and the tensor-core bound
+  (3xTF32 at 495/3 TFLOP/s for f32, 989 for bf16);
 - phase 13: the BSR SpMM kernel against its plain version, element by element:
   block sizes 8, 32, 64 and 128 with ragged m, n and p, empty block rows and a
   hot block column, in f32 and bf16; no block at all; more than 65535 block
@@ -94,9 +101,17 @@ LM = dict(vocab=4096, d_model=512, heads=8, layers=4, seed=0)
 PROMPT, SHARED, DECODE_STEPS, ROWS = 512, 256, 64, 8
 PAGE_LEN, PREFILL_CHUNK = 16, 256
 LONG_PROMPT, LONG_STEPS = 16384, 8
+# head dims above 128, which the forward kernel's widest instances take; the
+# wide model: d_model 1024 over 4 heads (dh 256), generate on a 4096-token
+# prompt (flash prefill from 2048 tokens)
+WIDE_DH = (192, 256)
+WIDE_LM = dict(vocab=4096, d_model=1024, heads=4, layers=2, seed=0)
+WIDE_PROMPT, WIDE_STEPS = 4096, 4
 # the training path: bench_all.py config_lct's model and stream
 LCT = dict(vocab=512, d_model=256, heads=2, layers=2, seed=0)
 TRAIN_SEQ, TRAIN_STEPS = 32768, 3
+# one step of that model widened to dh 256, on a shorter stream
+WIDE_TRAIN_DH, WIDE_TRAIN_SEQ = 256, 4096
 # flash backward kernels vs plain, per element: f32 |err| <= BWD_F32_ATOL *
 # max|plain| + BWD_F32_RTOL * |plain|. Each dk/dv element sums up to 32768
 # rows whose terms cancel (each row's ds sums to 0), in 64-row tiles on the
@@ -271,8 +286,8 @@ def check_flash(torch, fa, gen, H, P, d, valid, dtype) -> float:
     ``flash_attention_single_panel`` on the strided views ``_prefill_attn``
     passes (head stride d, row stride H * d); then a two-panel run with
     carried state and nonzero offsets that are no multiple of the tile. The
-    plain version tiles by 1024 and the kernel by 64, so in bf16 they round
-    p at different running maxima (see BF16_ATTN_ATOL)."""
+    plain version tiles by 1024 keys and the kernel by 32 or 64, so in bf16
+    they round p at different running maxima (see BF16_ATTN_ATOL)."""
     import math
 
     import torch.nn.functional as F
@@ -531,9 +546,9 @@ def train_path(torch, np, tt, fa, ops):
     from marlin_tpu_torch.parallel.ring_attention import (
         resolve_attention_backend)
 
-    if resolve_attention_backend("auto", "cuda") != "flash":
+    if resolve_attention_backend("auto", "cuda", D_T) != "flash":
         raise AssertionError("ring attention 'auto' must pick the flash "
-                             "kernels on a CUDA device")
+                             f"kernels on a CUDA device at dh {D_T}")
     lct = tt.TransformerLM(**LCT)
     stream = np.random.default_rng(0).integers(
         0, LCT["vocab"], TRAIN_SEQ).astype(np.int32)
@@ -617,41 +632,130 @@ def train_path(torch, np, tt, fa, ops):
             raise AssertionError(f"{knobs}: loss {loss1} vs {losses_k[0]}")
     del params0, params_k
     torch.cuda.empty_cache()
+    wide_step(torch, tt, ops, resolve_attention_backend, stream)
     return train_counts
 
 
-def bwd_ptxas(_build) -> dict:
-    """Registers and spill bytes of every instance of the flash backward
-    kernel, from the build's ptxas report, by label; raises if one spills."""
+def wide_step(torch, tt, ops, resolve_attention_backend, stream) -> None:
+    """One training step of config_lct's model at dh 256 (d_model 512 over 2
+    heads) on WIDE_TRAIN_SEQ tokens, with attn="ring" and "ulysses": above
+    the backward kernels' 128 both take the tiled formulation on the card
+    (no kernel launched); the two losses agree and start near ln vocab."""
+    cfg = dict(LCT, d_model=2 * WIDE_TRAIN_DH)
+    backend = resolve_attention_backend("auto", "cuda", WIDE_TRAIN_DH)
+    log(f"  dh {WIDE_TRAIN_DH}: TransformerLM{tuple(cfg.values())}, ring "
+        f"attention 'auto' resolves to {backend!r} on the card")
+    if backend != "xla":
+        raise AssertionError(f"ring 'auto' at dh {WIDE_TRAIN_DH}: {backend}")
+    params = tt.TransformerLM(**cfg).init_params()
+    losses = {}
+    for attn in ("ring", "ulysses"):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        _, (losses[attn],) = tt.TransformerLM(**cfg, attn=attn).train(
+            stream[:WIDE_TRAIN_SEQ], steps=1, params=params)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        log(f"  one step at dh {WIDE_TRAIN_DH}, attn={attn!r}, "
+            f"{WIDE_TRAIN_SEQ} tokens: loss {losses[attn]!r}, "
+            f"{time.perf_counter() - t0:.3f} s, launches {counts}")
+        if any(counts.values()):
+            raise AssertionError(f"dh {WIDE_TRAIN_DH} {attn}: a kernel ran")
+    ring, uly = losses["ring"], losses["ulysses"]
+    if not (math.isfinite(ring) and abs(ring - math.log(LCT["vocab"])) < 0.25
+            and abs(uly - ring) <= TRAIN_LOSS0_RTOL * abs(ring)):
+        raise AssertionError(f"dh {WIDE_TRAIN_DH} losses {losses}")
+    del params
+    torch.cuda.empty_cache()
+
+
+def ptxas_table(_build, source: str, kernel: str, count: int) -> dict:
+    """Registers and spill bytes of every instance of ``kernel`` in
+    ``source``, from the build's ptxas report, by label (the backward's
+    labels name dK/dV or dQ); raises unless there are ``count`` instances,
+    or if one spills."""
     import re
 
-    report = _build.ptxas_report().split("== flash_attention_bwd.cu", 1)[1]
+    report = _build.ptxas_report().split(f"== {source}\n", 1)[1]
     report = report.split("\n== ", 1)[0]
     out, label = {}, None
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            a = re.search(r"flash_bwd_kernelI(f|13__nv_bfloat16)Li(\d+)ELb"
-                          r"([01])ELb([01])E", m.group(1))
-            label = (f"{'dkv' if a.group(4) == '1' else 'dq'} "
-                     f"{'f32' if a.group(1) == 'f' else 'bf16'} d<={a.group(2)}"
+            a = re.search(kernel + r"I(f|13__nv_bfloat16)Li(\d+)ELb([01])E"
+                          r"(?:Lb([01])E)?", m.group(1))
+            kind = "" if a.group(4) is None else \
+                ("dkv " if a.group(4) == "1" else "dq ")
+            label = (f"{kind}{'f32' if a.group(1) == 'f' else 'bf16'} "
+                     f"d<={a.group(2)}"
                      f"{'' if a.group(3) == '1' else ' element-wise'}")
             out[label] = dict(registers=None, spill=None)
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
         if m and label:
             out[label]["spill"] = int(m.group(1)) + int(m.group(2))
         m = re.search(r"Used (\d+) registers", line)
         if m and label:
             out[label]["registers"] = int(m.group(1))
-    if len(out) != 16 or any(v["registers"] is None for v in out.values()):
-        raise AssertionError(f"ptxas report of the backward kernels: {out}")
+    if len(out) != count or any(v["registers"] is None for v in out.values()):
+        raise AssertionError(f"ptxas report of {kernel}: {out}")
     for label, v in out.items():
-        log(f"  ptxas {label}: {v['registers']} registers, {v['spill']} "
-            f"bytes spilled")
+        log(f"  ptxas {kernel} {label}: {v['registers']} registers, "
+            f"{v['spill']} bytes spilled")
     spilled = [k for k, v in out.items() if v["spill"]]
     if spilled:
-        raise AssertionError(f"backward kernels spill: {spilled}")
+        raise AssertionError(f"{kernel} spills: {spilled}")
     return out
+
+
+def sdpa_backend(torch, q, k, v) -> str:
+    """The backend SDPA picks for causal (1, H, S, d) ``q``, ``k``, ``v``."""
+    try:
+        from torch.nn.attention import SDPBackend
+        return SDPBackend(torch._fused_sdp_choice(q, k, v, None, 0.0,
+                                                  True)).name
+    except Exception as exc:  # a private helper: name what went wrong
+        return f"unknown ({type(exc).__name__})"
+
+
+def fwd_times(torch, fa, gen, H, P, d, valid, dtype, plain_reps=2):
+    """CUDA-event times of ``flash_attention_single_panel`` (the forward
+    kernel) at (H, P, d), causal with ``valid_len`` ``valid``, beside its
+    plain version (``plain_reps`` 0: not timed) and SDPA's causal forward
+    in the same dtype, and its bound: 4·d operations per live pair at the
+    tensor cores' rate (f32: three TF32 passes, 495/3 TFLOP/s; bf16: 989),
+    or the bytes of q, k, v and the f32 output if larger. Logs the CUDA-core
+    f32 bound (67 TFLOP/s) beside the f32 one. Returns a dict."""
+    scale = 1.0 / math.sqrt(d)
+    q, k, v = (torch.randn((H, P, d), generator=gen, device="cuda")
+               .to(dtype) for _ in range(3))
+    t = dict(ms=cuda_ms(torch, lambda: fa.flash_attention_single_panel(
+        q, k, v, valid, causal=True, scale=scale), 5))
+    t["plain"] = cuda_ms(torch, lambda: fa.flash_attention_single_panel_plain(
+        q, k, v, valid, causal=True, scale=scale), plain_reps) \
+        if plain_reps else None
+    t["lib"] = cuda_ms(torch, lambda: torch.nn.functional
+                       .scaled_dot_product_attention(q[None], k[None], v[None],
+                                                     is_causal=True), 5)
+    backend = sdpa_backend(torch, q[None], k[None], v[None])
+    f32 = dtype == torch.float32
+    ops_ = 4.0 * d * H * live_pairs(P, valid)
+    peak, rate = ((TF32_PEAK / 3, "3xTF32 tensor cores, 165 TFLOP/s") if f32
+                  else (BF16_PEAK, "bf16 tensor cores, 989 TFLOP/s"))
+    io_bytes = H * P * d * (3.0 * q.element_size() + 4.0)
+    t["bound"] = 1e3 * max(ops_ / peak, io_bytes / HBM_BYTES_PER_S)
+    dt = str(dtype)[6:]
+    log(f"  flash_attention_single_panel H={H} P={P} d={d} valid={valid} "
+        f"{dt}: {t['ms']:.3f} ms ({ops_ / t['ms'] / 1e9:.1f} TFLOP/s), "
+        + (f"plain {t['plain']:.3f} ms, " if plain_reps else "")
+        + f"SDPA forward ({backend}) {t['lib']:.3f} ms, bound "
+        f"{t['bound']:.3f} ms (operations, 4*d per pair, {rate}"
+        + (f"; CUDA-core f32 bound {1e3 * ops_ / F32_PEAK:.3f} ms, 67 "
+           f"TFLOP/s" if f32 else "") + "): kernel "
+        f"{'below' if t['ms'] < t['lib'] else 'above'} SDPA")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return t
 
 
 def bwd_times(torch, fa, gen, dtype, pairs):
@@ -674,12 +778,7 @@ def bwd_times(torch, fa, gen, dtype, pairs):
         qs, ks, vs, is_causal=True)
     t["lib_bwd"] = cuda_ms(torch, lambda: torch.autograd.grad(
         o_sdpa, (qs, ks, vs), do[None], retain_graph=True), 5)
-    try:
-        from torch.nn.attention import SDPBackend
-        backend = SDPBackend(torch._fused_sdp_choice(
-            qs, ks, vs, None, 0.0, True)).name
-    except Exception as exc:  # a private helper: name what went wrong
-        backend = f"unknown ({type(exc).__name__})"
+    backend = sdpa_backend(torch, qs, ks, vs)
     del o_sdpa, qs, ks, vs
     dt = str(dtype)[6:]
     peak, rate = ((TF32_PEAK / 3, "3xTF32 tensor cores, 165 TFLOP/s")
@@ -708,37 +807,29 @@ def bwd_times(torch, fa, gen, dtype, pairs):
 
 
 def train_times(torch, fa, gen, _build):
-    """Phase 12: the backward kernels' registers and spills; kernel, plain,
-    bound and library times of the flash kernels at the training shape, f32
-    (the main path's type), then the backward pair in bf16. Returns the f32
-    times by name."""
+    """Phase 12: the forward and backward kernels' registers and spills;
+    kernel, plain, bound and library times of the flash kernels at the
+    training shape, f32 (the main path's type), and in bf16. Returns the
+    backward's f32 times by name."""
     H_T, D_T, P_T = train_shape()
     log(f"phase 12: flash kernel times at H={H_T} P={P_T} d={D_T} causal "
         f"valid={P_T - 1} (CUDA events)")
-    bwd_ptxas(_build)
+    ptxas_table(_build, "flash_attention.cu", "flash_fwd_kernel", 8)
+    ptxas_table(_build, "flash_attention_wide.cu", "flash_fwd_kernel", 4)
+    ptxas_table(_build, "flash_attention_bwd.cu", "flash_bwd_kernel", 16)
     pairs = H_T * live_pairs(P_T, P_T - 1)
     log(f"  {pairs} live (query, key) pairs")
     t, bargs, kw = bwd_times(torch, fa, gen, torch.float32, pairs)
-    q, k, v = bargs[:3]
     t["plain_bwd"] = cuda_ms(torch, lambda: fa.flash_attention_panel_bwd_plain(
         *bargs, **kw), 2)
-    ms_fwd = cuda_ms(torch, lambda: fa.flash_attention_single_panel(
-        q, k, v, P_T - 1, **kw), 5)
-    plain_fwd = cuda_ms(torch, lambda: fa.flash_attention_single_panel_plain(
-        q, k, v, P_T - 1, **kw), 2)
-    lib_fwd = cuda_ms(torch, lambda: torch.nn.functional
-                      .scaled_dot_product_attention(q[None], k[None], v[None],
-                                                    is_causal=True), 5)
-    bound_fwd = 1e3 * max(4.0 * D_T * pairs / F32_PEAK,
-                          6.0 * H_T * P_T * D_T * 4 / HBM_BYTES_PER_S)
     log(f"  plain backward (dq, dk, dv) f32 {t['plain_bwd']:.3f} ms")
-    log(f"  flash_attention_single_panel {ms_fwd:.3f} ms, plain "
-        f"{plain_fwd:.3f} ms, SDPA forward {lib_fwd:.3f} ms, bound "
-        f"{bound_fwd:.3f} ms (operations, 4*d per pair)")
-    del bargs, q, k, v
+    del bargs
     torch.cuda.empty_cache()
     bwd_times(torch, fa, gen, torch.bfloat16, pairs)
     torch.cuda.empty_cache()
+    for dtype in (torch.float32, torch.bfloat16):
+        fwd_times(torch, fa, gen, H_T, P_T, D_T, P_T - 1, dtype,
+                  plain_reps=2 if dtype == torch.float32 else 0)
     return t
 
 
@@ -1157,8 +1248,10 @@ def main() -> int:
     W = -(-(PROMPT + DECODE_STEPS) // page_len)  # 36: the bucket's table
     paged_err = 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        for B, kvh, group in ((ROWS, 8, 1), (64, 8, 1), (ROWS, 2, 4)):
-            e = check_paged(torch, pa, gen, B, kvh, group, 64, page_len, W,
+        # the last: group * dh = 4096, two launches of 8 query heads each
+        for B, kvh, group, dh in ((ROWS, 8, 1, 64), (64, 8, 1, 64),
+                                  (ROWS, 2, 4, 64), (4, 2, 16, 256)):
+            e = check_paged(torch, pa, gen, B, kvh, group, dh, page_len, W,
                             dtype)
             if dtype == torch.float32 and (B, group) == (ROWS, 1):
                 paged_err = e
@@ -1171,6 +1264,8 @@ def main() -> int:
             e = check_flash(torch, fa, gen, 8, P, 64, P - 100, dtype)
             if dtype == torch.float32 and P == LONG_PROMPT:
                 flash_err = e
+        for d in WIDE_DH:  # the d <= 256 instances
+            check_flash(torch, fa, gen, 2, 4096, d, 4000, dtype)
     torch.cuda.empty_cache()
 
     # ------------------------------------- 8. the serving path at full width
@@ -1185,6 +1280,10 @@ def main() -> int:
                for _ in range(ROWS)]
     prompts[1][:SHARED] = prompts[0][:SHARED]  # a shared 256-token prefix
     long_prompt = rng.integers(0, LM["vocab"], LONG_PROMPT).astype(np.int32)
+    wide_lm = tt.TransformerLM(**WIDE_LM)
+    wide_params = wide_lm.init_params()
+    wide_prompt = rng.integers(0, WIDE_LM["vocab"], WIDE_PROMPT).astype(
+        np.int32)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     if tt.resolve_decode_kernel("auto", "cuda") != "pallas":
@@ -1195,11 +1294,20 @@ def main() -> int:
     long_out = lm.generate(params, long_prompt, steps=LONG_STEPS)
     torch.cuda.synchronize()
     long_s = time.perf_counter() - t0
+    before_wide = fa.flash_attention_panel.launches
+    t0 = time.perf_counter()
+    wide_out = wide_lm.generate(wide_params, wide_prompt, steps=WIDE_STEPS)
+    torch.cuda.synchronize()
+    wide_s = time.perf_counter() - t0
+    wide_launches = fa.flash_attention_panel.launches - before_wide
     path_counts = ops.launch_counts()
     log(f"  launches on the main path: {path_counts}")
     for kname in ("paged_decode_attention", "flash_attention_panel"):
         if path_counts[kname] <= 0:
             raise AssertionError(f"{kname} never launched on the main path")
+    if wide_launches != WIDE_LM["layers"]:
+        raise AssertionError(f"dh 256 generate: {wide_launches} flash forward "
+                             f"launches, want one per layer")
     tok = ROWS * steps
     log(f"  decode: {tok} tokens in {decode_s:.3f} s = {tok / decode_s:.1f} "
         f"tok/s, {decode_s / steps * 1e3:.3f} ms per step (batch {ROWS}, "
@@ -1209,6 +1317,10 @@ def main() -> int:
             audit["cow_copies"] != 1 or audit["used"] != audit["cached"]:
         raise AssertionError(f"pool bookkeeping: {steps} steps, {audit}")
     log(f"  generate({LONG_PROMPT} tokens, {LONG_STEPS} steps): {long_s:.3f} s")
+    log(f"  TransformerLM{tuple(WIDE_LM.values())} (dh "
+        f"{WIDE_LM['d_model'] // WIDE_LM['heads']}) generate({WIDE_PROMPT} "
+        f"tokens, {WIDE_STEPS} steps): {wide_s:.3f} s, {wide_launches} flash "
+        f"forward launches")
     log(f"  peak device memory: "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
 
@@ -1233,13 +1345,19 @@ def main() -> int:
     fa.flash_attention_single_panel = fa.flash_attention_single_panel_plain
     try:
         long_ref = lm.generate(params, long_prompt, steps=LONG_STEPS)
+        wide_ref = wide_lm.generate(wide_params, wide_prompt, steps=WIDE_STEPS)
     finally:
         fa.flash_attention_single_panel = kernel_panel
     if long_out.tolist() != long_ref.tolist():
         raise AssertionError("16k generate: kernel flash != plain flash tokens")
     log(f"  generate {LONG_PROMPT}: tokens {long_out[LONG_PROMPT:].tolist()} "
         f"== the plain flash version's")
-    del params
+    if wide_out.tolist() != wide_ref.tolist():
+        raise AssertionError("dh 256 generate: kernel flash != plain flash "
+                             "tokens")
+    log(f"  dh 256 generate {WIDE_PROMPT}: tokens "
+        f"{wide_out[WIDE_PROMPT:].tolist()} == the plain flash version's")
+    del params, wide_params
     torch.cuda.empty_cache()
 
     # -------------------------------------------------------- 9. times
@@ -1271,28 +1389,10 @@ def main() -> int:
         f"{ms_paged:.4f} ms, plain {plain_paged:.4f} ms, gather+SDPA "
         f"{lib_paged:.4f} ms, bound {bound_paged:.4f} ms (bytes, "
         f"{paged_bytes / 1e6:.2f} MB)")
-    H, P = LM["heads"], LONG_PROMPT
-    qf, kf, vf = (torch.randn((H, P, dh), generator=gen, device="cuda")
-                  for _ in range(3))
-    scale = 1.0 / math.sqrt(dh)
-    ms_flash = cuda_ms(torch, lambda: fa.flash_attention_single_panel(
-        qf, kf, vf, P, causal=True, scale=scale), 5)
-    plain_flash = cuda_ms(torch, lambda: fa.flash_attention_single_panel_plain(
-        qf, kf, vf, P, causal=True, scale=scale), 2)
-    lib_flash = cuda_ms(torch, lambda: torch.nn.functional
-                        .scaled_dot_product_attention(qf[None], kf[None],
-                                                      vf[None], is_causal=True),
-                        5)
-    flash_ops = 4.0 * dh * H * P * (P + 1) / 2  # live (query, key) pairs
-    bound_flash = 1e3 * max(flash_ops / F32_PEAK,
-                            6.0 * H * P * dh * 4 / HBM_BYTES_PER_S)
-    log(f"  flash_attention_single_panel H={H} P={P} d={dh} causal f32: "
-        f"{ms_flash:.3f} ms ({flash_ops / ms_flash / 1e9:.1f} TFLOP/s), plain "
-        f"{plain_flash:.3f} ms, SDPA {lib_flash:.3f} ms, bound "
-        f"{bound_flash:.3f} ms (operations)")
-
-    del qf, kf, vf
-    torch.cuda.empty_cache()
+    tf = fwd_times(torch, fa, gen, LM["heads"], LONG_PROMPT, dh, LONG_PROMPT,
+                   torch.float32)
+    fwd_times(torch, fa, gen, LM["heads"], LONG_PROMPT, dh, LONG_PROMPT,
+              torch.bfloat16, plain_reps=0)
 
     bwd_errs, bwd_worst = backward_checks(torch, fa, gen)
     train_counts = train_path(torch, np, tt, fa, ops)
@@ -1335,12 +1435,12 @@ def main() -> int:
          "max_abs_err": paged_err, "ms": ms_paged, "plain_ms": plain_paged,
          "bound_ms": bound_paged, "bound_by": "bytes", "library_ms": lib_paged},
         {"name": "flash_attention_panel", "route": "cuda",
-         "source": "marlin_tpu_torch/csrc/flash_attention.cu",
+         "source": "marlin_tpu_torch/csrc/flash_attention.cuh",
          "replaces": "marlin_tpu/ops/flash_attention.py:93",
          "launches": path_counts["flash_attention_panel"],
-         "max_abs_err": flash_err, "ms": ms_flash, "plain_ms": plain_flash,
-         "bound_ms": bound_flash, "bound_by": "operations",
-         "library_ms": lib_flash},
+         "max_abs_err": flash_err, "ms": tf["ms"], "plain_ms": tf["plain"],
+         "bound_ms": tf["bound"], "bound_by": "operations",
+         "library_ms": tf["lib"]},
         {"name": "flash_attention_bwd_dkv", "route": "cuda",
          "source": "marlin_tpu_torch/csrc/flash_attention_bwd.cu",
          "replaces": "marlin_tpu/ops/flash_attention.py:195",

@@ -110,6 +110,12 @@ __device__ __forceinline__ Split<N> split_tf32(const float (&x)[N]) {
   return split_tf32(bits);
 }
 
+// the halves of a 16-byte chunk of four f32
+__device__ __forceinline__ Split<4> split_tf32(const uint4& x) {
+  const uint32_t bits[4] = {x.x, x.y, x.z, x.w};
+  return split_tf32(bits);
+}
+
 // not volatile: a pure function of its operands, which the compiler may
 // schedule among the other independent products
 __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
@@ -154,6 +160,46 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p)));
+}
+
+// rows [r0, r0 + nrows) of an (n, d) matrix with row stride si into a
+// swizzled [nrows][DP] tile, by the NT threads of a block; zeros past n and
+// past d. VEC: 16-byte cp.async copies, which need a 16-byte-aligned base,
+// stride and row (d * sizeof(T)); otherwise element-wise synchronous copies.
+template <typename T, int DP, bool VEC, int NT>
+__device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src, int64_t si,
+                                          int r0, int nrows, int n, int d) {
+  if constexpr (VEC) {
+    constexpr int E = 16 / (int)sizeof(T);
+    constexpr int CPR = DP / E;
+    for (int idx = threadIdx.x; idx < nrows * CPR; idx += NT) {
+      const int r = idx / CPR;
+      const int c = (idx % CPR) * E;
+      const int row = r0 + r;
+      const bool ok = row < n && c < d;
+      cp_async16(dst + swz_at<T, DP>(r, c), ok ? src + (int64_t)row * si + c : src,
+                 ok ? 16 : 0);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < nrows * DP; idx += NT) {
+      const int r = idx / DP;
+      const int c = idx % DP;
+      const int row = r0 + r;
+      dst[swz_at<T, DP>(r, c)] =
+          (row < n && c < d) ? src[(int64_t)row * si + c] : static_cast<T>(0.f);
+    }
+  }
+}
+
+// max and sum over the four lanes of a quad (lanes 4g..4g+3), which hold the
+// columns of accumulator rows g and g + 8
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 }  // namespace tc

@@ -29,10 +29,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libmarlin_kernels.so"
 # Flags for one source on top of NVCC_FLAGS. At ptxas's default -O3 the
-# backward kernels' schedule holds so many loads in flight that some
-# instances spill past their 255 registers; -O1 keeps all sixteen in 162-238
-# registers with no spill, at the same speed on an H100.
-SOURCE_FLAGS = {"flash_attention_bwd.cu": ("-Xptxas", "-O1")}
+# backward kernels' schedule, and that of the forward's d <= 256 instances,
+# holds so many loads in flight that they spill past their 255 registers;
+# -O1 keeps them all without a spill (the backward's sixteen at the same
+# speed on an H100).
+SOURCE_FLAGS = {"flash_attention_bwd.cu": ("-Xptxas", "-O1"),
+                "flash_attention_wide.cu": ("-Xptxas", "-O1")}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None

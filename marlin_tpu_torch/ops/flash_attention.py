@@ -2,12 +2,14 @@
 two-pass recompute backward.
 
 Counterpart of ``marlin_tpu/ops/flash_attention.py``. Its Pallas TPU panel
-kernel becomes the CUDA kernel ``csrc/flash_attention.cu`` and its two
-backward kernels ``csrc/flash_attention_bwd.cu`` (built and bound by
-``ops/_build.py``). Forward: score tiles stay in shared memory and registers,
-the running max ``m``, denominator ``l`` and f32 accumulator are carried
-across the kv tiles, and tiles with no live entry (past ``valid_len``, or
-wholly above the causal diagonal) are never visited. Backward
+kernel becomes the CUDA kernel ``csrc/flash_attention.cuh`` (instantiated by
+``csrc/flash_attention.cu``, and for d <= 256 by
+``csrc/flash_attention_wide.cu``) and its two backward kernels
+``csrc/flash_attention_bwd.cu`` (built and bound by ``ops/_build.py``).
+Forward: score tiles stay in registers, the running max ``m``, denominator
+``l`` and f32 accumulator are carried across the kv tiles, and tiles with no
+live entry (past ``valid_len``, or wholly above the causal diagonal) are
+never visited. Backward
 (:func:`flash_attention_panel_bwd`): probabilities are rebuilt per tile from
 the forward's ``lse`` rows and ``delta = rowsum(dO·O)``, so no score matrix is
 saved; one kernel gives f32 ``dk``/``dv`` with the kv tile outer, the other
@@ -25,11 +27,12 @@ callers ``vmap`` over heads). ``m``/``l`` stay 1-D per head: the TPU's packed
 ``(sq//128, 128)`` form exists only for its (8, 128) tiling.
 
 f32 inputs keep f32 accuracy everywhere (the TPU kernels pin
-``Precision.HIGHEST``): the forward kernel and the plain versions multiply in
-IEEE f32, the backward kernels on the tensor cores in three TF32 passes (a
-single TF32 pass would be ~1e-3 off); bf16 inputs run bf16 products. ``p``
-and ``ds`` are rounded to the input type before their products, as the TPU
-kernels cast them down.
+``Precision.HIGHEST``): the plain versions multiply in IEEE f32, the forward
+and backward kernels on the tensor cores in three TF32 passes (a single TF32
+pass would be ~1e-3 off); bf16 inputs run bf16 products. ``p`` and ``ds``
+are rounded to the input type before their products, as the TPU kernels
+cast them down. The forward kernel takes head dims up to
+:data:`FWD_MAX_D` (256), the backward kernels up to :data:`BWD_MAX_D` (128).
 
 :func:`flash_attention_panel` runs the kernel for CUDA tensors (raising on a
 failed build or launch) and :func:`flash_attention_panel_plain` for CPU
@@ -62,8 +65,8 @@ def block_divisor(n: int, cap: int | None = None) -> int:
     1024 blocks, shorter ones one whole-panel block; with ``cap``, the largest
     power-of-two divisor of ``n`` not above it.
 
-    On Hopper the number has no meaning for the kernel, which tiles itself
-    (64 × 64) and masks ragged edges; it sets the tiling of the plain version
+    On Hopper the number has no meaning for the kernels, which tile
+    themselves and mask ragged edges; it sets the tiling of the plain version
     and thus where the plain version's online softmax rescales."""
     if cap is None:
         if n % 1024 == 0:
@@ -107,17 +110,24 @@ def _as_heads(q, k, v, rows: dict, like_q: dict):
     return (single, q, k, v, *rest)
 
 
-def _check_kernel(name: str, q, **others) -> None:
+# the widest head each kernel is compiled for: the forward's instances cover
+# d <= 64, 128 and 256; the dK/dV and dQ kernels d <= 64 and 128
+FWD_MAX_D = 256
+BWD_MAX_D = 128
+
+
+def _check_kernel(name: str, max_d: int, q, **others) -> None:
     """Raise unless the kernel behind ``name`` takes ``q`` and ``others``:
-    all on one CUDA device, q float32 or bfloat16, head dim at most 128."""
+    all on one CUDA device, q float32 or bfloat16, head dim at most
+    ``max_d`` (:data:`FWD_MAX_D` or :data:`BWD_MAX_D`)."""
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
     if q.dtype not in _DTYPES:
         raise TypeError(f"{name}: the kernel takes float32 or bfloat16, got "
                         f"{q.dtype}")
-    if q.shape[-1] > 128:
+    if q.shape[-1] > max_d:
         raise ValueError(f"{name}: head dim {q.shape[-1]} exceeds the "
-                         f"kernel's 128")
+                         f"kernel's {max_d}")
     for other, t in others.items():
         if t.device != q.device:
             raise ValueError(f"{name}: {other} on {t.device}, q on "
@@ -187,7 +197,8 @@ def flash_attention_panel(q, k, v, m, l, acc, q_offset, k_offset, valid_len,
             scale=scale, bq=bq, bkv=bkv)
     single, q, k, v, m, l, acc = _as_heads(q, k, v, dict(m=m, l=l),
                                            dict(acc=acc))
-    _check_kernel("flash_attention_panel", q, k=k, v=v, m=m, l=l, acc=acc)
+    _check_kernel("flash_attention_panel", FWD_MAX_D, q, k=k, v=v, m=m, l=l,
+                  acc=acc)
     H, sq, d = q.shape
     skv = k.shape[1]
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
@@ -326,7 +337,7 @@ def _bwd_launch(name, symbol, outs_like, q, k, v, do, lse, delta, q_offset,
     raises), launch ``symbol`` and return its f32 outputs, one shaped like
     each input named in ``outs_like``; raises on a refused launch."""
     single, q, k, v, do, lse, delta = _bwd_as_heads(q, k, v, do, lse, delta)
-    _check_kernel(name, q, k=k, v=v, do=do, lse=lse, delta=delta)
+    _check_kernel(name, BWD_MAX_D, q, k=k, v=v, do=do, lse=lse, delta=delta)
     H, sq, d = q.shape
     skv = k.shape[1]
     like = dict(q=q, k=k, v=v)

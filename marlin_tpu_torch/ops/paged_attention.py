@@ -23,7 +23,11 @@ validates.
 
 :func:`paged_decode_attention` runs the kernel for CUDA tensors (raising on a
 failed build or launch) and :func:`paged_decode_attention_plain` for CPU
-tensors. ``paged_decode_attention.launches`` counts kernel launches.
+tensors. ``paged_decode_attention.launches`` counts kernel launches. A block
+of the kernel holds ``group * dh <= 2048`` accumulators
+(:data:`KERNEL_GROUP_DH`); a wider group is split into chunks of query heads
+(:func:`group_chunks`), one launch each over the same pages. Every query head
+attends on its own, so the chunks give exactly the whole group's result.
 """
 
 from __future__ import annotations
@@ -37,10 +41,15 @@ from . import _build
 from .local import precision_scope
 
 __all__ = ["paged_decode_attention", "paged_decode_attention_plain",
-           "align_page_len", "paged_attention_cost", "PAGE_MULTIPLE"]
+           "align_page_len", "paged_attention_cost", "group_chunks",
+           "PAGE_MULTIPLE", "KERNEL_GROUP_DH"]
 
 # pages are sized to a multiple of this many positions (module docstring)
 PAGE_MULTIPLE = 1
+
+# group * dh one block of the kernel holds (csrc/paged_attention.cu:
+# kThreads * kMaxAcc)
+KERNEL_GROUP_DH = 2048
 
 _MASKED = -1e30  # the decode path's mask value; exp() of it underflows to 0
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -85,6 +94,17 @@ def _check(q, k_pages, v_pages, tables) -> None:
     if q.dtype != k_pages.dtype or q.dtype != v_pages.dtype:
         raise TypeError(f"q and the slab must share a dtype, got {q.dtype}, "
                         f"{k_pages.dtype}, {v_pages.dtype}")
+
+
+def group_chunks(group: int, dh: int) -> list[slice]:
+    """Slices of the group axis, each of at most ``KERNEL_GROUP_DH // dh``
+    query heads: the kernel's launches for one call. Raises for ``dh``
+    above :data:`KERNEL_GROUP_DH`, where not even one head fits."""
+    if dh > KERNEL_GROUP_DH:
+        raise ValueError(f"paged_decode_attention: dh = {dh} exceeds the "
+                         f"kernel's {KERNEL_GROUP_DH}")
+    step = KERNEL_GROUP_DH // dh
+    return [slice(g0, min(g0 + step, group)) for g0 in range(0, group, step)]
 
 
 def _score_div(dh: int) -> float:
@@ -155,10 +175,7 @@ def paged_decode_attention(q, k_pages, v_pages, tables, lengths):
     B, kvh, group, dh = q.shape
     page_len = k_pages.shape[1]
     W = tables.shape[1]
-    if group * dh > 2048:
-        raise ValueError(f"paged_decode_attention: group*dh = {group * dh} "
-                         f"exceeds the kernel's 2048")
-    q = q.contiguous()
+    chunks = group_chunks(group, dh)
     tables = torch.as_tensor(tables, device=q.device).to(torch.int32)\
         .contiguous()
     lengths = torch.as_tensor(lengths, device=q.device).to(torch.int32)\
@@ -169,14 +186,21 @@ def paged_decode_attention(q, k_pages, v_pages, tables, lengths):
     lib = _build.load_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.marlin_paged_attention(
-            _DTYPES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
-            v_pages.data_ptr(), tables.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), B, kvh, group, dh, page_len, W, _score_div(dh),
-            stream)
-    _build.check(lib, err, f"paged_decode_attention q {tuple(q.shape)} "
-                           f"pages {tuple(k_pages.shape)} W {W}")
-    paged_decode_attention.launches += 1
+        for sl in chunks:
+            # a chunk's queries and output contiguous, as the kernel takes them
+            qc = q[:, :, sl].contiguous()
+            oc = out if len(chunks) == 1 else torch.empty_like(qc)
+            err = lib.marlin_paged_attention(
+                _DTYPES[q.dtype], qc.data_ptr(), k_pages.data_ptr(),
+                v_pages.data_ptr(), tables.data_ptr(), lengths.data_ptr(),
+                oc.data_ptr(), B, kvh, qc.shape[2], dh, page_len, W,
+                _score_div(dh), stream)
+            _build.check(lib, err, f"paged_decode_attention q "
+                                   f"{tuple(qc.shape)} pages "
+                                   f"{tuple(k_pages.shape)} W {W}")
+            paged_decode_attention.launches += 1
+            if oc is not out:
+                out[:, :, sl] = oc
     return out
 
 

@@ -17,12 +17,17 @@ Backends:
 - ``"xla"``: the JAX package's tiled formulation in plain PyTorch — the
   panel in ``_KV_TILE``-key tiles folded by :func:`softmax_tile_update`,
   with autograd through it, as JAX differentiates its XLA path.
-- ``"auto"``: ``"flash"`` for tensors on a CUDA device, ``"xla"`` for CPU
-  tensors (:func:`resolve_attention_backend`). The JAX package picks flash
-  on a TPU for ``d % 128 == 0``, the width of its matrix unit; the CUDA
-  kernels mask any d up to 128 and raise above it, so on the card a wider
-  head raises rather than leaving the kernels silently. A caller who wants
-  the plain path there asks for ``"xla"``.
+- ``"auto"``: ``"flash"`` for tensors on a CUDA device with a head dim of at
+  most 128, ``"xla"`` above it and for CPU tensors
+  (:func:`resolve_attention_backend`). The rule is the reach of the backward
+  kernels (:data:`~marlin_tpu_torch.ops.flash_attention.BWD_MAX_D`): the
+  forward kernel takes d up to 256, but training through ``"flash"`` needs
+  both. The JAX package's ``auto`` picks flash on a TPU for ``d % 128 ==
+  0``, the width of its matrix unit, so the two agree at d <= 128 and at
+  d = 192 (the tiled path on both), and differ at d = 256, where the TPU
+  stays on its kernels and the card takes the tiled path until the backward
+  kernels reach 256 (ROADMAP queue 2b). An explicit ``"flash"`` at d > 128
+  on the card raises.
 """
 
 from __future__ import annotations
@@ -78,14 +83,23 @@ def softmax_tile_update(q_blk, k_t, v_t, m, l, acc, q_pos, k_pos, valid_len,
     return m_new, l, acc
 
 
-def resolve_attention_backend(backend: str, device) -> str:
-    """``backend`` as ``"flash"`` or ``"xla"`` (module docstring): ``"auto"``
-    is the CUDA kernels on a CUDA device, whatever the head dim (the kernels
-    raise for one above 128), and the tiled plain path elsewhere."""
+def resolve_attention_backend(backend: str, device, head_dim: int) -> str:
+    """``backend`` as ``"flash"`` or ``"xla"`` for tensors on ``device`` with
+    head dim ``head_dim`` (module docstring): ``"auto"`` is the CUDA kernels
+    on a CUDA device up to the backward kernels' head dim, and the tiled
+    plain path above it and elsewhere. ``"flash"`` on a CUDA device above
+    that head dim raises: the backward kernels could not run."""
     if backend not in ("auto", "flash", "xla"):
         raise ValueError(f"unknown ring attention backend: {backend!r}")
+    on_card = torch.device(device).type == "cuda"
+    fits = head_dim <= _flash.BWD_MAX_D
     if backend == "auto":
-        return "flash" if torch.device(device).type == "cuda" else "xla"
+        return "flash" if on_card and fits else "xla"
+    if backend == "flash" and on_card and not fits:
+        raise ValueError(
+            f"ring attention backend 'flash': head dim {head_dim} exceeds the "
+            f"backward kernels' {_flash.BWD_MAX_D} on {device}; 'auto' or "
+            f"'xla' take the tiled path")
     return backend
 
 
@@ -140,7 +154,7 @@ def ring_attention(q, k, v, mesh=None, axis: str = ROWS, causal: bool = False,
     if precision not in ("high", "default"):
         raise ValueError(f"unknown ring attention precision: {precision!r}")
     seq, d = q.shape[-2], q.shape[-1]
-    flash = resolve_attention_backend(backend, q.device) == "flash"
+    flash = resolve_attention_backend(backend, q.device, d) == "flash"
     _world_of_one(mesh, axis, "ring attention")
     sp = seq
     if sp > _KV_TILE:

@@ -7,8 +7,12 @@ sequence sharding. On one device both all-to-alls are the identity, so what
 remains is the local attention: :class:`~marlin_tpu_torch.ops.
 flash_attention.FlashAttention` over all heads in one launch of each kernel
 (the flash forward, and the dK/dV and dQ kernels in the backward; their
-plain versions for CPU tensors). A mesh axis larger than 1 raises: the
-all-to-alls over ``torch.distributed`` wait (ROADMAP queue 10).
+plain versions for CPU tensors). On a CUDA device a head dim above the
+backward kernels' 128 takes ring attention's tiled formulation instead, by
+the rule of its ``"auto"`` backend
+(:func:`~marlin_tpu_torch.parallel.ring_attention.resolve_attention_backend`).
+A mesh axis larger than 1 raises: the all-to-alls over ``torch.distributed``
+wait (ROADMAP queue 10).
 """
 
 from __future__ import annotations
@@ -21,7 +25,8 @@ import torch.nn.functional as F
 from ..mesh import ROWS, pad_to_multiple
 from ..ops import flash_attention as _flash
 from ..ops.local import precision_scope
-from .ring_attention import _world_of_one
+from .ring_attention import (_world_of_one, _xla_attention,
+                             resolve_attention_backend)
 
 __all__ = ["ulysses_attention"]
 
@@ -33,7 +38,10 @@ def ulysses_attention(q, k, v, mesh=None, axis: str = ROWS,
     any leading batch dims folded into the head axis. The sequence is padded
     to the JAX package's rule (a 128-multiple slab, 1024 multiples past 1024
     tokens) and the pad masked by ``valid_len``; ``precision`` as in
-    :func:`~marlin_tpu_torch.parallel.ring_attention.ring_attention`."""
+    :func:`~marlin_tpu_torch.parallel.ring_attention.ring_attention`. The
+    flash kernels run where ring attention's ``"auto"`` would pick them (a
+    CUDA device, head dim up to 128); the tiled formulation elsewhere on the
+    card, and the kernels' plain versions for CPU tensors."""
     if q.ndim < 3 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(
             f"ulysses needs (..., heads, seq, d) q/k/v of one shape, got "
@@ -59,7 +67,12 @@ def ulysses_attention(q, k, v, mesh=None, axis: str = ROWS,
     if precision == "default":
         q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
     scale_val = float(scale if scale is not None else 1.0 / math.sqrt(d))
+    tiled = (q.device.type == "cuda" and
+             resolve_attention_backend("auto", q.device, d) == "xla")
     with precision_scope("highest"):
-        out = _flash.FlashAttention.apply(q, k, v, seq, causal, scale_val)
+        if tiled:
+            out = _xla_attention(q, k, v, seq, causal, scale_val)
+        else:
+            out = _flash.FlashAttention.apply(q, k, v, seq, causal, scale_val)
     out = out.to(out_dtype)
     return out[:, :seq, :] if sp != seq else out

@@ -395,15 +395,16 @@ def test_attention_reference_matches_jax():
 
 
 def test_backend_resolution_and_errors():
-    """"auto" is the kernel on a CUDA device, whatever the head dim, and the
-    tiled plain path elsewhere; bad knobs and meshes wider than one device
-    raise."""
+    """"auto" is the kernel on a CUDA device up to the backward kernels'
+    head dim of 128, and the tiled plain path above it and elsewhere; bad
+    knobs and meshes wider than one device raise."""
     res = tra.resolve_attention_backend
-    assert res("auto", "cuda") == "flash"
-    assert res("auto", torch.device("cuda", 0)) == "flash"
-    assert res("auto", "cpu") == "xla"
-    assert res("flash", "cpu") == "flash"
-    assert res("xla", "cuda") == "xla"
+    assert res("auto", "cuda", 128) == "flash"
+    assert res("auto", torch.device("cuda", 0), 64) == "flash"
+    assert res("auto", "cuda", 256) == "xla"
+    assert res("auto", "cpu", 64) == "xla"
+    assert res("flash", "cpu", 256) == "flash"
+    assert res("xla", "cuda", 64) == "xla"
     x = torch.zeros((2, 8, 4))
     with pytest.raises(ValueError, match="backend"):
         tra.ring_attention(x, x, x, backend="dense")
@@ -512,16 +513,21 @@ def test_bwd_kernels_bit_identical_across_launches(cuda, dtype):
 
 @pytest.mark.cuda
 def test_wide_head_raises_on_card(cuda):
-    """On the card "auto" stays with the kernels for a head dim above their
-    128: ring attention raises as Ulysses does, and "xla" is the plain
-    path asked for by name."""
-    x = torch.zeros((2, 256, 256), device=cuda)
+    """On the card a head dim above the backward kernels' 128 takes the
+    tiled path: ring attention "auto" and Ulysses run it (no kernel
+    launched) and give "xla"'s output; an explicit "flash" raises, since
+    its backward could not run."""
+    x = torch.randn((2, 256, 256), device=cuda)
+    want = tra.ring_attention(x, x, x, causal=True, backend="xla")
     for fn in (lambda: tra.ring_attention(x, x, x, causal=True),
                lambda: tul.ulysses_attention(x, x, x, causal=True)):
-        with pytest.raises(ValueError, match="exceeds the kernel's 128"):
-            fn()
-    out = tra.ring_attention(x, x, x, causal=True, backend="xla")
-    assert out.shape == x.shape
+        ops.reset_launch_counts()
+        out = fn()
+        assert not any(ops.launch_counts().values())
+        np.testing.assert_allclose(_np(out), _np(want), rtol=F32_TOL,
+                                   atol=F32_TOL)
+    with pytest.raises(ValueError, match="exceeds the backward kernels' 128"):
+        tra.ring_attention(x, x, x, causal=True, backend="flash")
 
 
 @pytest.mark.cuda

@@ -221,7 +221,7 @@ def test_build_dir_is_keyed_by_sources():
     assert d.parent == _build.BUILD_ROOT and len(d.name) == 16
     assert {p.name for p in _build._sources()} == {
         "gemm.cu", "masked_fill.cu", "paged_attention.cu", "flash_attention.cu",
-        "flash_attention_bwd.cu", "bsr_spmm.cu"}
+        "flash_attention_wide.cu", "flash_attention_bwd.cu", "bsr_spmm.cu"}
     assert d == _build.build_dir()
 
 
