@@ -7,7 +7,13 @@ Builds the hand-written kernels from ``marlin_tpu_torch/csrc/`` (one ``nvcc``
 per source, all at once), holds each against its plain PyTorch version, and
 drives the ported paths end to end through the public entry points:
 
-- phases 1-5: the dense 20000² multiply (GEMM and masked-fill kernels);
+- phases 1-5: the dense 20000² multiply (GEMM and masked-fill kernels): the
+  GEMM's instances' registers and spills from ptxas (a spill fails the run),
+  every tile in f32 and bf16 against the plain version, ragged and unaligned
+  shapes, a long k (256 x 65536 x 256) against f64, two runs bit-identical;
+  ``gemm(backend="pallas")`` at 20000² against f64 on sampled rows, the
+  4096³ tuner ranking; the GEMM in f32 (and its pre-pass alone) and bf16
+  beside ``torch.matmul`` and the 3xTF32 / bf16 tensor-core bounds;
 - phases 6-7: the paged decode-attention and flash-panel kernels against
   their plain versions at the serving shapes (f32 and bf16, GQA, a group of
   16 heads of 256 that the paged kernel takes in two launches, ragged and
@@ -193,6 +199,22 @@ def check_gemm(torch, pk, m, k, n, dtype, gen, tile=(256, 256, 512)) -> float:
     if not err <= tol:
         raise AssertionError(f"pallas_matmul {m}x{k}x{n} {dtype}: {err} > {tol}")
     return err
+
+
+def check_gemm_f64(torch, pk, m, k, n, gen, tile) -> float:
+    """The f32 kernel against an f64 product, relative to max |ref|: a long
+    k in one tensor-core accumulator drifts (its sums are not rounded to
+    nearest), which this catches."""
+    a = torch.randn((m, k), generator=gen, device="cuda")
+    b = torch.randn((k, n), generator=gen, device="cuda")
+    got = pk.pallas_matmul(a, b, *tile)
+    ref = a.double() @ b.double()
+    rel = float((got.double() - ref).abs().max() / ref.abs().max())
+    log(f"  pallas_matmul {m}x{k}x{n} f32 tile {tile} vs f64: max rel err "
+        f"{rel:.3e} (tol {F64_TOL})")
+    if not rel <= F64_TOL:
+        raise AssertionError(f"pallas_matmul long k {tile}: {rel} > {F64_TOL}")
+    return rel
 
 
 def check_fill(torch, pk, x, rows, cols) -> float:
@@ -669,11 +691,20 @@ def wide_step(torch, tt, ops, resolve_attention_backend, stream) -> None:
     torch.cuda.empty_cache()
 
 
-def ptxas_table(_build, source: str, kernel: str, count: int) -> dict:
+def flash_label(dtype: str, args: list) -> str:
+    """A flash kernel instance's label from its template arguments (head dim,
+    vectorised copies, and for the backward whether it is dK/dV)."""
+    kind = "" if len(args) < 3 else ("dkv " if args[2] else "dq ")
+    return (f"{kind}{dtype} d<={args[0]}"
+            f"{'' if args[1] else ' element-wise'}")
+
+
+def ptxas_table(_build, source: str, kernel: str, count: int,
+                describe=flash_label) -> dict:
     """Registers and spill bytes of every instance of ``kernel`` in
-    ``source``, from the build's ptxas report, by label (the backward's
-    labels name dK/dV or dQ); raises unless there are ``count`` instances,
-    or if one spills."""
+    ``source``, from the build's ptxas report, by the label ``describe``
+    gives its dtype and integer template arguments; raises unless there are
+    ``count`` instances, or if one spills."""
     import re
 
     report = _build.ptxas_report().split(f"== {source}\n", 1)[1]
@@ -682,14 +713,13 @@ def ptxas_table(_build, source: str, kernel: str, count: int) -> dict:
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            a = re.search(kernel + r"I(f|13__nv_bfloat16)Li(\d+)ELb([01])E"
-                          r"(?:Lb([01])E)?", m.group(1))
-            kind = "" if a.group(4) is None else \
-                ("dkv " if a.group(4) == "1" else "dq ")
-            label = (f"{kind}{'f32' if a.group(1) == 'f' else 'bf16'} "
-                     f"d<={a.group(2)}"
-                     f"{'' if a.group(3) == '1' else ' element-wise'}")
-            out[label] = dict(registers=None, spill=None)
+            a = re.search(kernel + r"I(f|13__nv_bfloat16)((?:L[ib]\d+E)*)",
+                          m.group(1))
+            label = None if a is None else describe(
+                "f32" if a.group(1) == "f" else "bf16",
+                [int(x) for x in re.findall(r"L[ib](\d+)E", a.group(2))])
+            if label is not None:
+                out[label] = dict(registers=None, spill=None)
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m and label:
@@ -1133,17 +1163,28 @@ def main() -> int:
 
     # ------------------------------------- 3. kernels against plain versions
     log("phase 3: kernels vs plain versions")
+    ptxas_table(_build, "gemm.cu", "gemm_kernel",
+                            2 * len(BM_AXIS) * len(BN_AXIS) * len(BK_AXIS),
+                            lambda dt, a: f"{dt} {'x'.join(map(str, a))}")
+    ptxas_table(_build, "gemm.cu", "prep_kernel", 2, lambda dt, a: dt)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
+    tiles = [(bm, bn, bk) for bm in BM_AXIS for bn in BN_AXIS for bk in BK_AXIS]
     for dtype in (torch.float32, torch.bfloat16):
-        for m, k, n in ((130, 70, 50), (64, 300, 64), (1000, 1000, 1000)):
+        # (1, 129, 3): rows of k and n whose bytes are no multiple of 16
+        for m, k, n in ((130, 70, 50), (64, 300, 64), (1, 129, 3),
+                        (1000, 1000, 1000)):
             check_gemm(torch, pk, m, k, n, dtype, gen)
-        for bm in BM_AXIS:
-            for bn in BN_AXIS:
-                for bk in BK_AXIS:
-                    check_gemm(torch, pk, 257, 300, 199, dtype, gen, (bm, bn, bk))
+        for tile in tiles:
+            check_gemm(torch, pk, 257, 300, 199, dtype, gen, tile)
     # more output-row tiles than a 2-D grid's y axis (65535) could hold
     check_gemm(torch, pk, 65535 * 128 + 77, 24, 40, torch.float32, gen)
+    for tile in tiles:
+        check_gemm_f64(torch, pk, 256, 65536, 256, gen, tile)
+    x = torch.randn((1000, 1000), generator=gen, device="cuda")
+    if not torch.equal(pk.pallas_matmul(x, x), pk.pallas_matmul(x, x)):
+        raise AssertionError("pallas_matmul: two runs differ")
+    log("  pallas_matmul 1000^3 f32: two runs bit-identical")
     gemm_err = check_gemm(torch, pk, N, N, N, torch.float32, gen)
     fill_err = check_fill(torch, pk,
                           torch.randn((N, N), generator=gen, device="cuda"),
@@ -1207,28 +1248,54 @@ def main() -> int:
     del a4, b4
 
     # -------------------------------------------------------- 5. times
-    log(f"phase 5: times at {N}^2 f32 (CUDA events after warm-up)")
+    log(f"phase 5: times at {N}^2 (CUDA events after warm-up)")
+    torch.cuda.reset_peak_memory_stats()
     ad, bd = a.data, b.data
     ms_gemm = cuda_ms(torch, lambda: pk.pallas_matmul(ad, bd), 3)
+    ms_prep = cuda_ms(torch, lambda: pk.gemm_prepare(ad, bd), 3)
+    peak_f32 = torch.cuda.max_memory_allocated()
     plain_gemm = cuda_ms(torch, lambda: pk.pallas_matmul_plain(ad, bd), 3)
     prev_tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     lib_gemm = cuda_ms(torch, lambda: torch.matmul(ad, bd), 3)
     torch.backends.cuda.matmul.allow_tf32 = prev_tf32
-    bound_gemm = 1e3 * max(2.0 * N ** 3 / F32_PEAK,
+    # f32 at f32 accuracy on the tensor cores: three TF32 products
+    bound_gemm = 1e3 * max(2.0 * N ** 3 / (TF32_PEAK / 3),
                            3.0 * N * N * 4 / HBM_BYTES_PER_S)
+    simt_gemm = 1e3 * 2.0 * N ** 3 / F32_PEAK
+    log(f"  pallas_matmul f32 {ms_gemm:.3f} ms ({2.0 * N ** 3 / ms_gemm / 1e9:.1f} "
+        f"TFLOP/s; pre-pass alone {ms_prep:.3f} ms), plain {plain_gemm:.3f} ms, "
+        f"torch.matmul {lib_gemm:.3f} ms, bound {bound_gemm:.3f} ms "
+        f"(operations, 3xTF32 at {TF32_PEAK / 3e12:.0f} TFLOP/s; CUDA cores "
+        f"{simt_gemm:.3f} ms): kernel "
+        f"{'below' if ms_gemm < lib_gemm else 'above'} torch.matmul")
+    for tile in tiles:
+        log(f"  f32 tile {tile}: "
+            f"{cuda_ms(torch, lambda: pk.pallas_matmul(ad, bd, *tile), 2):.3f} ms")
+    ab, bb = ad.bfloat16(), bd.bfloat16()
+    ms_gemm16 = cuda_ms(torch, lambda: pk.pallas_matmul(ab, bb), 3)
+    prep16 = cuda_ms(torch, lambda: pk.gemm_prepare(ab, bb), 3)
+    lib_gemm16 = cuda_ms(torch, lambda: torch.matmul(ab, bb), 3)
+    bound_gemm16 = 1e3 * max(2.0 * N ** 3 / BF16_PEAK,
+                             3.0 * N * N * 2 / HBM_BYTES_PER_S)
+    log(f"  pallas_matmul bf16 {ms_gemm16:.3f} ms (pre-pass alone "
+        f"{prep16:.3f} ms), torch.matmul bf16 {lib_gemm16:.3f} ms, bound "
+        f"{bound_gemm16:.3f} ms (operations, {BF16_PEAK / 1e12:.0f} TFLOP/s)")
+    for tile in tiles:
+        log(f"  bf16 tile {tile}: "
+            f"{cuda_ms(torch, lambda: pk.pallas_matmul(ab, bb, *tile), 3):.3f} ms")
+    del ab, bb
     fr, fc = N - 1, N - 1
     ms_fill = cuda_ms(torch, lambda: pk.masked_fill(ad, fr, fc), 20)
     plain_fill = cuda_ms(torch, lambda: pk.masked_fill_plain(ad, fr, fc), 20)
     lib_fill = cuda_ms(torch, lambda: torch.nn.functional.pad(
         ad[:fr, :fc], (0, N - fc, 0, N - fr)), 20)
     bound_fill = 1e3 * 2.0 * N * N * 4 / HBM_BYTES_PER_S
-    log(f"  pallas_matmul {ms_gemm:.3f} ms ({2.0 * N ** 3 / ms_gemm / 1e9:.1f} "
-        f"TFLOP/s), plain {plain_gemm:.3f} ms, torch.matmul {lib_gemm:.3f} ms, "
-        f"bound {bound_gemm:.3f} ms (operations)")
     log(f"  masked_fill {ms_fill:.4f} ms, plain {plain_fill:.4f} ms, "
         f"F.pad {lib_fill:.4f} ms, bound {bound_fill:.4f} ms (bytes)")
-    log(f"  peak device memory: "
+    log(f"  peak device memory of phase 5: {peak_f32 / 2 ** 30:.2f} GiB "
+        f"(the f32 product and its pre-pass scratch beside phase 4's "
+        f"tensors); with the plain versions and bf16 "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
 
     del a, b, c, g, ad, bd

@@ -109,7 +109,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     # every pointer and the stream as c_void_p: left to ctypes' default they
     # would be passed as 32-bit ints and cut
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.marlin_gemm.argtypes = [i, i, i, i, p, p, p, ll, ll, ll, p]
+    # dtype, a, b, a_k, bt_k, m, n, k, ks, stream
+    lib.marlin_gemm_prep.argtypes = [i, p, p, p, p, ll, ll, ll, ll, p]
+    lib.marlin_gemm_prep.restype = i
+    # dtype, bm, bn, bk, a_k, bt_k, c, m, n, k, ks, waves, stream
+    lib.marlin_gemm.argtypes = [i, i, i, i, p, p, p, ll, ll, ll, ll, p, p]
     lib.marlin_gemm.restype = i
     lib.marlin_masked_fill.argtypes = [p, p, ll, ll, ll, ll, i, p]
     lib.marlin_masked_fill.restype = i

@@ -1,4 +1,4 @@
-"""The hand-written kernel layer: a tiled GEMM and the pad-masking fill.
+"""The hand-written kernel layer: a tensor-core GEMM and the pad-masking fill.
 
 Counterpart of ``marlin_tpu/ops/pallas_kernels.py``, whose two Pallas TPU
 kernels become CUDA C++ kernels for Hopper (``csrc/gemm.cu`` and
@@ -62,6 +62,41 @@ def pallas_matmul_plain(a: torch.Tensor, b: torch.Tensor, bm: int = 256,
     return (a_p @ b_p)[:m, :n].to(a.dtype)
 
 
+def _k_stride(k: int, itemsize: int) -> int:
+    """Values of k in a row of the K-major operands: k rounded up to the 16
+    values whose TF32 halves the f32 layout keeps side by side, or for bf16
+    to 16 bytes, the step TMA requires of a global stride."""
+    e = 16 if itemsize == 4 else 16 // itemsize
+    return -(-k // e) * e
+
+
+def gemm_prepare(a: torch.Tensor, b: torch.Tensor):
+    """The GEMM's pre-pass on the card: ``(ks, a_k, bt_k)``, the K-major
+    operands ``csrc/gemm.cu`` reads, A's m rows and B's n columns, ``ks``
+    values of k each (zeros past k). f32 splits every value into its TF32
+    halves and keeps them side by side, hi then lo, in blocks of 16 values:
+    rows of ``2 * ks`` floats. bf16 only transposes B, and uses ``a`` itself
+    where its rows are 16-byte aligned. Operands as :func:`pallas_matmul`
+    checks them."""
+    m, k = a.shape
+    n = b.shape[1]
+    ks = _k_stride(k, a.element_size())
+    w = 2 * ks if a.dtype == torch.float32 else ks
+    copy_a = w != k or a.data_ptr() % 16 != 0
+    scratch = torch.empty(((m if copy_a else 0) + n) * w, dtype=a.dtype,
+                          device=a.device)
+    a_k = scratch[:m * w].view(m, w) if copy_a else a
+    bt_k = scratch[scratch.numel() - n * w:].view(n, w)
+    lib = _build.load_library()
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.marlin_gemm_prep(_GEMM_DTYPES[a.dtype], a.data_ptr(),
+                                   b.data_ptr(), a_k.data_ptr(),
+                                   bt_k.data_ptr(), m, n, k, ks, stream)
+    _build.check(lib, err, f"pallas_matmul pre-pass {m}x{k}x{n}")
+    return ks, a_k, bt_k
+
+
 def pallas_matmul(a: torch.Tensor, b: torch.Tensor, bm: int = 256,
                   bn: int = 256, bk: int = 512) -> torch.Tensor:
     """Tiled ``a @ b`` with f32 accumulation and the output in ``a.dtype``
@@ -69,8 +104,9 @@ def pallas_matmul(a: torch.Tensor, b: torch.Tensor, bm: int = 256,
 
     ``(bm, bn, bk)`` selects one of the kernel's instantiated CTA tiles
     (:func:`~marlin_tpu_torch.ops.tile_family.select_tile`); the tile family
-    proposes exactly those. The kernel masks the ragged edge itself, so no
-    padded operand is copied."""
+    proposes exactly those. On the card: the pre-pass
+    (:func:`gemm_prepare`), then the tensor-core kernel, which masks the
+    ragged edge itself; f32 runs three TF32 products (3xTF32), bf16 one."""
     _check_matmul(a, b)
     if a.device.type == "cpu":
         return pallas_matmul_plain(a, b, bm, bn, bk)
@@ -85,13 +121,16 @@ def pallas_matmul(a: torch.Tensor, b: torch.Tensor, bm: int = 256,
     if m == 0 or n == 0 or k == 0:
         return torch.zeros((m, n), dtype=a.dtype, device=a.device)
     t = select_tile(m, n, k, bm, bn, bk)
+    ks, a_k, bt_k = gemm_prepare(a, b)
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    # the kernel's count of tile waves issued, which its blocks wait on
+    waves = torch.zeros(1, dtype=torch.int32, device=a.device)
     lib = _build.load_library()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.marlin_gemm(_GEMM_DTYPES[a.dtype], t.bm, t.bn, t.bk,
-                              a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                              m, n, k, stream)
+                              a_k.data_ptr(), bt_k.data_ptr(), out.data_ptr(),
+                              m, n, k, ks, waves.data_ptr(), stream)
     _build.check(lib, err, f"pallas_matmul {m}x{k}x{n} tile {t.name}")
     pallas_matmul.launches += 1
     return out

@@ -4,10 +4,14 @@ Counterpart of ``marlin_tpu/ops/tile_family.py``. For the GEMM, there the
 family is every MXU-aligned power-of-two (bm, bn, bk) block shape pruned by a
 12 MiB VMEM budget. Here the axes are the CTA tiles ``csrc/gemm.cu`` is
 instantiated for, so the family proposes exactly the kernels the library
-holds, and pruning uses the shared memory one block needs (the kernel stages
-one f32 A panel, rows padded by ``A_PAD``, and one f32 B panel: one stage)
-against the 227 KB a Hopper block can have. The surviving tiles are ranked by
-the same analytic traffic model and handed to ``autotune.tune_gemm`` to time.
+holds: bm is one or two consumer warpgroups of 64 rows, bn the wgmma width,
+bk the 4-byte words of a stage's rows, 32 = one 128-byte swizzled row (the
+TF32 halves of 16 f32 values of k, or 64 bf16 values). The kernel fills the
+227 KB a Hopper block can have with as many ring stages as fit
+(:func:`stages`), each holding the A and B tiles; :func:`smem_bytes` is that
+model, and pruning keeps it within the budget. The surviving tiles are
+ranked by the same analytic traffic model and handed to
+``autotune.tune_gemm`` to time.
 
 Candidate names keep the ``"pallas:BMxBNxBK"`` spelling, so autotune cache
 entries parse the same way in both packages.
@@ -22,21 +26,25 @@ from __future__ import annotations
 
 __all__ = ["TileCandidate", "gemm_candidates", "parse_gemm_candidate",
            "bsr_candidates", "parse_bsr_candidate",
-           "smem_bytes", "gemm_traffic_bytes", "select_tile",
-           "SMEM_BUDGET_BYTES", "BM_AXIS", "BN_AXIS", "BK_AXIS"]
+           "smem_bytes", "stages", "gemm_traffic_bytes", "select_tile",
+           "is_instantiated", "SMEM_BUDGET_BYTES", "BM_AXIS", "BN_AXIS",
+           "BK_AXIS"]
 
 # The instantiated CTA tiles: every (bm, bn, bk) in the product of these axes
-# (keep in step with the MARLIN_TILE list in csrc/gemm.cu). Each thread owns
-# an 8 x 8 block of outputs, so a block runs (bm/8)*(bn/8) threads.
+# (keep in step with the MARLIN_TILE list in csrc/gemm.cu). A block runs a
+# producer warpgroup and bm/64 consumer warpgroups.
 BM_AXIS = (64, 128)
 BN_AXIS = (64, 128)
-BK_AXIS = (16, 32)
+BK_AXIS = (32,)
 
-A_PAD = 4       # row padding of the k-major A panel in csrc/gemm.cu
-STAGES = 1      # shared-memory stages the kernel keeps per block
 # Dynamic shared memory one Hopper block may use (232,448 bytes; above 48 KB
 # after cudaFuncSetAttribute, which the launcher always calls).
 SMEM_BUDGET_BYTES = 232_448
+# csrc/gemm.cu's kMaxStages and kSmemReserve: the ring's most stages, and
+# the bytes beside them (1024 to align the swizzled tiles, 16 of mbarriers a
+# stage)
+MAX_STAGES = 16
+SMEM_RESERVE = 1024 + 16 * MAX_STAGES
 
 
 class TileCandidate(tuple):
@@ -89,12 +97,29 @@ def parse_bsr_candidate(name: str) -> int | None:
     return int(name[len("chunked:"):])
 
 
+def _stage_bytes(bm: int, bn: int, bk: int) -> int:
+    """One ring stage: the A and B tiles in rows of bk 4-byte words (the
+    TF32 halves of 16 f32 values of k, or 64 bf16 values)."""
+    return (bm + bn) * bk * 4
+
+
+def stages(bm: int, bn: int, bk: int) -> int:
+    """The ring stages the kernel keeps: as many as fit the budget, at most
+    ``MAX_STAGES`` (csrc/gemm.cu's ``Cfg::kStages``)."""
+    return min(MAX_STAGES,
+               (SMEM_BUDGET_BYTES - SMEM_RESERVE) // _stage_bytes(bm, bn, bk))
+
+
 def smem_bytes(bm: int, bn: int, bk: int) -> int:
-    """Dynamic shared memory of one block: the f32 A panel (bk rows of
-    bm + A_PAD) and the f32 B panel (bk x bn), per stage. Operands of any
-    type are widened to f32 on the way in, so the size does not depend on
-    the dtype."""
-    return STAGES * 4 * (bk * (bm + A_PAD) + bk * bn)
+    """Dynamic shared memory of one block (``Cfg::kSmem``): the ring's
+    stages and the reserve. The same for f32 and bf16 operands: a stage's
+    rows are 128 bytes either way."""
+    return SMEM_RESERVE + stages(bm, bn, bk) * _stage_bytes(bm, bn, bk)
+
+
+def is_instantiated(c: TileCandidate) -> bool:
+    """Whether the library holds a kernel for tile ``c``."""
+    return c.bm in BM_AXIS and c.bn in BN_AXIS and c.bk in BK_AXIS
 
 
 def _pad_up(x: int, mult: int) -> int:
@@ -153,7 +178,7 @@ def gemm_candidates(m: int, k: int, n: int, itemsize: int = 4,
     instantiated tiles, clamp to the problem (dedupe collapsed tiles), drop
     those over the shared-memory budget, rank by
     :func:`gemm_traffic_bytes`, return the ``max_candidates`` best. Always
-    non-empty: the smallest tile needs 8.4 KB."""
+    non-empty: every tile's ring is cut to the budget."""
     if min(m, k, n) < 1:
         raise ValueError(f"degenerate problem: {m}x{k}x{n}")
     seen: dict[TileCandidate, float] = {}

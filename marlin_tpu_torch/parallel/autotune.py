@@ -301,8 +301,9 @@ def _valid_gemm_name(name) -> bool:
     try:
         from ..ops import tile_family
 
-        tile_family.parse_gemm_candidate(name)
-        return True
+        # a name from an older family parses but has no kernel: re-tune
+        return tile_family.is_instantiated(
+            tile_family.parse_gemm_candidate(name))
     except (TypeError, ValueError):
         return False
 

@@ -174,13 +174,16 @@ def test_ctypes_binding_passes_pointers_as_void_p():
     """A pointer or stream left to ctypes' default int conversion is cut to
     32 bits; every one must be declared c_void_p."""
     lib = types.SimpleNamespace(**{f: types.SimpleNamespace() for f in (
-        "marlin_gemm", "marlin_masked_fill", "marlin_paged_attention",
-        "marlin_flash_fwd", "marlin_flash_bwd_dkv", "marlin_flash_bwd_dq",
-        "marlin_bsr_spmm", "marlin_error_string")})
+        "marlin_gemm_prep", "marlin_gemm", "marlin_masked_fill",
+        "marlin_paged_attention", "marlin_flash_fwd", "marlin_flash_bwd_dkv",
+        "marlin_flash_bwd_dq", "marlin_bsr_spmm", "marlin_error_string")})
     _build._bind(lib)
     g = lib.marlin_gemm.argtypes
-    assert g[4:7] == [ctypes.c_void_p] * 3 and g[-1] is ctypes.c_void_p
-    assert g[7:10] == [ctypes.c_longlong] * 3
+    assert g[4:7] == [ctypes.c_void_p] * 3 and g[-2:] == [ctypes.c_void_p] * 2
+    assert g[7:11] == [ctypes.c_longlong] * 4 and len(g) == 13
+    g = lib.marlin_gemm_prep.argtypes
+    assert g[0] is ctypes.c_int and g[1:5] == [ctypes.c_void_p] * 4
+    assert g[5:9] == [ctypes.c_longlong] * 4 and g[-1] is ctypes.c_void_p
     f = lib.marlin_masked_fill.argtypes
     assert f[:2] == [ctypes.c_void_p] * 2 and f[-1] is ctypes.c_void_p
     p = lib.marlin_paged_attention.argtypes
@@ -199,9 +202,10 @@ def test_ctypes_binding_passes_pointers_as_void_p():
     assert s[0] is ctypes.c_int and s[1:6] == [ctypes.c_void_p] * 5
     assert s[6:9] == [ctypes.c_longlong] * 3 and s[9] is ctypes.c_int
     assert s[10] is ctypes.c_longlong and s[-1] is ctypes.c_void_p
-    for fn in ("marlin_gemm", "marlin_masked_fill", "marlin_paged_attention",
-               "marlin_flash_fwd", "marlin_flash_bwd_dkv",
-               "marlin_flash_bwd_dq", "marlin_bsr_spmm"):
+    for fn in ("marlin_gemm_prep", "marlin_gemm", "marlin_masked_fill",
+               "marlin_paged_attention", "marlin_flash_fwd",
+               "marlin_flash_bwd_dkv", "marlin_flash_bwd_dq",
+               "marlin_bsr_spmm"):
         assert getattr(lib, fn).restype is ctypes.c_int
 
 

@@ -51,8 +51,14 @@ def test_family_axes_are_the_instantiated_tiles():
     want = {tf.TileCandidate(bm, bn, bk) for bm in tf.BM_AXIS
             for bn in tf.BN_AXIS for bk in tf.BK_AXIS}
     assert _instantiated() == want
-    pad = int(re.search(r"constexpr int APAD = (\d+);", CSRC.read_text())[1])
-    assert pad == tf.A_PAD
+    assert all(tf.is_instantiated(c) for c in want)
+    assert not tf.is_instantiated(tf.TileCandidate(64, 64, 16))
+    # the shared-memory model's constants are the kernel's
+    src = CSRC.read_text()
+    stages = int(re.search(r"constexpr int kMaxStages = (\d+);", src)[1])
+    assert stages == tf.MAX_STAGES
+    assert "constexpr int kSmemReserve = 1024 + 16 * kMaxStages;" in src
+    assert tf.SMEM_RESERVE == 1024 + 16 * tf.MAX_STAGES
 
 
 @pytest.mark.parametrize("mkn", [(4096, 4096, 4096), (20000, 20000, 20000),
@@ -63,19 +69,30 @@ def test_candidates_instantiated_and_fit_shared_memory(mkn):
     for c in cands:
         assert c in _instantiated()
         assert tf.smem_bytes(*c) <= tf.SMEM_BUDGET_BYTES
-        assert c.bm % 8 == 0 and c.bn % 8 == 0
+        # more than half an SM's shared memory: one block an SM
+        assert 2 * tf.smem_bytes(*c) > tf.SMEM_BUDGET_BYTES
+        assert tf.stages(*c) >= 3
+        assert c.bm % 64 == 0 and c.bn % 64 == 0
 
 
 def test_smem_bytes_counts_padded_f32_panels():
-    assert tf.smem_bytes(128, 128, 32) == 4 * (32 * 132 + 32 * 128)
-    assert tf.smem_bytes(64, 64, 16) == 8448
+    # a stage holds the A and B tiles in rows of 32 words = 128 bytes (f32
+    # values with their lo halves, or bf16): as many stages as fit, at most
+    # MAX_STAGES, plus the reserve
+    stage = (128 + 128) * 128
+    assert tf.stages(128, 128, 32) == 7
+    assert tf.smem_bytes(128, 128, 32) == tf.SMEM_RESERVE + 7 * stage
+    assert tf.stages(64, 128, 32) == 9
+    assert tf.stages(64, 64, 32) == 14
+    assert tf.smem_bytes(64, 64, 32) == tf.SMEM_RESERVE + 14 * 128 * 128
 
 
 def test_candidates_clamp_and_dedupe_on_small_problems():
     # every tile wider than the problem collapses onto the smallest that covers it
-    assert tf.gemm_candidates(16, 64, 64) == [tf.TileCandidate(64, 64, 16),
-                                              tf.TileCandidate(64, 64, 32)]
-    assert tf.gemm_candidates(8, 8, 8) == [tf.TileCandidate(64, 64, 16)]
+    assert tf.gemm_candidates(16, 64, 64) == [tf.TileCandidate(64, 64, 32)]
+    assert tf.gemm_candidates(16, 64, 200) == [tf.TileCandidate(64, 128, 32),
+                                               tf.TileCandidate(64, 64, 32)]
+    assert tf.gemm_candidates(8, 8, 8) == [tf.TileCandidate(64, 64, 32)]
     assert tf._clamp(100, 50, 20, tf.TileCandidate(128, 128, 32)) == \
         tf.TileCandidate(128, 64, 32)
 
@@ -83,8 +100,10 @@ def test_candidates_clamp_and_dedupe_on_small_problems():
 def test_candidates_ranked_by_traffic_and_capped():
     cands = tf.gemm_candidates(1024, 1024, 1024, max_candidates=8)
     scores = [tf.gemm_traffic_bytes(1024, 1024, 1024, *c) for c in cands]
-    assert scores == sorted(scores) and len(cands) == 8
-    assert len(tf.gemm_candidates(1024, 1024, 1024)) == 6
+    # the whole family: 4 instantiated tiles, none collapsed at 1024^3
+    assert scores == sorted(scores) and len(cands) == 4
+    assert cands[0] == tf.TileCandidate(128, 128, 32)
+    assert tf.gemm_candidates(1024, 1024, 1024, max_candidates=3) == cands[:3]
 
 
 def test_traffic_model_is_the_jax_model():
@@ -114,7 +133,7 @@ def test_select_tile():
     # the JAX defaults (256, 256, 512) select the largest instantiated tile
     assert tf.select_tile(4096, 4096, 4096, 256, 256, 512) == (128, 128, 32)
     assert tf.select_tile(130, 50, 70, 64, 128, 128) == (64, 64, 32)
-    assert tf.select_tile(4096, 4096, 4096, 8, 8, 8) == (64, 64, 16)
+    assert tf.select_tile(4096, 4096, 4096, 8, 8, 8) == (64, 64, 32)
     # a family candidate selects itself
     for c in tf.gemm_candidates(500, 300, 700, max_candidates=8):
         assert tf.select_tile(500, 700, 300, *c) == c
@@ -160,8 +179,8 @@ def test_tune_gemm_ranks_and_persists():
 
 def test_tune_gemm_explicit_candidates_do_not_pin_cache():
     a, b = _operands(9)
-    results = autotune.tune_gemm(a, b, candidates=["pallas:64x64x16"], reps=1)
-    assert [n for n, _ in results] == ["pallas:64x64x16"]
+    results = autotune.tune_gemm(a, b, candidates=["pallas:64x64x32"], reps=1)
+    assert [n for n, _ in results] == ["pallas:64x64x32"]
     assert len(autotune._CACHE) == 0
 
 
@@ -180,11 +199,16 @@ def test_best_gemm_caches_without_retune(monkeypatch):
 
 
 def test_best_gemm_retunes_on_a_stale_persisted_name():
+    """A name that does not parse, or one of an older family that parses but
+    has no kernel any more, re-tunes instead of raising."""
     a, b = _operands(11)
     key = autotune._gemm_key(96, 96, 96, a.dtype, a.device)
-    autotune._persist(key, "pallas:banana")
-    autotune._CACHE.clear()
-    assert autotune._valid_gemm_name(autotune.best_gemm(a, b, reps=1))
+    for stale in ("pallas:banana", "pallas:64x64x16"):
+        autotune._persist(key, stale)
+        autotune._CACHE.clear()
+        best = autotune.best_gemm(a, b, reps=1)
+        assert best != stale and autotune._valid_gemm_name(best)
+    assert not autotune._valid_gemm_name("pallas:64x64x16")
 
 
 def test_tune_gemm_propagates_a_candidate_error(monkeypatch):
