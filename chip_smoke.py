@@ -14,12 +14,15 @@ drives the ported paths end to end through the public entry points:
   ``gemm(backend="pallas")`` at 20000² against f64 on sampled rows, the
   4096³ tuner ranking; the GEMM in f32 (and its pre-pass alone) and bf16
   beside ``torch.matmul`` and the 3xTF32 / bf16 tensor-core bounds;
-- phases 6-7: the paged decode-attention and flash-panel kernels against
-  their plain versions at the serving shapes (f32 and bf16, GQA, a group of
-  16 heads of 256 that the paged kernel takes in two launches, ragged and
-  dummy rows, the strided (P, heads, d) views that prefill passes, two
-  panels with carried state and offsets), and the flash panel at head dims
-  192 and 256, every element within tolerance;
+- phases 6-7: the paged decode-attention (split and combine kernels: their
+  instances' registers and spills from ptxas, a spill fails the run) and
+  flash-panel kernels against their plain versions at the serving shapes
+  (f32 and bf16; the paged kernel at the serving bucket, at one split, at
+  16384 tokens, GQA, a group of 16 heads of 256 in two chunks, page_len 5
+  with dh 40, an odd dh that takes element-wise copies, ragged and dummy
+  rows, two runs bit-identical; the flash panel on the strided (P, heads, d)
+  views that prefill passes, two panels with carried state and offsets, and
+  at head dims 192 and 256), every element within tolerance;
 - phase 8: the serving path at full width — ``TransformerLM(vocab=4096,
   d_model=512, heads=8, layers=4)`` (the repo's decode benchmark model,
   ``bench_all.py`` ``config_decode``), 8 requests of 512 tokens through
@@ -31,8 +34,10 @@ drives the ported paths end to end through the public entry points:
   d_model=1024, heads=4, layers=2)`` (head dim 256); greedy tokens held
   against the gather backend, per-request ``lm_generate`` and the plain
   flash version;
-- phase 9: kernel, plain, bound and library times; the flash forward also
-  in bf16 beside SDPA's bf16 forward;
+- phase 9: kernel, plain, bound and library times; the paged kernel (split
+  plus combine) at the serving bucket and at 16384 tokens beside gather +
+  SDPA, timed on the card with L2 flushed; the flash forward also in bf16
+  beside SDPA's bf16 forward;
 - phase 10: the flash forward (output and lse) and backward kernels (dK/dV
   and dQ) against their plain versions, element by element: the training
   shape (2 heads × 32768 × 128, causal, ``valid_len`` 32767) in f32 and
@@ -53,17 +58,23 @@ drives the ported paths end to end through the public entry points:
   ptxas (a spill fails the run); the flash kernels' times at the training
   shape in f32 and bf16, each beside SDPA's and the tensor-core bound
   (3xTF32 at 495/3 TFLOP/s for f32, 989 for bf16);
-- phase 13: the BSR SpMM kernel against its plain version, element by element:
-  block sizes 8, 32, 64 and 128 with ragged m, n and p, empty block rows and a
-  hot block column, in f32 and bf16; no block at all; more than 65535 block
-  rows; the main shape;
+- phase 13: the BSR SpMM kernel's instances' registers and spills from ptxas
+  (a spill fails the run), then the kernel against its plain version,
+  element by element: block sizes 8 and 32 (CUDA cores), 64, 128 and 192
+  (tensor cores) with ragged m, n and p, empty block rows and a hot block
+  column, in f32 and bf16; no block at all; more than 65535 block rows on
+  both instances; 8192² with 204 blocks; the main shape; two runs
+  bit-identical;
 - phase 14: the sparse path at full width — ``bench_all.py`` ``config_bsr``
   (32768², bs 128, block density 0.05, p 256): ``BsrMatrix.multiply(
   backend="auto")`` tunes over the chunked formulation and the kernel, a second
   call reads the cache, and every backend is held against f64 on sampled rows;
   then ``SparseVecMatrix.multiply`` from COO triplets at 8192² (format "bsr")
   and on a 100000² matrix at density 1e-4 (formats "ell", "bcoo", "auto");
-- phase 15: the BSR kernel's times at the main shape.
+- phase 15: the BSR kernel's times at the main shape (with its pre-pass of
+  B, and the pre-pass alone; bf16 beside) against the 3xTF32 bound, the
+  plain and chunked paths and ``torch.sparse_bsr_tensor @ b``; and at 8192²
+  against the chunked candidate.
 
 It prints the card's name, count and power limit, one ``{"kernels": [...]}``
 line (launches on the main path, max error, kernel / plain / bound / library
@@ -156,10 +167,12 @@ TRAIN_OUTLIER_SHARE, TRAIN_DIFF_SHARE = 1e-5, 1e-3
 BSR_GRID, BSR_BS, BSR_P, BSR_DENSITY = 256, 128, 256, 0.05
 SPMV_GRID, ELL_N, ELL_DENSITY = 64, 100_000, 1e-4
 # BSR kernel vs plain, per element: f32 |err| <= BSR_F32_ATOL * max|plain| +
-# BSR_F32_RTOL * |plain| (both sum the same f32 products of up to a block row's
-# blocks, in other orders: the kernel in one FMA chain, the plain version in
-# cuBLAS's bmm, then index_add_); bf16 two bf16 ulps of the plain element plus
-# BSR_BF16_ATOL * max|plain| (each side rounds its f32 sum once)
+# BSR_F32_RTOL * |plain| (both sum the products of up to a block row's blocks
+# in other orders: the kernel in three TF32 passes on the tensor cores, or in
+# one FMA chain for block sizes the tensor-core instance does not take, the
+# plain version in cuBLAS's bmm, then index_add_); bf16 two bf16 ulps of the
+# plain element plus BSR_BF16_ATOL * max|plain| (each side rounds its f32 sum
+# once)
 BSR_F32_ATOL, BSR_F32_RTOL, BSR_BF16_ATOL = 1e-5, 1e-5, 1e-5
 
 
@@ -252,14 +265,26 @@ def attn_close(torch, label, got, want, dtype) -> float:
     return err
 
 
-def cuda_ms_cold(torch, fn, reps: int) -> float:
-    """Milliseconds per call with L2 flushed before each call (a 64 MB write
-    exceeds the 50 MB L2), timed by CUDA events around the call alone."""
+def cuda_ms_cold(torch, fn, reps: int, dirty: bool = False) -> float:
+    """Milliseconds per call with L2 flushed before each call, timed by CUDA
+    events around the call alone. The flush reads 64 MB (more than the 50 MB
+    L2), so the call finds the L2 holding other, clean lines; ``dirty``
+    writes the 64 MB instead, so the call also pays for writing those lines
+    back as it evicts them (logged beside, to compare with times taken that
+    way). A busy wait of about
+    half a millisecond on the card follows the flush, so the host queues the
+    call's launches while the card waits: the time is the card's, not the
+    host's wrapper code (a call of a few microseconds would otherwise time
+    the host)."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     fn()
     total = 0.0
     for _ in range(reps):
-        flush.zero_()
+        if dirty:
+            flush.zero_()
+        else:
+            flush.max()
+        torch.cuda._sleep(1_000_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -283,24 +308,105 @@ def paged_inputs(torch, gen, B, kvh, group, dh, page_len, W, dtype):
               [:B * W]).reshape(B, W).to(torch.int32)
     lengths = torch.randint(1, W * page_len + 1, (B,), generator=gen,
                             device="cuda").to(torch.int32)
-    lengths[0], lengths[1], lengths[-1] = 1, page_len, W * page_len
+    lengths[0] = 1
+    if B > 1:
+        lengths[1] = page_len
+    lengths[-1] = W * page_len
     if B > 3:
         tables[2] = 0
     return q, kp, vp, tables, lengths
 
 
-def check_paged(torch, pa, gen, B, kvh, group, dh, page_len, W, dtype) -> float:
+def check_paged(torch, pa, gen, B, kvh, group, dh, page_len, W, dtype,
+                identical=False) -> float:
+    """The split-K kernel against its plain version (one launch of the split
+    kernel per call, the plan logged); ``identical``: two runs give the same
+    bits."""
     q, kp, vp, tables, lengths = paged_inputs(torch, gen, B, kvh, group, dh,
                                               page_len, W, dtype)
+    before = pa.paged_decode_attention.launches
     got = pa.paged_decode_attention(q, kp, vp, tables, lengths)
     want = pa.paged_decode_attention_plain(q, kp, vp, tables, lengths)
     torch.cuda.synchronize()
-    if got.dtype != dtype or got.shape != q.shape:
+    if got.dtype != dtype or got.shape != q.shape or \
+            pa.paged_decode_attention.launches != before + 1:
         raise AssertionError(f"paged_decode_attention B={B}: got {got.dtype} "
-                             f"{tuple(got.shape)}")
-    return attn_close(torch, f"paged_decode_attention B={B} kvh={kvh} "
-                      f"group={group} dh={dh} page_len={page_len} W={W} "
-                      f"{str(dtype)[6:]}", got, want, dtype)
+                             f"{tuple(got.shape)}, "
+                             f"{pa.paged_decode_attention.launches - before} "
+                             f"launches")
+    plan = pa.split_plan(B, kvh, group, dh, W, q.element_size(),
+                         torch.cuda.get_device_properties(0)
+                         .multi_processor_count)
+    err = attn_close(torch, f"paged_decode_attention B={B} kvh={kvh} "
+                     f"group={group} dh={dh} page_len={page_len} W={W} "
+                     f"{str(dtype)[6:]} ({plan.splits} splits of "
+                     f"{plan.split_pages} pages, runs of {plan.rows}, "
+                     f"{plan.chunks} chunks)", got, want, dtype)
+    if identical:
+        if not torch.equal(got, pa.paged_decode_attention(q, kp, vp, tables,
+                                                          lengths)):
+            raise AssertionError(f"paged_decode_attention B={B} W={W}: two "
+                                 f"runs differ")
+        log("    two runs bit-identical")
+    return err
+
+
+def paged_times(torch, pa, gen, label, B, kvh, dh, page_len, W) -> dict:
+    """Card times (L2 flushed) of ``paged_decode_attention`` (the split and
+    combine kernels) at full lengths, beside its plain version, gather +
+    SDPA, and the bytes bound: each live K and V element, q and the output
+    once, and the tables."""
+    q, kp, vp, _, _ = paged_inputs(torch, gen, B, kvh, 1, dh, page_len, W,
+                                   torch.float32)
+    tables = (1 + torch.arange(B * W, device="cuda")).reshape(B, W).int()
+    lengths = torch.full((B,), W * page_len, dtype=torch.int32, device="cuda")
+    mask = (torch.arange(W * page_len, device="cuda")[None, :]
+            < lengths[:, None])[:, None, None, :]
+
+    def sdpa_paged():
+        k = kp[tables.long()].reshape(B, -1, kvh, dh).transpose(1, 2)
+        v = vp[tables.long()].reshape(B, -1, kvh, dh).transpose(1, 2)
+        return torch.nn.functional.scaled_dot_product_attention(
+            q.reshape(B, kvh, 1, dh), k, v, attn_mask=mask)
+
+    ms = cuda_ms_cold(torch, lambda: pa.paged_decode_attention(
+        q, kp, vp, tables, lengths), 20)
+    ms_dirty = cuda_ms_cold(torch, lambda: pa.paged_decode_attention(
+        q, kp, vp, tables, lengths), 20, dirty=True)
+    plain = cuda_ms_cold(torch, lambda: pa.paged_decode_attention_plain(
+        q, kp, vp, tables, lengths), 3)
+    lib = cuda_ms_cold(torch, sdpa_paged, 20)
+    lib_dirty = cuda_ms_cold(torch, sdpa_paged, 20, dirty=True)
+    live = int(lengths.sum())
+    nbytes = (2.0 * live * kvh * dh + 2.0 * B * kvh * dh) * 4 \
+        + 4.0 * B * (W + 1)
+    bound = 1e3 * nbytes / HBM_BYTES_PER_S
+    plan = pa.split_plan(B, kvh, 1, dh, W, 4,
+                         torch.cuda.get_device_properties(0)
+                         .multi_processor_count)
+    # the same call under other split counts, the plan swapped in
+    sweep, split_plan = [], pa.split_plan
+    for splits in sorted({1, max(1, plan.splits // 2), plan.splits,
+                          min(W, 2 * plan.splits)}):
+        pages = -(-W // splits)
+        forced = plan._replace(splits=-(-W // pages), split_pages=pages)
+        pa.split_plan = lambda *args, forced=forced: forced
+        try:
+            ms_s = cuda_ms_cold(torch, lambda: pa.paged_decode_attention(
+                q, kp, vp, tables, lengths), 10)
+            sweep.append(f"{forced.splits} splits {ms_s:.4f}")
+        finally:
+            pa.split_plan = split_plan
+    log(f"  paged_decode_attention {label}: B={B} kvh={kvh} dh={dh} W={W} "
+        f"f32, L2 flushed: {ms:.4f} ms ({plan.splits} splits of "
+        f"{plan.split_pages} pages, {1 + (plan.splits > 1)} launches), plain "
+        f"{plain:.4f} ms, gather+SDPA {lib:.4f} ms, bound {bound:.4f} ms "
+        f"(bytes, {nbytes / 1e6:.2f} MB): kernel "
+        f"{'below' if ms < lib else 'above'} gather+SDPA, {bound / ms:.1%} "
+        f"of the bound; after a flush that writes: kernel {ms_dirty:.4f} ms, "
+        f"gather+SDPA {lib_dirty:.4f} ms; by split count (ms): "
+        f"{', '.join(sweep)}")
+    return dict(ms=ms, plain=plain, lib=lib, bound=bound)
 
 
 def check_flash(torch, fa, gen, H, P, d, valid, dtype) -> float:
@@ -938,21 +1044,32 @@ def bsr_case(torch, sb, gen, m, n, p, bs, keep, dtype, empty_rows=(),
 
 def check_bsr(torch, sb, label, bsr, b) -> tuple[float, float]:
     """``bsr_spmm_pallas`` against its plain version, per element (BSR_*
-    bounds); returns the max |err| and the max err/bound."""
+    bounds), with the instance that ran named; returns the max |err| and the
+    max err/bound."""
+    tile = sb.bsr_tile(bsr.block_size, b.shape[1],
+                       -(-bsr.shape[0] // bsr.block_size),
+                       torch.cuda.get_device_properties(0)
+                       .multi_processor_count, b.element_size())
     got = sb.bsr_spmm_pallas(bsr, b)
     want = sb.bsr_spmm_pallas_plain(bsr, b)
     torch.cuda.synchronize()
     if got.dtype != want.dtype or got.shape != want.shape:
         raise AssertionError(f"{label}: got {got.dtype} {tuple(got.shape)}, "
                              f"want {want.dtype} {tuple(want.shape)}")
-    return bwd_close(torch, f"{label} nnzb={bsr.nnzb}", got, want, b.dtype,
-                     BSR_F32_ATOL, BSR_F32_RTOL, BSR_BF16_ATOL)
+    inst = "CUDA cores" if tile is None else f"tensor cores {tile[0]}x{tile[1]}"
+    return bwd_close(torch, f"{label} nnzb={bsr.nnzb} ({inst})", got, want,
+                     b.dtype, BSR_F32_ATOL, BSR_F32_RTOL, BSR_BF16_ATOL)
 
 
-def bsr_checks(torch, sb, gen, main_bsr, main_b):
+def bsr_checks(torch, np, sb, _build, gen, main_bsr, main_b):
     """Phase 13; returns the main shape's max |err| and the largest
     err/bound over the cases."""
     log("phase 13: bsr_spmm_pallas vs its plain version")
+    ptxas_table(_build, "bsr_spmm.cu", "bsr_tc_kernel", 7,
+                lambda dt, a: f"{dt} {a[0]}x{a[1]}")
+    ptxas_table(_build, "bsr_spmm.cu", "bsr_spmm_kernel", 6,
+                lambda dt, a: f"{dt} {a[0]}x{a[1]}")
+    n8, br8, bc8, bl8, b8 = bsr_config(np, SPMV_GRID)  # 8192², nnzb 204
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         dt = str(dtype)[6:]
@@ -962,9 +1079,13 @@ def bsr_checks(torch, sb, gen, main_bsr, main_b):
             ("bs=64 ragged", 64 * 9 + 1, 64 * 7 + 5, 259, 64, 0.4, (4,), 2),
             ("bs=128 ragged", 128 * 5 + 100, 128 * 6 + 1, 69, 128, 0.5, (1,),
              5),
+            ("bs=128 p=256", 128 * 8, 128 * 8, 256, 128, 0.3, (3,), 0),
+            ("bs=192", 192 * 4 + 7, 192 * 3, 130, 192, 0.5, (), 1),
             ("no block", 192, 192, 10, 64, 0.0, (), None),
             # more block rows than a 2-D grid's y axis (65535) could hold
             ("bs=8, 65538 block rows", 65537 * 8 + 13, 64, 5, 8, 5e-4, (),
+             None),
+            ("bs=64, 65538 block rows", 65537 * 64 + 13, 64, 5, 64, 5e-4, (),
              None),
         )
         for label, m, n, p, bs, keep, empty, hot in cases:
@@ -972,9 +1093,25 @@ def bsr_checks(torch, sb, gen, main_bsr, main_b):
                               hot)
             _, r = check_bsr(torch, sb, f"{label} {m}x{n} p={p} {dt}", bsr, b)
             worst = max(worst, r)
+        bsr8 = sb.BsrMatrix(torch.from_numpy(bl8).cuda().to(dtype),
+                            torch.from_numpy(br8).cuda(),
+                            torch.from_numpy(bc8).cuda(), (n8, n8), BSR_BS)
+        b8t = torch.from_numpy(b8).cuda().to(dtype)
+        _, r = check_bsr(torch, sb, f"{n8}^2 bs={BSR_BS} p={BSR_P} {dt}",
+                         bsr8, b8t)
+        worst = max(worst, r)
+        if not torch.equal(sb.bsr_spmm_pallas(bsr8, b8t),
+                           sb.bsr_spmm_pallas(bsr8, b8t)):
+            raise AssertionError(f"bsr_spmm_pallas {n8}^2 {dt}: two runs "
+                                 f"differ")
+        log(f"    {n8}^2 {dt}: two runs bit-identical")
     err, r = check_bsr(torch, sb, f"main shape {main_bsr.shape} bs={BSR_BS} "
                        f"p={BSR_P} float32", main_bsr, main_b)
     worst = max(worst, r)
+    if not torch.equal(sb.bsr_spmm_pallas(main_bsr, main_b),
+                       sb.bsr_spmm_pallas(main_bsr, main_b)):
+        raise AssertionError("bsr_spmm_pallas main shape: two runs differ")
+    log("    main shape: two runs bit-identical")
     log(f"  largest err/bound over the BSR checks: {worst:.3f}")
     return err, worst
 
@@ -1033,6 +1170,7 @@ def sparse_path(torch, np, mt, sb, autotune, ops, bsr, b, data):
     try:
         autotune.clear_cache()
         ops.reset_launch_counts()
+        prep0 = sb.bsr_spmm_pallas.prep_launches
         # ------------------------------------------- the path, counted
         out_auto, _ = timed("first multiply (tunes)",
                             lambda: bsr.multiply(b, backend="auto"), 1)
@@ -1068,7 +1206,8 @@ def sparse_path(torch, np, mt, sb, autotune, ops, bsr, b, data):
         autotune.tune_bsr = tune
     log(f"  launches on the main path: {counts} (bsr_spmm_pallas: "
         f"{by_tuner[0]} by the tuner, "
-        f"{counts['bsr_spmm_pallas'] - by_tuner[0]} by the products)")
+        f"{counts['bsr_spmm_pallas'] - by_tuner[0]} by the products; its "
+        f"pre-pass of B {sb.bsr_spmm_pallas.prep_launches - prep0})")
     if counts["bsr_spmm_pallas"] <= 0:
         raise AssertionError("bsr_spmm_pallas never launched on the main path")
 
@@ -1096,21 +1235,30 @@ def sparse_path(torch, np, mt, sb, autotune, ops, bsr, b, data):
     return counts
 
 
-def bsr_times(torch, sb, bsr, b):
-    """Phase 15: kernel, plain, chunked, library and bound times at the main
-    shape; returns them by name."""
-    log(f"phase 15: BSR times at {bsr.shape} bs={BSR_BS} nnzb={bsr.nnzb} "
-        f"p={BSR_P} f32 (CUDA events)")
-    ms = cuda_ms(torch, lambda: sb.bsr_spmm_pallas(bsr, b), 10)
-    plain = cuda_ms(torch, lambda: sb.bsr_spmm_pallas_plain(bsr, b), 5)
-    chunked = cuda_ms(torch, lambda: sb.bsr_spmm(bsr, b), 5)
+def bsr_library(torch, bsr):
+    """``bsr`` as a ``torch.sparse_bsr_tensor`` (the library call's operand)."""
     m, n = bsr.shape
-    nbr = -(-m // BSR_BS)
+    nbr = -(-m // bsr.block_size)
     row_ptr = torch.zeros((nbr + 1,), dtype=torch.int64, device="cuda")
     torch.cumsum(torch.bincount(bsr.block_rows, minlength=nbr), 0,
                  out=row_ptr[1:])
-    t = torch.sparse_bsr_tensor(row_ptr, bsr.block_cols.long(), bsr.blocks,
-                                (m, n), check_invariants=False)
+    return torch.sparse_bsr_tensor(row_ptr, bsr.block_cols.long(), bsr.blocks,
+                                   (m, n), check_invariants=False)
+
+
+def bsr_times(torch, np, sb, pk, bsr, b):
+    """Phase 15: kernel (with its pre-pass), pre-pass alone, plain, chunked,
+    library and bound times at the main shape, bf16 beside; then the 8192²
+    matrix against the chunked candidate the tuner times there. Returns the
+    main shape's times by name."""
+    log(f"phase 15: BSR times at {bsr.shape} bs={BSR_BS} nnzb={bsr.nnzb} "
+        f"p={BSR_P} f32 (CUDA events)")
+    ms = cuda_ms(torch, lambda: sb.bsr_spmm_pallas(bsr, b), 10)
+    prep = cuda_ms(torch, lambda: pk.gemm_prepare_b(b), 10)
+    plain = cuda_ms(torch, lambda: sb.bsr_spmm_pallas_plain(bsr, b), 5)
+    chunked = cuda_ms(torch, lambda: sb.bsr_spmm(bsr, b), 5)
+    m, n = bsr.shape
+    t = bsr_library(torch, bsr)
     lib_err = float((t @ b - sb.bsr_spmm_pallas_plain(bsr, b)).abs().max())
     lib = cuda_ms(torch, lambda: t @ b, 5)
     log(f"  library: torch.sparse_bsr_tensor @ b {lib:.3f} ms (max|err| vs "
@@ -1118,12 +1266,37 @@ def bsr_times(torch, sb, bsr, b):
     flops = 2.0 * bsr.nnzb * BSR_BS ** 2 * BSR_P
     io_bytes = 4.0 * (bsr.nnzb * BSR_BS ** 2 + n * BSR_P + m * BSR_P) \
         + 8.0 * bsr.nnzb
-    bound = 1e3 * max(flops / F32_PEAK, io_bytes / HBM_BYTES_PER_S)
-    log(f"  bsr_spmm_pallas {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
-        f"plain {plain:.3f} ms, chunked {chunked:.3f} ms, bound {bound:.3f} ms "
-        f"(operations: {flops / 1e9:.2f} GFLOP; bytes "
+    # f32 at f32 accuracy on the tensor cores: three TF32 products
+    bound = 1e3 * max(flops / (TF32_PEAK / 3), io_bytes / HBM_BYTES_PER_S)
+    log(f"  bsr_spmm_pallas {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s; "
+        f"pre-pass of B alone {prep:.4f} ms), plain {plain:.3f} ms, chunked "
+        f"{chunked:.3f} ms, bound {bound:.3f} ms (operations, 3xTF32 at "
+        f"{TF32_PEAK / 3e12:.0f} TFLOP/s: {flops / 1e9:.2f} GFLOP; CUDA cores "
+        f"{1e3 * flops / F32_PEAK:.3f} ms; bytes "
         f"{1e3 * io_bytes / HBM_BYTES_PER_S:.3f} ms for "
-        f"{io_bytes / 1e6:.1f} MB)")
+        f"{io_bytes / 1e6:.1f} MB): {bound / ms:.1%} of the bound")
+    b16 = b.bfloat16()
+    bsr16 = sb.BsrMatrix(bsr.blocks.bfloat16(), bsr.block_rows,
+                         bsr.block_cols, bsr.shape, BSR_BS)
+    ms16 = cuda_ms(torch, lambda: sb.bsr_spmm_pallas(bsr16, b16), 10)
+    ops16 = 1e3 * flops / BF16_PEAK
+    bytes16 = 1e3 * io_bytes / 2 / HBM_BYTES_PER_S
+    log(f"  bsr_spmm_pallas bf16 {ms16:.3f} ms, bound {max(ops16, bytes16):.3f} "
+        f"ms (operations at {BF16_PEAK / 1e12:.0f} TFLOP/s {ops16:.3f} ms, "
+        f"bytes {bytes16:.3f} ms)")
+    del b16, bsr16
+    n8, br8, bc8, bl8, b8 = bsr_config(np, SPMV_GRID)
+    bsr8 = sb.BsrMatrix(torch.from_numpy(bl8).cuda(),
+                        torch.from_numpy(br8).cuda(),
+                        torch.from_numpy(bc8).cuda(), (n8, n8), BSR_BS)
+    b8 = torch.from_numpy(b8).cuda()
+    ms8 = cuda_ms(torch, lambda: sb.bsr_spmm_pallas(bsr8, b8), 20)
+    ch8 = cuda_ms(torch, lambda: sb.bsr_spmm(bsr8, b8, bsr8.nnzb), 20)
+    flops8 = 2.0 * bsr8.nnzb * BSR_BS ** 2 * BSR_P
+    log(f"  {n8}^2 nnzb={bsr8.nnzb}: bsr_spmm_pallas {ms8:.4f} ms, "
+        f"chunked:{bsr8.nnzb} {ch8:.4f} ms, bound "
+        f"{1e3 * flops8 / (TF32_PEAK / 3):.4f} ms (operations, 3xTF32): "
+        f"kernel {'below' if ms8 < ch8 else 'above'} chunked")
     return dict(ms=ms, plain=plain, chunked=chunked, lib=lib, bound=bound)
 
 
@@ -1158,7 +1331,8 @@ def main() -> int:
     _build.load_library()
     log(f"build: {time.perf_counter() - t0:.1f} s into {_build.build_dir()}")
     for line in _build.ptxas_report().splitlines():
-        if "Compiling entry" in line or "registers" in line or "spill" in line:
+        if "Compiling entry" in line or "registers" in line or "spill" in line \
+                or "wgmma" in line:
             log("  " + line.strip())
 
     # ------------------------------------- 3. kernels against plain versions
@@ -1311,16 +1485,26 @@ def main() -> int:
 
     # ------------------------------- 6. paged decode kernel vs plain version
     log("phase 6: paged_decode_attention vs its plain version")
+    ptxas_table(_build, "paged_attention.cu", "paged_split_kernel", 34,
+                lambda dt, a: f"{dt} DI={a[0]} GM={a[1]}")
+    ptxas_table(_build, "paged_attention.cu", "paged_combine_kernel", 2,
+                lambda dt, a: dt)
     page_len = PAGE_LEN
     W = -(-(PROMPT + DECODE_STEPS) // page_len)  # 36: the bucket's table
+    W_LONG = LONG_PROMPT // page_len
     paged_err = 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        # the last: group * dh = 4096, two launches of 8 query heads each
-        for B, kvh, group, dh in ((ROWS, 8, 1, 64), (64, 8, 1, 64),
-                                  (ROWS, 2, 4, 64), (4, 2, 16, 256)):
-            e = check_paged(torch, pa, gen, B, kvh, group, dh, page_len, W,
-                            dtype)
-            if dtype == torch.float32 and (B, group) == (ROWS, 1):
+        for B, kvh, group, dh, pl_, w_ in (
+                (ROWS, 8, 1, 64, page_len, W),     # the serving bucket
+                (64, 8, 1, 64, page_len, W),       # one split, no combine
+                (2, 8, 1, 64, page_len, W_LONG),   # 16384 tokens
+                (ROWS, 2, 4, 64, page_len, W),     # GQA group 4
+                (4, 2, 16, 256, page_len, W),      # two chunks of 8 heads
+                (5, 2, 4, 40, 5, 7),               # page_len 5, dh 40
+                (5, 2, 3, 17, 7, 6)):              # element-wise copies
+            e = check_paged(torch, pa, gen, B, kvh, group, dh, pl_, w_, dtype,
+                            identical=(B, w_) in ((ROWS, W), (2, W_LONG)))
+            if dtype == torch.float32 and (B, group, w_) == (ROWS, 1, W):
                 paged_err = e
 
     # ----------------------------------- 7. flash panel kernel vs plain version
@@ -1353,6 +1537,7 @@ def main() -> int:
         np.int32)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
+    combine0 = pa.paged_decode_attention.combine_launches
     if tt.resolve_decode_kernel("auto", "cuda") != "pallas":
         raise AssertionError("decode kernel 'auto' must pick the kernel on a "
                              "CUDA device")
@@ -1368,7 +1553,9 @@ def main() -> int:
     wide_s = time.perf_counter() - t0
     wide_launches = fa.flash_attention_panel.launches - before_wide
     path_counts = ops.launch_counts()
-    log(f"  launches on the main path: {path_counts}")
+    paged_combines = pa.paged_decode_attention.combine_launches - combine0
+    log(f"  launches on the main path: {path_counts}; the paged combine "
+        f"kernel {paged_combines}")
     for kname in ("paged_decode_attention", "flash_attention_panel"):
         if path_counts[kname] <= 0:
             raise AssertionError(f"{kname} never launched on the main path")
@@ -1429,33 +1616,13 @@ def main() -> int:
 
     # -------------------------------------------------------- 9. times
     log("phase 9: attention kernel times (CUDA events)")
-    B, kvh, dh = ROWS, LM["heads"], LM["d_model"] // LM["heads"]
-    q, kp, vp, tables, _ = paged_inputs(torch, gen, B, kvh, 1, dh, page_len,
-                                        W, torch.float32)
-    tables = (1 + torch.arange(B * W, device="cuda")).reshape(B, W).int()
-    lengths = torch.full((B,), W * page_len, dtype=torch.int32, device="cuda")
-    mask = (torch.arange(W * page_len, device="cuda")[None, :]
-            < lengths[:, None])[:, None, None, :]
-
-    def sdpa_paged():
-        k = kp[tables.long()].reshape(B, -1, kvh, dh).transpose(1, 2)
-        v = vp[tables.long()].reshape(B, -1, kvh, dh).transpose(1, 2)
-        return torch.nn.functional.scaled_dot_product_attention(
-            q.reshape(B, kvh, 1, dh), k, v, attn_mask=mask)
-
-    ms_paged = cuda_ms_cold(torch, lambda: pa.paged_decode_attention(
-        q, kp, vp, tables, lengths), 20)
-    plain_paged = cuda_ms_cold(torch, lambda: pa.paged_decode_attention_plain(
-        q, kp, vp, tables, lengths), 5)
-    lib_paged = cuda_ms_cold(torch, sdpa_paged, 20)
-    live = int(lengths.sum())
-    paged_bytes = (2.0 * live * kvh * dh + 2.0 * B * kvh * dh) * 4 \
-        + 4.0 * B * (W + 1)
-    bound_paged = 1e3 * paged_bytes / HBM_BYTES_PER_S
-    log(f"  paged_decode_attention B={B} W={W} f32, L2 flushed: "
-        f"{ms_paged:.4f} ms, plain {plain_paged:.4f} ms, gather+SDPA "
-        f"{lib_paged:.4f} ms, bound {bound_paged:.4f} ms (bytes, "
-        f"{paged_bytes / 1e6:.2f} MB)")
+    dh = LM["d_model"] // LM["heads"]
+    paged_t = {}
+    for label, B, w_ in (("main", ROWS, W), ("16384 tokens", 1, W_LONG)):
+        paged_t[label] = paged_times(torch, pa, gen, label, B, LM["heads"],
+                                     dh, page_len, w_)
+    ms_paged, plain_paged, lib_paged, bound_paged = (
+        paged_t["main"][k] for k in ("ms", "plain", "lib", "bound"))
     tf = fwd_times(torch, fa, gen, LM["heads"], LONG_PROMPT, dh, LONG_PROMPT,
                    torch.float32)
     fwd_times(torch, fa, gen, LM["heads"], LONG_PROMPT, dh, LONG_PROMPT,
@@ -1476,10 +1643,10 @@ def main() -> int:
                             torch.from_numpy(bcols).cuda(), (n_bsr, n_bsr),
                             BSR_BS)
     main_b = torch.from_numpy(b_np).cuda()
-    bsr_err, _ = bsr_checks(torch, sb, gen, main_bsr, main_b)
+    bsr_err, _ = bsr_checks(torch, np, sb, _build, gen, main_bsr, main_b)
     sparse_counts = sparse_path(torch, np, mt, sb, autotune, ops, main_bsr,
                                 main_b, data)
-    tb = bsr_times(torch, sb, main_bsr, main_b)
+    tb = bsr_times(torch, np, sb, pk, main_bsr, main_b)
 
     # ---------------------------------------------------- kernels line
     kernels = [

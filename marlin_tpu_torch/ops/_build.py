@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import ctypes
 import fcntl
+import functools
 import hashlib
 import os
 import shutil
@@ -118,8 +119,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.marlin_masked_fill.argtypes = [p, p, ll, ll, ll, ll, i, p]
     lib.marlin_masked_fill.restype = i
     f = ctypes.c_float
-    lib.marlin_paged_attention.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i,
-                                           i, f, p]
+    # dtype, q, k_pages, v_pages, tables, lengths, out, part, B, kvh, group,
+    # dh, page_len, W, split_pages, splits, chunk_heads, rows, vec, score_div,
+    # stream
+    lib.marlin_paged_attention.argtypes = [i] + [p] * 7 + [i] * 11 + [f, p]
     lib.marlin_paged_attention.restype = i
     lib.marlin_flash_fwd.argtypes = [i, p, p, p, p, p, p, p, p, p, i, i, i, i,
                                      ll, ll, ll, ll, ll, ll, i, i, i, i, f, p]
@@ -133,6 +136,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     # dtype, blocks, bcols, row_ptr, b, out, m, n, p, bs, n_block_rows, stream
     lib.marlin_bsr_spmm.argtypes = [i, p, p, p, p, p, ll, ll, ll, i, ll, p]
     lib.marlin_bsr_spmm.restype = i
+    # dtype, bm, bn, blocks, bcols, row_ptr, bt_k, out, m, p, ks, bs, nnzb,
+    # n_block_rows, stream
+    lib.marlin_bsr_spmm_tc.argtypes = [i, i, i, p, p, p, p, p, ll, ll, ll, i,
+                                       ll, ll, p]
+    lib.marlin_bsr_spmm_tc.restype = i
     lib.marlin_error_string.argtypes = [i]
     lib.marlin_error_string.restype = ctypes.c_char_p
     return lib
@@ -159,6 +167,23 @@ def ptxas_report() -> str:
     """The ``-Xptxas -v`` output of the current build ("" before a build)."""
     log = build_dir() / "ptxas.log"
     return log.read_text() if log.exists() else ""
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device (cached: a host query, no
+    wait on the card), which the kernels' launch plans size their grids by."""
+    import torch
+
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return _sm_count(index)
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -1,38 +1,48 @@
 """Fused paged decode-attention: read the KV page slab in place.
 
 Counterpart of ``marlin_tpu/ops/paged_attention.py``. Its Pallas TPU kernel
-becomes the CUDA kernel ``csrc/paged_attention.cu`` (built and bound by
-``ops/_build.py``): one block per (row, kv head) walks the row's pages through
-the block table, so the context is never gathered into a copy.
+becomes the CUDA kernels of ``csrc/paged_attention.cu`` (built and bound by
+``ops/_build.py``), split-K over the context: the split kernel's blocks each
+take one (row, kv head, chunk of query heads) and a run of the row's table
+entries, read their pages through the block table (the context is never
+gathered into a copy) and reduce them to an online-softmax state; a combine
+kernel merges the splits' states. :func:`split_plan` sizes the splits from
+shapes alone, so the wrapper never waits on the card.
 
 Shapes follow the slab (:func:`~marlin_tpu_torch.models.transformer
 .init_kv_pages`): K/V pages ``(num_pages, page_len, kv_heads, dh)``, queries
 in the grouped decode form ``(B, kv_heads, group, dh)``. Numerics follow the
-TPU kernel: f32 scores scaled by ``1/sqrt(dh)``, positions ``>= lengths[b]``
-at −1e30, lengths clamped to ``[1, W·page_len]``, online softmax page by page,
-``p`` cast to q's dtype before ``p·v``, an f32 accumulator, the output in q's
-dtype. Dummy rows (all-zero tables) read page 0.
+TPU kernel: f32 scores divided by ``sqrt(dh)``, positions ``>= lengths[b]``
+at −1e30, lengths clamped to ``[1, W·page_len]``, online softmax, ``p`` cast
+to q's dtype before ``p·v`` (at the running maximum of the warp that reads
+the position, where the TPU kernel casts at its page-by-page one), f32
+accumulators, the output in q's dtype. Dummy rows (all-zero tables) read
+page 0.
 
 The page-length rule. On the TPU, ``page_len`` must be a multiple of the
-8-row sublane tile, because a page is one VMEM block. The CUDA kernel reads a
-page position by position (each position's ``dh`` elements are contiguous, so
-the loads coalesce at any ``page_len``), stages it in shared memory and masks
-by position, so on Hopper any ``page_len >= 1`` is legal: :data:`PAGE_MULTIPLE`
-is 1, and :func:`align_page_len`, the one place that applies the rule, only
-validates.
+8-row sublane tile, because a page is one VMEM block. The CUDA kernel copies
+a page position by position (each position's ``dh`` elements are
+contiguous) and masks by position, so on Hopper any ``page_len >= 1`` is
+legal: :data:`PAGE_MULTIPLE` is 1, and :func:`align_page_len`, the one place
+that applies the rule, only validates.
 
-:func:`paged_decode_attention` runs the kernel for CUDA tensors (raising on a
-failed build or launch) and :func:`paged_decode_attention_plain` for CPU
-tensors. ``paged_decode_attention.launches`` counts kernel launches. A block
-of the kernel holds ``group * dh <= 2048`` accumulators
-(:data:`KERNEL_GROUP_DH`); a wider group is split into chunks of query heads
-(:func:`group_chunks`), one launch each over the same pages. Every query head
-attends on its own, so the chunks give exactly the whole group's result.
+:func:`paged_decode_attention` runs the kernels for CUDA tensors (raising on
+a failed build or launch) and :func:`paged_decode_attention_plain` for CPU
+tensors. ``paged_decode_attention.launches`` counts launches of the split
+kernel (one per call), ``.combine_launches`` those of the combine kernel,
+which follows it when the plan has more than one split. A lane of the
+kernel holds ``dh / 32`` elements (rounded up to a power of two) of each
+query head of its chunk, 64 values at most, so a chunk holds at most
+``KERNEL_GROUP_DH // lane_dh(dh)`` heads, and never more than
+:data:`KERNEL_GROUP_HEADS` (:func:`group_chunks`); the chunks of a wide group
+are blocks of the same launch. Every query head attends on its own, so the
+chunks give exactly the whole group's result.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -42,14 +52,25 @@ from .local import precision_scope
 
 __all__ = ["paged_decode_attention", "paged_decode_attention_plain",
            "align_page_len", "paged_attention_cost", "group_chunks",
-           "PAGE_MULTIPLE", "KERNEL_GROUP_DH"]
+           "lane_dh", "split_plan", "PagedPlan", "PAGE_MULTIPLE",
+           "KERNEL_GROUP_DH", "KERNEL_GROUP_HEADS"]
 
 # pages are sized to a multiple of this many positions (module docstring)
 PAGE_MULTIPLE = 1
 
-# group * dh one block of the kernel holds (csrc/paged_attention.cu:
-# kThreads * kMaxAcc)
+# query heads x lane_dh(dh) one block of the kernel holds: 32 lanes x 64
+# values, and at most 16 query heads, whose m and l a lane holds besides
+# (csrc/paged_attention.cu: kMaxLaneValues, kMaxHeads)
 KERNEL_GROUP_DH = 2048
+KERNEL_GROUP_HEADS = 16
+# the split plan (csrc/paged_attention.cu: kMaxSplitPages, kMaxRows)
+MAX_SPLIT_PAGES = 1024
+MAX_ROWS = 8
+# splits are added while the grid has fewer than BLOCKS_PER_SM_FLOOR blocks an
+# SM, up to BLOCKS_PER_SM_TARGET blocks an SM and MAX_OCC_SPLITS splits
+BLOCKS_PER_SM_FLOOR, BLOCKS_PER_SM_TARGET, MAX_OCC_SPLITS = 2, 4, 64
+# bytes of K and V in one run of a warp's ring
+RUN_BYTES = 2048
 
 _MASKED = -1e30  # the decode path's mask value; exp() of it underflows to 0
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -96,15 +117,60 @@ def _check(q, k_pages, v_pages, tables) -> None:
                         f"{k_pages.dtype}, {v_pages.dtype}")
 
 
+def lane_dh(dh: int) -> int:
+    """The elements of a head a warp's lanes hold: ``dh`` rounded up to 32
+    times a power of two (each lane holds ``lane_dh(dh) // 32``)."""
+    return 32 * (1 << max(0, math.ceil(dh / 32) - 1).bit_length())
+
+
 def group_chunks(group: int, dh: int) -> list[slice]:
-    """Slices of the group axis, each of at most ``KERNEL_GROUP_DH // dh``
-    query heads: the kernel's launches for one call. Raises for ``dh``
-    above :data:`KERNEL_GROUP_DH`, where not even one head fits."""
+    """Slices of the group axis, each of at most
+    ``min(KERNEL_GROUP_HEADS, KERNEL_GROUP_DH // lane_dh(dh))`` query heads:
+    the query heads one block of the kernel takes. Raises for ``dh`` above
+    :data:`KERNEL_GROUP_DH`, where not even one head fits."""
     if dh > KERNEL_GROUP_DH:
         raise ValueError(f"paged_decode_attention: dh = {dh} exceeds the "
                          f"kernel's {KERNEL_GROUP_DH}")
-    step = KERNEL_GROUP_DH // dh
+    step = min(KERNEL_GROUP_HEADS, KERNEL_GROUP_DH // lane_dh(dh))
     return [slice(g0, min(g0 + step, group)) for g0 in range(0, group, step)]
+
+
+class PagedPlan(NamedTuple):
+    """How the kernel cuts one call: ``splits`` splits of ``split_pages``
+    table entries each (the last may be shorter), ``rows`` positions in a
+    warp's run, the group in ``chunks`` chunks of ``chunk_heads`` query
+    heads."""
+    splits: int
+    split_pages: int
+    rows: int
+    chunk_heads: int
+    chunks: int
+
+
+def split_plan(batch: int, kv_heads: int, group: int, dh: int,
+               table_width: int, itemsize: int, sm_count: int) -> PagedPlan:
+    """The split-K plan of one call, from shapes alone (never ``lengths``).
+
+    The grid has one block per (row, kv head, chunk) and split. While those
+    blocks without splits number fewer than 2 an SM, the table is split so
+    the grid holds about 4 blocks an SM (at most 64 splits, never more than
+    ``table_width``); otherwise there is one split, which writes the output
+    itself. A split holds at most :data:`MAX_SPLIT_PAGES` table entries. A
+    warp's run holds about :data:`RUN_BYTES` of K and V."""
+    chunk_heads = min(group, KERNEL_GROUP_HEADS,
+                      KERNEL_GROUP_DH // lane_dh(dh))
+    chunks = -(-group // chunk_heads)
+    items = batch * kv_heads * chunks
+    if items >= BLOCKS_PER_SM_FLOOR * sm_count:
+        splits = 1
+    else:
+        splits = min(table_width, -(-BLOCKS_PER_SM_TARGET * sm_count // items),
+                     MAX_OCC_SPLITS)
+    splits = max(splits, -(-table_width // MAX_SPLIT_PAGES))
+    split_pages = -(-table_width // splits)
+    splits = -(-table_width // split_pages)
+    rows = max(1, min(MAX_ROWS, RUN_BYTES // (2 * dh * itemsize)))
+    return PagedPlan(splits, split_pages, rows, chunk_heads, chunks)
 
 
 def _score_div(dh: int) -> float:
@@ -175,33 +241,39 @@ def paged_decode_attention(q, k_pages, v_pages, tables, lengths):
     B, kvh, group, dh = q.shape
     page_len = k_pages.shape[1]
     W = tables.shape[1]
-    chunks = group_chunks(group, dh)
+    plan = split_plan(B, kvh, group, dh, W, q.element_size(),
+                      _build.sm_count(q.device))
     tables = torch.as_tensor(tables, device=q.device).to(torch.int32)\
         .contiguous()
     lengths = torch.as_tensor(lengths, device=q.device).to(torch.int32)\
         .contiguous()
+    q = q.contiguous()
     out = torch.empty_like(q)
     if B == 0:
         return out
+    # the splits' states: acc (dh), m, l per query head, in f32
+    part = None if plan.splits == 1 else torch.empty(
+        (B, kvh, plan.splits, group, dh + 2), dtype=torch.float32,
+        device=q.device)
+    vec = (dh * q.element_size()) % 16 == 0 and k_pages.data_ptr() % 16 == 0 \
+        and v_pages.data_ptr() % 16 == 0
     lib = _build.load_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        for sl in chunks:
-            # a chunk's queries and output contiguous, as the kernel takes them
-            qc = q[:, :, sl].contiguous()
-            oc = out if len(chunks) == 1 else torch.empty_like(qc)
-            err = lib.marlin_paged_attention(
-                _DTYPES[q.dtype], qc.data_ptr(), k_pages.data_ptr(),
-                v_pages.data_ptr(), tables.data_ptr(), lengths.data_ptr(),
-                oc.data_ptr(), B, kvh, qc.shape[2], dh, page_len, W,
-                _score_div(dh), stream)
-            _build.check(lib, err, f"paged_decode_attention q "
-                                   f"{tuple(qc.shape)} pages "
-                                   f"{tuple(k_pages.shape)} W {W}")
-            paged_decode_attention.launches += 1
-            if oc is not out:
-                out[:, :, sl] = oc
+        err = lib.marlin_paged_attention(
+            _DTYPES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
+            v_pages.data_ptr(), tables.data_ptr(), lengths.data_ptr(),
+            out.data_ptr(), None if part is None else part.data_ptr(), B, kvh,
+            group, dh, page_len, W, plan.split_pages, plan.splits,
+            plan.chunk_heads, plan.rows, int(vec), _score_div(dh), stream)
+    _build.check(lib, err, f"paged_decode_attention q {tuple(q.shape)} pages "
+                           f"{tuple(k_pages.shape)} W {W} {plan}")
+    paged_decode_attention.launches += 1
+    paged_decode_attention.combine_launches += plan.splits > 1
     return out
 
 
 paged_decode_attention.launches = 0
+# launches of the combine kernel, which follows the split kernel's when the
+# plan has more than one split
+paged_decode_attention.combine_launches = 0

@@ -97,6 +97,26 @@ def gemm_prepare(a: torch.Tensor, b: torch.Tensor):
     return ks, a_k, bt_k
 
 
+def gemm_prepare_b(b: torch.Tensor):
+    """B alone through the GEMM's pre-pass on the card (A's copy skipped):
+    ``(ks, bt_k)``, B's n columns as K-major rows of ``ks`` values of k, laid
+    out as :func:`gemm_prepare` lays them out. The BSR kernel's right
+    operand; ``b`` contiguous, f32 or bf16."""
+    k, n = b.shape
+    ks = _k_stride(k, b.element_size())
+    w = 2 * ks if b.dtype == torch.float32 else ks
+    bt_k = torch.empty((n, w), dtype=b.dtype, device=b.device)
+    lib = _build.load_library()
+    with torch.cuda.device(b.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        # a == a_k tells the pre-pass to skip A
+        err = lib.marlin_gemm_prep(_GEMM_DTYPES[b.dtype], b.data_ptr(),
+                                   b.data_ptr(), b.data_ptr(),
+                                   bt_k.data_ptr(), 0, n, k, ks, stream)
+    _build.check(lib, err, f"gemm_prepare_b {k}x{n}")
+    return ks, bt_k
+
+
 def pallas_matmul(a: torch.Tensor, b: torch.Tensor, bm: int = 256,
                   bn: int = 256, bk: int = 512) -> torch.Tensor:
     """Tiled ``a @ b`` with f32 accumulation and the output in ``a.dtype``

@@ -16,8 +16,11 @@ Two formulations of ``bsr @ b``, picked by :meth:`BsrMatrix.multiply`:
 - :func:`bsr_spmm_pallas` (``"pallas"``): the hand-written CUDA kernel
   ``csrc/bsr_spmm.cu`` (the port of the TPU kernel ``_bsr_pallas_kernel``):
   one thread block per output tile loops over its block row's blocks, so no
-  product is materialised and nothing is scattered. For CPU tensors it runs
-  its plain version, :func:`bsr_spmm_pallas_plain`.
+  product is materialised and nothing is scattered. Block sizes that are
+  multiples of 64 run on the tensor cores (3xTF32 ``wgmma`` for f32, one bf16
+  pass for bf16, fed by TMA, after the GEMM's pre-pass of B); the rest on the
+  CUDA cores (:func:`bsr_tile` says which). For CPU tensors it runs its plain
+  version, :func:`bsr_spmm_pallas_plain`.
 
 ``"auto"`` asks the autotune ranking over both
 (:func:`~marlin_tpu_torch.parallel.autotune.best_bsr_strategy`), timed once
@@ -39,9 +42,10 @@ from ..config import resolve_device
 from ..interop import to_host, to_tensor
 from . import _build
 from .local import precision_scope
+from .pallas_kernels import gemm_prepare_b
 
 __all__ = ["BsrMatrix", "bsr_from_dense", "bsr_from_coo", "bsr_spmm",
-           "bsr_spmm_pallas", "bsr_spmm_pallas_plain"]
+           "bsr_spmm_pallas", "bsr_spmm_pallas_plain", "bsr_tile"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -208,15 +212,34 @@ def bsr_spmm_pallas_plain(bsr: BsrMatrix, b: torch.Tensor) -> torch.Tensor:
     return out.reshape(nbr * bs, p)[:m].to(out_dtype)
 
 
+def bsr_tile(bs: int, p: int, n_block_rows: int, sm_count: int,
+             itemsize: int):
+    """The kernel instance for block size ``bs``: ``(bm, bn)`` of the
+    tensor-core instance, or None for the CUDA-core one (``bs`` not a
+    multiple of 64, the depth of a bf16 stage). bm is 128 rows (two consumer
+    warpgroups) where ``bs`` allows, else 64; bn is 128 columns of p, or 64
+    where p is that narrow, where 128-wide tiles would leave SMs idle, or
+    for f32 at bm 128 (whose 128 x 128 tile would spill its registers)."""
+    if bs % 64:
+        return None
+    bm = 128 if bs % 128 == 0 else 64
+    tiles = n_block_rows * (bs // bm) * -(-p // 128)
+    narrow = p <= 64 or tiles < sm_count or (itemsize == 4 and bm == 128)
+    return bm, 64 if narrow else 128
+
+
 def bsr_spmm_pallas(bsr: BsrMatrix, b) -> torch.Tensor:
     """``bsr @ b`` through the CUDA kernel ``csrc/bsr_spmm.cu``: one thread
     block per output tile sums its block row's products in registers, in
     f32, and writes the tile once (block rows with no block are written as
-    zeros). f32 and bf16 operands run the kernel; the result is in
-    ``promote(blocks, b)``. Operands wider than f32 go to :func:`bsr_spmm`,
+    zeros). f32 and bf16 operands run the kernel, on the tensor cores where
+    :func:`bsr_tile` gives a tile (then B goes through the GEMM's pre-pass
+    first, one more launch); the result is in ``promote(blocks, b)``.
+    Operands wider than f32 go to :func:`bsr_spmm`,
     which accumulates in the promoted type, as the JAX package does. CPU
     tensors run :func:`bsr_spmm_pallas_plain`. A failed build or launch
-    raises; ``bsr_spmm_pallas.launches`` counts launches."""
+    raises; ``bsr_spmm_pallas.launches`` counts launches of the kernel,
+    ``.prep_launches`` those of the pre-pass."""
     b = _dense_operand(b)
     _check_operands(bsr, b)
     m, _ = bsr.shape
@@ -245,20 +268,34 @@ def bsr_spmm_pallas(bsr: BsrMatrix, b) -> torch.Tensor:
         bsr.block_rows, torch.arange(nbr + 1, dtype=torch.int32,
                                      device=b.device))
     out = torch.empty((m, p), dtype=kdtype, device=b.device)
+    tile = bsr_tile(bs, p, nbr, _build.sm_count(b.device), bb.element_size())
+    if tile is not None:
+        ks, bt_k = gemm_prepare_b(bb)
+        if blocks.data_ptr() % 16:  # TMA reads from a 16-byte-aligned base
+            blocks = blocks.clone()
     lib = _build.load_library()
     with torch.cuda.device(b.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.marlin_bsr_spmm(_DTYPES[kdtype], blocks.data_ptr(),
-                                  bcols.data_ptr(), row_ptr.data_ptr(),
-                                  bb.data_ptr(), out.data_ptr(), m,
-                                  bsr.shape[1], p, bs, nbr, stream)
+        if tile is None:
+            err = lib.marlin_bsr_spmm(_DTYPES[kdtype], blocks.data_ptr(),
+                                      bcols.data_ptr(), row_ptr.data_ptr(),
+                                      bb.data_ptr(), out.data_ptr(), m,
+                                      bsr.shape[1], p, bs, nbr, stream)
+        else:
+            err = lib.marlin_bsr_spmm_tc(
+                _DTYPES[kdtype], tile[0], tile[1], blocks.data_ptr(),
+                bcols.data_ptr(), row_ptr.data_ptr(), bt_k.data_ptr(),
+                out.data_ptr(), m, p, ks, bs, bsr.nnzb, nbr, stream)
     _build.check(lib, err, f"bsr_spmm_pallas {bsr.shape} bs={bs} "
-                 f"nnzb={bsr.nnzb} p={p}")
+                 f"nnzb={bsr.nnzb} p={p} tile={tile}")
     bsr_spmm_pallas.launches += 1
+    bsr_spmm_pallas.prep_launches += tile is not None
     return out if kdtype == out_dtype else out.to(out_dtype)
 
 
 bsr_spmm_pallas.launches = 0
+# launches of the GEMM's pre-pass of B ahead of the tensor-core instance
+bsr_spmm_pallas.prep_launches = 0
 
 
 def bsr_spmm(bsr: BsrMatrix, b, chunk_blocks: int | None = None

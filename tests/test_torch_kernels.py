@@ -176,7 +176,8 @@ def test_ctypes_binding_passes_pointers_as_void_p():
     lib = types.SimpleNamespace(**{f: types.SimpleNamespace() for f in (
         "marlin_gemm_prep", "marlin_gemm", "marlin_masked_fill",
         "marlin_paged_attention", "marlin_flash_fwd", "marlin_flash_bwd_dkv",
-        "marlin_flash_bwd_dq", "marlin_bsr_spmm", "marlin_error_string")})
+        "marlin_flash_bwd_dq", "marlin_bsr_spmm", "marlin_bsr_spmm_tc",
+        "marlin_error_string")})
     _build._bind(lib)
     g = lib.marlin_gemm.argtypes
     assert g[4:7] == [ctypes.c_void_p] * 3 and g[-2:] == [ctypes.c_void_p] * 2
@@ -187,7 +188,8 @@ def test_ctypes_binding_passes_pointers_as_void_p():
     f = lib.marlin_masked_fill.argtypes
     assert f[:2] == [ctypes.c_void_p] * 2 and f[-1] is ctypes.c_void_p
     p = lib.marlin_paged_attention.argtypes
-    assert p[1:7] == [ctypes.c_void_p] * 6 and p[-1] is ctypes.c_void_p
+    assert p[1:8] == [ctypes.c_void_p] * 7 and p[-1] is ctypes.c_void_p
+    assert p[8:19] == [ctypes.c_int] * 11 and len(p) == 21
     assert p[-2] is ctypes.c_float
     fl = lib.marlin_flash_fwd.argtypes
     assert fl[1:10] == [ctypes.c_void_p] * 9 and fl[-1] is ctypes.c_void_p
@@ -202,10 +204,14 @@ def test_ctypes_binding_passes_pointers_as_void_p():
     assert s[0] is ctypes.c_int and s[1:6] == [ctypes.c_void_p] * 5
     assert s[6:9] == [ctypes.c_longlong] * 3 and s[9] is ctypes.c_int
     assert s[10] is ctypes.c_longlong and s[-1] is ctypes.c_void_p
+    t = lib.marlin_bsr_spmm_tc.argtypes
+    assert t[:3] == [ctypes.c_int] * 3 and t[3:8] == [ctypes.c_void_p] * 5
+    assert t[8:11] == [ctypes.c_longlong] * 3 and t[11] is ctypes.c_int
+    assert t[12:14] == [ctypes.c_longlong] * 2 and t[-1] is ctypes.c_void_p
     for fn in ("marlin_gemm_prep", "marlin_gemm", "marlin_masked_fill",
                "marlin_paged_attention", "marlin_flash_fwd",
                "marlin_flash_bwd_dkv", "marlin_flash_bwd_dq",
-               "marlin_bsr_spmm"):
+               "marlin_bsr_spmm", "marlin_bsr_spmm_tc"):
         assert getattr(lib, fn).restype is ctypes.c_int
 
 
