@@ -14,7 +14,9 @@ flash forward kernels (``ops/paged_attention.py``,
 Ulysses attention (``parallel/``), with the flash backward kernels; and the
 sparse × dense multiply (``SparseVecMatrix``, ``CoordinateMatrix``; the
 ELL, BCOO and BSR formats) with the BSR SpMM kernel
-(``ops/sparse_bsr.py``).
+(``ops/sparse_bsr.py``); and the dense factorizations, solves and truncated
+SVD (``linalg/``) with logistic regression (``ml/``), which the
+``DenseMatrix`` methods reach.
 
 Quick start::
 
@@ -46,7 +48,8 @@ from .parallel import (  # noqa: F401
     tune_multiply,
     ulysses_attention,
 )
+from .linalg import cholesky_decompose, compute_svd, inverse, lanczos, lu_decompose  # noqa: F401
 from .utils import evaluate, timer  # noqa: F401
-from . import random  # noqa: F401
+from . import linalg, ml, random  # noqa: F401
 
 __version__ = "0.1.0"

@@ -32,12 +32,24 @@ TF32_BY_PRECISION = {"highest": False, "high": False, "default": True}
 
 @dataclasses.dataclass
 class MarlinConfig:
+    # Factorization base block sizes (reference defaults: 1000).
+    lu_base_size: int = 1000
+    cholesky_base_size: int = 1000
+    inverse_base_size: int = 1000
+    # Size threshold (matrix dim) up to which factorizations take the local
+    # path ("breeze" mode in the reference, DenseVecMatrix.scala:289-298 uses
+    # n > 6000 for its distributed one).
+    local_fallback_dim: int = 6000
     # Broadcast-multiply threshold in MB (DenseVecMatrix.scala:196-198 default 300).
     broadcast_threshold_mb: float = 300.0
     # Default element dtype for matrices.
     default_dtype: Any = torch.float32
     # Precision of the products on the hot path (see the module docstring).
     matmul_precision: str = "highest"
+    # SVD mode thresholds (DenseVecMatrix.scala:1569-1588).
+    svd_local_dim: int = 2000
+    # Lanczos iterations multiplier for dist-eigs SVD.
+    lanczos_max_iter_factor: int = 10
     # Where the autotune winners persist across processes. None =
     # build/marlin_tpu_torch/autotune.json at the repository root; "" disables
     # the disk layer (in-process caching still works).

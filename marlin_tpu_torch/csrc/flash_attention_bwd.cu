@@ -29,12 +29,25 @@
 // Design:
 // - Two kernels, as on the TPU, so every output element has one writer: no
 //   atomics, and the results do not change from run to run. They share one
-//   body: a block keeps BR = 128 rows of two matrices resident in shared
-//   memory (dK/dV: K and V of a key tile; dQ: Q and dO of a query tile) and
-//   streams 32-row tiles of the other two (dK/dV: Q and dO; dQ: K and V)
-//   through a ring of STAGES shared-memory buffers filled by cp.async, the
-//   next tile's copy in flight while the current one computes. 8 warps; warp
-//   w owns resident rows 16w..16w+15 against every row of the streamed tile.
+//   body: a block keeps BR rows of two matrices resident in shared memory
+//   (dK/dV: K and V of a key tile; dQ: Q and dO of a query tile) and streams
+//   BC-row tiles of the other two (dK/dV: Q and dO; dQ: K and V) through a
+//   ring of STAGES shared-memory buffers filled by cp.async, the next tile's
+//   copy in flight while the current one computes. 8 warps. Up to d = 128
+//   (Plan: BR = 128, BC = 32) warp w owns resident rows 16w..16w+15 and all
+//   d output columns against every row of the streamed tile.
+// - d <= 256 (DP = 256) cannot keep that plan: a warp's dK/dV accumulators
+//   over 256 columns would take 256 registers a thread of the 255, and two
+//   128-row resident matrices 256 KB of shared memory in f32, past the 227
+//   KB a block may have. So the warps form 4 row groups x 2 column halves
+//   over BR = 64 resident rows: warp w owns rows 16 (w % 4).. and output
+//   columns 128 (w / 4)..+127, 128 accumulator floats as at d = 128. Both
+//   warps of a pair compute the same full-width 16 x BC score tile (the
+//   two score products run twice: 12 d operations per live pair for dK/dV
+//   and 10 d for dQ, against 8 d and 6 d of useful work), which needs no
+//   exchange through shared memory and no barrier between them. f32 streams
+//   BC = 16-row tiles so the ring and its small halves fit beside the 128 KB
+//   of resident rows; bf16 keeps BC = 32.
 // - Products on the tensor cores with mma.sync (m16n8k8 TF32, m16n8k16 bf16),
 //   fragments loaded from shared memory by the threads. wgmma was not taken:
 //   it reads TF32 operands from shared memory only K-major, and three of the
@@ -61,7 +74,8 @@
 //   the output's in IEEE f32 (see accumulate).
 // - Shared memory, f32 at d = 128: 2 x 64 KB resident + 2 stages x 2 x 16
 //   KB streamed + 32 KB of small halves = 224 KB, one block per SM; bf16 96
-//   KB. 16-byte chunks are XOR-swizzled by row so the fragment loads hit
+//   KB. At d = 256, f32: 2 x 64 KB + 2 x 2 x 16 KB + 32 KB = 224 KB; bf16
+//   128 KB. 16-byte chunks are XOR-swizzled by row so the fragment loads hit
 //   distinct banks.
 // - Registers: the dK/dV accumulators take 128 of a thread's 255. dK/dV
 //   finishes dV += P^T dO before the dO.V scores, so p and ds are never both
@@ -93,11 +107,26 @@
 
 namespace {
 
-constexpr int NT = 256;       // 8 warps
-constexpr int BR = 128;       // resident rows of a block, 16 per warp
-constexpr int BC = 32;        // rows of a streamed tile
-constexpr int NJ = BC / 8;    // 8-column accumulator tiles of a warp's score tile
+constexpr int NT = 256;  // 8 warps
 constexpr int STAGES = 2;
+
+// The tile plan of an instance (see the head note): up to d = 128, 8 row
+// groups of 16 resident rows, each warp over the full width; at DP = 256, 4
+// row groups x 2 column halves.
+template <typename T, int DP>
+struct Plan {
+  static constexpr int NCH = DP > 128 ? 2 : 1;  // column halves of d
+  static constexpr int DW = DP / NCH;           // output columns of a warp
+  static constexpr int NRG = NT / 32 / NCH;     // row groups of 16
+  static constexpr int BR = 16 * NRG;           // resident rows of a block
+  static constexpr int BC = DP > 128 && std::is_same_v<T, float> ? 16 : 32;  // streamed rows
+  static constexpr int NJ = BC / 8;  // 8-column accumulator tiles of a score tile
+  // the dO.V scores at d <= 256 sum each 64 columns in a fresh accumulator
+  // (score_tile's SEG): ds = p (dO.V - delta) cancels where dO.V is near
+  // delta, and with the 256 columns in one accumulator a dq element whose
+  // exact value is 0 came out 1.06e-5 on an H100
+  static constexpr int SEG_DS = DP > 128 ? 64 / (4 * (16 / (int)sizeof(T))) : 0;
+};
 
 struct Args {
   const void *q, *k, *v, *dout;
@@ -133,6 +162,9 @@ __device__ __forceinline__ void load_rows(T* dst, const T* __restrict__ src, int
                      ok ? 16 : 0);
     }
   } else {
+    // one synchronous load in flight a thread: unrolled, the loads held at
+    // once pushed the f32 d <= 256 dK/dV instance past 255 registers
+#pragma unroll 1
     for (int idx = threadIdx.x; idx < nrows * DP; idx += NT) {
       const int r = idx / DP;
       const int c = idx % DP;
@@ -143,7 +175,7 @@ __device__ __forceinline__ void load_rows(T* dst, const T* __restrict__ src, int
   }
 }
 
-// acc[j] = X[16w + (g, g+8)] . Y[8j + g] over d: the warp's 16 x BC score
+// acc[j] = X[16rg + (g, g+8)] . Y[8j + g] over d: the warp's 16 x BC score
 // tile. Thread t reads 16-byte chunk 4kc + t of each row; its two k steps map
 // the fragment's k slots onto the chunk's elements (0, 1) and (2, 3) for
 // TF32, the pairs (0-1, 2-3) and (4-5, 6-7) for bf16. The NJ accumulators
@@ -151,20 +183,32 @@ __device__ __forceinline__ void load_rows(T* dst, const T* __restrict__ src, int
 // Every row read has row % 8 == g, so chunk 4kc + t of it sits at chunk
 // 4 (kc ^ b) + ((t ^ sg) & 3), sg = swz(g), b = sg / 4: an offset of 4E kc
 // plus one of two per-thread constants, by the parity of kc.
-template <typename T, int DP>
+// SEG > 0: the products of each SEG steps of kc go to a fresh accumulator,
+// added to acc in IEEE f32 (see accumulate: the tensor cores'
+// f32 sums are not rounded to nearest and drift over a long contraction).
+template <typename T, int DP, int NJ, int SEG>
 __device__ __forceinline__ void score_tile(float (&acc)[NJ][4], const T* X, const T* Y,
-                                           const float* Ysm, int w, int g, int t) {
+                                           const float* Ysm, int rg, int g, int t) {
   constexpr int E = 16 / (int)sizeof(T);
 #pragma unroll
   for (int j = 0; j < NJ; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float part[NJ][4];
   const int sg = tc::swz(g);
   const int lo = E * ((t ^ sg) & 3) + g * DP;
   const int lo_par[2] = {lo + 4 * E * (sg >> 2), lo - 4 * E * (sg >> 2)};
-  const T* xr = X + 16 * w * DP;
+  const T* xr = X + 16 * rg * DP;
 #pragma unroll
   for (int kc = 0; kc < DP / (4 * E); ++kc) {
+    if constexpr (SEG > 0) {
+      if (kc % SEG == 0)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[j][e] = 0.f;
+    }
+    float(&cur)[NJ][4] = *(SEG > 0 ? &part : &acc);
     const int c = 4 * E * kc + lo_par[kc & 1];
     const uint4 xa = tc::lds128(xr + c);
     const uint4 xb = tc::lds128(xr + 8 * DP + c);
@@ -183,12 +227,12 @@ __device__ __forceinline__ void score_tile(float (&acc)[NJ][4], const T* X, cons
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
           const uint32_t b[2] = {st ? y[j].z : y[j].x, st ? y[j].w : y[j].y};
-          tc::mma_tf32(acc[j], as[st].small, b);
+          tc::mma_tf32(cur[j], as[st].small, b);
         }
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
           const uint32_t b[2] = {st ? y[j].z : y[j].x, st ? y[j].w : y[j].y};
-          tc::mma_tf32(acc[j], as[st].big, b);
+          tc::mma_tf32(cur[j], as[st].big, b);
         }
       }
 #pragma unroll
@@ -198,7 +242,7 @@ __device__ __forceinline__ void score_tile(float (&acc)[NJ][4], const T* X, cons
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
           const uint32_t b[2] = {st ? y[j].z : y[j].x, st ? y[j].w : y[j].y};
-          tc::mma_tf32(acc[j], as[st].big, b);
+          tc::mma_tf32(cur[j], as[st].big, b);
         }
     } else {
 #pragma unroll
@@ -208,15 +252,26 @@ __device__ __forceinline__ void score_tile(float (&acc)[NJ][4], const T* X, cons
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
           const uint32_t b[2] = {st ? y[j].z : y[j].x, st ? y[j].w : y[j].y};
-          tc::mma_bf16(acc[j], a, b);
+          tc::mma_bf16(cur[j], a, b);
         }
       }
+    }
+    if constexpr (SEG > 0) {
+      if (kc % SEG == SEG - 1)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[j][e] += part[j][e];
     }
   }
 }
 
-// acc[i] += A . Y over the BC rows of Y, A the warp's 16 x BC p or ds tile in
-// the accumulator layout of score_tile. TF32: k step j takes accumulator tile
+// acc[i] += A . Y over the BC rows of Y, for the DW columns of Y (row
+// stride DP) from its pointer on; A the warp's 16 x BC p or ds tile in the
+// accumulator layout of score_tile. The pointer may start 128 columns in
+// (the second column half at DP = 256): 128 columns are 32 (f32) or 16
+// (bf16) chunks, so each chunk's swizzle and the parity of its group of four
+// stay those of the offsets below. TF32: k step j takes accumulator tile
 // j, slots (t, t+4) = columns (8j + 2t, 8j + 2t + 1); output tile i holds
 // columns 32 (i / 4) + 4 n + i % 4, so one 16-byte read of rows 8j + 2t and
 // 8j + 2t + 1 gives B for four tiles. bf16: k step jj takes tiles 2jj and
@@ -229,8 +284,8 @@ __device__ __forceinline__ void score_tile(float (&acc)[NJ][4], const T* X, cons
 // IEEE f32.
 // Rows 8j + 2t (+ 1) and 16jj + lane % 8 (+ 8) keep their swizzle over j and
 // jj, so each thread's offsets are a few per-thread bases plus constants.
-template <typename T, int DP>
-__device__ __forceinline__ void accumulate(float (&acc)[DP / 8][4], const float (&A)[NJ][4],
+template <typename T, int DP, int DW, int NJ>
+__device__ __forceinline__ void accumulate(float (&acc)[DW / 8][4], const float (&A)[NJ][4],
                                            const T* Y, const float* Ysm, int lane) {
   const int g = lane >> 2;
   const int t = lane & 3;
@@ -246,7 +301,7 @@ __device__ __forceinline__ void accumulate(float (&acc)[DP / 8][4], const float 
       as[j] = tc::split_tf32(af);
     }
 #pragma unroll
-    for (int ig = 0; ig < DP / 32; ++ig) {
+    for (int ig = 0; ig < DW / 32; ++ig) {
 #pragma unroll
       for (int e = 0; e < 4; ++e)
 #pragma unroll
@@ -286,7 +341,7 @@ __device__ __forceinline__ void accumulate(float (&acc)[DP / 8][4], const float 
     const int bp = 32 * (sr >> 2);
     const int ob[2][2] = {{rb + q0 + bp, rb + q1 + bp}, {rb + q0 - bp, rb + q1 - bp}};
 #pragma unroll
-    for (int i = 0; i < DP / 8; i += 4) {
+    for (int i = 0; i < DW / 8; i += 4) {
 #pragma unroll
       for (int e = 0; e < 4; ++e)
 #pragma unroll
@@ -320,16 +375,21 @@ __device__ __forceinline__ int out_col(int i, int e, int t) {
 
 template <typename T, int DP>
 constexpr size_t smem_bytes() {
-  return (2 * (size_t)BR * DP + (size_t)STAGES * 2 * BC * DP) * sizeof(T) +
-         (size_t)STAGES * 2 * BC * sizeof(float) +
-         (std::is_same_v<T, float> ? 2 * (size_t)BC * DP * sizeof(float) : 0);
+  using P = Plan<T, DP>;
+  return (2 * (size_t)P::BR * DP + (size_t)STAGES * 2 * P::BC * DP) * sizeof(T) +
+         (size_t)STAGES * 2 * P::BC * sizeof(float) +
+         (std::is_same_v<T, float> ? 2 * (size_t)P::BC * DP * sizeof(float) : 0);
 }
+static_assert(smem_bytes<float, 256>() <= 232448, "f32 d <= 256 past a block's shared memory");
+static_assert(smem_bytes<float, 128>() <= 232448, "f32 d <= 128 past a block's shared memory");
 
 // DKV: the dK/dV kernel (resident K, V; streamed Q, dO; out0 = dk, out1 =
 // dv). Otherwise the dQ kernel (resident Q, dO; streamed K, V; out0 = dq).
 template <typename T, int DP, bool VEC, bool DKV>
 __global__ void __launch_bounds__(NT, 1) flash_bwd_kernel(const Args a) {
-  constexpr int NI = DP / 8;
+  using P_ = Plan<T, DP>;
+  constexpr int BR = P_::BR, BC = P_::BC, NJ = P_::NJ, DW = P_::DW;
+  constexpr int NI = DW / 8;
   extern __shared__ uint4 smem[];
   T* X0 = reinterpret_cast<T*>(smem);  // K or Q, [BR][DP]
   T* X1 = X0 + BR * DP;                // V or dO
@@ -340,6 +400,8 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_kernel(const Args a) {
 
   const int lane = threadIdx.x & 31;
   const int w = threadIdx.x >> 5;
+  const int rg = w % P_::NRG;  // row group: resident rows 16 rg..16 rg + 15
+  const int c0w = w / P_::NRG * DW;  // the warp's first output column
   const int g = lane >> 2;
   const int t = lane & 3;
   const int nr = DKV ? a.skv : a.sq;  // rows of the resident matrices
@@ -403,12 +465,12 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_kernel(const Args a) {
     }
   };
 
-  // dQ: lse and delta of the warp's rows 16w + g and 16w + g + 8
+  // dQ: lse and delta of the warp's rows 16rg + g and 16rg + g + 8
   float lse_r[2] = {0.f, 0.f}, dlt_r[2] = {0.f, 0.f};
   if (!DKV) {
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
-      const int row = r0 + 16 * w + g + 8 * hh;
+      const int row = r0 + 16 * rg + g + 8 * hh;
       if (row < a.sq) {
         lse_r[hh] = lse[row];
         dlt_r[hh] = delta[row];
@@ -460,7 +522,7 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_kernel(const Args a) {
     // never both held through a product: the accumulators take 128 of the
     // 255 registers a thread may have
     float P[NJ][4], dS[NJ][4];
-    score_tile<T, DP>(P, X0, Y0, Ysm, w, g, t);
+    score_tile<T, DP, NJ, 0>(P, X0, Y0, Ysm, rg, g, t);
     const int64_t q_lo = DKV ? c0 : r0, q_hi = DKV ? c0 + BC : r0 + BR;
     const int64_t k_lo = DKV ? r0 : c0, k_hi = DKV ? r0 + BR : c0 + BC;
     const bool full = q_hi <= a.sq && k_hi <= a.skv && a.k_offset + k_hi <= a.valid_len &&
@@ -477,7 +539,7 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_kernel(const Args a) {
       for (int j = 0; j < NJ; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int rl = r0 + 16 * w + g + 8 * (e >> 1);  // resident row
+          const int rl = r0 + 16 * rg + g + 8 * (e >> 1);  // resident row
           const int cl = c0 + 8 * j + 2 * t + (e & 1);    // streamed row
           if (!(DKV ? is_live(cl, rl, a) : is_live(rl, cl, a))) P[j][e] = __uint_as_float(0xff800000u);  // -inf: exp gives 0
         }
@@ -486,8 +548,9 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_kernel(const Args a) {
     for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) P[j][e] = expf(P[j][e]);
-    if constexpr (DKV) accumulate<T, DP>(acc_p, P, Y1, Ysm + BC * DP, lane);
-    score_tile<T, DP>(dS, X1, Y1, Ysm + BC * DP, w, g, t);
+    if constexpr (DKV)
+      accumulate<T, DP, DW, NJ>(acc_p, P, Y1 + c0w, Ysm + BC * DP + c0w, lane);
+    score_tile<T, DP, NJ, P_::SEG_DS>(dS, X1, Y1, Ysm + BC * DP, rg, g, t);
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
 #pragma unroll
@@ -495,7 +558,7 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_kernel(const Args a) {
         const float dl = DKV ? dlt_s[s * BC + 8 * j + 2 * t + (e & 1)] : dlt_r[e >> 1];
         dS[j][e] = P[j][e] * (dS[j][e] - dl);
       }
-    accumulate<T, DP>(acc_ds, dS, Y0, Ysm, lane);
+    accumulate<T, DP, DW, NJ>(acc_ds, dS, Y0 + c0w, Ysm + c0w, lane);
     __syncthreads();  // stage s is refilled by the next iteration's copy
   }
 
@@ -503,14 +566,14 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_kernel(const Args a) {
   const int64_t base = (int64_t)h * nr;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
-    const int row = r0 + 16 * w + g + 8 * hh;
+    const int row = r0 + 16 * rg + g + 8 * hh;
     if (row >= nr) continue;
     const int64_t off = (base + row) * a.d;
 #pragma unroll
     for (int i = 0; i < NI; ++i)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int c = out_col<T>(i, e, t);
+        const int c = c0w + out_col<T>(i, e, t);
         if (c < a.d) {
           out_ds[off + c] = acc_ds[i][2 * hh + e] * a.scale;
           if constexpr (DKV) a.out1[off + c] = acc_p[i][2 * hh + e];
@@ -526,6 +589,7 @@ cudaError_t launch(const Args& a) {
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
+  constexpr int BR = Plan<T, DP>::BR;
   const int64_t blocks = (int64_t)(((DKV ? a.skv : a.sq) + BR - 1) / BR) * a.H;
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
   kern<<<(unsigned)blocks, NT, smem, a.stream>>>(a);
@@ -551,6 +615,8 @@ cudaError_t dispatch(const Args& a) {
     return vec ? launch<T, 64, true, DKV>(a) : launch<T, 64, false, DKV>(a);
   if (a.d <= 128)
     return vec ? launch<T, 128, true, DKV>(a) : launch<T, 128, false, DKV>(a);
+  if (a.d <= 256)
+    return vec ? launch<T, 256, true, DKV>(a) : launch<T, 256, false, DKV>(a);
   return cudaErrorInvalidValue;
 }
 

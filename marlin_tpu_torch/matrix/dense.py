@@ -14,8 +14,10 @@ padding arises only from data built that way). The invariant *pad region is
 always zero* holds as in the JAX package: ops that would break it (scalar
 add, divides) re-mask.
 
-Not here yet (they reach linalg, IO or pandas): the factorizations,
-``solve``, ``lr``, ``to_dataframe`` and the ``save_*`` methods.
+The factorizations, ``compute_svd``, ``solve`` and ``lr`` delegate to
+``marlin_tpu_torch.linalg`` and ``marlin_tpu_torch.ml``, as the JAX
+package's methods do. Not here yet (they reach IO or pandas):
+``to_dataframe`` and the ``save_*`` methods.
 """
 
 from __future__ import annotations
@@ -472,6 +474,45 @@ class DenseMatrix(DistributedMatrix):
         return self._wrap(self.logical(), spec) if mesh is None else type(self).from_array(
             self.logical(), mesh, spec
         )
+
+    # --------------------------------------------------------- factorizations
+    def lu_decompose(self, mode: str = "auto", **kwargs):
+        from ..linalg import lu_decompose
+
+        return lu_decompose(self, mode=mode, **kwargs)
+
+    def cholesky_decompose(self, mode: str = "auto", **kwargs):
+        from ..linalg import cholesky_decompose
+
+        return cholesky_decompose(self, mode=mode, **kwargs)
+
+    def inverse(self, mode: str = "auto", **kwargs):
+        from ..linalg import inverse
+
+        return inverse(self, mode=mode, **kwargs)
+
+    def compute_svd(self, k: int, mode: str = "auto", **kwargs):
+        from ..linalg import compute_svd
+
+        return compute_svd(self, k, mode=mode, **kwargs)
+
+    def solve(self, b, mode: str = "auto", **kwargs):
+        """Solve ``self @ x = b`` (marlin_tpu_torch.linalg.solve)."""
+        from ..linalg import solve
+
+        return solve(self, b, mode=mode, **kwargs)
+
+    # --------------------------------------------------------------- training
+    def lr(self, step_size: float, iters: int) -> np.ndarray:
+        """Full-batch logistic-gradient descent over rows of (label,
+        features) — parity with DenseVecMatrix.lr
+        (DenseVecMatrix.scala:1005-1035): the first column is the label and
+        is replaced by a 1-intercept. Delegates to
+        marlin_tpu_torch.ml.logistic_regression."""
+        from ..ml.logistic_regression import logistic_regression
+
+        return logistic_regression(self, step_size=step_size,
+                                   iterations=iters).weights
 
     # ----------------------------------------------------------------- print
     def print_matrix(self, max_rows: int = 10, max_cols: int = 10):

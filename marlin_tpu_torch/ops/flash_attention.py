@@ -31,8 +31,8 @@ f32 inputs keep f32 accuracy everywhere (the TPU kernels pin
 and backward kernels on the tensor cores in three TF32 passes (a single TF32
 pass would be ~1e-3 off); bf16 inputs run bf16 products. ``p`` and ``ds``
 are rounded to the input type before their products, as the TPU kernels
-cast them down. The forward kernel takes head dims up to
-:data:`FWD_MAX_D` (256), the backward kernels up to :data:`BWD_MAX_D` (128).
+cast them down. The forward kernel and the backward kernels take head dims
+up to :data:`FWD_MAX_D` and :data:`BWD_MAX_D` (both 256).
 
 :func:`flash_attention_panel` runs the kernel for CUDA tensors (raising on a
 failed build or launch) and :func:`flash_attention_panel_plain` for CPU
@@ -110,10 +110,10 @@ def _as_heads(q, k, v, rows: dict, like_q: dict):
     return (single, q, k, v, *rest)
 
 
-# the widest head each kernel is compiled for: the forward's instances cover
-# d <= 64, 128 and 256; the dK/dV and dQ kernels d <= 64 and 128
+# the widest head each kernel is compiled for: the forward's instances and
+# the dK/dV and dQ kernels' cover d <= 64, 128 and 256
 FWD_MAX_D = 256
-BWD_MAX_D = 128
+BWD_MAX_D = 256
 
 
 def _check_kernel(name: str, max_d: int, q, **others) -> None:

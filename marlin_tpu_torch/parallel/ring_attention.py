@@ -18,16 +18,19 @@ Backends:
   panel in ``_KV_TILE``-key tiles folded by :func:`softmax_tile_update`,
   with autograd through it, as JAX differentiates its XLA path.
 - ``"auto"``: ``"flash"`` for tensors on a CUDA device with a head dim of at
-  most 128, ``"xla"`` above it and for CPU tensors
-  (:func:`resolve_attention_backend`). The rule is the reach of the backward
-  kernels (:data:`~marlin_tpu_torch.ops.flash_attention.BWD_MAX_D`): the
-  forward kernel takes d up to 256, but training through ``"flash"`` needs
-  both. The JAX package's ``auto`` picks flash on a TPU for ``d % 128 ==
-  0``, the width of its matrix unit, so the two agree at d <= 128 and at
-  d = 192 (the tiled path on both), and differ at d = 256, where the TPU
-  stays on its kernels and the card takes the tiled path until the backward
-  kernels reach 256 (ROADMAP queue 2b). An explicit ``"flash"`` at d > 128
-  on the card raises.
+  most 256, ``"xla"`` above it and for CPU tensors
+  (:func:`resolve_attention_backend`). The rule is the reach of the flash
+  kernels: the forward and the backward pair are compiled up to d = 256
+  (:data:`~marlin_tpu_torch.ops.flash_attention.FWD_MAX_D`,
+  :data:`~marlin_tpu_torch.ops.flash_attention.BWD_MAX_D`), and training
+  through ``"flash"`` needs both. The JAX package's ``auto`` picks flash on
+  a TPU for ``d % 128 == 0``, the width of its matrix unit, so the two agree
+  at d = 128 and 256 and differ at the other head dims up to 256 (64, 192,
+  ...), where the TPU takes its tiled path and the card the kernels (d = 192
+  pads to the d <= 256 instances with zero columns, as d = 96 pads to 128).
+  Both paths compute the same function, the exact softmax attention of the
+  panel. An explicit ``"flash"`` at d > 256 on the card raises; the JAX
+  package's ``"flash"`` takes any head dim.
 """
 
 from __future__ import annotations
@@ -86,20 +89,21 @@ def softmax_tile_update(q_blk, k_t, v_t, m, l, acc, q_pos, k_pos, valid_len,
 def resolve_attention_backend(backend: str, device, head_dim: int) -> str:
     """``backend`` as ``"flash"`` or ``"xla"`` for tensors on ``device`` with
     head dim ``head_dim`` (module docstring): ``"auto"`` is the CUDA kernels
-    on a CUDA device up to the backward kernels' head dim, and the tiled
+    on a CUDA device up to the flash kernels' head dim (256), and the tiled
     plain path above it and elsewhere. ``"flash"`` on a CUDA device above
-    that head dim raises: the backward kernels could not run."""
+    that head dim raises: the kernels could not run."""
     if backend not in ("auto", "flash", "xla"):
         raise ValueError(f"unknown ring attention backend: {backend!r}")
     on_card = torch.device(device).type == "cuda"
-    fits = head_dim <= _flash.BWD_MAX_D
+    reach = min(_flash.FWD_MAX_D, _flash.BWD_MAX_D)
+    fits = head_dim <= reach
     if backend == "auto":
         return "flash" if on_card and fits else "xla"
     if backend == "flash" and on_card and not fits:
         raise ValueError(
             f"ring attention backend 'flash': head dim {head_dim} exceeds the "
-            f"backward kernels' {_flash.BWD_MAX_D} on {device}; 'auto' or "
-            f"'xla' take the tiled path")
+            f"flash kernels' {reach} on {device}; 'auto' or 'xla' take the "
+            f"tiled path")
     return backend
 
 

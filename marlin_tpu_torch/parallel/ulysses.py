@@ -8,7 +8,7 @@ remains is the local attention: :class:`~marlin_tpu_torch.ops.
 flash_attention.FlashAttention` over all heads in one launch of each kernel
 (the flash forward, and the dK/dV and dQ kernels in the backward; their
 plain versions for CPU tensors). On a CUDA device a head dim above the
-backward kernels' 128 takes ring attention's tiled formulation instead, by
+flash kernels' 256 takes ring attention's tiled formulation instead, by
 the rule of its ``"auto"`` backend
 (:func:`~marlin_tpu_torch.parallel.ring_attention.resolve_attention_backend`).
 A mesh axis larger than 1 raises: the all-to-alls over ``torch.distributed``
@@ -40,7 +40,7 @@ def ulysses_attention(q, k, v, mesh=None, axis: str = ROWS,
     tokens) and the pad masked by ``valid_len``; ``precision`` as in
     :func:`~marlin_tpu_torch.parallel.ring_attention.ring_attention`. The
     flash kernels run where ring attention's ``"auto"`` would pick them (a
-    CUDA device, head dim up to 128); the tiled formulation elsewhere on the
+    CUDA device, head dim up to 256); the tiled formulation elsewhere on the
     card, and the kernels' plain versions for CPU tensors."""
     if q.ndim < 3 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(

@@ -17,12 +17,14 @@ each step.
 
 from __future__ import annotations
 
+import math
 import numbers
 
 import torch
 
 __all__ = ["threefry2x32", "prng_key", "as_key", "fold_in", "split",
-           "random_bits", "uniform", "randint", "gumbel", "categorical"]
+           "random_bits", "uniform", "normal", "randint", "gumbel",
+           "categorical"]
 
 _M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -110,6 +112,32 @@ def uniform(key: torch.Tensor, shape, minval: float = 0.0,
     lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
     hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
     return torch.maximum(lo, f * (hi - lo) + lo)
+
+
+def normal(key: torch.Tensor, shape, dtype=torch.float32) -> torch.Tensor:
+    """``jax.random.normal(key, shape, dtype)`` for float32 or bfloat16:
+    uniform values on (-1, 1) from the same bits, each step rounded to
+    ``dtype`` as JAX rounds it, then ``sqrt(2) * erfinv``. float32 takes 23
+    mantissa bits of a 32-bit word; bfloat16 7 bits of the word's low byte
+    (JAX draws 8 bits for types of fewer than 8 mantissa bits). The bits and
+    the uniform values are JAX's exactly; ``erfinv`` is PyTorch's, which may
+    differ from XLA's in the last place."""
+    if dtype == torch.float32:
+        width, nmant, one, view = 32, 23, 0x3F800000, torch.int32
+    elif dtype == torch.bfloat16:
+        width, nmant, one, view = 8, 7, 0x3F80, torch.int16
+    else:
+        raise TypeError(f"normal: float32 or bfloat16, got {dtype}")
+    bits = random_bits(key, shape) & ((1 << width) - 1)
+    f = (((bits >> (width - nmant)) | one).to(view).view(dtype)
+         - torch.ones((), dtype=dtype, device=key.device))
+    # the largest value below -1 in dtype, and 1, as JAX's bounds
+    lo = torch.full((), -(1.0 - 2.0 ** -(nmant + 1)), dtype=dtype,
+                    device=key.device)
+    hi = torch.ones((), dtype=dtype, device=key.device)
+    u = torch.maximum(lo, f * (hi - lo) + lo)
+    return torch.erfinv(u) * torch.full((), math.sqrt(2.0), dtype=dtype,
+                                        device=key.device)
 
 
 def _mul32(a: torch.Tensor, b: int) -> torch.Tensor:

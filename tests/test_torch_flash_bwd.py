@@ -139,6 +139,26 @@ def test_panel_bwd_plain_matches_jax(sq, skv, q_off, k_off, valid, causal,
                                        atol=F32_TOL, err_msg=name)
 
 
+# head dims past 128, which the card's d <= 256 instances take (d = 192 pads
+# to 256 there); the plain version is the kernels' CPU side
+@pytest.mark.parametrize("d", [192, 256])
+@pytest.mark.parametrize("causal,valid,q_off", [(True, 231, 0),
+                                                (False, 200, 0),
+                                                (True, 250, 40)])
+def test_panel_bwd_plain_wide_head_matches_jax(d, causal, valid, q_off):
+    rng = np.random.default_rng(d + valid + q_off)
+    (q, k, v, do, lse, delta), want = _jax_panel_bwd(
+        rng, 256, 256, d, q_off, 0, valid, causal, False)
+    got = fa.flash_attention_panel_bwd_plain(
+        *(_torch(a) for a in (q, k, v, do)), _torch(lse), _torch(delta),
+        q_off, 0, valid, causal=causal, scale=1.0 / math.sqrt(d), bq=128,
+        bkv=128)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == (256, d), name
+        np.testing.assert_allclose(_np(g), np.asarray(w), rtol=F32_TOL,
+                                   atol=F32_TOL, err_msg=name)
+
+
 def _tf32(x):
     """f32 ``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` does: to 10 explicit
     mantissa bits, ties away from zero. Adding half of the last kept bit to
@@ -395,13 +415,14 @@ def test_attention_reference_matches_jax():
 
 
 def test_backend_resolution_and_errors():
-    """"auto" is the kernel on a CUDA device up to the backward kernels'
-    head dim of 128, and the tiled plain path above it and elsewhere; bad
-    knobs and meshes wider than one device raise."""
+    """"auto" is the kernel on a CUDA device up to the flash kernels' head
+    dim of 256, and the tiled plain path above it and elsewhere; bad knobs
+    and meshes wider than one device raise."""
     res = tra.resolve_attention_backend
     assert res("auto", "cuda", 128) == "flash"
     assert res("auto", torch.device("cuda", 0), 64) == "flash"
-    assert res("auto", "cuda", 256) == "xla"
+    assert res("auto", "cuda", 256) == "flash"
+    assert res("auto", "cuda", 257) == "xla"
     assert res("auto", "cpu", 64) == "xla"
     assert res("flash", "cpu", 256) == "flash"
     assert res("xla", "cuda", 64) == "xla"
@@ -456,9 +477,10 @@ def _bwd_case(dtype, strided, causal, d, sq, skv, q_off, k_off, valid):
     return (q, k, v, do, lse, delta, q_off, k_off, valid), scale
 
 
-# The kernels keep 128 rows resident and stream 32-row tiles. d = 40 takes
-# the 16-byte copies (40 elements are 160 or 80 bytes); d = 41 (odd row
-# strides) the element-wise variant.
+# The kernels keep 128 rows resident and stream 32-row tiles up to d = 128,
+# and 64 rows against 16-row (f32) or 32-row (bf16) tiles up to d = 256.
+# d = 40 takes the 16-byte copies (40 elements are 160 or 80 bytes); d = 41
+# and d = 201 (odd row strides) the element-wise variant.
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("strided,causal,d,sq,skv,q_off,k_off,valid", [
@@ -476,6 +498,14 @@ def _bwd_case(dtype, strided, causal, d, sq, skv, q_off, k_off, valid):
     (True, False, 41, 200, 150, 0, 0, 150),
     (False, True, 128, 200, 333, 1000, 700, 1500),  # sq != skv, offsets
     (False, False, 128, 333, 200, 64, 0, 180),
+    (False, True, 160, 300, 300, 0, 0, 299),
+    (False, True, 192, 300, 300, 0, 0, 299),
+    (False, True, 256, 300, 300, 0, 0, 299),
+    (True, True, 256, 300, 300, 0, 0, 281),
+    (False, False, 256, 200, 333, 64, 0, 300),
+    (False, True, 256, 200, 333, 1000, 700, 1500),
+    (False, True, 256, 70, 17, 0, 0, 17),        # inside one tile each way
+    (False, True, 201, 150, 150, 0, 0, 149),
 ])
 def test_bwd_kernels_match_plain_on_card(cuda, dtype, strided, causal, d, sq,
                                          skv, q_off, k_off, valid):
@@ -499,10 +529,11 @@ def test_bwd_kernels_match_plain_on_card(cuda, dtype, strided, causal, d, sq,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_bwd_kernels_bit_identical_across_launches(cuda, dtype):
+@pytest.mark.parametrize("d", [128, 256])
+def test_bwd_kernels_bit_identical_across_launches(cuda, dtype, d):
     """One writer per output element and no atomics: two launches on the
     same inputs give the same bits."""
-    args, scale = _bwd_case(dtype, False, True, 128, 1000, 1000, 0, 0, 999)
+    args, scale = _bwd_case(dtype, False, True, d, 1000, 1000, 0, 0, 999)
     kw = dict(causal=True, scale=scale)
     first = fa.flash_attention_panel_bwd(*args, **kw)
     second = fa.flash_attention_panel_bwd(*args, **kw)
@@ -513,21 +544,62 @@ def test_bwd_kernels_bit_identical_across_launches(cuda, dtype):
 
 @pytest.mark.cuda
 def test_wide_head_raises_on_card(cuda):
-    """On the card a head dim above the backward kernels' 128 takes the
-    tiled path: ring attention "auto" and Ulysses run it (no kernel
-    launched) and give "xla"'s output; an explicit "flash" raises, since
-    its backward could not run."""
+    """On the card ring attention "auto" and Ulysses run the flash kernels
+    up to head dim 256 and give "xla"'s output; above it they take the tiled
+    path (no kernel launched), and an explicit "flash" raises, since the
+    kernels could not run."""
     x = torch.randn((2, 256, 256), device=cuda)
     want = tra.ring_attention(x, x, x, causal=True, backend="xla")
     for fn in (lambda: tra.ring_attention(x, x, x, causal=True),
                lambda: tul.ulysses_attention(x, x, x, causal=True)):
         ops.reset_launch_counts()
         out = fn()
+        assert ops.launch_counts()["flash_attention_panel"] == 1
+        np.testing.assert_allclose(_np(out), _np(want), rtol=F32_TOL,
+                                   atol=F32_TOL)
+    y = torch.randn((2, 256, 320), device=cuda)
+    want = tra.ring_attention(y, y, y, causal=True, backend="xla")
+    for fn in (lambda: tra.ring_attention(y, y, y, causal=True),
+               lambda: tul.ulysses_attention(y, y, y, causal=True)):
+        ops.reset_launch_counts()
+        out = fn()
         assert not any(ops.launch_counts().values())
         np.testing.assert_allclose(_np(out), _np(want), rtol=F32_TOL,
                                    atol=F32_TOL)
-    with pytest.raises(ValueError, match="exceeds the backward kernels' 128"):
-        tra.ring_attention(x, x, x, causal=True, backend="flash")
+    with pytest.raises(ValueError, match="exceeds the flash kernels' 256"):
+        tra.ring_attention(y, y, y, causal=True, backend="flash")
+
+
+@pytest.mark.cuda
+def test_wide_head_ring_flash_step_on_card_matches_xla(cuda):
+    """dh 256: a training step of a one-layer LM through ring attention
+    "flash" (the forward, dK/dV and dQ kernels, one launch each) against the
+    same step through "xla" on the card: the loss, and every gradient leaf
+    within F32_TOL."""
+    from marlin_tpu_torch.models import transformer as tt
+
+    toks = np.random.default_rng(5).integers(0, 64, 300).astype(np.int32)
+    params = tt.TransformerLM(vocab=64, d_model=512, heads=2, layers=1,
+                              seed=5).init_params(device=cuda)
+    got = {}
+    for attn in ("ring_flash", "ring_xla"):
+        ops.reset_launch_counts()
+        loss, grads = tt.lm_value_and_grad(params, toks, heads=2, attn=attn)
+        _, _, step_loss = tt.lm_train_step(params, tt.adam_init(params),
+                                           toks, None, 2, attn, False,
+                                           "high", 3e-3)
+        counts = ops.launch_counts()
+        for name in ("flash_attention_panel", "flash_attention_bwd_dkv",
+                     "flash_attention_bwd_dq"):
+            assert counts[name] == (2 if attn == "ring_flash" else 0), counts
+        got[attn] = (float(loss), float(step_loss), grads)
+    (lf, sf, gf), (lx, sx, gx) = got["ring_flash"], got["ring_xla"]
+    np.testing.assert_allclose([lf, sf], [lx, sx], rtol=F32_TOL)
+    pairs = []
+    tt._tree_map(lambda a, b: pairs.append((a, b)), gf, gx)
+    assert pairs
+    for a, b in pairs:
+        np.testing.assert_allclose(_np(a), _np(b), rtol=F32_TOL, atol=F32_TOL)
 
 
 @pytest.mark.cuda

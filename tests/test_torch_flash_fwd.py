@@ -317,12 +317,13 @@ def test_paged_wide_group_matches_reference(group, dh):
 
 
 @pytest.mark.parametrize("head_dim,on_card", [(64, "flash"), (128, "flash"),
-                                              (192, "xla"), (256, "xla")])
+                                              (192, "flash"), (256, "flash"),
+                                              (257, "xla"), (320, "xla")])
 def test_attention_backend_by_head_dim(head_dim, on_card):
-    """"auto" takes the kernels on the card up to the backward kernels' head
-    dim and the tiled path above it; explicit "flash" above it raises on the
-    card (the backward could not run) and stays the plain flash path on the
-    CPU."""
+    """"auto" takes the kernels on the card up to the flash kernels' head
+    dim (256, forward and backward) and the tiled path above it; explicit
+    "flash" above it raises on the card (the kernels could not run) and
+    stays the plain flash path on the CPU."""
     res = tra.resolve_attention_backend
     assert res("auto", "cuda", head_dim) == on_card
     assert res("auto", "cpu", head_dim) == "xla"
@@ -331,14 +332,14 @@ def test_attention_backend_by_head_dim(head_dim, on_card):
     if on_card == "flash":
         assert res("flash", "cuda", head_dim) == "flash"
     else:
-        with pytest.raises(ValueError, match="exceeds the backward kernels"):
+        with pytest.raises(ValueError, match="exceeds the flash kernels"):
             res("flash", "cuda", head_dim)
 
 
 def test_kernel_reach_constants():
-    """The forward kernel is compiled up to d = 256 and the backward
-    kernels up to 128; the rule above reads the backward's."""
-    assert (fa.FWD_MAX_D, fa.BWD_MAX_D) == (256, 128)
+    """The forward kernel and the backward kernels are compiled up to
+    d = 256; the rule above reads both."""
+    assert (fa.FWD_MAX_D, fa.BWD_MAX_D) == (256, 256)
 
 
 # ----------------------------------------------------- the card's kernel
@@ -443,7 +444,7 @@ def test_forward_kernel_bit_identical_across_launches(cuda, dtype):
 @pytest.mark.cuda
 def test_kernels_name_their_head_dim_limit(cuda):
     """An explicit call past a kernel's reach raises, naming the kernel and
-    its limit: the forward at 257, the backward kernels at 192."""
+    its limit: the forward and the backward kernels at 257."""
     x = torch.zeros((1, 8, 257), device=cuda)
     st = (torch.zeros((1, 8), device=cuda), torch.zeros((1, 8), device=cuda),
           torch.zeros((1, 8, 257), device=cuda))
@@ -451,18 +452,18 @@ def test_kernels_name_their_head_dim_limit(cuda):
                                          "257 exceeds the kernel's 256"):
         fa.flash_attention_panel(x, x, x, *st, 0, 0, 8, causal=True,
                                  scale=1.0)
-    y = torch.zeros((1, 8, 192), device=cuda)
     rows = torch.zeros((1, 8), device=cuda)
     for wrapper in (fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_dq):
-        with pytest.raises(ValueError, match="head dim 192 exceeds the "
-                                             "kernel's 128"):
-            wrapper(y, y, y, y, rows, rows, 0, 0, 8, causal=True, scale=1.0)
+        with pytest.raises(ValueError, match="head dim 257 exceeds the "
+                                             "kernel's 256"):
+            wrapper(x, x, x, x, rows, rows, 0, 0, 8, causal=True, scale=1.0)
 
 
 @pytest.mark.cuda
 def test_wide_head_ring_and_ulysses_step_on_card_match_cpu(cuda):
     """dh = 256: ring attention ("auto") and Ulysses train on the card
-    through the tiled path, forward and grads against the CPU's."""
+    through the flash kernels (forward, dK/dV and dQ, one launch each),
+    forward and grads against the CPU's plain versions."""
     rng = np.random.default_rng(11)
     q, k, v, w = (rng.standard_normal((2, 300, 256)).astype(np.float32)
                   for _ in range(4))
@@ -476,7 +477,10 @@ def test_wide_head_ring_and_ulysses_step_on_card_match_cpu(cuda):
             out = fn(*ts)
             grads = torch.autograd.grad(
                 (out * torch.from_numpy(w).to(dev)).sum(), ts)
-            assert not any(ops.launch_counts().values())
+            counts = ops.launch_counts()
+            for name in ("flash_attention_panel", "flash_attention_bwd_dkv",
+                         "flash_attention_bwd_dq"):
+                assert counts[name] == (0 if dev == "cpu" else 1), counts
             outs.append([out, *grads])
         for g, r in zip(outs[1], outs[0]):
             np.testing.assert_allclose(_np(g), _np(r), rtol=F32_TOL,
