@@ -95,6 +95,30 @@ drives the ported paths end to end through the public entry points:
   (singular values against the square roots of f64 ``eigvalsh(AᵀA)``) and
   ``lr`` on 262,144 rows of a label and 784 features for 100 iterations
   (weights against an f64 run).
+- phase 18: the serving engine at full width — ``ServeEngine`` over phase
+  8's model with buckets ((128, 32), (512, 64)), 8 rows, pages of 16 tokens
+  and 256 prompt tokens per worker iteration (a 512-token prompt prefills
+  in two chunks between decode steps), ``decode_kernel="auto"`` resolving
+  to the CUDA kernel. Leg (a): 32 requests from 4 submitter threads
+  (prompts of 16-512 tokens, 8-64 steps, 8 of them sampled at temperature
+  0.8 and top_k 40): greedy tokens == ``lm_generate`` on the card, sampled
+  tokens == the same request served alone by a second engine, and a
+  ``/metrics`` scrape of ``obs.MetricsServer`` during the leg carrying the
+  ``marlin_serve_*`` families. Leg (b): 16 requests behind one 256-token
+  system prompt: prefix-cache hits, tokens == unshared ``lm_generate``.
+  Leg (c): two injected ``serve.decode_step`` faults and one
+  ``serve.prefill`` fault, ``max_attempts=3``: one OK Result per request,
+  leg (a)'s tokens. Leg (d): leg (a) again while the main thread runs
+  TF32 products (``local_matmul(precision="default")``) back to back with
+  no synchronize: the serve ends within a bound, leg (a)'s tokens, the
+  TF32 flag off after. After each leg the worker is joined, the pool's
+  audit is clean and the paged kernel launched once per layer of every
+  decode step. Then phase 8's workload through ``serve_bucket`` and the
+  engine in turns, nine rounds: the same streams, and the two loops' ms
+  per decode step side by side with their medians and interquartile
+  ranges, the gap called resolved only where it exceeds both ranges; and
+  the synchronizing CUDA calls of one decode step as the engine makes it
+  (``set_sync_debug_mode("warn")``).
 
 It prints the card's name, count and power limit, one ``{"kernels": [...]}``
 line (launches on the main path, max error, kernel / plain / bound / library
@@ -214,6 +238,33 @@ SVD_M, SVD_N, SVD_K = 1_000_000, 512, 8
 LR_M, LR_D, LR_ITERS = 262_144, 784, 100
 # the port's own CPU run against the card's at n = 1024, blocks of 128
 LINALG_CPU_N, LINALG_CPU_BLOCK = 1024, 128
+# the serving engine (phase 18) over config_decode's model: two buckets, 8
+# rows, pages of 16 tokens, 256 prompt tokens per worker iteration (so a
+# 512-token prompt prefills in two chunks between decode steps); leg (a) is
+# ENGINE_REQUESTS requests from ENGINE_THREADS submitter threads, prompts of
+# 16-512 tokens and 8-64 steps drawn from seed 0, every ENGINE_SAMPLED_EVERY-th
+# sampled (temperature 0.8, top_k 40, its own seed); leg (b) SHARED_REQUESTS
+# requests behind one SYSTEM_PROMPT-token system prompt
+ENGINE_BUCKETS = ((128, 32), (512, 64))
+ENGINE_REQUESTS, ENGINE_THREADS, ENGINE_SAMPLED_EVERY = 32, 4, 4
+SHARED_REQUESTS, SYSTEM_PROMPT = 16, 256
+ENGINE_WAIT_S = 300.0
+# phase 8's workload through serve_bucket and the engine in turns, this many
+# rounds of each (host clocks drift over a run: only adjacent runs compare;
+# the gap counts as resolved only where it exceeds both loops' IQR)
+ENGINE_TIMING_ROUNDS = 9
+# leg (d) fails if the serve beside back-to-back TF32 products takes longer
+LEG_D_BOUND_S = 120.0
+# the /metrics families a serving scrape must carry: bench_all.py's serve
+# list, less the prefetch family (the port has no prefetch pipeline yet)
+SERVE_FAMILIES = (
+    "marlin_serve_submitted_total", "marlin_serve_queue_depth",
+    "marlin_serve_slot_occupancy", "marlin_serve_kv_inflight_bytes",
+    "marlin_compile_total", "marlin_device_memory_bytes_in_use",
+    "marlin_program_roofline_frac", "marlin_mem_registered_bytes",
+    "marlin_mem_live_bytes", "marlin_mem_unattributed_bytes",
+    "marlin_serve_kv_pages_total", "marlin_serve_kv_pages_used",
+    "marlin_serve_prefix_cache_total")
 # f32 results vs f64 on LINALG_ROWS sampled rows (A[perm] - L U, A - L Lᵀ,
 # A A⁻¹ - I, A x - b; singular values vs the Gramian's, lr weights vs an
 # f64 run), and the card's L, U, L (Cholesky) and A⁻¹ vs the port's CPU
@@ -1575,6 +1626,316 @@ def linalg_path(torch, np, mt, ops):
     return res
 
 
+def engine_specs(np):
+    """Leg (a)'s request set, drawn from seed 0: prompts of 16-512 tokens,
+    8-64 steps, every ENGINE_SAMPLED_EVERY-th sampled with its own seed."""
+    rng = np.random.default_rng(0)
+    specs = []
+    for i in range(ENGINE_REQUESTS):
+        n, steps = int(rng.integers(16, 513)), int(rng.integers(8, 65))
+        spec = dict(prompt=rng.integers(0, LM["vocab"], n).astype(np.int32),
+                    steps=steps)
+        if i % ENGINE_SAMPLED_EVERY == ENGINE_SAMPLED_EVERY - 1:
+            spec.update(temperature=0.8, top_k=40, seed=1000 + i)
+        specs.append(spec)
+    return specs
+
+
+def submit_from_threads(eng, Request, specs, **extra):
+    """Submit ``specs`` from ENGINE_THREADS threads (thread t takes every
+    ENGINE_THREADS-th spec from t); returns the handles in spec order."""
+    import threading
+
+    handles = [None] * len(specs)
+    errors = []
+
+    def submitter(t):
+        try:
+            for i in range(t, len(specs), ENGINE_THREADS):
+                handles[i] = eng.submit(Request(**specs[i], **extra))
+        except BaseException as exc:  # noqa: BLE001 - reported below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=submitter, args=(t,),
+                                name=f"smoke-submit-{t}")
+               for t in range(ENGINE_THREADS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(ENGINE_WAIT_S)
+    if errors or any(h is None for h in handles):
+        raise AssertionError(f"submitters failed: {errors}")
+    return handles
+
+
+def engine_results(handles, what):
+    """One Result per handle, each OK (a non-OK Result that was not injected
+    fails the run)."""
+    out = []
+    for h in handles:
+        r = h.result(timeout=ENGINE_WAIT_S)
+        if r.status != "ok":
+            raise AssertionError(f"{what}: request {r.rid} {r.status}: "
+                                 f"{r.reason}")
+        out.append(r.tokens.tolist())
+    return out
+
+
+def decode_syncs(torch, np, tt, params, sampled):
+    """Synchronizing CUDA calls (``torch.cuda.set_sync_debug_mode("warn")``)
+    in one decode step made as the engine makes it: numpy block tables,
+    positions, tokens and sampling vectors in (``sampled``: temperature 0.8
+    and top_k 40 on every row), then the read of the emitted tokens.
+    Returns (the syncs inside ``lm_decode_paged``, the syncs in all)."""
+    import warnings
+
+    from marlin_tpu_torch.serving import kvpool
+
+    pool = kvpool.PagedKVPool(params, LM["heads"], 64, PAGE_LEN)
+    g = kvpool.PagedGroup(ENGINE_BUCKETS[-1], ROWS, PAGE_LEN, PREFILL_CHUNK)
+    tables, positions, cur = g.decode_inputs()
+    temp = np.full(ROWS, 0.8 if sampled else 0.0, np.float32)
+    top_k = np.full(ROWS, 40 if sampled else 0, np.int32)
+
+    def step():
+        return tt.lm_decode_paged(
+            params, pool.pages, tables, positions, cur, g.steps_done, g.seeds,
+            temp, g.top_p, top_k, heads=LM["heads"], page_len=PAGE_LEN,
+            kernel="pallas")
+
+    step()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            _, nxt = step()
+            inside = len(caught)
+            nxt.cpu()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = ["synchroniz" in str(w.message) for w in caught]
+    return sum(syncs[:inside]), sum(syncs)
+
+
+def engine_path(torch, np, tt, ops, pa, prompts8, streams8,
+                serve_bucket_ms, smi):
+    """Phase 18: serve through the port's ServeEngine at full width (see
+    the module docstring); returns the paged kernel's launches on it."""
+    import urllib.request
+
+    from marlin_tpu_torch import obs
+    from marlin_tpu_torch.ops.local import local_matmul
+    from marlin_tpu_torch.serving import Request, ServeEngine
+    from marlin_tpu_torch.utils import faults
+
+    layers = LM["layers"]
+    log(f"phase 18: ServeEngine over TransformerLM{tuple(LM.values())} f32, "
+        f"buckets {ENGINE_BUCKETS}, max_batch {ROWS}, page_len {PAGE_LEN}, "
+        f"prefill_chunk {PREFILL_CHUNK}, decode_kernel 'auto'")
+    params = tt.TransformerLM(**LM).init_params()
+    specs = engine_specs(np)
+
+    def make_engine():
+        eng = ServeEngine(params, LM["heads"], buckets=ENGINE_BUCKETS,
+                          max_batch=ROWS, page_len=PAGE_LEN,
+                          prefill_chunk=PREFILL_CHUNK, decode_kernel="auto")
+        if eng._decode_kernel != "pallas":
+            raise AssertionError(f"decode_kernel 'auto' resolved to "
+                                 f"{eng._decode_kernel!r} on the card")
+        eng.warmup()
+        return eng
+
+    def finish(eng, label, launches0):
+        """Close the engine and hold its leg's postconditions: the worker
+        joined, the pool's audit clean, and the paged kernel launched once
+        per layer of every decode step the engine recorded."""
+        eng.close()
+        if eng._thread.is_alive():
+            raise AssertionError(f"{label}: worker thread still alive")
+        audit = eng.kvpool_audit()
+        if not audit["ok"]:
+            raise AssertionError(f"{label}: pool audit {audit['errors']}")
+        snap = eng.metrics.snapshot()
+        launches = pa.paged_decode_attention.launches - launches0
+        if launches != snap["steps"] * layers or launches <= 0:
+            raise AssertionError(f"{label}: {launches} paged launches for "
+                                 f"{snap['steps']} decode steps x {layers}")
+        log(f"  {label}: {snap['completed']} ok, {snap['steps']} decode "
+            f"steps, {launches} paged kernel launches, retries "
+            f"{snap['retries']}, prefix hits {snap['prefix_hits']}, audit "
+            f"clean (used {audit['used']}, cached {audit['cached']})")
+        return snap
+
+    greedy = [i for i, s in enumerate(specs) if "temperature" not in s]
+    refs = {i: tt.lm_generate(params, specs[i]["prompt"], 0,
+                              heads=LM["heads"],
+                              max_len=len(specs[i]["prompt"])
+                              + specs[i]["steps"],
+                              steps=specs[i]["steps"]).tolist()
+            for i in greedy}
+
+    def check_greedy(tokens, label):
+        bad = [i for i in greedy if tokens[i] != refs[i]]
+        if bad:
+            raise AssertionError(f"{label}: greedy requests {bad} != "
+                                 f"lm_generate")
+
+    # (a) mixed load from submitter threads, a /metrics scrape during it
+    ops.reset_launch_counts()
+    server = obs.MetricsServer(port=0)
+    server.start()
+    try:
+        eng = make_engine()
+        l0 = pa.paged_decode_attention.launches
+        t0 = time.perf_counter()
+        handles = submit_from_threads(eng, Request, specs)
+        scrape = urllib.request.urlopen(server.url, timeout=60).read()\
+            .decode()
+        got_a = engine_results(handles, "leg (a)")
+        wall_a = time.perf_counter() - t0
+        snap_a = finish(eng, "(a) mixed load", l0)
+    finally:
+        server.close()
+    missing = [f for f in SERVE_FAMILIES if f"# TYPE {f} " not in scrape]
+    if missing:
+        raise AssertionError(f"/metrics scrape lacks {missing}")
+    check_greedy(got_a, "leg (a)")
+    solo = make_engine()
+    l0 = pa.paged_decode_attention.launches
+    for i, s in enumerate(specs):
+        if "temperature" in s:
+            one = engine_results([solo.submit(Request(**s))], "solo")[0]
+            if one != got_a[i]:
+                raise AssertionError(f"sampled request {i}: served in the "
+                                     f"mix != served alone")
+    finish(solo, "(a) sampled requests served alone", l0)
+    gen_tok = sum(len(t) - len(s["prompt"]) for t, s in zip(got_a, specs))
+    log(f"  (a) {len(greedy)} greedy == lm_generate, "
+        f"{len(specs) - len(greedy)} sampled == served alone; /metrics "
+        f"carries {len(SERVE_FAMILIES)} families")
+
+    # (b) a shared system prompt
+    rng = np.random.default_rng(1)
+    system = rng.integers(0, LM["vocab"], SYSTEM_PROMPT).astype(np.int32)
+    shared = [dict(prompt=np.concatenate([system, rng.integers(
+        0, LM["vocab"], int(rng.integers(1, 200)))]).astype(np.int32),
+        steps=int(rng.integers(8, 65))) for _ in range(SHARED_REQUESTS)]
+    eng = make_engine()
+    l0 = pa.paged_decode_attention.launches
+    got_b = engine_results(submit_from_threads(eng, Request, shared),
+                           "leg (b)")
+    snap_b = finish(eng, "(b) shared prefix", l0)
+    if snap_b["prefix_hits"] <= 0:
+        raise AssertionError("leg (b): no prefix-cache hit")
+    for i, s in enumerate(shared):
+        ref = tt.lm_generate(params, s["prompt"], 0, heads=LM["heads"],
+                             max_len=len(s["prompt"]) + s["steps"],
+                             steps=s["steps"]).tolist()
+        if got_b[i] != ref:
+            raise AssertionError(f"leg (b): request {i} != unshared "
+                                 f"lm_generate")
+
+    # (c) chaos: two decode-step faults and one prefill fault, retried
+    eng = make_engine()
+    l0 = pa.paged_decode_attention.launches
+    with faults.injected("serve.decode_step", faults.RaiseFault(times=2)), \
+            faults.injected("serve.prefill", faults.RaiseFault(times=1)):
+        handles = submit_from_threads(eng, Request, specs, max_attempts=3)
+        got_c = engine_results(handles, "leg (c)")
+    snap_c = finish(eng, "(c) chaos", l0)
+    if got_c != got_a or snap_c["retries"] < 3 or faults.active():
+        raise AssertionError(f"leg (c): tokens equal {got_c == got_a}, "
+                             f"retries {snap_c['retries']}, faults left "
+                             f"{faults.active()}")
+
+    # (d) the main thread runs TF32 products while the engine serves
+    flags = torch.backends.cuda.matmul
+    if flags.allow_tf32:
+        raise AssertionError("TF32 is on before leg (d)")
+    x = torch.randn((1024, 1024), device="cuda")
+    tf32_err = float((local_matmul(x, x, precision="default")
+                      - local_matmul(x, x, precision="highest")).abs().max())
+    if not tf32_err > 0:
+        raise AssertionError("precision='default' is not TF32 on this card")
+    # back to back with no synchronize, as a training loop dispatches: the
+    # main thread is inside a TF32 scope almost all the time, and the serve
+    # must still end within LEG_D_BOUND_S
+    eng = make_engine()
+    l0 = pa.paged_decode_attention.launches
+    t0 = time.perf_counter()
+    handles = submit_from_threads(eng, Request, specs)
+    products = 0
+    while not all(h.done() for h in handles):
+        if time.perf_counter() - t0 > LEG_D_BOUND_S:
+            eng.close()
+            raise AssertionError(f"leg (d): the serve did not end within "
+                                 f"{LEG_D_BOUND_S} s beside TF32 products")
+        local_matmul(x, x, precision="default")
+        products += 1
+    wall_d = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    got_d = engine_results(handles, "leg (d)")
+    finish(eng, "(d) TF32 interference", l0)
+    check_greedy(got_d, "leg (d)")
+    if got_d != got_a or flags.allow_tf32:
+        raise AssertionError(f"leg (d): tokens equal {got_d == got_a}, "
+                             f"TF32 flag {flags.allow_tf32} after")
+    log(f"  (d) {products} TF32 products back to back, no synchronize (max "
+        f"|TF32 - f32| {tf32_err:.3e} at 1024^3), beside the serve: "
+        f"{wall_d:.3f} s (leg (a) {wall_a:.3f} s, bound {LEG_D_BOUND_S} s); "
+        f"tokens == leg (a); flag False after")
+    engine_launches = ops.launch_counts()["paged_decode_attention"]
+
+    # (e) phase 8's workload through serve_bucket and the engine in turns:
+    # equal streams, and each loop's ms per decode step (the engine's from
+    # its step records with all 8 rows live, past the prefill iterations)
+    sb_ms, eng_ms = [], []
+    for _ in range(ENGINE_TIMING_ROUNDS):
+        _, _, steps_sb, secs_sb = serve(params, prompts8, "pallas")
+        sb_ms.append(secs_sb / steps_sb * 1e3)
+        eng = make_engine()
+        l0 = pa.paged_decode_attention.launches
+        got_e = engine_results(
+            [eng.submit(Request(prompt=p, steps=DECODE_STEPS))
+             for p in prompts8], "phase 8's workload")
+        finish(eng, "(e) phase 8's workload", l0)
+        for i, toks in enumerate(got_e):
+            if toks[PROMPT:] != streams8[i][:DECODE_STEPS]:
+                raise AssertionError(f"phase 8's request {i}: engine != "
+                                     f"serve_bucket")
+        t_full = [r["t"] for r in eng.flight.records()
+                  if r.get("ev") == "step" and r.get("rows") == ROWS]
+        eng_ms.append((t_full[-1] - t_full[0]) / (len(t_full) - 1) * 1e3)
+    syncs = {k: decode_syncs(torch, np, tt, params, k == "sampled")
+             for k in ("greedy", "sampled")}
+    log(f"  (e) synchronizing calls in one decode step (set_sync_debug_mode"
+        f"), inside lm_decode_paged / with the read of the tokens: "
+        + ", ".join(f"{k} {a} / {b}" for k, (a, b) in syncs.items()))
+    (sb_q1, sb_med, sb_q3), (eng_q1, eng_med, eng_q3) = (
+        np.percentile(v, (25, 50, 75)) for v in (sb_ms, eng_ms))
+    gap, spread = eng_med - sb_med, max(sb_q3 - sb_q1, eng_q3 - eng_q1)
+    verdict = ("resolved" if abs(gap) > spread else
+               "unresolved: the gap is within the spread")
+    log(f"phase 18 result: leg (a) {gen_tok} tokens in {wall_a:.3f} s = "
+        f"{gen_tok / wall_a:.1f} tok/s, decode {snap_a['p50_step_s'] * 1e3:.3f}"
+        f" ms per step (p50 of the engine's step records), TTFT p50 "
+        f"{snap_a['p50_ttft_s'] * 1e3:.1f} ms p99 "
+        f"{snap_a['p99_ttft_s'] * 1e3:.1f} ms; phase 8's 8 x {PROMPT} tokens:"
+        f" serve_bucket {serve_bucket_ms:.3f} ms per step in phase 8; in "
+        f"{ENGINE_TIMING_ROUNDS} alternating rounds, serve_bucket "
+        f"{', '.join(f'{t:.3f}' for t in sb_ms)} (median {sb_med:.3f}, IQR "
+        f"{sb_q1:.3f}-{sb_q3:.3f}) and ServeEngine "
+        f"{', '.join(f'{t:.3f}' for t in eng_ms)} (median {eng_med:.3f}, IQR "
+        f"{eng_q1:.3f}-{eng_q3:.3f}) ms per step ({len(t_full)} engine steps "
+        f"with {ROWS} rows live; streams equal); engine - serve_bucket "
+        f"{gap:+.3f} ms against a spread (larger IQR) of {spread:.3f}: "
+        f"{verdict}; {smi}")
+    del params
+    torch.cuda.empty_cache()
+    return engine_launches
+
+
 def main() -> int:
     import torch
 
@@ -1838,6 +2199,7 @@ def main() -> int:
         raise AssertionError(f"dh 256 generate: {wide_launches} flash forward "
                              f"launches, want one per layer")
     tok = ROWS * steps
+    serve_bucket_ms = decode_s / steps * 1e3
     log(f"  decode: {tok} tokens in {decode_s:.3f} s = {tok / decode_s:.1f} "
         f"tok/s, {decode_s / steps * 1e3:.3f} ms per step (batch {ROWS}, "
         f"host clock, one sync per step)")
@@ -1925,6 +2287,8 @@ def main() -> int:
     del main_bsr, main_b, data
     torch.cuda.empty_cache()
     linalg_path(torch, np, mt, ops)
+    engine_launches = engine_path(torch, np, tt, ops, pa, prompts, streams,
+                                  serve_bucket_ms, smi)
 
     # ---------------------------------------------------- kernels line
     kernels = [
@@ -1943,7 +2307,7 @@ def main() -> int:
         {"name": "paged_decode_attention", "route": "cuda",
          "source": "marlin_tpu_torch/csrc/paged_attention.cu",
          "replaces": "marlin_tpu/ops/paged_attention.py:91",
-         "launches": path_counts["paged_decode_attention"],
+         "launches": path_counts["paged_decode_attention"] + engine_launches,
          "max_abs_err": paged_err, "ms": ms_paged, "plain_ms": plain_paged,
          "bound_ms": bound_paged, "bound_by": "bytes", "library_ms": lib_paged},
         {"name": "flash_attention_panel", "route": "cuda",

@@ -56,6 +56,64 @@ class MarlinConfig:
     autotune_cache_path: str | None = None
     # Device entry points create their tensors on: "cuda" or "cpu".
     device: str = "cuda"
+    # --- serving engine (serving/engine.py) ----------------------------------
+    # The JAX package's knobs and defaults (marlin_tpu/config.py), as far as
+    # the port's paged engine reads them.
+    # Slot rows per bucket: every decode step runs this many rows (free ones
+    # run a harmless dummy against page 0).
+    serve_max_batch: int = 8
+    # Admission bound on requests pending-or-in-flight; submissions beyond it
+    # are rejected with a reason (backpressure, never blocking the caller).
+    serve_queue_depth: int = 256
+    # The static (padded_prompt, decode_steps) shape set; a request rounds UP
+    # to the smallest fitting bucket.
+    serve_buckets: tuple = ((64, 32), (256, 64))
+    # Padded batch widths of the one-shot BucketPrograms a caller registers
+    # through ServeEngine(programs=...) (serving/programs/base.py); the LM
+    # program steps its own max_batch rows and does not read it.
+    serve_program_batches: tuple = (8, 32)
+    # The paged KV pool (the only backend the port serves; False raises).
+    serve_paged: bool = True
+    # Tokens per KV page.
+    serve_page_len: int = 16
+    # Total pages in the pool (page 0 is the dummy); 0 = auto: every bucket's
+    # extent at full width plus slack (serving.kvpool.auto_num_pages).
+    serve_num_pages: int = 0
+    # Prefill at most this many prompt tokens per worker iteration; decode
+    # steps interleave between chunks.
+    serve_prefill_chunk: int = 256
+    # Copy-on-write prefix cache of completed full prompt pages.
+    serve_prefix_cache: bool = True
+    # Paged decode-attention backend: 'pallas' (the CUDA kernel, named as in
+    # the JAX package), 'gather', or 'auto' (pallas on a CUDA device, gather
+    # on the CPU).
+    serve_decode_kernel: str = "auto"
+    # Scale admission cost by a peak measured in this process for the exact
+    # program key (obs.memledger.admission_ratio); 1.0 when none was.
+    serve_admission_calibration: bool = True
+    # Default relative deadline (seconds from submit) of requests that carry
+    # none. None = requests without a deadline never expire.
+    serve_default_deadline_s: float | None = None
+    # Serving SLOs; only () is served (obs/slo.py is not ported, ROADMAP).
+    serve_slo: tuple = ()
+    # --- observability (obs/) ------------------------------------------------
+    # Port of the /metrics endpoint obs.start_from_config() starts: None
+    # disables, 0 binds an ephemeral port.
+    obs_http_port: int | None = None
+    # EventLog rotation bound in bytes (0 = unbounded).
+    obs_log_max_bytes: int = 0
+    # Roofline peak overrides (FLOP/s, bytes/s); None = obs.perf.peak_rates'
+    # per-GPU table.
+    obs_peak_flops: float | None = None
+    obs_peak_bw: float | None = None
+    # Where profiler captures and flight-recorder dumps land (None =
+    # <tempdir>/marlin_tpu_torch_captures), and its size cap.
+    obs_profile_dir: str | None = None
+    obs_profile_cap_bytes: int = 256 << 20
+    # Flight-recorder ring length.
+    obs_flight_len: int = 256
+    # Leak-detector patience, in reconciliation windows.
+    obs_mem_leak_windows: int = 3
 
 
 _config = MarlinConfig()

@@ -110,7 +110,7 @@ def lm_params_from_numpy(params_np: dict, device=None, dtype: Any = None
                 raise NotImplementedError(
                     f"{name}: parameters {sorted(extra)} have no counterpart "
                     f"in the port (mixture-of-experts layers: ROADMAP queue "
-                    f"10)")
+                    f"1 item 12)")
             out[name] = {k: to_tensor(np.array(value[k]), dtype, device)
                          for k in _LM_LAYER_KEYS}
         else:

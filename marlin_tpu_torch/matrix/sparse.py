@@ -13,9 +13,9 @@ duplicates summed. Sparse × dense goes through one of three formats
 (ops/sparse_ell.py) or ``"bsr"`` (ops/sparse_bsr.py, whose backend — the
 CUDA kernel or the chunked formulation — the autotune ranking picks).
 
-Not here yet: ``CoordinateMatrix.als`` (with ``ml/als.py``, ROADMAP queue 7)
-and ``CoordinateMatrix.save_to_file_system`` (with the IO modules, queue 9);
-both raise ``NotImplementedError``.
+Not here yet: ``CoordinateMatrix.als`` (with ``ml/als.py``, ROADMAP queue 1
+item 10) and ``CoordinateMatrix.save_to_file_system`` (with the IO modules,
+item 11); both raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -133,12 +133,13 @@ class CoordinateMatrix:
     def save_to_file_system(self, path: str):
         raise NotImplementedError(
             "CoordinateMatrix.save_to_file_system comes with the IO modules "
-            "(ROADMAP queue 9)")
+            "(ROADMAP queue 1 item 11)")
 
     def als(self, rank: int, iterations: int = 10, lam: float = 0.01,
             seed: int = 0, **kwargs):
         raise NotImplementedError(
-            "CoordinateMatrix.als comes with ml/als.py (ROADMAP queue 7)")
+            "CoordinateMatrix.als comes with ml/als.py (ROADMAP queue 1 "
+            "item 10)")
 
     def __repr__(self):
         return f"CoordinateMatrix(shape={self._shape}, nnz={self.nnz})"

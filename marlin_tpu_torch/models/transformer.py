@@ -60,11 +60,11 @@ __all__ = ["TransformerLM", "init_transformer", "transformer_forward",
 
 _MASKED = -1e30
 _NO_MOE = ("mixture-of-experts layers (models/moe.py) are not ported yet "
-           "(ROADMAP queue 10)")
+           "(ROADMAP queue 1 item 12)")
 _NO_OFFLOAD = ("offload_residuals (remat checkpoints parked in host memory) "
-               "is not ported yet (ROADMAP queue 10)")
+               "is not ported yet (ROADMAP queue 1 item 12)")
 _NO_CKPT = ("checkpoint_dir: the checkpoint subsystem (io/checkpoint.py) is "
-            "not ported yet (ROADMAP queue 9)")
+            "not ported yet (ROADMAP queue 1 item 11)")
 
 
 def synthetic_stream(seq: int, vocab: int = 64, seed: int = 0,
@@ -927,7 +927,7 @@ class TransformerLM:
     compute_dtype: str | None = None
     # the FFN over chunks of tokens: caps the (seq, d_ff) GELU intermediate
     mlp_chunk: int | None = None
-    # remat checkpoints in host memory: not ported (ROADMAP queue 10)
+    # remat checkpoints in host memory: not ported (ROADMAP queue 1 item 12)
     offload_residuals: bool = False
     # grouped-query attention: heads // kv_heads query heads per K/V head
     kv_heads: int | None = None

@@ -22,6 +22,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -158,7 +159,11 @@ def load_library() -> ctypes.CDLL:
         with open(out_dir / "lock", "w") as lock_f:
             fcntl.flock(lock_f, fcntl.LOCK_EX)
             if not (out_dir / LIB_NAME).exists():
+                t0 = time.perf_counter()
                 _compile(out_dir)
+                from ..obs.collectors import record_compile
+
+                record_compile(time.perf_counter() - t0)
         _lib = _bind(ctypes.CDLL(str(out_dir / LIB_NAME)))
         return _lib
 

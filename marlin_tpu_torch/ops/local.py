@@ -16,14 +16,22 @@ buffer, so that route has no counterpart here, and neither have its
 
 ``precision`` follows ``config.TF32_BY_PRECISION``: the TF32 flag is set for
 the one product and restored after it, so the process-wide setting is never
-left changed. The flag is process-wide while the product runs, so concurrent
-products from several threads with different precisions may see each other's
-setting.
+left changed. The flag is process-wide (PyTorch reads it when a product is
+dispatched), so :func:`precision_scope` is also a gate between threads: scopes
+that want the same setting run together, and a scope that wants the other
+one waits until every other thread has left its scope. The gate is fair
+between the settings: while a thread waits for the other setting, new scopes
+of the held one wait behind it, and when the last holder leaves, every thread
+waiting for the other setting goes in at once. A thread that enters with
+TF32 off (an inference entry point, the serving engine's worker) therefore
+never dispatches a product while another thread has TF32 on, and a thread
+that keeps TF32 scopes open back to back cannot hold it out.
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Any
 
 import numpy as np
@@ -36,17 +44,90 @@ def _precision(precision: str | None) -> str:
     return precision or get_config().matmul_precision
 
 
+# The TF32 gate: the setting the open scopes hold, each holding thread's
+# stack of the settings it entered, and the flag to restore when the last
+# holder leaves; per setting, the threads waiting for it, those let in but
+# not yet holding, and the count of times it was let in (a waiter's ticket).
+_gate = threading.Condition()
+_stacks: dict[int, list[bool]] = {}
+_held: list = [None, None]  # [setting of the open scopes, flag before them]
+_waiting = {False: 0, True: 0}
+_granted = {False: 0, True: 0}
+_rounds = {False: 0, True: 0}
+
+
+def _busy() -> bool:
+    return bool(_stacks) or any(_granted.values())
+
+
+def _leave(me: int) -> list[bool]:
+    """Take this thread out of the holders (under ``_gate``). When no holder
+    is left, the gate goes to the threads waiting for the other setting,
+    else to those waiting for this one, else the flag goes back to its
+    outside value."""
+    stack = _stacks.pop(me, [])
+    if not _busy() and _held[0] is not None:
+        cur = _held[0]
+        for w in (not cur, cur):
+            if _waiting[w]:
+                _granted[w], _waiting[w] = _waiting[w], 0
+                _rounds[w] += 1
+                _held[0] = torch.backends.cuda.matmul.allow_tf32 = w
+                break
+        else:
+            torch.backends.cuda.matmul.allow_tf32 = _held[1]
+            _held[0] = None
+    _gate.notify_all()
+    return stack
+
+
+def _hold(me: int, stack: list[bool]) -> None:
+    """Make this thread a holder at ``stack[-1]`` (under ``_gate``). It goes
+    in at once when the gate is empty, or holds that setting and no thread
+    waits for the other; else it waits, holding nothing, until the gate is
+    handed to its setting."""
+    want = stack[-1]
+    if not _busy():
+        _held[1] = torch.backends.cuda.matmul.allow_tf32
+        _held[0] = torch.backends.cuda.matmul.allow_tf32 = want
+    elif _held[0] != want or _waiting[not want]:
+        ticket = _rounds[want]
+        _waiting[want] += 1
+        try:
+            while _rounds[want] == ticket:
+                _gate.wait()
+        except BaseException:  # interrupted: give back the place or the grant
+            if _rounds[want] == ticket:
+                _waiting[want] -= 1
+            else:
+                _granted[want] -= 1
+                _leave(me)
+            raise
+        _granted[want] -= 1
+    _stacks[me] = stack
+
+
 @contextlib.contextmanager
 def precision_scope(precision: str | None):
     """Set ``torch.backends.cuda.matmul.allow_tf32`` for ``precision`` and
-    restore it on exit."""
-    flags = torch.backends.cuda.matmul
-    old = flags.allow_tf32
-    flags.allow_tf32 = tf32_for(_precision(precision))
+    restore it on exit, through the gate the module docstring describes:
+    entering waits while another thread holds a scope of the other setting,
+    or waits for one. Scopes nest within a thread. A thread that must wait (entering, or
+    leaving a nested scope for its outer one's setting) first stops holding
+    its own scopes: it dispatches no product while it waits, and two threads
+    that both switch cannot wait on each other."""
+    want = tf32_for(_precision(precision))
+    me = threading.get_ident()
+    with _gate:
+        stack = _leave(me)
+        _hold(me, stack + [want])
     try:
         yield
     finally:
-        flags.allow_tf32 = old
+        with _gate:
+            stack = _leave(me)[:-1]
+            if stack:
+                _hold(me, stack)
 
 
 def local_matmul(a: torch.Tensor, b: torch.Tensor, precision: str | None = None,

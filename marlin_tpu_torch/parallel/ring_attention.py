@@ -6,7 +6,7 @@ every device keeps its Q rows, sees each panel once and carries the softmax
 state ``(m, l, acc)`` across the panels. On one device the ring is the home
 panel alone (the JAX package's ``p_size == 1`` branches), which is what this
 module runs: a mesh axis larger than 1 raises, the rotation over
-``torch.distributed`` waits (ROADMAP queue 10).
+``torch.distributed`` waits (ROADMAP queue 1 item 12).
 
 Backends:
 
@@ -132,7 +132,8 @@ def _world_of_one(mesh, axis: str, what: str) -> None:
     if p_size != 1:
         raise NotImplementedError(
             f"{what} over a '{axis}' axis of {p_size} devices needs "
-            f"torch.distributed, which is not ported yet (ROADMAP queue 10)")
+            f"torch.distributed, which is not ported yet (ROADMAP queue 1 "
+            f"item 12)")
 
 
 def ring_attention(q, k, v, mesh=None, axis: str = ROWS, causal: bool = False,

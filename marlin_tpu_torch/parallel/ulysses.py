@@ -12,7 +12,7 @@ flash kernels' 256 takes ring attention's tiled formulation instead, by
 the rule of its ``"auto"`` backend
 (:func:`~marlin_tpu_torch.parallel.ring_attention.resolve_attention_backend`).
 A mesh axis larger than 1 raises: the all-to-alls over ``torch.distributed``
-wait (ROADMAP queue 10).
+wait (ROADMAP queue 1 item 12).
 """
 
 from __future__ import annotations

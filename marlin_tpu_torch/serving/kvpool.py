@@ -27,9 +27,12 @@ package:
   leaf-first when allocation needs room.
 
 The slab is updated in place by the programs (PyTorch has no donation);
-``pool.pages`` still takes their return value, as with JAX. The migration
-blob (``export_rows``/``import_rows``/``*_prefixes``, ``PagedGroup.restore``)
-and ``capture_paged_costs`` come with the engine slice (ROADMAP).
+``pool.pages`` still takes their return value, as with JAX.
+:func:`paged_program_key` and :func:`capture_paged_costs` are the roofline
+bookkeeping of the paged programs, the costs counted from the shapes. The
+migration blob (``export_rows``/``import_rows``/``*_prefixes``,
+``PagedGroup.restore``) belongs to cross-engine migration, which is not
+ported (ROADMAP).
 
 Single-threaded by contract: only the scheduler touches a pool.
 """
@@ -40,9 +43,11 @@ import hashlib
 from collections import OrderedDict
 
 import numpy as np
+import torch
 
 __all__ = ["PagedKVPool", "PagedGroup", "PagePoolExhausted",
-           "auto_num_pages", "warmup_paged"]
+           "auto_num_pages", "warmup_paged", "paged_program_key",
+           "capture_paged_costs"]
 
 
 class PagePoolExhausted(RuntimeError):
@@ -502,16 +507,91 @@ class PagedGroup:
         return tables, positions, cur
 
 
+# ---------------------------------------------------------------- programs
+
+
+def paged_program_key(params: dict, bucket, max_batch: int,
+                      page_len: int, compute_dtype=None,
+                      kernel: str = "gather") -> str:
+    """Roofline-accounting key for one bucket's PAGED programs, the JAX
+    package's key string: the slab geometry joins the identity, and so does
+    the decode-attention backend (gather and the kernel are different
+    programs with different rooflines)."""
+    from .batcher import bucket_program_key
+
+    key = bucket_program_key(params, bucket, max_batch,
+                             compute_dtype) + f"/page{page_len}"
+    return key if kernel == "gather" else key + f"/k{kernel}"
+
+
+def paged_decode_cost(params: dict, heads: int, max_batch: int,
+                      pages_per_row: int, page_len: int,
+                      compute_dtype=None) -> dict:
+    """Analytic cost of one ``lm_decode_paged`` call over full tables: the
+    projections, MLP and head of ``max_batch`` one-token rows
+    (:func:`~.batcher.lm_call_cost` without attention) plus, per layer, the
+    decode kernel's own count
+    (:func:`~marlin_tpu_torch.ops.paged_attention.paged_attention_cost`)."""
+    from ..models.transformer import _cdtype, _n_layers
+    from ..ops.paged_attention import paged_attention_cost
+    from .batcher import lm_call_cost
+
+    d = params["emb"].shape[1]
+    dh = d // heads
+    kvh = params["l0"]["wk"].shape[1] // dh
+    item = torch.empty((), dtype=_cdtype(compute_dtype, params)).element_size()
+    out = lm_call_cost(params, heads, max_batch, 1, 0, compute_dtype,
+                       attention=False)
+    kc = paged_attention_cost(max_batch, pages_per_row, page_len, kvh,
+                              heads // kvh, dh, item)
+    n = _n_layers(params)
+    return {f: out[f] + n * kc[f] for f in ("flops", "bytes accessed")}
+
+
+def capture_paged_costs(params: dict, heads: int, bucket, max_batch: int,
+                        pool: PagedKVPool, prefill_chunk: int,
+                        compute_dtype: str | None = None,
+                        key: str | None = None,
+                        kernel: str = "gather") -> None:
+    """Record the analytic cost models of a bucket's paged program pair in
+    the process ProgramCosts registry, gated per (program, key) like
+    :func:`~.batcher.capture_bucket_costs`: ``lm_prefill_paged`` is one
+    chunk of the bucket's chunk width over the row's table extent,
+    ``lm_decode_paged`` :func:`paged_decode_cost` (the same count for either
+    ``kernel``: it is the work the step must do). Never raises (observability
+    must not fail warmup or a dispatch)."""
+    from ..obs import perf
+    from .batcher import lm_call_cost
+
+    costs = perf.get_program_costs()
+    programs = ("lm_prefill_paged", "lm_decode_paged")
+    try:
+        if key is None:
+            key = paged_program_key(params, bucket, max_batch, pool.page_len,
+                                    compute_dtype, kernel)
+        if all(costs.tried(name, key) for name in programs):
+            return
+        g = PagedGroup(bucket, max_batch, pool.page_len, prefill_chunk)
+        costs.capture("lm_prefill_paged", key, cost=lm_call_cost(
+            params, heads, 1, g.chunk, g.table_width * pool.page_len,
+            compute_dtype))
+        costs.capture("lm_decode_paged", key, cost=paged_decode_cost(
+            params, heads, max_batch, g.pages_per_row, pool.page_len,
+            compute_dtype))
+    except Exception:
+        if key is not None:
+            for name in programs:  # even a failed count marks the attempt
+                costs.capture(name, key)
+
 
 def warmup_paged(params: dict, heads: int, buckets, max_batch: int,
                  pool: PagedKVPool, prefill_chunk: int,
                  compute_dtype=None, kernel: str = "gather") -> int:
     """Run every bucket's paged program pair once against dummy page 0, plus
     the page copy: builds the CUDA kernels and warms the allocator and the
-    library handles before traffic. All dummy writes land in page 0. Returns
+    library handles before traffic, and records each bucket's cost models
+    (:func:`capture_paged_costs`). All dummy writes land in page 0. Returns
     the buckets warmed."""
-    import torch
-
     from ..models.transformer import (kv_page_copy, lm_decode_paged,
                                       lm_prefill_paged)
     from .batcher import normalize_buckets
@@ -519,6 +599,8 @@ def warmup_paged(params: dict, heads: int, buckets, max_batch: int,
     buckets = normalize_buckets(buckets)
     for bucket in buckets:
         g = PagedGroup(bucket, max_batch, pool.page_len, prefill_chunk)
+        capture_paged_costs(params, heads, bucket, max_batch, pool,
+                            prefill_chunk, compute_dtype, kernel=kernel)
         pool.pages, _ = lm_prefill_paged(
             params, pool.pages, np.zeros(g.table_width, np.int32),
             np.zeros(g.chunk, np.int32), 0, 1, heads=heads,

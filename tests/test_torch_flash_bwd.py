@@ -438,9 +438,9 @@ def test_backend_resolution_and_errors():
     with pytest.raises(ValueError, match="heads"):
         tul.ulysses_attention(x[0], x[0], x[0])
     wide = types.SimpleNamespace(shape={"rows": 2, "cols": 1})
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 10"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
         tra.ring_attention(x, x, x, wide)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 10"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
         tul.ulysses_attention(x, x, x, wide)
 
 

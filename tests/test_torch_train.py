@@ -234,16 +234,16 @@ def test_bad_knobs_raise(models):
         tt.TransformerLM(attn="dense").train(TOKS, steps=1, params=tp)
     with pytest.raises(ValueError, match="requires remat"):
         tt.lm_loss(tp, TOKS, offload_residuals=True, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 10"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
         tt.lm_loss(tp, TOKS, remat=True, offload_residuals=True, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11"):
         tt.TransformerLM().train(TOKS, checkpoint_dir="ckpt")
     with pytest.raises(ValueError, match="loss_chunk"):
         tt.lm_loss(tp, TOKS, loss_chunk=0, **kw)
     with pytest.raises(ValueError, match="mlp_chunk"):
         tt.lm_loss(tp, TOKS, mlp_chunk=0, **kw)
     moe = dict(tp, l0=dict(tp["l0"], moe={}))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 10"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
         tt.lm_loss(moe, TOKS, **kw)
 
 
