@@ -119,6 +119,30 @@ drives the ported paths end to end through the public entry points:
   ranges, the gap called resolved only where it exceeds both ranges; and
   the synchronizing CUDA calls of one decode step as the engine makes it
   (``set_sync_debug_mode("warn")``).
+- phase 19: the ml path at ``bench_all.py``'s sizes. ``config_als``
+  (1,000,000 users x 100,000 items, rank 32, 10^7 ratings, λ 0.05) through
+  ``CoordinateMatrix.als``, which takes the blocked path: one warm-up
+  sweep, then 3 timed, every half-step under
+  ``set_sync_debug_mode("error")``; the RMSE of each sweep must fall, users
+  without ratings come out exactly 0, and the last user half-step holds
+  against an f64 numpy solve for 64 sampled users. ``config_nn`` (262,144 x
+  784, hidden 1024, 10 classes, batch 8192) through ``NeuralNetwork.train``:
+  the first 3 steps against the same steps in f64 on the CPU, then 2
+  warm-up and 50 timed steps (steps/s, model GFLOP/s). ``config_pagerank``
+  (10^7 nodes, 10^8 edges) through ``build_transition_operator`` (host build
+  timed apart) and ``pagerank`` (10 iterations after one warm-up), the
+  ranks against a scipy.sparse f64 power iteration.
+- phase 20: ``bench_all.py`` ``config_serve_als`` through ``ServeEngine``
+  (``TransformerLM(256, 64, 4, 2)``, bucket (64, 32), 8 rows,
+  ``max_wait_ms=1.0``, ALS factors 512 x 256 of rank 16): (a) 256 ALS
+  requests alone (req/s, submit-to-result p50/p99; every top-8 == numpy's
+  as a set); (b) 32 LM requests alone, then 32 beside 32 ALS requests
+  (tok/s of both and their ratio; greedy tokens == ``lm_generate`` in both);
+  then a ``ClassifyProgram`` over phase 19's MLP and a
+  ``PageRankQueryProgram`` over a 10^4-node graph on one engine (numpy f64
+  oracles), and ``swap_model`` under load (answers before the swap read the
+  old factors, after it the new, none torn); the paged kernel's split and
+  combine launches counted.
 
 It prints the card's name, count and power limit, one ``{"kernels": [...]}``
 line (launches on the main path, max error, kernel / plain / bound / library
@@ -265,6 +289,49 @@ SERVE_FAMILIES = (
     "marlin_mem_live_bytes", "marlin_mem_unattributed_bytes",
     "marlin_serve_kv_pages_total", "marlin_serve_kv_pages_used",
     "marlin_serve_prefix_cache_total")
+# the ml path at bench_all.py's sizes: config_als (one warm-up sweep, then
+# ALS["iters"] timed; blocked, as the 256 MB rule picks at these sizes),
+# config_nn (NN["warm"] warm-up steps, then NN["iters"]) and config_pagerank
+# (one warm-up iteration, then PR["iters"])
+ALS = dict(users=1_000_000, items=100_000, rank=32, nnz=10_000_000, lam=0.05,
+           iters=3)
+NN = dict(m=262_144, d=784, hidden=1024, classes=10, batch=8192, warm=2,
+          iters=50, f64_steps=3)
+PR = dict(n=10_000_000, e=100_000_000, iters=10)
+# ALS: the card's last user half-step against an f64 numpy solve of the same
+# normal equations from the same fixed item factors, on ALS_SAMPLE users:
+# max |diff| <= ALS_TOL * max |f64 row entry|. Each system sums ~10 rated
+# items' outer products in f32 (index_add_ in another order) and solves a
+# rank-32 system whose condition number the weighted λ (0.05 · count)
+# bounds; the port's CPU run of this check at 70,000 users read 3.7e-7.
+ALS_SAMPLE, ALS_TOL = 64, 1e-4
+# MLP: the first NN["f64_steps"] steps (init, sampled rows, SGD at lr 0.5)
+# on the card against the same steps in f64 on the CPU: |loss diff| <=
+# NN_TOL * loss, max |param diff| <= NN_TOL * max |f64 param| per layer
+# (TF32 off: f32 products of 784- and 1024-long dot products; the port's
+# CPU run of this check at 16,384 rows read 1.0e-7)
+NN_TOL = 1e-5
+# PageRank: the card's ranks after PR["iters"] steps against a scipy.sparse
+# f64 power iteration on the same operator: max |diff| <= PR_TOL * max rank
+# (each step sums ~10 in-edges per node in f32, in another order, and
+# renormalizes over 10^7 nodes; the port's CPU run of this check at 10^6
+# nodes read 1.7e-7)
+PR_TOL = 1e-5
+# phase 20: bench_all.py config_serve_als — TransformerLM(vocab 256, d_model
+# 64, 4 heads, 2 layers) in one bucket (64, 32), 8 rows, max_wait_ms 1.0,
+# resident ALS factors of SERVE_ALS users x items, rank 16; leg (a) 256 ALS
+# requests alone; leg (b) 32 LM requests alone, then 32 LM beside 32 ALS
+SERVE_LM = dict(vocab=256, d_model=64, heads=4, layers=2, seed=0)
+SERVE_BUCKETS = ((64, 32),)
+SERVE_ALS = dict(users=512, items=256, rank=16, requests=256, k=8)
+SERVE_MIX = 32
+# the PageRank program's graph (10^4 nodes, 5 out-edges a node on average),
+# and the classification program's rows
+SERVE_PR_N, SERVE_PR_E, SERVE_PR_REFRESH = 10_000, 50_000, 20
+SERVE_CLASSIFY_ROWS = 64
+# f32 serving results vs numpy f64: classification probabilities and
+# PageRank ranks and scores, absolute (both are O(1) or smaller)
+SERVE_TOL = 1e-5
 # f32 results vs f64 on LINALG_ROWS sampled rows (A[perm] - L U, A - L Lᵀ,
 # A A⁻¹ - I, A x - b; singular values vs the Gramian's, lr weights vs an
 # f64 run), and the card's L, U, L (Cholesky) and A⁻¹ vs the port's CPU
@@ -1626,6 +1693,491 @@ def linalg_path(torch, np, mt, ops):
     return res
 
 
+def als_leg(torch, np, mt):
+    """config_als through ``CoordinateMatrix.als``: one warm-up sweep, then
+    ALS["iters"] timed; every blocked half-step under
+    ``set_sync_debug_mode("error")`` (the index-max reads and the host
+    packing before the loop stay outside it)."""
+    from marlin_tpu_torch.ml import als as als_mod
+
+    cfg, sample = ALS, ALS_SAMPLE
+    users, items, rank, nnz = (cfg[k] for k in ("users", "items", "rank",
+                                                "nnz"))
+    rng = np.random.default_rng(0)
+    ui = rng.integers(0, users, nnz).astype(np.int32)
+    ii = rng.integers(0, items, nnz).astype(np.int32)
+    u_t = rng.standard_normal((users, 8)).astype(np.float32) / 8.0
+    v_t = rng.standard_normal((items, 8)).astype(np.float32)
+    vals = np.einsum("nk,nk->n", u_t[ui], v_t[ii]) + \
+        0.1 * rng.standard_normal(nnz).astype(np.float32)
+    coo = mt.CoordinateMatrix(ui, ii, vals, shape=(users, items))
+    calls = []  # (fixed factors, result, host time at entry) per half-step
+    orig = als_mod._solve_side_sharded
+
+    def guarded(other, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = orig(other, *args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        calls.append((other, out, t0))
+        return out
+
+    als_mod._solve_side_sharded = guarded
+    try:
+        t0 = time.perf_counter()
+        coo.als(rank=rank, iterations=1, lam=cfg["lam"])
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        if len(calls) != 2:
+            raise AssertionError(f"ALS at {users} users took the unblocked "
+                                 f"path ({len(calls)} blocked half-steps)")
+        calls.clear()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = coo.als(rank=rank, iterations=cfg["iters"], lam=cfg["lam"])
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+    finally:
+        als_mod._solve_side_sharded = orig
+    total_s = t_end - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    starts = [c[2] for c in calls[::2]] + [t_end]
+    sweep_s = [b - a for a, b in zip(starts, starts[1:])]
+    rmses = []
+    for k in range(cfg["iters"]):
+        uk, vk = calls[2 * k][1][:users], calls[2 * k + 1][1][:items]
+        rmses.append(als_mod.ALSModel(
+            mt.DenseVecMatrix.from_array(uk),
+            mt.DenseVecMatrix.from_array(vk)).rmse(coo))
+    if not all(math.isfinite(r) for r in rmses) or \
+            any(b >= a for a, b in zip(rmses, rmses[1:])):
+        raise AssertionError(f"ALS RMSE per sweep does not fall: {rmses}")
+    if abs(model.rmse(coo) - rmses[-1]) > 1e-6:
+        raise AssertionError("the returned model is not the last sweep's")
+    # the last user half-step against f64 numpy from the same item factors
+    v_fixed = calls[-2][0][:items].double().cpu().numpy()
+    u_card = calls[-2][1][:users].cpu().numpy()
+    counts = np.bincount(ui, minlength=users)
+    empty = np.flatnonzero(counts == 0)
+    if empty.size and np.abs(u_card[empty]).max() != 0:
+        raise AssertionError("ALS: users without ratings are not exactly 0")
+    picks = np.random.default_rng(1).choice(np.flatnonzero(counts > 0),
+                                            sample, replace=False)
+    order = np.argsort(ui, kind="stable")
+    starts_u = np.concatenate([[0], np.cumsum(counts)])
+    err = scale = 0.0
+    for uid in picks:
+        rows = order[starts_u[uid]:starts_u[uid + 1]]
+        vs = v_fixed[ii[rows]]
+        a = vs.T @ vs + cfg["lam"] * len(rows) * np.eye(rank)
+        x = np.linalg.solve(a, vs.T @ vals[rows].astype(np.float64))
+        err = max(err, float(np.abs(u_card[uid] - x).max()))
+        scale = max(scale, float(np.abs(x).max()))
+    log(f"  ALS {users} x {items}, rank {rank}, {nnz} ratings, λ "
+        f"{cfg['lam']}: warm-up sweep {warm_s:.3f} s; {cfg['iters']} sweeps "
+        f"in {total_s:.3f} s = {total_s / cfg['iters']:.3f} s/sweep "
+        f"(bench_all.py's figure: init, packing and sweeps); the sweeps "
+        f"alone {', '.join(f'{t:.3f}' for t in sweep_s)} s; RMSE per sweep "
+        f"{', '.join(f'{r:.5f}' for r in rmses)}; peak device memory "
+        f"{peak:.2f} GiB; {len(empty)} users without ratings exactly 0")
+    rel = err / scale
+    log(f"  ALS user half-step vs f64 numpy on {sample} users: max|diff| "
+        f"{err:.3e}, {rel:.3e} of {scale:.4g} (tol {ALS_TOL:g}); every "
+        f"half-step ran under set_sync_debug_mode('error')")
+    if not rel <= ALS_TOL:
+        raise AssertionError(f"ALS half-step vs f64: {rel} > {ALS_TOL}")
+
+
+def nn_leg(torch, np, mt):
+    """config_nn through ``NeuralNetwork.train``: NN["warm"] warm-up steps,
+    then NN["iters"] timed; the first NN["f64_steps"] steps held against the
+    same steps in f64 on the CPU. Returns the trained params."""
+    from marlin_tpu_torch import threefry
+    from marlin_tpu_torch.ml import NeuralNetwork, train_step
+
+    cfg = NN
+    m, d, hidden, classes, batch = (cfg[k] for k in ("m", "d", "hidden",
+                                                     "classes", "batch"))
+    data = mt.DenseVecMatrix.random(0, m, d)
+    labels = np.arange(m) % classes
+    nn = NeuralNetwork(input_dim=d, hidden_dim=hidden, output_dim=classes)
+    # the first steps against f64 on the CPU, from the same init and keys
+    n64 = cfg["f64_steps"]
+    p_first, l_first = nn.train(data, labels, iterations=n64,
+                                batch_size=batch)
+    x64 = data.logical().double().cpu()
+    y64 = torch.nn.functional.one_hot(torch.from_numpy(labels),
+                                      classes).double()
+    p64 = {k: v.double().cpu() for k, v in nn.init_params().items()}
+    key = threefry.key_words(nn.seed + 1)
+    l64 = []
+    for _ in range(n64):
+        key, sub = threefry.split_words(key)
+        p64, loss = train_step(p64, x64, y64, sub, batch, nn.learning_rate)
+        l64.append(float(loss))
+    del x64, y64
+    loss_err = max(abs(a - b) / b for a, b in zip(l_first, l64))
+    w_err = max(float((p_first[k].double().cpu() - p64[k]).abs().max())
+                / float(p64[k].abs().max()) for k in p64)
+    log(f"  MLP first {n64} steps vs f64 on the CPU: losses "
+        f"{', '.join(f'{v:.7f}' for v in l_first)} (f64 "
+        f"{', '.join(f'{v:.7f}' for v in l64)}), max rel diff {loss_err:.3e};"
+        f" params max diff {w_err:.3e} of max |w| (tol {NN_TOL:g})")
+    if not (loss_err <= NN_TOL and w_err <= NN_TOL):
+        raise AssertionError(f"MLP vs f64: loss {loss_err}, params {w_err}")
+    params, warm_losses = nn.train(data, labels, iterations=cfg["warm"],
+                                   batch_size=batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, losses = nn.train(data, labels, iterations=cfg["iters"],
+                              batch_size=batch, params=params)
+    dt = time.perf_counter() - t0  # train reads the losses: one sync
+    if not (math.isfinite(losses[-1]) and losses[-1] < warm_losses[0]):
+        raise AssertionError(f"MLP losses {warm_losses[0]} (first step) -> "
+                             f"{losses[-1]}")
+    layer_flops = 2 * batch * (d * hidden + hidden * classes)
+    steps_s = cfg["iters"] / dt
+    log(f"  MLP {m} x {d}, hidden {hidden}, {classes} classes, batch {batch}:"
+        f" {cfg['iters']} steps in {dt:.3f} s = {steps_s:.2f} steps/s, "
+        f"{3 * layer_flops * steps_s / 1e9:.1f} GFLOP/s model (bench_all.py's"
+        f" count: 3 products per layer); loss {warm_losses[0]:.5f} at the "
+        f"first step, {losses[0]:.5f} -> {losses[-1]:.5f} over the timed "
+        f"steps; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    return params
+
+
+def pagerank_leg(torch, np, mt):
+    """config_pagerank through ``build_transition_operator`` and
+    ``pagerank``: the host build timed apart, one warm-up iteration, then
+    PR["iters"]; the ranks against a scipy.sparse f64 power iteration on
+    the same operator."""
+    import scipy.sparse as sp
+
+    from marlin_tpu_torch.ml import build_transition_operator, pagerank
+
+    n, e, iters = PR["n"], PR["e"], PR["iters"]
+    rng = np.random.default_rng(0)
+    edges = np.empty((e, 2), np.int64)
+    edges[:, 0] = rng.integers(0, n, e)
+    edges[:, 1] = rng.integers(0, n, e)
+    t0 = time.perf_counter()
+    op = build_transition_operator(edges, n=n)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    del edges
+    pagerank(op, iterations=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    r = pagerank(op, iterations=iters)  # the ranks come back to the host
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not abs(float(r.sum(dtype=np.float64)) - 1.0) < 1e-3:
+        raise AssertionError(f"PageRank ranks sum to {r.sum()}")
+    # the oracle: dst-sorted edges are CSR rows as they stand
+    src, dst = op.src.cpu().numpy(), op.dst.cpu().numpy()
+    inv_deg = op.inv_deg.double().cpu().numpy()
+    dangling = op.dangling.double().cpu().numpy()
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(dst, minlength=n))])
+    m64 = sp.csr_matrix((inv_deg[src], src, indptr), shape=(n, n))
+    r64 = np.full(n, 1.0 / n)
+    for _ in range(iters):
+        r64 = 0.85 * (m64 @ r64 + (r64 @ dangling) / n) + 0.15 / n
+        r64 /= r64.sum()
+    err = float(np.abs(r - r64).max())
+    rel = err / float(r64.max())
+    log(f"  PageRank {n} nodes, {e} edges: host build {build_s:.3f} s; "
+        f"{iters} iterations in {dt:.3f} s = {dt / iters * 1e3:.3f} ms/iter "
+        f"(the ranks read back once); sum {r.sum(dtype=np.float64):.7f}; vs "
+        f"scipy.sparse f64 max|diff| {err:.3e}, {rel:.3e} of the largest "
+        f"rank (tol {PR_TOL:g}); peak device memory {peak:.2f} GiB")
+    if not rel <= PR_TOL:
+        raise AssertionError(f"PageRank vs f64: {rel} > {PR_TOL}")
+
+
+def ml_path(torch, np, mt, ops, smi):
+    """Phase 19: the ml path at bench_all.py's sizes; returns the trained
+    MLP params (phase 20 serves them)."""
+    log(f"phase 19: config_als {ALS}, config_nn {NN}, config_pagerank {PR}")
+    ops.reset_launch_counts()
+    als_leg(torch, np, mt)
+    torch.cuda.empty_cache()
+    params = nn_leg(torch, np, mt)
+    torch.cuda.empty_cache()
+    pagerank_leg(torch, np, mt)
+    torch.cuda.empty_cache()
+    log(f"  launches of the port's kernels on the ml path: "
+        f"{ops.launch_counts()} (ALS, the MLP and PageRank are torch ops "
+        f"and library calls, as the JAX package's are outside any Pallas "
+        f"kernel)")
+    log(f"phase 19 result: every check passed; {smi}")
+    return params
+
+
+def _served(handles, what):
+    """Each handle's Result, all OK."""
+    out = []
+    for h in handles:
+        r = h.result(timeout=ENGINE_WAIT_S)
+        if r.status != "ok":
+            raise AssertionError(f"{what}: request {r.rid} {r.status}: "
+                                 f"{r.reason}")
+        out.append(r)
+    return out
+
+
+def programs_path(torch, np, tt, pa, mlp_params, smi):
+    """Phase 20: bench_all.py config_serve_als through ServeEngine, then the
+    classification and PageRank programs and a swap under load (see the
+    module docstring). Returns the paged kernel's (split, combine) launches
+    in this phase."""
+    import threading
+
+    from marlin_tpu_torch.ml import build_transition_operator
+    from marlin_tpu_torch.serving import (ALSScoreProgram, ClassifyProgram,
+                                          PageRankQueryProgram, Request,
+                                          ServeEngine, percentile)
+
+    log(f"phase 20: ServeEngine over TransformerLM{tuple(SERVE_LM.values())}"
+        f" f32, bucket {SERVE_BUCKETS}, max_batch 8, max_wait_ms 1.0, "
+        f"ALSScoreProgram over {SERVE_ALS}")
+    heads, vocab, n_mix = SERVE_LM["heads"], SERVE_LM["vocab"], SERVE_MIX
+    users, items, rank, n_als, k = (SERVE_ALS[x] for x in (
+        "users", "items", "rank", "requests", "k"))
+    rng = np.random.default_rng(0)
+    uf = rng.standard_normal((users, rank)).astype(np.float32)
+    pf = rng.standard_normal((items, rank)).astype(np.float32)
+    scores64 = uf.astype(np.float64) @ pf.T.astype(np.float64)
+    params = tt.TransformerLM(**SERVE_LM).init_params()
+    split0 = pa.paged_decode_attention.launches
+    comb0 = pa.paged_decode_attention.combine_launches
+    steps = 0  # LM decode steps the engines recorded
+
+    def make_engine(*programs, depth=4 * (n_als + n_mix)):
+        eng = ServeEngine(params, heads, buckets=SERVE_BUCKETS, max_batch=8,
+                          max_wait_ms=1.0, queue_depth=depth,
+                          programs=list(programs))
+        eng.warmup()
+        eng.launches0 = pa.paged_decode_attention.launches
+        return eng
+
+    def close(eng):
+        """Close and hold: the worker joined, the pool's audit clean, the
+        paged kernel launched once per layer of every LM decode step."""
+        nonlocal steps
+        eng.close()
+        if eng._thread.is_alive() or not eng.kvpool_audit()["ok"]:
+            raise AssertionError("phase 20: worker alive or pool audit "
+                                 "failed after close")
+        snap = eng.metrics.snapshot()
+        lm_steps = snap["steps"] - snap["program_steps"]
+        launched = pa.paged_decode_attention.launches - eng.launches0
+        if launched != lm_steps * SERVE_LM["layers"]:
+            raise AssertionError(f"phase 20: {launched} paged launches for "
+                                 f"{lm_steps} LM decode steps x "
+                                 f"{SERVE_LM['layers']} layers")
+        steps += lm_steps
+
+    def als_reqs(n):
+        return [Request(program="als", payload={
+            "user": int(rng.integers(0, users)), "k": k}) for _ in range(n)]
+
+    def check_als(reqs, results, what, model=None):
+        s64 = scores64 if model is None else model
+        for q, r in zip(reqs, results):
+            u = q.payload["user"]
+            want = set(np.argsort(-s64[u], kind="stable")[:k].tolist())
+            if set(r.value["items"].tolist()) != want:
+                raise AssertionError(f"{what}: user {u} top-{k} != numpy")
+
+    # (a) ALS alone
+    eng = make_engine(ALSScoreProgram((uf, pf)))
+    try:
+        reqs = als_reqs(n_als)
+        t0 = time.perf_counter()
+        handles = [eng.submit(q) for q in reqs]
+        eng.drain()
+        span = time.perf_counter() - t0
+        results = _served(handles, "leg (a)")
+    finally:
+        close(eng)
+    check_als(reqs, results, "leg (a)")
+    lat = sorted(r.metrics["total_s"] for r in results)
+    qps = len(results) / span
+    p50, p99 = percentile(lat, 50) * 1e3, percentile(lat, 99) * 1e3
+    log(f"  (a) {n_als} ALS requests alone: {qps:.1f} req/s, submit-to-"
+        f"result p50 {p50:.3f} ms, p99 {p99:.3f} ms; every top-{k} == numpy "
+        f"f64's as a set")
+
+    # (b) LM alone, then LM beside as many ALS requests, on one engine each
+    def lm_reqs(n):
+        return [Request(prompt=rng.integers(0, vocab, int(rng.integers(
+            8, 48))).astype(np.int32), steps=int(rng.integers(4, 16)))
+            for _ in range(n)]
+
+    def run_lm(mixed):
+        reqs = lm_reqs(n_mix)
+        extra = als_reqs(n_mix) if mixed else []
+        eng = make_engine(ALSScoreProgram((uf, pf)))
+        try:
+            t0 = time.perf_counter()
+            handles = [eng.submit(q) for q in reqs]
+            ehandles = [eng.submit(q) for q in extra]
+            eng.drain()
+            span = time.perf_counter() - t0
+            lm_out = _served(handles, "leg (b) LM")
+            als_out = _served(ehandles, "leg (b) ALS")
+        finally:
+            close(eng)
+        check_als(extra, als_out, "leg (b)")
+        for q, r in zip(reqs, lm_out):
+            ref = tt.lm_generate(params, q.prompt, 0, heads=heads,
+                                 max_len=len(q.prompt) + q.steps,
+                                 steps=q.steps).tolist()
+            if r.tokens.tolist() != ref:
+                raise AssertionError(f"leg (b) {'mixed' if mixed else 'LM'}:"
+                                     f" greedy tokens != lm_generate")
+        toks = sum(r.tokens.size - len(q.prompt) for q, r in zip(reqs, lm_out))
+        return toks / span
+
+    solo, mixed = run_lm(False), run_lm(True)
+    log(f"  (b) {n_mix} LM requests alone {solo:.1f} tok/s; beside {n_mix} "
+        f"ALS requests {mixed:.1f} tok/s; mixed/solo {mixed / solo:.3f} (the"
+        f" reference's bar is >= 0.95, host clock; not gated); greedy tokens "
+        f"== lm_generate in both runs")
+
+    # classification over phase 19's MLP, PageRank over a 10^4-node graph
+    n_pr, e_pr = SERVE_PR_N, SERVE_PR_E
+    edges = np.stack([rng.integers(0, n_pr, e_pr), rng.integers(0, n_pr,
+                                                                e_pr)], 1)
+    mlp = {kk: v.detach() for kk, v in mlp_params.items()}
+    mlp64 = {kk: v.double().cpu().numpy() for kk, v in mlp.items()}
+    clf = ClassifyProgram(mlp)
+    prq = PageRankQueryProgram(build_transition_operator(edges, n=n_pr))
+    eng = make_engine(clf, prq)
+    try:
+        ranks = prq.refresh(iterations=SERVE_PR_REFRESH)
+        xs = rng.random((SERVE_CLASSIFY_ROWS, clf.feature_dim)).astype(
+            np.float32)
+        nodes = rng.integers(0, n_pr, SERVE_CLASSIFY_ROWS)
+        hc = [eng.submit(Request(program="classify", payload={"x": x}))
+              for x in xs]
+        hp = [eng.submit(Request(program="pagerank",
+                                 payload={"node": int(v), "k": k}))
+              for v in nodes]
+        rc, rp = _served(hc, "classify"), _served(hp, "pagerank")
+    finally:
+        close(eng)
+    h = xs.astype(np.float64)
+    for i in range(len(mlp64)):
+        h = 1.0 / (1.0 + np.exp(-(h @ mlp64[f"w{i}"])))
+    c_err = max(float(np.abs(r.value["proba"] - h[j]).max())
+                for j, r in enumerate(rc))
+    if not c_err <= SERVE_TOL or any(r.value["label"] != int(np.argmax(h[j]))
+                                     for j, r in enumerate(rc)):
+        raise AssertionError(f"classify vs numpy f64: {c_err}")
+    # PageRank: the refreshed ranks vs an f64 power iteration, and each
+    # answer's scores vs the top-k of the node's out-neighbors' ranks (ties
+    # between neighbors of equal rank may come out in either order)
+    deg = np.bincount(edges[:, 0], minlength=n_pr).astype(np.float64)
+    r64 = np.full(n_pr, 1.0 / n_pr)
+    for _ in range(SERVE_PR_REFRESH):
+        contrib = np.where(deg > 0, r64 / np.maximum(deg, 1), 0.0)
+        acc = np.bincount(edges[:, 1], weights=contrib[edges[:, 0]],
+                          minlength=n_pr)
+        r64 = 0.85 * (acc + r64[deg == 0].sum() / n_pr) + 0.15 / n_pr
+        r64 /= r64.sum()
+    r_err = float(np.abs(ranks - r64).max())
+    p_err = 0.0
+    for v, r in zip(nodes, rp):
+        nbr = edges[edges[:, 0] == v, 1]
+        want = np.sort(ranks[nbr])[::-1][:k]
+        got = r.value["scores"]
+        if len(got) != len(want) or not set(r.value["items"].tolist()) <= \
+                set(nbr.tolist()):
+            raise AssertionError(f"pagerank node {v}: {r.value} vs {nbr}")
+        if len(got):
+            p_err = max(p_err, float(np.abs(got - want).max()),
+                        float(np.abs(ranks[r.value["items"]] - got).max()))
+    if not (r_err <= SERVE_TOL * r64.max() and p_err == 0.0):
+        raise AssertionError(f"pagerank: ranks {r_err}, scores {p_err}")
+    log(f"  classify ({SERVE_CLASSIFY_ROWS} rows, phase 19's MLP) vs numpy "
+        f"f64 max|diff| {c_err:.3e} (tol {SERVE_TOL:g}); PageRank program "
+        f"({n_pr} nodes, {e_pr} edges, refresh {SERVE_PR_REFRESH}) ranks vs "
+        f"f64 max|diff| {r_err:.3e} of max {r64.max():.3e}; "
+        f"{SERVE_CLASSIFY_ROWS} top-{k} answers == the neighbors' ranks")
+
+    # swap_model under load: rows answered before the swap read the old
+    # factors, rows submitted after it returned read the new ones, and
+    # every answer reads one model whole
+    als = ALSScoreProgram((uf, pf))
+    eng = make_engine(als)
+    new64 = -scores64
+    try:
+        stop, before, during = threading.Event(), [], []
+
+        def pump():
+            while not stop.is_set():
+                q = als_reqs(1)[0]
+                during.append((q, eng.submit(q)))
+                time.sleep(0.0005)
+
+        for q in als_reqs(64):
+            before.append((q, eng.submit(q)))
+        _served([hh for _, hh in before], "swap (before)")
+        th = threading.Thread(target=pump, name="smoke-pump")
+        th.start()
+        time.sleep(0.05)
+        done_before = [(q, hh) for q, hh in during if hh.done()]
+        shapes = (tuple(als._uf.shape), tuple(als._pf.shape), als._uf.device)
+        eng.swap_model("als", (-uf, pf))
+        after = [(q, eng.submit(q)) for q in als_reqs(64)]
+        time.sleep(0.05)
+        stop.set()
+        th.join(60)
+        pairs = before + during + after
+        answers = _served([hh for _, hh in pairs], "swap")
+    finally:
+        close(eng)
+    if (tuple(als._uf.shape), tuple(als._pf.shape), als._uf.device) != shapes:
+        raise AssertionError("swap_model changed the resident shapes")
+    old_ids = {id(hh) for _, hh in before + done_before}
+    new_ids = {id(hh) for _, hh in after}
+    n_old = n_new = 0
+    for (q, hh), r in zip(pairs, answers):
+        got = set(r.value["items"].tolist())
+        u = q.payload["user"]
+        is_old = got == set(np.argsort(-scores64[u], kind="stable")[:k]
+                            .tolist())
+        is_new = got == set(np.argsort(-new64[u], kind="stable")[:k]
+                            .tolist())
+        if not (is_old or is_new) or (id(hh) in old_ids and not is_old) or \
+                (id(hh) in new_ids and not is_new):
+            raise AssertionError(f"swap: user {u} read a torn or wrong model")
+        n_old += is_old
+        n_new += is_new
+    split = pa.paged_decode_attention.launches - split0
+    comb = pa.paged_decode_attention.combine_launches - comb0
+    log(f"  swap under load: {len(pairs)} ALS answers ({len(before)} + "
+        f"{len(done_before)} answered before the swap read the old model, "
+        f"the {len(after)} submitted after it the new; {n_old} old, {n_new} "
+        f"new in all), resident shapes kept, {als.swap_count} swap")
+    if steps <= 0:
+        raise AssertionError("phase 20: no LM decode step")
+    log(f"phase 20 result: ALS alone {qps:.1f} req/s (p50 {p50:.3f} ms, p99 "
+        f"{p99:.3f} ms); LM {solo:.1f} tok/s alone, {mixed:.1f} beside ALS "
+        f"(ratio {mixed / solo:.3f}); the paged kernel {split} split + {comb}"
+        f" combine launches ({steps} LM decode steps x "
+        f"{SERVE_LM['layers']} layers, the rest the engines' warm-ups); "
+        f"{smi}")
+    return split, comb
+
+
 def engine_specs(np):
     """Leg (a)'s request set, drawn from seed 0: prompts of 16-512 tokens,
     8-64 steps, every ENGINE_SAMPLED_EVERY-th sampled with its own seed."""
@@ -1783,6 +2335,7 @@ def engine_path(torch, np, tt, ops, pa, prompts8, streams8,
 
     # (a) mixed load from submitter threads, a /metrics scrape during it
     ops.reset_launch_counts()
+    combine0 = pa.paged_decode_attention.combine_launches
     server = obs.MetricsServer(port=0)
     server.start()
     try:
@@ -1886,6 +2439,7 @@ def engine_path(torch, np, tt, ops, pa, prompts8, streams8,
         f"{wall_d:.3f} s (leg (a) {wall_a:.3f} s, bound {LEG_D_BOUND_S} s); "
         f"tokens == leg (a); flag False after")
     engine_launches = ops.launch_counts()["paged_decode_attention"]
+    engine_combines = pa.paged_decode_attention.combine_launches - combine0
 
     # (e) phase 8's workload through serve_bucket and the engine in turns:
     # equal streams, and each loop's ms per decode step (the engine's from
@@ -1933,7 +2487,7 @@ def engine_path(torch, np, tt, ops, pa, prompts8, streams8,
         f"{verdict}; {smi}")
     del params
     torch.cuda.empty_cache()
-    return engine_launches
+    return engine_launches, engine_combines
 
 
 def main() -> int:
@@ -1952,6 +2506,14 @@ def main() -> int:
     from marlin_tpu_torch.parallel import autotune
 
     t_start = time.perf_counter()
+    marks = [t_start]
+
+    def lap(phases: str) -> None:
+        """Log the wall time since the last lap."""
+        now = time.perf_counter()
+        log(f"{phases} wall: {now - marks[0]:.1f} s")
+        marks[0] = now
+
     # ---------------------------------------------------------- 1. device
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
@@ -1971,6 +2533,7 @@ def main() -> int:
                 or "wgmma" in line:
             log("  " + line.strip())
 
+    lap("phases 1-2")
     # ------------------------------------- 3. kernels against plain versions
     log("phase 3: kernels vs plain versions")
     ptxas_table(_build, "gemm.cu", "gemm_kernel",
@@ -2007,6 +2570,7 @@ def main() -> int:
         check_fill(torch, pk, x, shape[0] - 3, shape[1] - 5)
     torch.cuda.empty_cache()
 
+    lap("phase 3")
     # ------------------------------------------ 4. the slice at full size
     log(f"phase 4: DenseVecMatrix.random x2 -> multiply at {N}^2 f32")
     torch.cuda.reset_peak_memory_stats()
@@ -2057,6 +2621,7 @@ def main() -> int:
             raise AssertionError(f"{kname} never launched on the main path")
     del a4, b4
 
+    lap("phase 4")
     # -------------------------------------------------------- 5. times
     log(f"phase 5: times at {N}^2 (CUDA events after warm-up)")
     torch.cuda.reset_peak_memory_stats()
@@ -2119,6 +2684,7 @@ def main() -> int:
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 is on: the f32 references would not be f32")
 
+    lap("phase 5")
     # ------------------------------- 6. paged decode kernel vs plain version
     log("phase 6: paged_decode_attention vs its plain version")
     ptxas_table(_build, "paged_attention.cu", "paged_split_kernel", 34,
@@ -2143,6 +2709,7 @@ def main() -> int:
             if dtype == torch.float32 and (B, group, w_) == (ROWS, 1, W):
                 paged_err = e
 
+    lap("phase 6")
     # ----------------------------------- 7. flash panel kernel vs plain version
     log("phase 7: flash_attention_panel vs its plain version")
     flash_err = 0.0
@@ -2155,6 +2722,7 @@ def main() -> int:
             check_flash(torch, fa, gen, 2, 4096, d, 4000, dtype)
     torch.cuda.empty_cache()
 
+    lap("phase 7")
     # ------------------------------------- 8. the serving path at full width
     log(f"phase 8: TransformerLM{tuple(LM.values())} f32: {ROWS} requests "
         f"of {PROMPT} tokens through PagedKVPool -> lm_prefill_paged -> "
@@ -2251,6 +2819,7 @@ def main() -> int:
     del params, wide_params
     torch.cuda.empty_cache()
 
+    lap("phase 8")
     # -------------------------------------------------------- 9. times
     log("phase 9: attention kernel times (CUDA events)")
     dh = LM["d_model"] // LM["heads"]
@@ -2265,9 +2834,13 @@ def main() -> int:
     fwd_times(torch, fa, gen, LM["heads"], LONG_PROMPT, dh, LONG_PROMPT,
               torch.bfloat16, plain_reps=0)
 
+    lap("phase 9")
     bwd_errs, bwd_worst = backward_checks(torch, fa, gen)
+    lap("phase 10")
     train_counts = train_path(torch, np, tt, fa, ops)
+    lap("phase 11")
     t = train_times(torch, fa, gen, _build)
+    lap("phase 12")
     torch.cuda.empty_cache()
 
     # the main shape's 215 MB of blocks are made once, for phases 13-15
@@ -2281,14 +2854,37 @@ def main() -> int:
                             BSR_BS)
     main_b = torch.from_numpy(b_np).cuda()
     bsr_err, _ = bsr_checks(torch, np, sb, _build, gen, main_bsr, main_b)
+    lap("phase 13 (and the main shape's blocks)")
     sparse_counts = sparse_path(torch, np, mt, sb, autotune, ops, main_bsr,
                                 main_b, data)
+    lap("phase 14")
     tb = bsr_times(torch, np, sb, pk, main_bsr, main_b)
+    lap("phase 15")
     del main_bsr, main_b, data
     torch.cuda.empty_cache()
     linalg_path(torch, np, mt, ops)
-    engine_launches = engine_path(torch, np, tt, ops, pa, prompts, streams,
-                                  serve_bucket_ms, smi)
+    lap("phases 16-17")
+    engine_launches, engine_combines = engine_path(
+        torch, np, tt, ops, pa, prompts, streams, serve_bucket_ms, smi)
+    lap("phase 18")
+    mlp_params = ml_path(torch, np, mt, ops, smi)
+    lap("phase 19")
+    ops.reset_launch_counts()
+    prog_split, prog_combines = programs_path(torch, np, tt, pa, mlp_params,
+                                              smi)
+    if ops.launch_counts()["paged_decode_attention"] != prog_split:
+        raise AssertionError("phase 20: the paged launch count disagrees")
+    lap("phase 20")
+    del mlp_params
+    torch.cuda.empty_cache()
+    paged_launches = path_counts["paged_decode_attention"] + \
+        engine_launches + prog_split
+    log(f"paged kernel launches on the main paths: split {paged_launches} "
+        f"(phase 8 {path_counts['paged_decode_attention']}, phase 18 "
+        f"{engine_launches}, phase 20 {prog_split}); combine "
+        f"{paged_combines + engine_combines + prog_combines} (phase 8 "
+        f"{paged_combines}, phase 18 {engine_combines}, phase 20 "
+        f"{prog_combines})")
 
     # ---------------------------------------------------- kernels line
     kernels = [
@@ -2307,7 +2903,7 @@ def main() -> int:
         {"name": "paged_decode_attention", "route": "cuda",
          "source": "marlin_tpu_torch/csrc/paged_attention.cu",
          "replaces": "marlin_tpu/ops/paged_attention.py:91",
-         "launches": path_counts["paged_decode_attention"] + engine_launches,
+         "launches": paged_launches,
          "max_abs_err": paged_err, "ms": ms_paged, "plain_ms": plain_paged,
          "bound_ms": bound_paged, "bound_by": "bytes", "library_ms": lib_paged},
         {"name": "flash_attention_panel", "route": "cuda",

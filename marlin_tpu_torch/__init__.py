@@ -14,9 +14,13 @@ flash forward kernels (``ops/paged_attention.py``,
 Ulysses attention (``parallel/``), with the flash backward kernels; and the
 sparse × dense multiply (``SparseVecMatrix``, ``CoordinateMatrix``; the
 ELL, BCOO and BSR formats) with the BSR SpMM kernel
-(``ops/sparse_bsr.py``); and the dense factorizations, solves and truncated
-SVD (``linalg/``) with logistic regression (``ml/``), which the
-``DenseMatrix`` methods reach.
+(``ops/sparse_bsr.py``); the dense factorizations, solves and truncated
+SVD (``linalg/``), which the ``DenseMatrix`` methods reach; the serving
+engine's paged path (``serving/``); and Marlin's own ML workloads
+(``ml/``: ALS, the MLP trainer, logistic regression, PageRank) with the
+ALS, PageRank and classification programs the engine serves beside the LM,
+and the utils (``utils/``: timing and ``torch.profiler`` traces, retries,
+fault injection, the MTUtils factories).
 
 Quick start::
 

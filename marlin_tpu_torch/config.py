@@ -62,6 +62,10 @@ class MarlinConfig:
     # Slot rows per bucket: every decode step runs this many rows (free ones
     # run a harmless dummy against page 0).
     serve_max_batch: int = 8
+    # The JAX engine's partial-batch wait (ms); accepted, checked >= 0 by
+    # the batcher and ignored there: row-level scheduling claims work as
+    # soon as a row frees.
+    serve_max_wait_ms: float = 10.0
     # Admission bound on requests pending-or-in-flight; submissions beyond it
     # are rejected with a reason (backpressure, never blocking the caller).
     serve_queue_depth: int = 256
@@ -72,6 +76,10 @@ class MarlinConfig:
     # through ServeEngine(programs=...) (serving/programs/base.py); the LM
     # program steps its own max_batch rows and does not read it.
     serve_program_batches: tuple = (8, 32)
+    # Top-k buckets of the ALS and PageRank programs: a request's k rounds
+    # up to the smallest listed value (values above the item / edge count
+    # are dropped at program construction).
+    serve_program_topk: tuple = (8,)
     # The paged KV pool (the only backend the port serves; False raises).
     serve_paged: bool = True
     # Tokens per KV page.

@@ -7,7 +7,10 @@ numpy holds as the ``ml_dtypes`` type ``bfloat16`` and torch cannot read
 directly. :func:`lm_params_from_numpy` carries the transformer LM's
 parameters across, so that both packages compute with the same weights, and
 :func:`adam_state_from_numpy` its ``optax.adam`` state, so that training
-resumes where the JAX package left it. The sparse matrices cross as their
+resumes where the JAX package left it. The ML workloads' state crosses
+too: :func:`mlp_params_from_numpy` and :func:`mlp_opt_state_from_numpy` (the
+MLP's ``w0..wN`` and its optax state), :func:`als_model_from_numpy` (the two
+factor matrices of an ``ALSModel``). The sparse matrices cross as their
 arrays: :func:`bsr_from_numpy` (a ``BsrMatrix``),
 :func:`sparse_vec_matrix_from_numpy` (a ``SparseVecMatrix`` from its BCOO's
 ``indices``/``data``) and :func:`coordinate_matrix_from_numpy`.
@@ -137,6 +140,58 @@ def adam_state_from_numpy(state, device=None):
     return AdamState(int(np.asarray(count)),
                      lm_params_from_numpy(mu, device, np.float32),
                      lm_params_from_numpy(nu, device, np.float32))
+
+
+def mlp_params_from_numpy(params_np: dict, device=None, dtype: Any = None
+                          ) -> dict:
+    """The JAX package's MLP params (``w0..wN``, numpy, e.g.
+    ``jax.tree.map(np.asarray, params)``) as the port's dict on ``device``
+    (default: the configured one), in ``dtype`` when given. Raises on any
+    other key."""
+    for i in range(len(params_np)):
+        if f"w{i}" not in params_np:
+            raise ValueError(f"MLP params must be w0..w{len(params_np) - 1}, "
+                             f"got {sorted(params_np)}")
+    return {f"w{i}": to_tensor(np.array(params_np[f"w{i}"]), dtype, device)
+            for i in range(len(params_np))}
+
+
+def mlp_opt_state_from_numpy(state, device=None):
+    """An optax state of the JAX package's MLP trainer (``jax.tree.map(
+    np.asarray, state)``) as the port's, so that
+    ``train_step_optax``/``NeuralNetwork.train(opt_state=...)`` resume where
+    the JAX package left off: ``optax.sgd``'s empty state as ``()``, its
+    momentum ``TraceState`` as ``MomentumState``, ``optax.adam``'s
+    ``ScaleByAdamState`` (``count``, ``mu``, ``nu``) as ``AdamState``. The
+    chain tuple optax returns is read through its first element."""
+    from .ml.neural_network import MomentumState
+    from .models.transformer import AdamState
+
+    if isinstance(state, tuple) and not hasattr(state, "_fields") and state:
+        state = state[0]  # chain(<rule>, scale_by_learning_rate)
+    if hasattr(state, "mu"):
+        return AdamState(int(np.asarray(state.count)),
+                         mlp_params_from_numpy(state.mu, device, np.float32),
+                         mlp_params_from_numpy(state.nu, device, np.float32))
+    if hasattr(state, "trace"):
+        return MomentumState(mlp_params_from_numpy(state.trace, device))
+    if getattr(state, "_fields", None) == () or state == ():
+        return ()
+    raise ValueError(f"not an optax sgd/momentum/adam state: {state!r}")
+
+
+def als_model_from_numpy(user_features, product_features, device=None):
+    """The JAX package's ``ALSModel``, as its two factor matrices
+    (``to_numpy()``), as the port's ``ALSModel`` on ``device`` (default: the
+    configured one)."""
+    from .matrix.dense import DenseVecMatrix
+    from .mesh import create_mesh
+    from .ml.als import ALSModel
+
+    mesh = create_mesh(device=device)
+    return ALSModel(*(DenseVecMatrix.from_array(
+        to_tensor(np.array(f), device=mesh.device), mesh)
+        for f in (user_features, product_features)))
 
 
 def bsr_from_numpy(blocks, block_rows, block_cols, shape, block_size: int,

@@ -13,9 +13,9 @@ duplicates summed. Sparse × dense goes through one of three formats
 (ops/sparse_ell.py) or ``"bsr"`` (ops/sparse_bsr.py, whose backend — the
 CUDA kernel or the chunked formulation — the autotune ranking picks).
 
-Not here yet: ``CoordinateMatrix.als`` (with ``ml/als.py``, ROADMAP queue 1
-item 10) and ``CoordinateMatrix.save_to_file_system`` (with the IO modules,
-item 11); both raise ``NotImplementedError``.
+``CoordinateMatrix.als`` runs ``ml/als.py``. Not here yet:
+``CoordinateMatrix.save_to_file_system`` (with the IO modules, ROADMAP queue
+1 item 11), which raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -137,9 +137,12 @@ class CoordinateMatrix:
 
     def als(self, rank: int, iterations: int = 10, lam: float = 0.01,
             seed: int = 0, **kwargs):
-        raise NotImplementedError(
-            "CoordinateMatrix.als comes with ml/als.py (ROADMAP queue 1 "
-            "item 10)")
+        """Alternating least squares on these ratings (CoordinateMatrix.ALS,
+        CoordinateMatrix.scala:89-98 → ml/ALSHelp.scala)."""
+        from ..ml.als import als_run
+
+        return als_run(self, rank, iterations=iterations, lam=lam, seed=seed,
+                       **kwargs)
 
     def __repr__(self):
         return f"CoordinateMatrix(shape={self._shape}, nnz={self.nnz})"

@@ -1,8 +1,9 @@
 """Serving: the continuous-batching engine over the paged KV pool.
 
 Counterpart of ``marlin_tpu/serving/``: :class:`ServeEngine` (the paged
-path), the request contracts, the serving metrics, the BucketProgram seam,
-and the pool and bucket helpers. The dense-slab control, cross-engine
+path), the request contracts, the serving metrics, the BucketProgram seam
+with the ALS, PageRank and classification programs, and the pool and bucket
+helpers. The dense-slab control, cross-engine
 migration and the supervisor, router and fleet are not ported yet (ROADMAP).
 
 Quick start::
@@ -32,8 +33,11 @@ from .kvpool import (  # noqa: F401
 from .metrics import ServeMetrics, percentile  # noqa: F401
 from .programs import (  # noqa: F401
     PROGRAM_REGISTRY,
+    ALSScoreProgram,
     BucketProgram,
+    ClassifyProgram,
     PagedLMProgram,
+    PageRankQueryProgram,
     ProgramRowSet,
     available_programs,
     register_program,

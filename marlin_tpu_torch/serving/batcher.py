@@ -87,16 +87,21 @@ class _Group:
 class BatchFormer:
     """One priority-ordered claim queue per bucket. Sampling knobs never
     partition anything — they are per-row vectors in the decode step, so ANY
-    mix shares a step, and nothing ripens: a freed row claims work at once
-    (the JAX package's ``max_wait`` is accepted there and ignored, so it has
-    no counterpart here). Not thread-safe by itself — the engine calls it under its own
-    condition lock (one mutator, one reader)."""
+    mix shares a step, and nothing ripens: a freed row claims work at once.
+    ``max_wait`` (seconds, >= 0) is checked and kept as the JAX package
+    keeps it, and row-level scheduling ignores it, as there. Not thread-safe
+    by itself — the engine calls it under its own condition lock (one
+    mutator, one reader)."""
 
-    def __init__(self, buckets: Sequence[Bucket], max_batch: int):
+    def __init__(self, buckets: Sequence[Bucket], max_batch: int,
+                 max_wait: float = 0.0):
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
+        if max_wait < 0:
+            raise ValueError(f"max_wait must be >= 0, got {max_wait}")
         self.buckets = normalize_buckets(buckets)
         self.max_batch = max_batch
+        self.max_wait = max_wait  # nothing ripens: row-level ignores it
         self._groups: dict[Bucket, _Group] = collections.defaultdict(_Group)
         self._seq = 0
 

@@ -189,9 +189,11 @@ class ServeEngine:
     config: ``buckets`` (``serve_buckets``), ``max_batch``
     (``serve_max_batch``), ``queue_depth`` (``serve_queue_depth``),
     ``page_len``/``num_pages``/``prefill_chunk``/``prefix_cache``/
-    ``decode_kernel`` (the ``serve_*`` knobs of the same names). The JAX
-    engine's ``max_wait_ms`` has no counterpart: row-level scheduling
-    claims work as soon as a row frees, so nothing waits to ripen. ``hbm_budget_bytes`` defaults to the card's
+    ``decode_kernel`` (the ``serve_*`` knobs of the same names) and
+    ``max_wait_ms`` (``serve_max_wait_ms``), which reaches the batcher as
+    in the JAX engine, is refused there when negative, and is ignored:
+    row-level scheduling claims work as soon as a row frees, so nothing
+    waits to ripen. ``hbm_budget_bytes`` defaults to the card's
     own :func:`~marlin_tpu_torch.models.planner.usable_hbm_bytes`; on the
     CPU it defaults to 0, which disables the byte gate (there is no device
     memory to guard). ``clock`` is the engine's *policy* clock (deadlines,
@@ -208,6 +210,7 @@ class ServeEngine:
 
     def __init__(self, params: dict, heads: int, *, buckets=None,
                  max_batch: int | None = None,
+                 max_wait_ms: float | None = None,
                  queue_depth: int | None = None,
                  hbm_budget_bytes: int | None = None,
                  compute_dtype: str | None = None, moe: tuple | None = None,
@@ -240,6 +243,7 @@ class ServeEngine:
             cfg.serve_buckets if buckets is None else buckets)
         self.max_batch = int(cfg.serve_max_batch if max_batch is None
                              else max_batch)
+        wait_ms = cfg.serve_max_wait_ms if max_wait_ms is None else max_wait_ms
         depth = int(cfg.serve_queue_depth if queue_depth is None
                     else queue_depth)
         # --- paged-pool geometry (serving/kvpool.py) -----------------------
@@ -283,7 +287,8 @@ class ServeEngine:
         self.metrics = ServeMetrics(log=log)
         self._queue = AdmissionQueue(depth, hbm_budget_bytes)
         self._cond = threading.Condition()
-        self._former = BatchFormer(self.buckets, self.max_batch)
+        self._former = BatchFormer(self.buckets, self.max_batch,
+                                   max_wait=float(wait_ms) / 1e3)
         # Request.program routing table: LM (this engine's paged path,
         # wrapped as the first BucketProgram) plus whatever the caller
         # registered. Former/pool keys for non-LM buckets are namespaced

@@ -9,16 +9,17 @@ programs=[...])``) — the registry is the catalog (error messages, docs
 tables, tooling), the engine's instance map is the routing table, and the
 two agree by construction because every instance's class registered here.
 
-Counterpart of ``marlin_tpu/serving/programs/__init__.py``. The port
-serves the LM program (:class:`PagedLMProgram`); the ALS, PageRank and
-classification programs wait for the port's ``ml`` models (ROADMAP), and
-any :class:`BucketProgram` a caller writes rides the same lane.
+Counterpart of ``marlin_tpu/serving/programs/__init__.py``: the LM program
+(:class:`PagedLMProgram`) and the one-shot ALS, PageRank and classification
+programs over the port's ``ml`` models; any :class:`BucketProgram` a caller
+writes rides the same lane.
 """
 
 from __future__ import annotations
 
 __all__ = ["PROGRAM_REGISTRY", "register_program", "available_programs",
-           "BucketProgram", "ProgramRowSet", "PagedLMProgram"]
+           "BucketProgram", "ProgramRowSet", "PagedLMProgram",
+           "ALSScoreProgram", "PageRankQueryProgram", "ClassifyProgram"]
 
 #: program name -> BucketProgram subclass
 PROGRAM_REGISTRY: dict[str, type] = {}
@@ -43,3 +44,6 @@ def available_programs() -> list[str]:
 
 from .base import BucketProgram, ProgramRowSet  # noqa: E402
 from .lm import PagedLMProgram  # noqa: E402
+from .als import ALSScoreProgram  # noqa: E402
+from .pagerank import PageRankQueryProgram  # noqa: E402
+from .classify import ClassifyProgram  # noqa: E402

@@ -24,7 +24,7 @@ import torch
 
 __all__ = ["threefry2x32", "prng_key", "as_key", "fold_in", "split",
            "random_bits", "uniform", "normal", "randint", "gumbel",
-           "categorical"]
+           "categorical", "key_words", "split_words", "randint_scalar"]
 
 _M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -100,18 +100,38 @@ def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
     k1 = key[..., 0].reshape(*lead, 1)
     k2 = key[..., 1].reshape(*lead, 1)
     a, b = threefry2x32(k1, k2, i >> 32, i & _M32)
-    return (a ^ b).reshape(*lead, *shape)
+    return (a ^ b).reshape(tuple(lead) + shape)
+
+
+def _fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
+             ) -> torch.Tensor:
+    """``a * b + c`` for f32 tensors, rounded once, as a fused multiply-add
+    rounds it (XLA contracts ``uniform``'s scale and shift into one). The
+    product is exact in f64; the sum is rounded to odd in f64 (the exact
+    error of the f64 sum decides the last bit), and rounding that to f32 is
+    then the correctly rounded result."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.full_like(s, math.inf),
+                         torch.full_like(s, -math.inf))
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.float()
 
 
 def uniform(key: torch.Tensor, shape, minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """``jax.random.uniform`` in f32: 23 random mantissa bits under the
-    exponent of 1.0, minus 1, scaled to ``[minval, maxval)``."""
+    exponent of 1.0, minus 1, scaled to ``[minval, maxval)`` by one fused
+    multiply-add, as XLA computes it — the same bits."""
     bits = random_bits(key, shape)
     f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
     lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
     hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
-    return torch.maximum(lo, f * (hi - lo) + lo)
+    return torch.maximum(lo, _fma_f32(f, hi - lo, lo.expand_as(f)))
 
 
 def normal(key: torch.Tensor, shape, dtype=torch.float32) -> torch.Tensor:
@@ -168,6 +188,40 @@ def randint(key: torch.Tensor, shape, minval: int, maxval: int
     # minval + offset as an int32 add that wraps, as lax does
     out = (minval + offset + 2 ** 31) % 2 ** 32 - 2 ** 31
     return out.to(torch.int32)
+
+
+def key_words(key) -> tuple[int, int]:
+    """A key (int seed, key words, or a key tensor: one on the card is read
+    once) as its two words, host ints."""
+    if isinstance(key, numbers.Integral):
+        return tuple(int(w) for w in prng_key(int(key)))
+    if isinstance(key, torch.Tensor):
+        key = key.tolist()
+    k1, k2 = key
+    return int(k1) & _M32, int(k2) & _M32
+
+
+def split_words(key, num: int = 2) -> list[tuple[int, int]]:
+    """:func:`split` of one key on the host, in Python ints: ``num`` keys'
+    words. A training loop that needs one scalar draw a step keeps its keys
+    here: on the card each of ``split``'s 20 hash rounds is a launch."""
+    k1, k2 = key_words(key)
+    return [threefry2x32(k1, k2, i >> 32, i & _M32) for i in range(num)]
+
+
+def randint_scalar(key, minval: int, maxval: int) -> int:
+    """``jax.random.randint(key, (), minval, maxval)`` on the host: one
+    int32 value, the same as :func:`randint`'s for shape ``()``."""
+    minval, maxval = int(minval), int(maxval)
+    (h1, h2), (l1, l2) = split_words(key, 2)
+    higher = threefry2x32(h1, h2, 0, 0)
+    lower = threefry2x32(l1, l2, 0, 0)
+    higher, lower = higher[0] ^ higher[1], lower[0] ^ lower[1]
+    span = maxval - minval if maxval > minval else 1
+    mult = (2 ** 16) % span
+    mult = ((mult * mult) & _M32) % span
+    offset = ((_mul32(higher % span, mult) + lower % span) & _M32) % span
+    return (minval + offset + 2 ** 31) % 2 ** 32 - 2 ** 31
 
 
 def gumbel(key: torch.Tensor, shape) -> torch.Tensor:

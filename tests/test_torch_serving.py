@@ -256,6 +256,53 @@ def test_serve_metric_families_match(jparams, tparams):
     assert "marlin_serve_prefix_cache_total" in fams
 
 
+@pytest.mark.parametrize("wait_ms", [0.0, 1.0])
+def test_max_wait_ms_accepted_alike(jparams, tparams, wait_ms):
+    """``ServeEngine(max_wait_ms=...)`` reaches each package's batcher as
+    seconds, and row-level scheduling serves the same tokens whatever its
+    value."""
+    specs = [dict(prompt=np.arange(1, 6, dtype=np.int32), steps=3)]
+    jr, je, tr, te = _both(jparams, tparams, specs, max_wait_ms=wait_ms)
+    assert je._former.max_wait == te._former.max_wait == wait_ms / 1e3
+    assert _outcomes(tr) == _outcomes(jr)
+    assert tr[0].tokens.tolist() == _tref(tparams, specs[0]["prompt"], 3)
+
+
+def test_max_wait_ms_knob_and_refusal_alike(jparams, tparams):
+    """The ``serve_max_wait_ms`` knob (default 10 ms in both) fills an
+    unset ``max_wait_ms``; a negative wait is refused by both engines and
+    both batchers, with the same message."""
+    import marlin_tpu as jm
+    from marlin_tpu.serving import BatchFormer as JFormer
+    from marlin_tpu_torch.config import MarlinConfig
+    from marlin_tpu_torch.serving import BatchFormer as TFormer
+
+    assert MarlinConfig().serve_max_wait_ms == \
+        jm.config.MarlinConfig().serve_max_wait_ms == 10.0
+    waits = []
+    for cls, params, ctx in ((JEngine, jparams, jm.config_context),
+                             (TEngine, tparams, config_context)):
+        with config_context(device="cpu"), ctx(serve_max_wait_ms=2.5):
+            with cls(params, HEADS, start=False, **_engine_kw()) as eng:
+                waits.append(eng._former.max_wait)
+    assert waits == [2.5e-3, 2.5e-3]
+    msgs = []
+    for cls, params in ((JEngine, jparams), (TEngine, tparams)):
+        with config_context(device="cpu"):
+            with pytest.raises(ValueError, match="max_wait must be >= 0") \
+                    as err:
+                cls(params, HEADS, start=False, max_wait_ms=-1.0,
+                    **_engine_kw())
+        msgs.append(str(err.value))
+    for former in (JFormer, TFormer):
+        assert former(BUCKETS, 8, max_wait=0.0).max_wait == 0.0
+        assert former(BUCKETS, 8).max_wait == 0.0
+        with pytest.raises(ValueError, match="max_wait must be >= 0") as err:
+            former(BUCKETS, 8, max_wait=-0.5)
+        msgs.append(str(err.value))
+    assert msgs[0] == msgs[1] and msgs[2] == msgs[3]
+
+
 def test_port_engine_refuses_what_is_not_ported(tparams, cpu):
     for kw, item in ((dict(paged=False), "item 7"),
                      (dict(moe=(2, 1)), "item 12")):
