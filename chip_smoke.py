@@ -143,6 +143,39 @@ drives the ported paths end to end through the public entry points:
   oracles), and ``swap_model`` under load (answers before the swap read the
   old factors, after it the new, none torn); the paged kernel's split and
   combine launches counted.
+- phase 21: BASELINE.md config 4 as ``bench_all.py`` ``config4`` runs it,
+  without its row cut: the port's native libraries built from
+  ``marlin_tpu_torch/native/`` (a failed build fails the run), then
+  ``streamed_gramian`` of 10^7 x 512 f32 (uniform rows, chunks of 2^19 rows
+  generated from a seed on the prefetcher's producer thread, 20.5 GB never
+  resident at once) through pinned staging buffers and a side stream,
+  against an f64 accumulation of the same chunks on the card in a plain
+  loop; at 2^22 rows the sync control equal to the prefetch leg bit for
+  bit, and a bf16-transfer leg; ``streamed_matmul`` of 2^20 x 512 by 512 x
+  512 into a writable ``np.memmap`` against f64 on sampled rows; every
+  host-to-device copy from a pinned buffer; the stage breakdown, the side
+  stream's copy rate beside a plain 1 GiB pinned copy, and the resident
+  rank update's time against the f32 bound;
+- phase 22: ``bench_all.py`` ``_config4_file_legs`` at its default 65536 x
+  512: the file written by ``save_to_file_system`` (the port's native
+  writer), streamed by the Python text parser and by its ``transcode_text``
+  sidecar (auto-selected; the two Gramians equal bit for bit, GFLOP/s and
+  stages per leg), a flipped sidecar byte raising
+  ``ChunkstoreCorruptError``, an idx3 file through
+  ``mnist_images_out_of_core`` both ways, and a ``/metrics`` scrape carrying
+  the ``marlin_prefetch_*`` and ``marlin_dataplane_*`` families;
+- phase 23: ``save_sharded``/``load_sharded`` of a 20000² f32
+  ``DenseVecMatrix`` with its CRCs re-read; phase 11's ``config_lct`` run
+  stopped by an injected fault after step 2 and resumed from generation 2
+  through ``ResilientLoop`` (losses and params equal to phase 11's bit for
+  bit), then again with generation 3 corrupted by one byte (the loop falls
+  back to generation 2); ``NeuralNetwork.train(checkpoint_dir=...)`` at
+  ``config_nn`` for 3 steps with a resume, equal to the uninterrupted run;
+  ``heartbeat()`` over the card; each save's and load's wall time and bytes.
+
+``python3 chip_smoke.py --phases 21,22,23`` (any subset of phases 19-23;
+20 runs 19 first) builds the kernels and runs only those phases, printing no
+result lines.
 
 It prints the card's name, count and power limit, one ``{"kernels": [...]}``
 line (launches on the main path, max error, kernel / plain / bound / library
@@ -280,11 +313,12 @@ ENGINE_TIMING_ROUNDS = 9
 # leg (d) fails if the serve beside back-to-back TF32 products takes longer
 LEG_D_BOUND_S = 120.0
 # the /metrics families a serving scrape must carry: bench_all.py's serve
-# list, less the prefetch family (the port has no prefetch pipeline yet)
+# list (the prefetch family registered at endpoint start, at zero)
 SERVE_FAMILIES = (
     "marlin_serve_submitted_total", "marlin_serve_queue_depth",
     "marlin_serve_slot_occupancy", "marlin_serve_kv_inflight_bytes",
-    "marlin_compile_total", "marlin_device_memory_bytes_in_use",
+    "marlin_compile_total", "marlin_prefetch_chunks_total",
+    "marlin_device_memory_bytes_in_use",
     "marlin_program_roofline_frac", "marlin_mem_registered_bytes",
     "marlin_mem_live_bytes", "marlin_mem_unattributed_bytes",
     "marlin_serve_kv_pages_total", "marlin_serve_kv_pages_used",
@@ -337,6 +371,29 @@ SERVE_TOL = 1e-5
 # f64 run), and the card's L, U, L (Cholesky) and A⁻¹ vs the port's CPU
 # run: |difference| <= LINALG_TOL * the largest |entry| of the reference
 LINALG_TOL, LINALG_ROWS = 1e-4, 64
+# phase 21: BASELINE.md config 4 as bench_all.py config4 runs it, without its
+# row cut: a TALL_ROWS x TALL_COLS f32 operand of uniform [0, 1) rows
+# (bench_all.py's draw), generated in chunks of TALL_CHUNK rows, chunk i
+# from default_rng([TALL_SEED, i]), on the prefetcher's producer thread;
+# the sync and bf16 legs at TALL_CHECK_ROWS, streamed_matmul at
+# TALL_MATMUL_ROWS x 512 @ 512 x 512 into a memmap
+TALL_ROWS, TALL_COLS, TALL_CHUNK, TALL_SEED = 10_000_000, 512, 1 << 19, 4
+TALL_CHECK_ROWS, TALL_MATMUL_ROWS = 1 << 22, 1 << 20
+# the bf16 leg against the f64 Gramian of the f32 rows: one bf16 rounding
+# step (2^-8) of the largest |entry| (its own bf16-rounded rows' f64
+# Gramian is held to F64_TOL)
+TALL_BF16_TOL = 2.0 ** -8
+# phase 22: bench_all.py _config4_file_legs at its default size (a row-text
+# file of FILE_ROWS x TALL_COLS, streamed in chunks of FILE_CHUNK rows) and a
+# synthetic idx3 file of MNIST's test-set shape
+FILE_ROWS, FILE_CHUNK = 65536, 8192
+IDX_N, IDX_SIDE = 10_000, 28
+# phase 23: save_sharded/load_sharded of an N x N DenseVecMatrix; the families
+# a /metrics scrape of phase 22 must carry
+PREFETCH_FAMILIES = (
+    "marlin_prefetch_chunks_total", "marlin_prefetch_stall_seconds_total",
+    "marlin_prefetch_ready_depth", "marlin_prefetch_inflight_bytes",
+    "marlin_dataplane_chunks_total", "marlin_dataplane_bytes_total")
 
 
 def log(msg: str) -> None:
@@ -838,7 +895,8 @@ def backward_checks(torch, fa, gen):
 def train_path(torch, np, tt, fa, ops):
     """Phase 11: config_lct's model trained on the card through the flash
     kernels, held against the plain versions; returns the main path's
-    launch counts."""
+    launch counts and the run (stream, initial params, params and losses
+    after TRAIN_STEPS steps) phase 23 resumes to."""
     H_T, D_T, P_T = train_shape()
     log(f"phase 11: TransformerLM{tuple(LCT.values())} f32, Adam "
         f"{tt.TransformerLM.learning_rate:g}, attn='ring': 1 warm-up + "
@@ -930,10 +988,9 @@ def train_path(torch, np, tt, fa, ops):
             f" launches {ops.launch_counts()}")
         if abs(loss1 - losses_k[0]) > TRAIN_LOSS0_RTOL * abs(losses_k[0]):
             raise AssertionError(f"{knobs}: loss {loss1} vs {losses_k[0]}")
-    del params0, params_k
     torch.cuda.empty_cache()
     wide_step(torch, tt, ops, resolve_attention_backend, stream)
-    return train_counts
+    return train_counts, (stream, params0, params_k, losses_k)
 
 
 def wide_step(torch, tt, ops, resolve_attention_backend, stream) -> None:
@@ -2490,9 +2547,433 @@ def engine_path(torch, np, tt, ops, pa, prompts8, streams8,
     return engine_launches, engine_combines
 
 
+def tall_chunks(np, rows: int, dtype=None):
+    """Phase 21's operand: ``rows`` x TALL_COLS uniform [0, 1) f32 rows in
+    chunks of TALL_CHUNK, chunk i drawn from default_rng([TALL_SEED, i])."""
+    for i, start in enumerate(range(0, rows, TALL_CHUNK)):
+        n = min(TALL_CHUNK, rows - start)
+        yield np.random.default_rng([TALL_SEED, i]).random(
+            (n, TALL_COLS), np.float32)
+
+
+def rel_err(np, got, want) -> float:
+    """max |got - want| over max |want|."""
+    want = np.asarray(want, np.float64)
+    return float(np.abs(np.asarray(got, np.float64) - want).max()
+                 / np.abs(want).max())
+
+
+def out_of_core_path(torch, np, mt, smi):
+    """Phase 21: config 4's 10^7 x 512 Gramian streamed from the host through
+    pinned buffers on a side stream, against an f64 accumulation of the same
+    chunks; the sync and bf16 legs; streamed_matmul into a memmap; the
+    pinned copy rate and the resident rank update's time."""
+    import tempfile
+
+    from marlin_tpu_torch import native
+    from marlin_tpu_torch.ops.local import precision_scope
+    from marlin_tpu_torch.parallel import prefetch
+    from marlin_tpu_torch.parallel.streaming import (streamed_gramian,
+                                                     streamed_matmul)
+    from marlin_tpu_torch.utils.profiling import StageTimes
+
+    rows, n = TALL_ROWS, TALL_COLS
+    log(f"phase 21: streamed_gramian of {rows} x {n} f32 in chunks of "
+        f"{TALL_CHUNK} rows ({rows * n * 4 / 1e9:.1f} GB, generated on the "
+        f"producer thread), prefetch on; {smi}")
+    t0 = time.perf_counter()
+    ok = native.available() and native.chunkstore_available()
+    log(f"  native libraries: {time.perf_counter() - t0:.1f} s into "
+        f"{native.build_dir()}")
+    if not ok:
+        raise AssertionError(f"native build failed: {native.build_error()}")
+    streamed_gramian(iter([np.zeros((1024, n), np.float32)]))  # warm-up
+    prefetch.reset_staging_counts()
+    stats = StageTimes()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g = streamed_gramian(tall_chunks(np, rows), chunk_rows=TALL_CHUNK,
+                         precision="highest", prefetch=True, stats=stats)
+    dt = time.perf_counter() - t0
+    staged = prefetch.staging_counts()
+    n_chunks = -(-rows // TALL_CHUNK)
+    flop = 2.0 * rows * n * n
+    log(f"  prefetch leg: {dt:.3f} s = {flop / dt / 1e9:.1f} GFLOP/s end to "
+        f"end (host clock); stages: {stats.summary()}")
+    if staged["pinned"] != n_chunks or staged["unpinned"]:
+        raise AssertionError(f"staging {staged}: want {n_chunks} pinned "
+                             "copies, none pageable")
+    copy_gbs = staged["bytes"] / staged["copy_s"] / 1e9
+    # the f64 reference: the same chunks, a plain loop, no prefetcher; the
+    # first TALL_CHECK_ROWS rows also in bf16-rounded form
+    g64 = torch.zeros((n, n), dtype=torch.float64, device="cuda")
+    g64_check = g64b_check = None
+    gb64 = torch.zeros_like(g64)
+    t0 = time.perf_counter()
+    for i, c in enumerate(tall_chunks(np, rows)):
+        x = torch.from_numpy(c).to("cuda", torch.float64)
+        g64.addmm_(x.T, x)
+        if (i + 1) * TALL_CHUNK <= TALL_CHECK_ROWS:
+            xb = torch.from_numpy(c).to(torch.bfloat16).to("cuda",
+                                                            torch.float64)
+            gb64.addmm_(xb.T, xb)
+        if (i + 1) * TALL_CHUNK == TALL_CHECK_ROWS:
+            g64_check = g64.to("cpu", copy=True).numpy()
+            g64b_check = gb64.to("cpu", copy=True).numpy()
+    g64 = g64.cpu().numpy()
+    err = rel_err(np, g, g64)
+    log(f"  vs an f64 accumulation of the same {n_chunks} chunks on the card "
+        f"(plain loop, {time.perf_counter() - t0:.1f} s): max rel err "
+        f"{err:.3e} (tol {F64_TOL})")
+    if not (g.shape == (n, n) and np.isfinite(g).all() and err <= F64_TOL):
+        raise AssertionError(f"streamed Gramian vs f64: {err}")
+    # the sync control and the prefetch leg at TALL_CHECK_ROWS: equal bits
+    legs = {}
+    for name, kw in (("sync", dict(prefetch=False)),
+                     ("prefetch", dict(prefetch=True)),
+                     ("bf16", dict(prefetch=True,
+                                   transfer_dtype="bfloat16"))):
+        st = StageTimes()
+        t0 = time.perf_counter()
+        legs[name] = streamed_gramian(
+            tall_chunks(np, TALL_CHECK_ROWS), chunk_rows=TALL_CHUNK,
+            precision="highest", stats=st, **kw)
+        dt_leg = time.perf_counter() - t0
+        log(f"  {name} leg at {TALL_CHECK_ROWS} rows: {dt_leg:.3f} s = "
+            f"{2.0 * TALL_CHECK_ROWS * n * n / dt_leg / 1e9:.1f} GFLOP/s; "
+            f"stages: {st.summary()}")
+    if not np.array_equal(legs["sync"], legs["prefetch"]):
+        raise AssertionError("prefetch on and off differ at "
+                             f"{TALL_CHECK_ROWS} rows")
+    err22 = rel_err(np, legs["sync"], g64_check)
+    errb = rel_err(np, legs["bf16"], g64b_check)
+    errb32 = rel_err(np, legs["bf16"], g64_check)
+    log(f"  sync == prefetch bit for bit; vs f64 {err22:.3e}; bf16 transfer "
+        f"vs its rows' f64 Gramian {errb:.3e} (tol {F64_TOL}), vs the f32 "
+        f"rows' {errb32:.3e} (tol {TALL_BF16_TOL:.3e})")
+    if not (err22 <= F64_TOL and errb <= F64_TOL and errb32 <= TALL_BF16_TOL):
+        raise AssertionError(f"check legs: {err22}, {errb}, {errb32}")
+    # streamed_matmul into a preallocated writable memmap
+    b = torch.from_numpy(np.random.default_rng(TALL_SEED + 1).standard_normal(
+        (n, n)).astype(np.float32)).cuda()
+    with tempfile.TemporaryDirectory() as d:
+        out = np.memmap(os.path.join(d, "y.f32"), np.float32, "w+",
+                        shape=(TALL_MATMUL_ROWS, n))
+        st = StageTimes()
+        t0 = time.perf_counter()
+        got = streamed_matmul(tall_chunks(np, TALL_MATMUL_ROWS), b,
+                              chunk_rows=TALL_CHUNK, out=out,
+                              precision="highest", stats=st)
+        dt_mm = time.perf_counter() - t0
+        if got is not out:
+            raise AssertionError("streamed_matmul did not fill the memmap")
+        sample = np.random.default_rng(5).choice(TALL_MATMUL_ROWS,
+                                                 LINALG_ROWS, replace=False)
+        a_all = np.concatenate(list(tall_chunks(np, TALL_MATMUL_ROWS)))
+        ref = a_all[sample].astype(np.float64) @ b.double().cpu().numpy()
+        err_mm = rel_err(np, out[sample], ref)
+        finite = bool(np.isfinite(out[::4096]).all())
+        del a_all, out
+    log(f"  streamed_matmul {TALL_MATMUL_ROWS} x {n} @ {n} x {n} into a "
+        f"memmap: {dt_mm:.3f} s = "
+        f"{2.0 * TALL_MATMUL_ROWS * n * n / dt_mm / 1e9:.1f} GFLOP/s; "
+        f"stages: {st.summary()}; vs f64 on {LINALG_ROWS} sampled rows "
+        f"{err_mm:.3e} (tol {F64_TOL})")
+    if not (finite and err_mm <= F64_TOL):
+        raise AssertionError(f"streamed_matmul vs f64: {err_mm}")
+    # a plain 1 GiB pinned copy, and the rank update with its chunk resident
+    host = torch.empty(1 << 30, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
+    plain_ms = cuda_ms(torch, lambda: dev.copy_(host, non_blocking=True), 5)
+    del host, dev
+    x = torch.from_numpy(next(tall_chunks(np, TALL_CHUNK))).cuda()
+    acc = torch.zeros((n, n), device="cuda")
+    with precision_scope("highest"):
+        rank_ms = cuda_ms(torch, lambda: acc.addmm_(x.T, x), 10)
+    bound_ms = 2.0 * TALL_CHUNK * n * n / F32_PEAK * 1e3
+    del x, acc
+    log(f"  pinned copies of the prefetch leg: {staged['bytes'] / 2 ** 30:.2f}"
+        f" GiB in {staged['copy_s']:.3f} s on the side stream = "
+        f"{copy_gbs:.2f} GB/s; a plain 1 GiB pinned copy {plain_ms:.3f} ms "
+        f"= {(1 << 30) / plain_ms / 1e6:.2f} GB/s (CUDA events)")
+    log(f"  the resident rank update ({TALL_CHUNK} x {n}, f32, TF32 off): "
+        f"{rank_ms:.3f} ms = {2.0 * TALL_CHUNK * n * n / rank_ms / 1e9:.1f} "
+        f"GFLOP/s against a {bound_ms:.3f} ms f32 bound (operations, "
+        f"{F32_PEAK / 1e12:.0f} TFLOP/s)")
+    log(f"phase 21 result: {rows} x {n} in {dt:.3f} s, "
+        f"{flop / dt / 1e9:.1f} GFLOP/s end to end; {smi}")
+    torch.cuda.empty_cache()
+
+
+def disk_path(torch, np, mt, smi):
+    """Phase 22: bench_all.py's config-4 file legs — one row-text file
+    written by the port's native writer, streamed by the Python text parser
+    and by its chunk-store sidecar (equal Gramians); a flipped sidecar byte;
+    an idx3 file through mnist_images_out_of_core; a /metrics scrape."""
+    import struct
+    import tempfile
+    import urllib.request
+
+    from marlin_tpu_torch import obs
+    from marlin_tpu_torch.io import (ChunkstoreCorruptError, transcode_idx,
+                                     transcode_text)
+    from marlin_tpu_torch.io.mnist import mnist_images_out_of_core
+    from marlin_tpu_torch.io.text import load_matrix_file_out_of_core
+    from marlin_tpu_torch.utils.profiling import StageTimes
+
+    rows, n = FILE_ROWS, TALL_COLS
+    gflop = 2.0 * rows * n * n / 1e9
+    server = obs.MetricsServer(port=0)
+    server.start()
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "tall.txt")
+            a = mt.DenseVecMatrix.from_array(np.random.default_rng(7).random(
+                (rows, n)), dtype=torch.float64)
+            t0 = time.perf_counter()
+            a.save_to_file_system(path)
+            log(f"phase 22: {rows} x {n} written by save_to_file_system "
+                f"(native writer) in {time.perf_counter() - t0:.2f} s, "
+                f"{os.path.getsize(path) / 1e6:.0f} MB of text")
+            grams = {}
+            for leg in ("text", "chunkstore"):
+                if leg == "chunkstore":
+                    t0 = time.perf_counter()
+                    side = transcode_text(path, chunk_rows=FILE_CHUNK)
+                    build_s = time.perf_counter() - t0
+                    ooc = load_matrix_file_out_of_core(
+                        path, chunk_rows=FILE_CHUNK)
+                    if "chunkstore" not in repr(ooc):
+                        raise AssertionError(f"sidecar not selected: {ooc!r}")
+                    note = f"sidecar built in {build_s:.2f} s; "
+                else:
+                    ooc = load_matrix_file_out_of_core(
+                        path, chunk_rows=FILE_CHUNK, chunkstore=False)
+                    note = "Python parse every pass; "
+                st = StageTimes()
+                t0 = time.perf_counter()
+                grams[leg] = ooc.gramian(stats=st, precision="highest")
+                dt = time.perf_counter() - t0
+                log(f"  {leg} leg: {dt:.3f} s = {gflop / dt:.2f} GFLOP/s from "
+                    f"disk ({note}stages: {st.summary()})")
+            ref = a.logical().T @ a.logical()
+            err = rel_err(np, grams["text"], ref.cpu().numpy())
+            if not np.array_equal(grams["text"], grams["chunkstore"]):
+                raise AssertionError("text and chunk-store Gramians differ")
+            log(f"  the two legs' Gramians equal bit for bit; vs f64 {err:.3e}"
+                f" (tol {F64_TOL})")
+            if not err <= F64_TOL:
+                raise AssertionError(f"file Gramian vs f64: {err}")
+            blob = bytearray(open(side, "rb").read())
+            blob[len(blob) // 2] ^= 0x01
+            open(side, "wb").write(bytes(blob))
+            try:
+                load_matrix_file_out_of_core(
+                    path, chunk_rows=FILE_CHUNK).gramian()
+            except ChunkstoreCorruptError as e:
+                log(f"  a flipped sidecar byte raises: {str(e)[:90]}")
+            else:
+                raise AssertionError("a corrupt sidecar read back quietly")
+            # an idx3 file of MNIST's test-set shape
+            idx = os.path.join(d, "t10k-images-idx3-ubyte")
+            raw = np.random.default_rng(8).integers(
+                0, 256, (IDX_N, IDX_SIDE * IDX_SIDE), dtype=np.uint8)
+            with open(idx, "wb") as f:
+                f.write(struct.pack(">IIII", 2051, IDX_N, IDX_SIDE, IDX_SIDE))
+                f.write(raw.tobytes())
+            g_idx = mnist_images_out_of_core(
+                idx, chunk_rows=4096, chunkstore=False).gramian(
+                    precision="highest")
+            transcode_idx(idx, chunk_rows=4096)
+            ooc = mnist_images_out_of_core(idx, chunk_rows=4096)
+            g_side = ooc.gramian(precision="highest")
+            x = (raw / 255.0).astype(np.float32).astype(np.float64)
+            err_idx = rel_err(np, g_idx, x.T @ x)
+            if "chunkstore" not in repr(ooc) or \
+                    not np.array_equal(g_idx, g_side) or err_idx > F64_TOL:
+                raise AssertionError(f"idx legs: {ooc!r}, {err_idx}")
+            log(f"  idx3 {IDX_N} x {IDX_SIDE}^2 through "
+                f"mnist_images_out_of_core: idx and sidecar Gramians equal, "
+                f"vs f64 {err_idx:.3e}")
+        scrape = urllib.request.urlopen(server.url, timeout=60).read().decode()
+    finally:
+        server.close()
+    missing = [f for f in PREFETCH_FAMILIES if f"# TYPE {f} " not in scrape]
+    chunks = [line for line in scrape.splitlines()
+              if line.startswith("marlin_prefetch_chunks_total ")]
+    if missing or not chunks or float(chunks[0].split()[1]) <= 0:
+        raise AssertionError(f"/metrics: missing {missing}, {chunks}")
+    log(f"  /metrics carries {len(PREFETCH_FAMILIES)} prefetch and "
+        f"data-plane families ({chunks[0]})")
+    log(f"phase 22 result: every check passed; {smi}")
+
+
+def nbytes_of(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(r, f))
+               for r, _, fs in os.walk(path) for f in fs)
+
+
+def checkpoint_path(torch, np, mt, tt, lct_run, smi):
+    """Phase 23: save_sharded/load_sharded of an N² DenseVecMatrix with its
+    CRCs; config_lct's trainer stopped by a fault after step 2, resumed from
+    generation 2 through ResilientLoop (== phase 11's uninterrupted run, bit
+    for bit), and again past a corrupt generation 3; NeuralNetwork.train at
+    config_nn resumed alike; heartbeat over the card."""
+    import tempfile
+    import zlib
+
+    from marlin_tpu_torch.io import checkpoint as ck
+    from marlin_tpu_torch.ml import NeuralNetwork
+    from marlin_tpu_torch.utils import ResilientLoop, faults, heartbeat
+    from marlin_tpu_torch.utils.tracing import EventLog
+
+    log(f"phase 23: checkpoints and resume; {smi}")
+    with tempfile.TemporaryDirectory() as d:
+        m = mt.DenseVecMatrix.random(3, N, N)
+        path = os.path.join(d, "sharded")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        integ = ck.save_sharded(m, path)
+        save_s = time.perf_counter() - t0
+        for rel, rec in integ.items():
+            crc = 0
+            with open(os.path.join(path, rel), "rb") as f:
+                while chunk := f.read(1 << 24):
+                    crc = zlib.crc32(chunk, crc)
+            if (crc & 0xFFFFFFFF) != rec["crc32"]:
+                raise AssertionError(f"{rel}: CRC {crc} != {rec['crc32']}")
+        t0 = time.perf_counter()
+        back = ck.load_sharded(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        size = nbytes_of(path)
+        if not (back.device.type == "cuda" and torch.equal(back, m.logical())):
+            raise AssertionError("load_sharded differs from what was saved")
+        log(f"  save_sharded {N}^2 f32: {size / 1e9:.3f} GB in {save_s:.3f} s;"
+            f" load_sharded {load_s:.3f} s; CRCs verified, bit-identical")
+        del m, back
+        torch.cuda.empty_cache()
+
+        # config_lct: stopped after step 2, resumed through ResilientLoop
+        stream, params0, want_params, want_losses = lct_run
+        lct = tt.TransformerLM(**LCT)
+        cdir = os.path.join(d, "lct")
+        with faults.injected("ckpt.write", faults.RaiseFault(
+                match="ckpt_00000003")):
+            try:
+                lct.train(stream, steps=TRAIN_STEPS, params=params0,
+                          checkpoint_dir=cdir, checkpoint_every=1)
+            except faults.FaultInjected:
+                pass
+            else:
+                raise AssertionError("the injected fault did not stop it")
+        if ck.list_generations(cdir) != [1, 2]:
+            raise AssertionError(f"generations {ck.list_generations(cdir)}")
+        tokens = tt._ints(stream, "cuda")  # as TransformerLM.train has it
+
+        def step_fn(state, i):
+            p, o, loss = tt.lm_train_step(
+                state["params"], state["opt_state"], tokens, None,
+                LCT["heads"], lct.attn, lct.remat, lct.precision,
+                lct.learning_rate)
+            return {"params": p, "opt_state": o}, loss
+
+        template = {"params": params0, "opt_state": tt.adam_init(params0)}
+        for leg in ("resume from generation 2", "generation 3 corrupt"):
+            events = EventLog(os.path.join(d, f"events{len(leg)}.jsonl"))
+            t0 = time.perf_counter()
+            state, losses = ResilientLoop(
+                step_fn, cdir, checkpoint_every=1, event_log=events).run(
+                    template, TRAIN_STEPS)
+            dt = time.perf_counter() - t0
+            seq = [(e["kind"], e["step"]) for e in events.read()
+                   if e["kind"].startswith("resume")]
+            fp, fw = flat(state["params"]), flat(want_params)
+            same = all(torch.equal(fp[k], fw[k]) for k in fw)
+            log(f"  {leg}: events {seq}, step 3's loss {losses} (phase 11: "
+                f"{want_losses[2]}), params bit-identical: {same}; "
+                f"{dt:.3f} s")
+            if not (same and losses == want_losses[2:]):
+                raise AssertionError(f"{leg}: resumed run != uninterrupted")
+            want_seq = ([("resume", 2)] if leg.startswith("resume") else
+                        [("resume_skip", 3), ("resume", 2)])
+            if seq != want_seq:
+                raise AssertionError(f"{leg}: events {seq} != {want_seq}")
+            if leg.startswith("resume"):  # one flipped byte in generation 3
+                gen3 = os.path.join(cdir, "ckpt_00000003", "state.npz")
+                with open(gen3, "r+b") as f:
+                    f.seek(-20, os.SEEK_END)
+                    b = f.read(1)
+                    f.seek(-1, os.SEEK_CUR)
+                    f.write(bytes([b[0] ^ 0xFF]))
+        gsize = nbytes_of(os.path.join(cdir, "ckpt_00000002"))
+        t0 = time.perf_counter()
+        ck.save_checkpoint(template, os.path.join(d, "timing"), 1)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ck.load_checkpoint(template, os.path.join(d, "timing"))
+        torch.cuda.synchronize()
+        log(f"  config_lct state ({gsize / 1e6:.2f} MB a generation): "
+            f"save_checkpoint {save_s:.3f} s, load_checkpoint (CRCs checked) "
+            f"{time.perf_counter() - t0:.3f} s")
+
+        # config_nn through NeuralNetwork.train with checkpoint_dir
+        data = mt.DenseVecMatrix.random(0, NN["m"], NN["d"])
+        labels = np.arange(NN["m"]) % NN["classes"]
+        nn = NeuralNetwork(input_dim=NN["d"], hidden_dim=NN["hidden"],
+                           output_dim=NN["classes"])
+        kw = dict(batch_size=NN["batch"])
+        want_p, want_l = nn.train(data, labels, iterations=3, **kw)
+        ndir = os.path.join(d, "nn")
+        nn.train(data, labels, iterations=2, checkpoint_dir=ndir,
+                 checkpoint_every=1, **kw)
+        t0 = time.perf_counter()
+        got_p, got_l = nn.train(data, labels, iterations=3,
+                                checkpoint_dir=ndir, checkpoint_every=1,
+                                resume=True, **kw)
+        dt = time.perf_counter() - t0
+        same = all(torch.equal(got_p[k], want_p[k]) for k in want_p)
+        log(f"  NeuralNetwork.train at config_nn resumed from generation 2: "
+            f"loss {got_l} (uninterrupted {want_l[2:]}), params "
+            f"bit-identical: {same}; {dt:.3f} s with its save; a generation "
+            f"{nbytes_of(os.path.join(ndir, 'ckpt_00000003')) / 1e6:.2f} MB")
+        if not (same and got_l == want_l[2:]):
+            raise AssertionError("config_nn resumed run != uninterrupted")
+        del data
+    beats = heartbeat(timeout_s=60.0)
+    log(f"  heartbeat: {beats}")
+    if list(beats) != [f"cuda:{i}" for i in range(torch.cuda.device_count())]:
+        raise AssertionError(f"heartbeat {beats}")
+    log(f"phase 23 result: every check passed; {smi}")
+    torch.cuda.empty_cache()
+
+
+def lct_reference(torch, np, tt):
+    """Phase 11's uninterrupted run, for a run of phase 23 without phase 11:
+    (stream, initial params, params and losses after TRAIN_STEPS steps)."""
+    lct = tt.TransformerLM(**LCT)
+    stream = np.random.default_rng(0).integers(
+        0, LCT["vocab"], TRAIN_SEQ).astype(np.int32)
+    params0 = lct.init_params()
+    lct.train(stream, steps=1, params=params0)  # warm-up, as phase 11
+    params, losses = lct.train(stream, steps=TRAIN_STEPS, params=params0)
+    return stream, params0, params, losses
+
+
 def main() -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default=None,
+                    help="run the build, then only these of phases 19-23 "
+                         "(comma-separated; 20 runs 19 first), and print no "
+                         "result lines")
+    only = ap.parse_args().phases
+    only = None if only is None else {int(p) for p in only.split(",")}
+    if only is not None and not only <= {19, 20, 21, 22, 23}:
+        ap.error("--phases takes a subset of 19,20,21,22,23")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available", file=sys.stderr)
         return 2
@@ -2534,6 +3015,31 @@ def main() -> int:
             log("  " + line.strip())
 
     lap("phases 1-2")
+    if only is not None:
+        import numpy as np
+
+        from marlin_tpu_torch.models import transformer as tt
+        from marlin_tpu_torch.ops import paged_attention as pa
+
+        if only & {19, 20}:
+            mlp_params = ml_path(torch, np, mt, ops, smi)
+            lap("phase 19")
+        if 20 in only:
+            programs_path(torch, np, tt, pa, mlp_params, smi)
+            lap("phase 20")
+        if 21 in only:
+            out_of_core_path(torch, np, mt, smi)
+            lap("phase 21")
+        if 22 in only:
+            disk_path(torch, np, mt, smi)
+            lap("phase 22")
+        if 23 in only:
+            checkpoint_path(torch, np, mt, tt, lct_reference(torch, np, tt),
+                            smi)
+            lap("phase 23")
+        log(f"phases {sorted(only)}: every check passed in "
+            f"{time.perf_counter() - t_start:.1f} s")
+        return 0
     # ------------------------------------- 3. kernels against plain versions
     log("phase 3: kernels vs plain versions")
     ptxas_table(_build, "gemm.cu", "gemm_kernel",
@@ -2837,7 +3343,7 @@ def main() -> int:
     lap("phase 9")
     bwd_errs, bwd_worst = backward_checks(torch, fa, gen)
     lap("phase 10")
-    train_counts = train_path(torch, np, tt, fa, ops)
+    train_counts, lct_run = train_path(torch, np, tt, fa, ops)
     lap("phase 11")
     t = train_times(torch, fa, gen, _build)
     lap("phase 12")
@@ -2877,6 +3383,13 @@ def main() -> int:
     lap("phase 20")
     del mlp_params
     torch.cuda.empty_cache()
+    out_of_core_path(torch, np, mt, smi)
+    lap("phase 21")
+    disk_path(torch, np, mt, smi)
+    lap("phase 22")
+    checkpoint_path(torch, np, mt, tt, lct_run, smi)
+    del lct_run
+    lap("phase 23")
     paged_launches = path_counts["paged_decode_attention"] + \
         engine_launches + prog_split
     log(f"paged kernel launches on the main paths: split {paged_launches} "

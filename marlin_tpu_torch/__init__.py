@@ -19,8 +19,14 @@ SVD (``linalg/``), which the ``DenseMatrix`` methods reach; the serving
 engine's paged path (``serving/``); and Marlin's own ML workloads
 (``ml/``: ALS, the MLP trainer, logistic regression, PageRank) with the
 ALS, PageRank and classification programs the engine serves beside the LM,
-and the utils (``utils/``: timing and ``torch.profiler`` traces, retries,
-fault injection, the MTUtils factories).
+the utils (``utils/``: timing and ``torch.profiler`` traces, retries, fault
+injection, the MTUtils factories, ``ResilientLoop`` and ``heartbeat``); and
+the IO stack and out-of-core streaming: the text formats (``io/text.py``,
+``io/fs.py``), the MarlinChunk data plane over the port's own C++ libraries
+(``io/chunkstore.py``, ``native/``), MNIST idx files (``io/mnist.py``), the
+pinned-buffer prefetcher and the streamed Gramian and multiply
+(``parallel/{prefetch,streaming}.py``, ``matrix/out_of_core.py``), and
+checkpoints with resume (``io/checkpoint.py``, ``io/orbax_ckpt.py``).
 
 Quick start::
 
@@ -44,16 +50,27 @@ from .matrix import (  # noqa: F401
     SparseVecMatrix,
 )
 from .parallel import (  # noqa: F401
+    ChunkPrefetcher,
     attention_reference,
     matmul,
+    prefetch_chunks,
     ring_attention,
     rmm_matmul,
     split_method,
+    streamed_gramian,
+    streamed_matmul,
     tune_multiply,
     ulysses_attention,
 )
 from .linalg import cholesky_decompose, compute_svd, inverse, lanczos, lu_decompose  # noqa: F401
+from .io import (  # noqa: F401
+    load_block_matrix_file,
+    load_coordinate_matrix,
+    load_matrix_file,
+    load_svm_den_vec_matrix,
+    save_matrix,
+)
 from .utils import evaluate, timer  # noqa: F401
-from . import linalg, ml, random  # noqa: F401
+from . import io, linalg, ml, random  # noqa: F401
 
 __version__ = "0.1.0"

@@ -56,6 +56,42 @@ class MarlinConfig:
     autotune_cache_path: str | None = None
     # Device entry points create their tensors on: "cuda" or "cpu".
     device: str = "cuda"
+    # --- checkpoints (io/checkpoint.py) --------------------------------------
+    # Host-RAM ceiling (bytes) of the remote-shard download cache of
+    # load_sharded: a restore touching every saved shard re-downloads past
+    # this bound instead of holding the whole array on the host.
+    ckpt_cache_bytes: int = 1 << 30
+    # Retention: after each committed save, save_checkpoint prunes all but
+    # the newest ckpt_keep generations (0 = keep everything). ResilientLoop
+    # passes its own keep (default 3, its fall-back depth).
+    ckpt_keep: int = 0
+    # --- streaming prefetch (parallel/prefetch.py) ---------------------------
+    # Default of the streamed ops (streamed_matmul/streamed_gramian,
+    # OutOfCoreMatrix): False runs the read -> convert -> upload loop on the
+    # caller's thread.
+    prefetch_enabled: bool = True
+    # At most this many chunks read but not yet consumed (2 = double
+    # buffering: chunk i+1 is produced and copied while the card computes on
+    # chunk i).
+    prefetch_depth: int = 2
+    # Producer threads (reads stay serialized; more threads overlap the
+    # conversion and the pinned staging copy of several chunks).
+    prefetch_workers: int = 1
+    # In-flight device budget (bytes) of prefetched-but-unconsumed chunks; a
+    # producer waits before its host-to-device copy while the budget is full
+    # (one chunk always proceeds). 0 = depth alone bounds it.
+    prefetch_hbm_budget_bytes: int = 2 << 30
+    # --- native data plane (io/chunkstore.py) --------------------------------
+    # Reader threads per chunk-store read (the native mcs_read fans the
+    # touched chunks' CRC check and dtype conversion over them, outside the
+    # GIL). 1 = serial reads.
+    data_plane_threads: int = 4
+    # Staging dtype chunk-store reads convert into natively (None = the
+    # stored dtype). "bfloat16" makes chunks surface pre-compressed, so the
+    # streamed ops' host cast is a no-op and the H2D bytes halve.
+    data_plane_dtype: str | None = None
+    # CRC32C-check every touched chunk on read.
+    data_plane_verify: bool = True
     # --- serving engine (serving/engine.py) ----------------------------------
     # The JAX package's knobs and defaults (marlin_tpu/config.py), as far as
     # the port's paged engine reads them.

@@ -15,9 +15,9 @@ always zero* holds as in the JAX package: ops that would break it (scalar
 add, divides) re-mask.
 
 The factorizations, ``compute_svd``, ``solve`` and ``lr`` delegate to
-``marlin_tpu_torch.linalg`` and ``marlin_tpu_torch.ml``, as the JAX
-package's methods do. Not here yet (they reach IO or pandas):
-``to_dataframe`` and the ``save_*`` methods.
+``marlin_tpu_torch.linalg`` and ``marlin_tpu_torch.ml``, and the ``save_*``
+methods to ``marlin_tpu_torch.io``, as the JAX package's methods do;
+``to_dataframe`` imports pandas only when called.
 """
 
 from __future__ import annotations
@@ -515,6 +515,23 @@ class DenseMatrix(DistributedMatrix):
                                    iterations=iters).weights
 
     # ----------------------------------------------------------------- print
+    def to_dataframe(self):
+        """Collect to a pandas DataFrame (the Spark-SQL ``toDataFrame``
+        analog, DenseVecMatrix.scala:1381-1396); requires pandas."""
+        import pandas as pd
+
+        return pd.DataFrame(self.to_numpy())
+
+    def save_to_file_system(self, path: str, fmt: str = "text"):
+        from ..io import save_matrix
+
+        save_matrix(self, path, fmt=fmt)
+
+    def save_with_description(self, path: str, fmt: str = "text"):
+        from ..io import save_matrix
+
+        save_matrix(self, path, fmt=fmt, description=True)
+
     def print_matrix(self, max_rows: int = 10, max_cols: int = 10):
         """Truncated dump (DistributedMatrix.print, DenseVecMatrix.scala:1401-1408)."""
         arr = self.to_numpy()

@@ -13,9 +13,8 @@ duplicates summed. Sparse × dense goes through one of three formats
 (ops/sparse_ell.py) or ``"bsr"`` (ops/sparse_bsr.py, whose backend — the
 CUDA kernel or the chunked formulation — the autotune ranking picks).
 
-``CoordinateMatrix.als`` runs ``ml/als.py``. Not here yet:
-``CoordinateMatrix.save_to_file_system`` (with the IO modules, ROADMAP queue
-1 item 11), which raises ``NotImplementedError``.
+``CoordinateMatrix.als`` runs ``ml/als.py``; ``save_to_file_system`` writes
+``i j v`` text through the port's native writer.
 """
 
 from __future__ import annotations
@@ -131,9 +130,21 @@ class CoordinateMatrix:
                                 mesh=self.mesh)
 
     def save_to_file_system(self, path: str):
-        raise NotImplementedError(
-            "CoordinateMatrix.save_to_file_system comes with the IO modules "
-            "(ROADMAP queue 1 item 11)")
+        """Write ``i j v`` COO text — the format load_coordinate_matrix
+        parses (the reference ships a loader but no writer) — through the
+        native writer (textio.cpp ``mt_save_coo``), with a Python fallback
+        when the library is not built. Padding entries are never written."""
+        import os
+
+        from .. import native
+
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        ri, ci, vals = self.triplets()
+        if native.save_coo_text(path, ri, ci, vals):
+            return
+        with open(path, "w") as f:
+            for i, j, v in zip(ri, ci, vals):
+                f.write(f"{int(i)} {int(j)} {float(v)!r}\n")
 
     def als(self, rank: int, iterations: int = 10, lam: float = 0.01,
             seed: int = 0, **kwargs):

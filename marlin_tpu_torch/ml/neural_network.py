@@ -39,8 +39,6 @@ from ..ops.local import precision_scope
 __all__ = ["NeuralNetwork", "mlp_init", "mlp_forward", "mlp_loss",
            "train_step", "train_step_optax", "MomentumState"]
 
-_CKPT_ITEM = "ROADMAP queue 1 item 11"
-
 _ACTIVATIONS = {"sigmoid": torch.sigmoid, "relu": torch.relu,
                 "tanh": torch.tanh}
 
@@ -232,20 +230,21 @@ class NeuralNetwork:
     def train(self, data, labels, iterations: int = 100,
               batch_size: int = 256, params: dict | None = None,
               checkpoint_dir: str | None = None, checkpoint_every: int = 0,
-              log_every: int = 0, opt_state=None):
+              log_every: int = 0, opt_state=None, resume: bool = False):
         """Train; ``data`` is a DenseVecMatrix/BlockMatrix (rows = examples)
         or a tensor or array, ``labels`` an (m,) int vector one-hot encoded
         internally (or one-hot rows already). Returns (params, losses).
 
         With a non-SGD ``optimizer`` the final optimizer state is left on
-        ``self.last_opt_state`` and ``opt_state`` resumes from one.
-        ``checkpoint_dir`` needs the checkpoint module, which is not ported
-        yet: it raises."""
-        if checkpoint_dir:
-            raise NotImplementedError(
-                f"NeuralNetwork.train(checkpoint_dir=...) needs the "
-                f"checkpoint module, not ported yet — {_CKPT_ITEM}")
-        del checkpoint_every
+        ``self.last_opt_state`` and ``opt_state`` resumes from one. With
+        ``checkpoint_dir`` and ``checkpoint_every``, the params (with
+        ``optimizer="sgd"``) or ``{"params", "opt_state"}`` are saved as
+        generation ``it + 1`` after every ``checkpoint_every``-th step, as
+        the JAX package saves them. ``resume=True`` (the port's addition)
+        first restores the newest generation there that verifies, falling
+        back past corrupt ones, and runs the iterations after it with the
+        row samples an uninterrupted run would draw; ``losses`` then holds
+        those iterations' losses alone."""
         if self.optimizer != "sgd":
             _check_optimizer(self.optimizer)
         x = (data.logical() if hasattr(data, "logical")
@@ -264,7 +263,20 @@ class NeuralNetwork:
         use_optax = self.optimizer != "sgd"
         if use_optax and opt_state is None:
             opt_state = opt_init(self.optimizer, params)
-        for it in range(iterations):
+        start = 0
+        if checkpoint_dir and resume:
+            from ..utils.failure import restore_latest
+
+            state, start = restore_latest(
+                {"params": params, "opt_state": opt_state} if use_optax
+                else params, checkpoint_dir, who="NeuralNetwork.train")
+            if state is not None and use_optax:
+                params, opt_state = state["params"], state["opt_state"]
+            elif state is not None:
+                params = state
+            for _ in range(start):  # the keys of the iterations restored
+                key = threefry.split_words(key)[0]
+        for it in range(start, iterations):
             key, sub = threefry.split_words(key)
             if not use_optax:
                 params, loss = train_step(
@@ -278,6 +290,13 @@ class NeuralNetwork:
             if log_every and (it + 1) % log_every == 0:
                 print(f"iter {it + 1}: loss {float(loss):.6f}")
             losses.append(loss)
+            if checkpoint_dir and checkpoint_every and \
+                    (it + 1) % checkpoint_every == 0:
+                from ..io.checkpoint import save_checkpoint
+
+                save_checkpoint({"params": params, "opt_state": opt_state}
+                                if use_optax else params, checkpoint_dir,
+                                it + 1)
         self.last_opt_state = opt_state
         read = torch.stack(losses).cpu().tolist() if losses else []
         return params, [float(v) for v in read]

@@ -63,8 +63,6 @@ _NO_MOE = ("mixture-of-experts layers (models/moe.py) are not ported yet "
            "(ROADMAP queue 1 item 12)")
 _NO_OFFLOAD = ("offload_residuals (remat checkpoints parked in host memory) "
                "is not ported yet (ROADMAP queue 1 item 12)")
-_NO_CKPT = ("checkpoint_dir: the checkpoint subsystem (io/checkpoint.py) is "
-            "not ported yet (ROADMAP queue 1 item 11)")
 
 
 def synthetic_stream(seq: int, vocab: int = 64, seed: int = 0,
@@ -942,18 +940,34 @@ class TransformerLM:
 
     def train(self, tokens, steps: int = 20, mesh=None, params=None,
               checkpoint_dir: str | None = None, checkpoint_every: int = 0,
-              log_every: int = 0):
+              log_every: int = 0, resume: bool = False):
         """Train on one long token stream with Adam at ``learning_rate``
         (:func:`lm_train_step`); returns ``(params, losses)``. Params start
         from ``init_params()`` on the configured device unless given; the
-        tokens go to the params' device."""
-        if checkpoint_dir:
-            raise NotImplementedError(_NO_CKPT)
+        tokens go to the params' device.
+
+        With ``checkpoint_dir`` and ``checkpoint_every``, ``{"params",
+        "opt_state"}`` is saved as generation ``it + 1`` after every
+        ``checkpoint_every``-th step (:func:`~marlin_tpu_torch.io.checkpoint.
+        save_checkpoint`, the JAX package's layout). ``resume=True`` (the
+        port's addition: the JAX trainer only saves) first restores the
+        newest generation there that verifies, falling back past corrupt
+        ones, and runs the steps after it; ``losses`` then holds those
+        steps' losses alone."""
         params = params if params is not None else self.init_params()
         tokens = _ints(tokens, params["emb"].device)
         opt_state = adam_init(params)
+        start = 0
+        if checkpoint_dir and resume:
+            from ..utils.failure import restore_latest
+
+            state, start = restore_latest(
+                {"params": params, "opt_state": opt_state}, checkpoint_dir,
+                who="TransformerLM.train")
+            if state is not None:
+                params, opt_state = state["params"], state["opt_state"]
         losses = []
-        for it in range(steps):
+        for it in range(start, steps):
             params, opt_state, loss = lm_train_step(
                 params, opt_state, tokens, mesh, self.heads, self.attn,
                 self.remat, self.precision, self.learning_rate,
@@ -962,6 +976,12 @@ class TransformerLM:
             losses.append(float(loss))
             if log_every and (it + 1) % log_every == 0:
                 print(f"step {it + 1}: loss {losses[-1]:.4f}")
+            if checkpoint_dir and checkpoint_every and \
+                    (it + 1) % checkpoint_every == 0:
+                from ..io.checkpoint import save_checkpoint
+
+                save_checkpoint({"params": params, "opt_state": opt_state},
+                                checkpoint_dir, it + 1)
         return params, losses
 
     def generate(self, params, prompt, steps: int = 32,

@@ -160,9 +160,11 @@ def install_default_collectors(registry: MetricsRegistry | None = None,
                                ) -> None:
     """Everything a scrape endpoint should carry: the compile families, the
     device-memory/planner gauges, the program-cost/roofline collector
-    (obs/perf.py — ``marlin_program_*``) and the memory-ledger reconciler
+    (obs/perf.py — ``marlin_program_*``), the memory-ledger reconciler
     (obs/memledger.py — ``marlin_mem_*``, each scrape doubling as one
-    leak-detection window)."""
+    leak-detection window), and the prefetch family pre-registration (so a
+    serving-only process still exposes the prefetch series at zero instead
+    of omitting them)."""
     reg = registry if registry is not None else get_registry()
     install_compile_metrics(reg)
     install_device_memory_gauges(reg)
@@ -171,3 +173,9 @@ def install_default_collectors(registry: MetricsRegistry | None = None,
 
     install_program_costs(reg)
     install_memledger_gauges(reg)
+    if reg is get_registry():
+        # prefetch declares its families lazily on first pipeline; touch
+        # them so the series exist (at zero) on processes that never stream
+        from ..parallel import prefetch as _prefetch
+
+        _prefetch._metric_families()

@@ -1,6 +1,5 @@
-"""Timing, tracing, fault injection, retries and the MTUtils factories
-(counterpart of ``marlin_tpu/utils``; ``failure`` waits for the checkpoint
-module, ROADMAP queue 1 item 11)."""
+"""Timing, tracing, fault injection, retries, the MTUtils factories and
+checkpoint-based recovery (counterpart of ``marlin_tpu/utils``)."""
 
 from .profiling import timer, evaluate, StepTimer, StageTimes, trace  # noqa: F401
 from .tracing import (  # noqa: F401
@@ -13,6 +12,7 @@ from .tracing import (  # noqa: F401
 )
 from .retry import RetryPolicy, get_retry_policy, set_retry_policy  # noqa: F401
 from . import faults  # noqa: F401
+from .failure import NonFiniteLossError, ResilientLoop, heartbeat  # noqa: F401
 from .mtutils import (  # noqa: F401
     random_den_vec_matrix,
     random_block_matrix,

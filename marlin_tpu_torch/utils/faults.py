@@ -8,6 +8,25 @@ the JAX package's registry never sees it. The points the port fires:
 ==================  =========================================================
 point               fires from
 ==================  =========================================================
+``ckpt.write``      :func:`~marlin_tpu_torch.io.checkpoint.save_checkpoint`
+                    entry and each payload-file write (ctx carries ``path``);
+                    :meth:`~marlin_tpu_torch.io.orbax_ckpt.OrbaxCheckpointer.save`
+``ckpt.manifest``   just before an integrity/shard manifest write
+``fs.open``         :func:`~marlin_tpu_torch.io.fs.open_path` (every open;
+                    write handles also pass through :func:`wrap_file`)
+``fs.list``         :func:`~marlin_tpu_torch.io.fs.list_names`
+``step.run``        :class:`~marlin_tpu_torch.utils.failure.ResilientLoop`
+                    before each step (raise/delay) and on each metric
+                    (mutation)
+``device.probe``    each per-device probe in
+                    :func:`~marlin_tpu_torch.utils.failure.heartbeat`
+``prefetch.produce``
+                    :class:`~marlin_tpu_torch.parallel.prefetch.ChunkPrefetcher`
+                    before each source-chunk read (ctx carries
+                    ``path="chunk-<i>"``)
+``dataplane.read``  :meth:`~marlin_tpu_torch.io.chunkstore.ChunkStore.read_rows`
+                    before each native window read (ctx carries
+                    ``path="<store name>@<row>"`` and ``index=<row>``)
 ``serve.enqueue``   :meth:`~marlin_tpu_torch.serving.engine.ServeEngine.submit`
                     entry (ctx carries ``path=<rid>``) — a raise here
                     surfaces to the submitting caller

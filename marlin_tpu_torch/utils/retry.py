@@ -6,9 +6,9 @@ registry and EventLog.
 The reference leans on Spark/Hadoop client retries for every HDFS hiccup
 (SURVEY.md §5.3); the JAX package's remote-filesystem hook (io/fs.py) talks
 to object stores and network filesystems directly, so transient failures are
-this library's problem. :class:`RetryPolicy` is the one shared answer there;
-the port's IO modules (not ported yet, ROADMAP queue 1 item 11) will route
-through it too.
+this library's problem. :class:`RetryPolicy` is the one shared answer there,
+and the port's remote opens and listings (:mod:`marlin_tpu_torch.io.fs`)
+route through it too.
 
 Design points:
 

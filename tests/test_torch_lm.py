@@ -232,7 +232,7 @@ def test_lm_generate_batch_ragged_matches_jax(jparams, tparams, kw):
         assert got[b, :n + 7].tolist() == want[b, :n + 7].tolist()
 
 
-def test_facade_matches_jax(jparams, tparams):
+def test_facade_matches_jax(jparams, tparams, tmp_path):
     jlm = JaxLM(vocab=64, d_model=32, heads=HEADS, layers=2,
                 kv_heads=KV_HEADS, seed=11)
     tlm = tt.TransformerLM(vocab=64, d_model=32, heads=HEADS, layers=2,
@@ -246,14 +246,21 @@ def test_facade_matches_jax(jparams, tparams):
                     jlm.generate_batch(jparams, prompts, steps=4)):
         assert a.tolist() == np.asarray(b).tolist()
     # train: the first step's loss is the JAX package's lm_loss (training is
-    # held against JAX in tests/test_torch_train.py); checkpoints wait
+    # held against JAX in tests/test_torch_train.py); with checkpoint_dir the
+    # step's params and Adam state land as generation 1
     toks = np.arange(10) % 64
-    _, losses = tlm.train(toks, steps=1, params=tparams)
+    p1, losses = tlm.train(toks, steps=1, params=tparams,
+                           checkpoint_dir=str(tmp_path), checkpoint_every=1)
     want = jt.lm_loss(jparams, toks, jax_mesh.create_mesh((1, 1)),
                       heads=HEADS)
     np.testing.assert_allclose(losses[0], float(want), rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlm.train(toks, checkpoint_dir="ckpt")
+    from marlin_tpu_torch.io import checkpoint as tck
+
+    state, step = tck.load_checkpoint(
+        {"params": tparams, "opt_state": tt.adam_init(tparams)},
+        str(tmp_path))
+    assert step == 1 and state["opt_state"].count == 1
+    assert torch.equal(state["params"]["l1"]["wq"], p1["l1"]["wq"])
     assert tlm.init_params(device="cpu")["l1"]["wk"].shape == (32, 16)
 
 

@@ -475,14 +475,6 @@ def test_predict_and_accuracy(separable, tmp_path):
         interop.mlp_params_from_numpy({"w1": np.ones((2, 2))})
 
 
-def test_checkpoint_dir_refused(separable, tmp_path):
-    x, y = separable
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tnn.NeuralNetwork(32, 8, 4).train(x, y, iterations=2, batch_size=16,
-                                          checkpoint_dir=str(tmp_path),
-                                          checkpoint_every=1)
-
-
 @pytest.mark.parametrize("optimizer,lr", [("momentum", 0.3), ("adam", 0.01)])
 def test_opt_state_carried_from_jax(separable, optimizer, lr):
     """Three steps in the JAX package, then its params and optax state carried

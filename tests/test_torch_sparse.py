@@ -274,7 +274,7 @@ def test_multiply_sparse_matches_jax(jmesh):
                                atol=TOL)
 
 
-def test_coordinate_matrix_round_trips_match_jax(jmesh):
+def test_coordinate_matrix_round_trips_match_jax(jmesh, tmp_path):
     entries = [(0, 0, 1.0), (1, 2, 2.5), (3, 1, -1.0), (1, 2, 0.5)]
     jc = jmt.CoordinateMatrix.from_entries(entries, mesh=jmesh)
     tc = tmt.CoordinateMatrix.from_entries(entries)
@@ -301,8 +301,11 @@ def test_coordinate_matrix_round_trips_match_jax(jmesh):
         np.testing.assert_array_equal(got, want)
     assert tp.compact().nnz == jp.compact().nnz == 2
     np.testing.assert_array_equal(tp.to_numpy(), jp.to_numpy())
-    with pytest.raises(NotImplementedError, match="ROADMAP queue"):
-        tc.save_to_file_system("x")
+    # the COO writer writes the JAX package's bytes
+    tc.save_to_file_system(str(tmp_path / "t" / "coo.txt"))
+    jc.save_to_file_system(str(tmp_path / "j" / "coo.txt"))
+    assert (tmp_path / "t" / "coo.txt").read_bytes() == \
+        (tmp_path / "j" / "coo.txt").read_bytes()
     # als runs ml/als.py in both packages (duplicate entries included);
     # factors within 2e-4, tests/test_torch_ml.py's ALS tolerance
     tals, jals = tc.als(2, iterations=3), jc.als(2, iterations=3)
