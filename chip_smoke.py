@@ -172,8 +172,28 @@ drives the ported paths end to end through the public entry points:
   back to generation 2); ``NeuralNetwork.train(checkpoint_dir=...)`` at
   ``config_nn`` for 3 steps with a resume, equal to the uninterrupted run;
   ``heartbeat()`` over the card; each save's and load's wall time and bytes.
+- phase 24: the port's example CLIs (``marlin_tpu_torch/examples/``)
+  in-process, every kernel's launch count set to 0 before each and read
+  after: ``matrix_multiply 20000 20000 20000 1`` (BASELINE.md config 3; C on
+  sampled rows against f64, its GFLOP/s beside ``torch.matmul``'s, its
+  ``rmm_matmul`` cost row), ``--files`` and ``lu_decompose`` on files of
+  ``tools/genmat.cpp`` (built with g++; the product against f64, LU's
+  componentwise backward error), ``blas1``, ``blas3`` (a ``2 2 2`` split
+  refused at world size 1), ``rmm_compare`` ``all`` and ``tuned`` (a
+  ``multiply`` cost row per timed strategy with flops 2mkn, and the
+  strategies' ``*_matmul`` rows), ``sparse_multiply`` modes 1-6 and mode 7
+  at block density 0.05 on 32768² (the BSR kernel launched; sampled rows
+  against f64), ``logistic_regression``, ``pagerank``, ``als``,
+  ``neural_network``, ``distributed_training``, ``attention 16384 128 1 8``
+  under ``ring`` and ``ulysses`` (the flash forward launched),
+  ``long_context_training`` at ``config_lct``'s widths (the forward and
+  both backward kernels launched) and ``decode_serving`` at
+  ``config_decode``'s (greedy batched rows == one-at-a-time); then
+  ``obs.console.main(["--url", url, "--once"])`` against a live
+  ``ServeEngine``'s ``MetricsServer``: return code 0, the engine's gauges
+  and the memory panel in the frame.
 
-``python3 chip_smoke.py --phases 21,22,23`` (any subset of phases 19-23;
+``python3 chip_smoke.py --phases 21,22,23`` (any subset of phases 19-24;
 20 runs 19 first) builds the kernels and runs only those phases, printing no
 result lines.
 
@@ -394,6 +414,30 @@ PREFETCH_FAMILIES = (
     "marlin_prefetch_chunks_total", "marlin_prefetch_stall_seconds_total",
     "marlin_prefetch_ready_depth", "marlin_prefetch_inflight_bytes",
     "marlin_dataplane_chunks_total", "marlin_dataplane_bytes_total")
+
+# phase 24: the port's example CLIs in-process. The main paths at full width:
+# BASELINE.md config 3, attention at the serving forward's 16384 tokens,
+# config_lct's widths, config_decode's, and sparse mode 7 at a block density
+# near config_bsr's (3276 of 65536 blocks of 128: one nonzero each of
+# 32768^2 * 3.05e-6); the other CLIs at the sizes PERF.md states
+CLI_MM = (str(N), str(N), str(N), "1")
+CLI_ATTN = ("16384", "128", "1", "8")
+CLI_LCT = (str(TRAIN_SEQ), str(TRAIN_STEPS), str(LCT["d_model"]),
+           str(LCT["heads"]), str(LCT["layers"]), "ring")
+CLI_DECODE = (str(ROWS), str(PROMPT), str(DECODE_STEPS), str(LM["d_model"]),
+              str(LM["heads"]), str(LM["layers"]))
+CLI_BSR = ("32768", "32768", "256", "3.05e-6", "7")
+CLI_SPARSE = ("8192", "8192", "256", "0.001")
+CLI_BLAS1_N, CLI_BLAS3_N, CLI_RMM_N = 1 << 24, 4096, 4096
+CLI_LR = ("100", "1.0", "65536", "784")
+CLI_PR_NODES = 100_000
+CLI_GENMAT_N, CLI_LU_N = 2048, 1024
+# LU from a genmat file (uniform [0, 5), no diagonal shift): componentwise
+# backward error max |A[perm] - L U| / (|L| |U|) per element. Its growth
+# factor puts |L||U| some 1000x above |A|, so a bound relative to max |A|
+# would only measure the growth; the port's CPU run at 1024 read 2.4e-7
+LU_BWD_TOL = 1e-5
+CLI_ALS = dict(users=10_000, items=2_000, nnz=200_000, rank=16, iters=5)
 
 
 def log(msg: str) -> None:
@@ -2948,6 +2992,314 @@ def checkpoint_path(torch, np, mt, tt, lct_run, smi):
     torch.cuda.empty_cache()
 
 
+def cli_path(torch, np, mt, ops, pa, smi) -> dict:
+    """Phase 24: the port's example CLIs (``marlin_tpu_torch/examples/``)
+    in-process on the card, each with every kernel's launch count set to 0
+    just before it and read just after, and the ops console against a live
+    engine. Returns the launches of the kernels on these paths."""
+    import contextlib
+    import io
+    import tempfile
+    import urllib.request
+
+    from marlin_tpu_torch import obs
+    from marlin_tpu_torch.examples import neural_network as nn_cli
+    from marlin_tpu_torch.models import TransformerLM
+    from marlin_tpu_torch.obs import console, perf
+    from marlin_tpu_torch.parallel import autotune
+    from marlin_tpu_torch.serving import Request, ServeEngine
+
+    log("phase 24: the example CLIs (marlin_tpu_torch.examples) in-process")
+    dev = mt.config.resolve_device()
+    launched = {}
+
+    def run(name, *args):
+        """Run one CLI's main with the counts at 0; log its stdout and its
+        launches; returns (value, stdout lines, launches)."""
+        import importlib
+
+        main = importlib.import_module(
+            f"marlin_tpu_torch.examples.{name}").main
+        buf = io.StringIO()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                value = main(list(args))
+        finally:
+            lines = buf.getvalue().splitlines()
+            for ln in lines:
+                log(f"    | {ln}")
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        log(f"  {name} {' '.join(args)}: {time.perf_counter() - t0:.2f} s, "
+            f"launches {counts or 'none'}")
+        return value, lines, counts
+
+    def expect(counts, *kernels):
+        for k in kernels:
+            if counts.get(k, 0) <= 0:
+                raise AssertionError(f"phase 24: {k} never launched")
+            launched[k] = launched.get(k, 0) + counts[k]
+
+    def rows_close(label, got_rows, ref_rows, tol=F64_TOL):
+        scale = float(ref_rows.abs().max())
+        err = float((got_rows.double() - ref_rows).abs().max()) / scale
+        log(f"  {label}: max rel err {err:.3e} (tol {tol})")
+        if not err <= tol:
+            raise AssertionError(f"{label}: rel err {err} > {tol}")
+
+    perf.get_program_costs().reset()
+    # --------------------------------------- the north-star multiply
+    c, lines, counts = run("matrix_multiply", *CLI_MM)
+    gflops = float(lines[1].split()[1])
+    a = mt.DenseVecMatrix.random(0, N, N)
+    b = mt.DenseVecMatrix.random(1, N, N)
+    if c.shape != (N, N) or not bool(torch.isfinite(c.data).all()):
+        raise AssertionError("matrix_multiply: bad shape or non-finite C")
+    rows = torch.tensor([0, 1, N // 2 - 1, N - 1], device=dev)
+    rows_close("matrix_multiply C vs f64 on 4 rows", c.data[rows],
+               a.data[rows].double() @ b.data.double())
+    lib_ms = cuda_ms(torch, lambda: torch.matmul(a.data, b.data), 2)
+    log(f"  matrix_multiply {N}^3: {gflops:.1f} GFLOP/s (host clock, one "
+        f"call to evaluate); torch.matmul {2.0 * N ** 3 / lib_ms / 1e6:.1f} "
+        f"GFLOP/s ({lib_ms:.3f} ms, CUDA events); {smi}")
+    key = f"shape={N}x{N}x{N} dtype=float32"
+    hooked = [r["program"] for r in perf.get_program_costs().rows()
+              if r["key"].startswith(key)]
+    # the auto dispatch: broadcast under the threshold, else CARMA RMM
+    small = N * N * 4 / 1e6 <= mt.get_config().broadcast_threshold_mb
+    if hooked != ["broadcast_matmul" if small else "rmm_matmul"]:
+        raise AssertionError(f"matrix_multiply: cost rows {hooked}")
+    del a, b, c
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as d:
+        # ------------------------------- genmat's files: --files and LU
+        exe = os.path.join(d, "genmat")
+        build = subprocess.run(
+            ["g++", "-O2", "-std=c++17", "-Wall", "-o", exe,
+             os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "tools", "genmat.cpp")],
+            capture_output=True, text=True, timeout=120)
+        if build.returncode != 0:
+            raise AssertionError(f"genmat build failed: {build.stderr}")
+        paths = {}
+        for label, n, seed in (("a", CLI_GENMAT_N, 1), ("b", CLI_GENMAT_N, 2),
+                               ("lu", CLI_LU_N, 3)):
+            paths[label] = os.path.join(d, f"{label}.txt")
+            with open(paths[label], "w") as f:
+                subprocess.run([exe, str(n), str(n), str(seed)], stdout=f,
+                               check=True, timeout=120)
+        c, _, _ = run("matrix_multiply", "--files", paths["a"], paths["b"])
+        fa_, fb_ = (mt.load_matrix_file(paths[k]).data for k in "ab")
+        rows_close("matrix_multiply --files vs f64", c.data,
+                   fa_.double() @ fb_.double())
+        del c, fa_, fb_
+        out = os.path.join(d, "lu")
+        run("lu_decompose", paths["lu"], str(CLI_LU_N), str(CLI_LU_N), out)
+        a = mt.load_matrix_file(paths["lu"]).data.double()
+        lo, up = (mt.load_matrix_file(f"{out}.{k}").data.double()
+                  for k in "LU")
+        with open(f"{out}.perm") as f:
+            perm = torch.tensor([int(x) for x in f.read().split(",")],
+                                device=dev)
+        if sorted(perm.tolist()) != list(range(CLI_LU_N)):
+            raise AssertionError("lu_decompose: .perm is no permutation")
+        bwd = float(((a[perm] - lo @ up).abs()
+                     / (lo.abs() @ up.abs()).clamp_min(1e-300)).max())
+        log(f"  lu_decompose {CLI_LU_N}^2 genmat file: componentwise "
+            f"backward error {bwd:.3e} (tol {LU_BWD_TOL})")
+        if not bwd <= LU_BWD_TOL:
+            raise AssertionError(f"lu_decompose: backward error {bwd}")
+        del a, lo, up
+
+        # --------------------------------------------- blas1, blas3
+        n1 = CLI_BLAS1_N
+        x = mt.DistributedVector.random(0, n1, column_major=False).data
+        y = mt.DistributedVector.random(1, n1).data
+        want = float(x.double() @ y.double())
+        for mode in ("local", "dist"):
+            got, _, _ = run("blas1", mode, str(n1), "1")
+            err = abs(got - want) / abs(want)
+            if not err <= F64_TOL:
+                raise AssertionError(f"blas1 {mode}: rel err {err}")
+        log(f"  blas1 vs f64: {want:.3f}")
+        del x, y
+        n3 = str(CLI_BLAS3_N)
+        for mode in "123":
+            _, lines, _ = run("blas3", n3, n3, n3, mode)
+            if not lines or "used" not in lines[0]:
+                raise AssertionError(f"blas3 {mode}: {lines}")
+        try:
+            run("blas3", n3, n3, n3, "3", "2", "2", "2")
+        except ValueError as e:
+            if "needs 8 devices, have 1" not in str(e):
+                raise
+            log(f"  blas3 split 2 2 2 refused at world size 1: {e}")
+        else:
+            raise AssertionError("blas3: split 2 2 2 ran on one device")
+
+        # ------------------------------------- rmm_compare, the hooks
+        perf.get_program_costs().reset()
+        nr = str(CLI_RMM_N)
+        timings, _, _ = run("rmm_compare", nr, nr, nr, "all")
+        if set(timings) != {"rmm", "gspmd", "broadcast"}:
+            raise AssertionError(f"rmm_compare all: {timings}")
+        autotune.clear_cache()
+        table, _, _ = run("rmm_compare", nr, nr, nr, "tuned")
+        cost_rows = perf.get_program_costs().rows()
+        mult = {r["key"].split()[0].split("=")[1]: r for r in cost_rows
+                if r["program"] == "multiply"}
+        if set(mult) != set(table) or any(
+                r["flops"] != 2.0 * CLI_RMM_N ** 3 or r["calls"] < 1
+                for r in mult.values()):
+            raise AssertionError(f"tune_multiply rows: {sorted(mult)} for "
+                                 f"{sorted(table)}")
+        progs = sorted({r["program"] for r in cost_rows
+                        if r["program"].endswith("_matmul")})
+        if progs != ["broadcast_matmul", "gspmd_matmul", "rmm_matmul"]:
+            raise AssertionError(f"matmul cost rows: {progs}")
+        for r in sorted(mult.values(), key=lambda r: r["seconds_per_call"]):
+            log(f"  ProgramCosts multiply {r['key']}: "
+                f"{r['seconds_per_call'] * 1e3:.3f} ms a call, "
+                f"{r['achieved_flops_per_s'] / 1e12:.2f} TFLOP/s, roofline "
+                f"fraction {r['roofline_frac']}")
+        log(f"  matmul cost rows: {progs}")
+
+        # ------------------------------------------ sparse, modes 1-7
+        for mode in "123456":
+            _, lines, _ = run("sparse_multiply", *CLI_SPARSE, mode)
+            if not lines or "millis" not in lines[0]:
+                raise AssertionError(f"sparse_multiply {mode}: {lines}")
+        autotune.clear_cache()
+        _, lines, counts = run("sparse_multiply", *CLI_BSR)
+        expect(counts, "bsr_spmm_pallas")
+        n_b, p_b = int(CLI_BSR[0]), int(CLI_BSR[2])
+        sa = mt.SparseVecMatrix.random(0, n_b, n_b, density=float(CLI_BSR[3]))
+        db = mt.BlockMatrix.random(1, n_b, p_b)
+        bsr = sa.to_bsr()
+        if not abs(bsr.density - BSR_DENSITY) <= 0.01:
+            raise AssertionError(f"mode 7: block density {bsr.density}")
+        c = sa.multiply(db, format="bsr").logical()  # the tuned winner
+        idx = sa.bcoo.coalesce().indices()
+        vals = sa.bcoo.coalesce().values().double()
+        pick = torch.tensor([0, 1, n_b // 2 + 1, n_b - 1] + idx[0, :4].tolist(),
+                            device=dev)
+        ref = torch.zeros((len(pick), p_b), dtype=torch.float64, device=dev)
+        for i, r in enumerate(pick.tolist()):
+            sel = idx[0] == r
+            ref[i] = vals[sel] @ db.logical()[idx[1, sel]].double()
+        rows_close(f"sparse_multiply 7 (nnzb {bsr.nnzb}, block density "
+                   f"{bsr.density:.4f}) vs f64 on {len(pick)} rows",
+                   c[pick], ref)
+        del sa, db, bsr, c
+
+        # ---------------------------------------------------------- ml
+        _, lines, _ = run("logistic_regression", *CLI_LR)
+        acc = float(lines[0].split()[-1])
+        if not acc > 0.9:
+            raise AssertionError(f"logistic_regression: accuracy {acc}")
+        edges = os.path.join(d, "edges.txt")
+        with open(edges, "w") as f:
+            f.write("0 1\n1 2\n2 0\n2 1\n")
+        for args in ((edges, "30"), ("random", "20", str(CLI_PR_NODES))):
+            _, lines, _ = run("pagerank", *args)
+            top = [float(ln.split()[-1]) for ln in lines
+                   if ln.startswith("node")]
+            if not top or not all(0 < r < 1 for r in top) or \
+                    top != sorted(top, reverse=True):
+                raise AssertionError(f"pagerank {args}: top ranks {top}")
+        rng = np.random.default_rng(5)
+        u = rng.random((CLI_ALS["users"], 4))
+        v = rng.random((CLI_ALS["items"], 4))
+        ui = rng.integers(0, CLI_ALS["users"], CLI_ALS["nnz"])
+        ii = rng.integers(0, CLI_ALS["items"], CLI_ALS["nnz"])
+        r_ = np.einsum("nk,nk->n", u[ui], v[ii])
+        ratings = os.path.join(d, "ratings.txt")
+        np.savetxt(ratings, np.stack([ui, ii, r_], 1), fmt="%d %d %.4f")
+        _, lines, _ = run("als", ratings, str(CLI_ALS["rank"]),
+                          str(CLI_ALS["iters"]), "0.01")
+        rmse = float(lines[-1].split()[-1])
+        if not 0 <= rmse < 0.5 * float(np.std(r_)):
+            raise AssertionError(f"als: RMSE {rmse}, ratings std "
+                                 f"{np.std(r_):.4f}")
+        nn_cli.WEIGHTS = os.path.join(d, "nn_weights")
+        _, lines, _ = run("neural_network", "synthetic", "-", "200", "100",
+                          "0.5", "256")
+        if not os.path.exists(nn_cli.WEIGHTS + ".w0.csv") or \
+                not math.isfinite(float(lines[-2].split("final loss ")[1]
+                                        .split(",")[0])):
+            raise AssertionError(f"neural_network: {lines[-2:]}")
+        _, lines, _ = run("distributed_training", "200", "64", "256",
+                          os.path.join(d, "dist_train"))
+        if lines[0] != ("mesh: 1 data-parallel x 1 tensor-parallel over 1 "
+                        "devices") or "accuracy" not in lines[1]:
+            raise AssertionError(f"distributed_training: {lines}")
+
+    # ---------------------------------------- attention and the LM paths
+    for strategy in ("ring", "ulysses"):
+        _, lines, counts = run("attention", *CLI_ATTN, strategy)
+        expect(counts, "flash_attention_panel")
+        if f"{strategy}:" not in lines[0] or "GFLOP/s" not in lines[0]:
+            raise AssertionError(f"attention {strategy}: {lines}")
+    losses, lines, counts = run("long_context_training", *CLI_LCT)
+    expect(counts, "flash_attention_panel", "flash_attention_bwd_dkv",
+           "flash_attention_bwd_dq")
+    if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"long_context_training: losses {losses}")
+    # its 30 training steps on a 4096-token stream run the flash kernels too
+    outs, lines, counts = run("decode_serving", *CLI_DECODE)
+    expect(counts, "flash_attention_panel", "flash_attention_bwd_dkv",
+           "flash_attention_bwd_dq")
+    for i, row in enumerate(outs):
+        if len(row) != PROMPT - i + DECODE_STEPS or not (
+                (row >= 0) & (row < 512)).all():
+            raise AssertionError(f"decode_serving: row {i} bad")
+    log(f"  decode_serving: {len(outs)} ragged rows, greedy batched == "
+        f"one-at-a-time")
+    torch.cuda.empty_cache()
+
+    # ------------------------------- the ops console against a live engine
+    params = TransformerLM(**LM).init_params()
+    rng = np.random.default_rng(24)
+    ops.reset_launch_counts()
+    combine0 = pa.paged_decode_attention.combine_launches
+    with ServeEngine(params, LM["heads"], buckets=((PROMPT, 64),),
+                     max_batch=ROWS, page_len=PAGE_LEN) as eng:
+        hs = [eng.submit(Request(prompt=rng.integers(
+            0, LM["vocab"], 64).astype(np.int32), steps=16))
+            for _ in range(ROWS)]
+        for h in hs:
+            h.result(timeout=ENGINE_WAIT_S)
+        with obs.MetricsServer(port=0) as srv:
+            url = f"http://127.0.0.1:{srv.port}"
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = console.main(["--url", url, "--once"])
+            frame = buf.getvalue()
+            metrics = console.parse_metrics(urllib.request.urlopen(
+                url + "/metrics", timeout=10).read().decode())
+    counts = ops.launch_counts()
+    combines = pa.paged_decode_attention.combine_launches - combine0
+    for ln in frame.splitlines():
+        log(f"    | {ln}")
+    pages = console.metric_value(metrics, "marlin_serve_kv_pages_total")
+    if rc != 0 or not pages > 0 or \
+            f"/{int(pages)}" not in frame.split("process gauges:")[1] or \
+            "memory: registered=" not in frame or "kvpool" not in frame:
+        raise AssertionError(f"console: rc {rc}, pages {pages}, frame "
+                             f"{frame!r}")
+    expect(counts, "paged_decode_attention")
+    launched["paged_combine"] = combines
+    log(f"  console --once: rc 0, the engine's gauges (pages total "
+        f"{int(pages)}) and the memory panel; paged launches "
+        f"{counts['paged_decode_attention']} split + {combines} combine")
+    log(f"phase 24 launches: {launched}")
+    return launched
+
+
 def lct_reference(torch, np, tt):
     """Phase 11's uninterrupted run, for a run of phase 23 without phase 11:
     (stream, initial params, params and losses after TRAIN_STEPS steps)."""
@@ -2967,13 +3319,13 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=None,
-                    help="run the build, then only these of phases 19-23 "
+                    help="run the build, then only these of phases 19-24 "
                          "(comma-separated; 20 runs 19 first), and print no "
                          "result lines")
     only = ap.parse_args().phases
     only = None if only is None else {int(p) for p in only.split(",")}
-    if only is not None and not only <= {19, 20, 21, 22, 23}:
-        ap.error("--phases takes a subset of 19,20,21,22,23")
+    if only is not None and not only <= {19, 20, 21, 22, 23, 24}:
+        ap.error("--phases takes a subset of 19,20,21,22,23,24")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available", file=sys.stderr)
         return 2
@@ -3037,6 +3389,9 @@ def main() -> int:
             checkpoint_path(torch, np, mt, tt, lct_reference(torch, np, tt),
                             smi)
             lap("phase 23")
+        if 24 in only:
+            cli_path(torch, np, mt, ops, pa, smi)
+            lap("phase 24")
         log(f"phases {sorted(only)}: every check passed in "
             f"{time.perf_counter() - t_start:.1f} s")
         return 0
@@ -3390,14 +3745,24 @@ def main() -> int:
     checkpoint_path(torch, np, mt, tt, lct_run, smi)
     del lct_run
     lap("phase 23")
+    cli = cli_path(torch, np, mt, ops, pa, smi)
+    lap("phase 24")
     paged_launches = path_counts["paged_decode_attention"] + \
-        engine_launches + prog_split
+        engine_launches + prog_split + cli["paged_decode_attention"]
     log(f"paged kernel launches on the main paths: split {paged_launches} "
         f"(phase 8 {path_counts['paged_decode_attention']}, phase 18 "
-        f"{engine_launches}, phase 20 {prog_split}); combine "
-        f"{paged_combines + engine_combines + prog_combines} (phase 8 "
-        f"{paged_combines}, phase 18 {engine_combines}, phase 20 "
-        f"{prog_combines})")
+        f"{engine_launches}, phase 20 {prog_split}, phase 24 "
+        f"{cli['paged_decode_attention']}); combine "
+        f"{paged_combines + engine_combines + prog_combines + cli['paged_combine']}"
+        f" (phase 8 {paged_combines}, phase 18 {engine_combines}, phase 20 "
+        f"{prog_combines}, phase 24 {cli['paged_combine']})")
+    for kname, before in (
+            ("flash_attention_panel", path_counts["flash_attention_panel"]),
+            ("flash_attention_bwd_dkv", train_counts["flash_attention_bwd_dkv"]),
+            ("flash_attention_bwd_dq", train_counts["flash_attention_bwd_dq"]),
+            ("bsr_spmm_pallas", sparse_counts["bsr_spmm_pallas"])):
+        log(f"{kname} launches on the main paths: {before + cli[kname]} "
+            f"(phases 8/11/14 {before}, phase 24 {cli[kname]})")
 
     # ---------------------------------------------------- kernels line
     kernels = [
@@ -3422,14 +3787,16 @@ def main() -> int:
         {"name": "flash_attention_panel", "route": "cuda",
          "source": "marlin_tpu_torch/csrc/flash_attention.cuh",
          "replaces": "marlin_tpu/ops/flash_attention.py:93",
-         "launches": path_counts["flash_attention_panel"],
+         "launches": path_counts["flash_attention_panel"]
+         + cli["flash_attention_panel"],
          "max_abs_err": flash_err, "ms": tf["ms"], "plain_ms": tf["plain"],
          "bound_ms": tf["bound"], "bound_by": "operations",
          "library_ms": tf["lib"]},
         {"name": "flash_attention_bwd_dkv", "route": "cuda",
          "source": "marlin_tpu_torch/csrc/flash_attention_bwd.cu",
          "replaces": "marlin_tpu/ops/flash_attention.py:195",
-         "launches": train_counts["flash_attention_bwd_dkv"],
+         "launches": train_counts["flash_attention_bwd_dkv"]
+         + cli["flash_attention_bwd_dkv"],
          "max_abs_err": max(bwd_errs["dk"], bwd_errs["dv"]),
          "ms": t["ms_dkv"], "plain_ms": t["plain_bwd"],
          "bound_ms": t["bound_dkv"], "bound_by": "operations",
@@ -3437,7 +3804,8 @@ def main() -> int:
         {"name": "flash_attention_bwd_dq", "route": "cuda",
          "source": "marlin_tpu_torch/csrc/flash_attention_bwd.cu",
          "replaces": "marlin_tpu/ops/flash_attention.py:232",
-         "launches": train_counts["flash_attention_bwd_dq"],
+         "launches": train_counts["flash_attention_bwd_dq"]
+         + cli["flash_attention_bwd_dq"],
          "max_abs_err": bwd_errs["dq"], "ms": t["ms_dq"],
          "plain_ms": t["plain_bwd"], "bound_ms": t["bound_dq"],
          "bound_by": "operations",
@@ -3445,7 +3813,8 @@ def main() -> int:
         {"name": "bsr_spmm_pallas", "route": "cuda",
          "source": "marlin_tpu_torch/csrc/bsr_spmm.cu",
          "replaces": "marlin_tpu/ops/sparse_bsr.py:203",
-         "launches": sparse_counts["bsr_spmm_pallas"],
+         "launches": sparse_counts["bsr_spmm_pallas"]
+         + cli["bsr_spmm_pallas"],
          "max_abs_err": bsr_err, "ms": tb["ms"], "plain_ms": tb["plain"],
          "bound_ms": tb["bound"], "bound_by": "operations",
          "library_ms": tb["lib"]},

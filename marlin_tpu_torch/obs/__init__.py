@@ -2,15 +2,14 @@
 
 Counterpart of ``marlin_tpu/obs/``. Copied (stdlib-only in the JAX package
 too): :mod:`~marlin_tpu_torch.obs.trace`, :mod:`~marlin_tpu_torch.obs.metrics`,
-:mod:`~marlin_tpu_torch.obs.report` and
-:mod:`~marlin_tpu_torch.obs.exposition`. Rewritten on their device side:
+:mod:`~marlin_tpu_torch.obs.report`, :mod:`~marlin_tpu_torch.obs.exposition`
+and :mod:`~marlin_tpu_torch.obs.console`. Rewritten on their device side:
 :mod:`~marlin_tpu_torch.obs.perf` (a per-GPU peak table, analytic program
 costs, ``torch.profiler`` captures), :mod:`~marlin_tpu_torch.obs.memledger`
 (``torch.cuda.memory_allocated`` as the live view, no TPU calibration
 table) and :mod:`~marlin_tpu_torch.obs.collectors` (kernel builds as the
-compile tally, ``torch.cuda.memory_stats`` gauges). The SLO engine, the
-time-series store and the ops console wait for the serving supervisor
-(ROADMAP).
+compile tally, ``torch.cuda.memory_stats`` gauges). The SLO engine and the
+time-series store wait for the serving supervisor (ROADMAP queue 1 item 9).
 
 - :mod:`~marlin_tpu_torch.obs.metrics` — thread-safe process-global registry
   of labeled ``Counter``/``Gauge``/``Histogram`` families with Prometheus
@@ -22,6 +21,9 @@ time-series store and the ops console wait for the serving supervisor
   EventLog record carries ``trace_id``/``span_id``/``parent_id``.
 - :mod:`~marlin_tpu_torch.obs.report` — the post-hoc analyzer
   (``python -m marlin_tpu_torch.obs.report events.jsonl``).
+- :mod:`~marlin_tpu_torch.obs.console` — live terminal ops console
+  (``python -m marlin_tpu_torch.obs.console``) polling ``/metrics`` +
+  ``/debug/slo`` (copied, stdlib-only).
 - :mod:`~marlin_tpu_torch.obs.memledger` — per-component device-memory
   attribution, the reconciler, admission calibration, leak detection and
   OOM forensics.

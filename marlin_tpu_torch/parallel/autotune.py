@@ -25,10 +25,20 @@ counts candidates whose rounds overlap the fastest's as tied (see
 :func:`tune_bsr`): at ``bench_all.py`` ``config_bsr``'s shape the kernel and
 the best chunk size lie within a few per cent of each other, where two
 host-clock repetitions ranked them in either order from one run to the next.
+
+Accounting, as in the JAX package: every timed candidate lands in the
+process ``ProgramCosts`` registry (``obs/perf.py``) under program
+``"multiply"``, ``"gemm"`` or ``"bsr_spmm"`` with the problem's analytic
+cost and the time this module measured, and one ``emit`` per tune writes the
+utilization snapshots; the candidate result buffer is held in the memory
+ledger under component ``autotune`` for the timing window. Neither can fail
+a tune, and neither changes what is timed or how it ranks.
 """
 
 from __future__ import annotations
 
+import contextlib
+import itertools
 import json
 import os
 import platform
@@ -47,6 +57,49 @@ __all__ = ["tune_multiply", "best_strategy", "tune_gemm", "best_gemm",
            "tune_bsr", "best_bsr_strategy", "clear_cache"]
 
 _CACHE: dict[tuple, str] = {}
+
+_scratch_ids = itertools.count()
+
+
+@contextlib.contextmanager
+def _scratch_accounted(tag: str, nbytes: int):
+    """Account tuning-time scratch (the candidate result buffer held live
+    across the timing loop) in the process MemoryLedger, component
+    ``autotune``, for exactly the measurement window. Accounting never fails
+    a tune."""
+    name = f"autotune:{tag}#{next(_scratch_ids)}"
+    led = None
+    try:
+        from ..obs.memledger import get_ledger
+
+        led = get_ledger()
+        led.register(name, max(int(nbytes), 0), "autotune")
+    except Exception:
+        led = None
+    try:
+        yield
+    finally:
+        if led is not None:
+            try:
+                led.free(name, strict=False)
+            except Exception:
+                pass
+
+
+def _land(program: str, analytic: dict, timed) -> None:
+    """Land each timed candidate in ProgramCosts — ``timed`` holds
+    ``(key, total seconds, calls)`` — with the problem's analytic cost, then
+    emit the program's utilization snapshots once. Never raises."""
+    from ..obs import perf
+
+    try:
+        costs = perf.get_program_costs()
+        for key, seconds, calls in timed:
+            costs.capture(program, key, cost=analytic)
+            costs.observe(program, key, seconds, calls=calls)
+        costs.emit(program)
+    except Exception:
+        pass
 
 # Disk layer: tuned winners persist across processes, keyed by the
 # stringified in-memory key, which carries shapes, dtypes, precision, mesh
@@ -211,16 +264,31 @@ def tune_multiply(mat, other, strategies=None, reps: int = 3,
     explicit = strategies is not None
     if not explicit:
         strategies = _candidates(mat, other_shape, _itemsize(other_dtype))
+    from ..obs import perf
+
+    m, k = mat.shape
+    n = other_shape[1]
+    a_item, b_item = mat.data.element_size(), _itemsize(other_dtype)
+    analytic = {"flops": 2.0 * m * k * n,
+                "bytes accessed": float(m * k * a_item + k * n * b_item
+                                        + m * n * max(a_item, b_item))}
     results = []
-    for s in strategies:
-        try:
-            secs = _time(lambda: mat.multiply(other, strategy=s,
-                                              precision=precision), reps)
-        except UnknownStrategyError:
-            continue  # a rejected name is skippable; anything else surfaces
-        results.append((s, secs))
+    with _scratch_accounted(f"multiply:{m}x{k}x{n}",
+                            m * n * max(a_item, b_item)):
+        for s in strategies:
+            try:
+                secs = _time(lambda: mat.multiply(other, strategy=s,
+                                                  precision=precision), reps)
+            except UnknownStrategyError:
+                continue  # a rejected name is skippable; anything else surfaces
+            results.append((s, secs))
     if not results:
         raise ValueError("no viable multiply strategy could be timed")
+    _land("multiply", analytic, [
+        (perf.program_key(strategy=s, shape=f"{m}x{k}x{n}",
+                          dtype=str(mat.data.dtype).replace("torch.", ""),
+                          prec=precision or "config", devices=mat.mesh.size),
+         secs * reps, reps) for s, secs in results])
     results.sort(key=lambda kv: kv[1])
     if not explicit:
         key = _cache_key(mat, other, precision)
@@ -284,10 +352,20 @@ def tune_gemm(a, b, candidates=None, reps: int = 3) -> list[tuple[str, float]]:
         t = tile_family.parse_gemm_candidate(name)
         return pallas_matmul(a, b, bm=t.bm, bn=t.bn, bk=t.bk)
 
-    results = sorted(((name, _time(lambda: run(name), reps))
-                      for name in candidates), key=lambda kv: kv[1])
+    from ..obs import perf
+
+    item = a.element_size()
+    with _scratch_accounted("gemm", m * n * item):
+        results = sorted(((name, _time(lambda: run(name), reps))
+                          for name in candidates), key=lambda kv: kv[1])
     if not results:
         raise ValueError("no gemm candidate to time")
+    _land("gemm", {"flops": 2.0 * m * k * n,
+                   "bytes accessed": float((m * k + k * n + m * n) * item)},
+          [(perf.program_key(candidate=name, shape=f"{m}x{k}x{n}",
+                             dtype=str(a.dtype).replace("torch.", "")),
+            secs * reps, reps)
+           for name, secs in results])
     if not explicit:
         key = _gemm_key(m, k, n, a.dtype, a.device)
         _CACHE[key] = results[0][0]
@@ -402,8 +480,20 @@ def tune_bsr(bsr, b, candidates=None,
             return bsr.multiply(arr, backend="pallas")
         return bsr.multiply(arr, chunk_blocks=cb)
 
-    samples = {name: _rounds(lambda: run(name), reps, rounds, arr.device)
-               for name in candidates}
+    from ..obs import perf
+
+    bs, item = bsr.block_size, arr.element_size()
+    with _scratch_accounted("bsr_spmm", bsr.shape[0] * p * item):
+        samples = {name: _rounds(lambda: run(name), reps, rounds, arr.device)
+                   for name in candidates}
+    _land("bsr_spmm", {"flops": 2.0 * bsr.nnzb * bs * bs * p,
+                       "bytes accessed": float(
+                           bsr.nnzb * (bs * bs + bs * p) * item
+                           + bsr.shape[0] * p * item)},
+          [(perf.program_key(candidate=name,
+                             shape=f"{bsr.shape[0]}x{bsr.shape[1]}", bs=bs,
+                             nnzb=bsr.nnzb, p=p), sum(s) * reps,
+            reps * len(s)) for name, s in samples.items()])
     winner = _bsr_winner(samples)
     results = sorted(((name, float(np.median(s))) for name, s in
                       samples.items()),

@@ -14,7 +14,11 @@ error types — so the multi-device schedules can come back on
 ``torch.distributed`` without changing a caller.
 
 All functions take/return *logical* (unpadded) tensors, except
-:func:`matmul_padded`, which takes and returns its matrices' padded layouts.
+:func:`matmul_padded`, which takes and returns its matrices' padded layouts
+and runs the strategy's function on the logical slices. Each strategy
+function lands its multiply's analytic cost in the process ``ProgramCosts``
+registry (:func:`_capture_matmul_cost`) under the JAX package's program
+names and keys.
 """
 
 from __future__ import annotations
@@ -45,6 +49,34 @@ def _check_inner(a: torch.Tensor, b: torch.Tensor) -> tuple[int, int, int]:
         raise ValueError(f"inner dimensions mismatch: {tuple(a.shape)} @ "
                          f"{tuple(b.shape)}")
     return m, k, n
+
+
+def _capture_matmul_cost(program: str, a, b, **meta) -> None:
+    """Land one multiply's cost model in the process ProgramCosts registry,
+    keyed as the JAX package keys its own (``shape=MxKxN dtype=... **meta``).
+    Eager torch has no compiled cost model to read, so the cost is the
+    multiply's analytic one: ``2mkn`` flops and each operand read and the
+    result written once (the counts ``tune_multiply`` uses). Gated on
+    ``tried``: one set lookup per call after a configuration's first.
+    Reads shapes and dtypes only, never the card's data; never raises."""
+    from ..obs import perf
+
+    try:
+        m, k = a.shape
+        n = b.shape[1]
+        key = perf.program_key(shape=f"{m}x{k}x{n}",
+                               dtype=str(a.dtype).replace("torch.", ""),
+                               **meta)
+        costs = perf.get_program_costs()
+        if costs.tried(program, key):
+            return
+        ia, ib = a.element_size(), b.element_size()
+        costs.capture(program, key, cost={
+            "flops": 2.0 * m * k * n,
+            "bytes accessed": float(m * k * ia + k * n * ib
+                                    + m * n * max(ia, ib))})
+    except Exception:
+        pass
 
 
 def build_rmm_mesh(split: tuple[int, int, int], devices=None) -> Mesh:
@@ -78,6 +110,7 @@ def rmm_matmul(
     if split is None:
         split = split_method(m, k, n, len(devs))
     build_rmm_mesh(split, devs)
+    _capture_matmul_cost("rmm_matmul", a, b, split="x".join(map(str, split)))
     return local_matmul(a, b, precision, accum_dtype)
 
 
@@ -95,6 +128,7 @@ def broadcast_matmul(
     if replicate not in ("a", "b"):
         raise ValueError(f"replicate must be 'a' or 'b', got {replicate!r}")
     _check_inner(a, b)
+    _capture_matmul_cost("broadcast_matmul", a, b, replicate=replicate)
     return local_matmul(a, b, precision, accum_dtype)
 
 
@@ -108,6 +142,8 @@ def gspmd_matmul(
     """The contraction whose collective schedule the partitioner picks; on
     one device, one product."""
     _check_inner(a, b)
+    _capture_matmul_cost("gspmd_matmul", a, b,
+                         devices=1 if mesh is None else mesh.size)
     return local_matmul(a, b, precision, accum_dtype)
 
 
@@ -155,7 +191,9 @@ def matmul_padded(
 ) -> torch.Tensor | None:
     """Padded-in / padded-out multiply: ``a_pad``/``b_pad`` carry their
     matrices' zero-padded layouts and ``mkn`` the logical (m, k, n); the
-    result comes back zero-padded to ``out_pad``.
+    result comes back zero-padded to ``out_pad``. The product is the
+    strategy's own function on the logical slices, so it lands that
+    function's cost row.
 
     Returns ``None`` where the JAX package has no fused program either (an
     RMM split that does not fill the mesh, or the ring); callers then take
@@ -163,15 +201,22 @@ def matmul_padded(
     m, k, n = mkn
     strategy = _resolve_strategy(mkn, b_pad.element_size(), strategy,
                                  broadcast_threshold_mb)
+    a, b = a_pad[:m, :k], b_pad[:k, :n]
+    accum_dtype = accum_dtype or a_pad.dtype
     if strategy == "rmm":
         if split is None:
             split = split_method(m, k, n, mesh.size)
         if split[0] * split[1] * split[2] != mesh.size:
             return None
+        c = rmm_matmul(a, b, split, [mesh.device] * mesh.size, precision,
+                       accum_dtype)
     elif strategy == "ring":
         return None
-    c = local_matmul(a_pad[:m, :k], b_pad[:k, :n], precision,
-                     accum_dtype or a_pad.dtype)
+    elif strategy == "gspmd":
+        c = gspmd_matmul(a, b, mesh, precision, accum_dtype)
+    else:
+        c = broadcast_matmul(a, b, mesh, "a" if strategy == "broadcast_a"
+                             else "b", precision, accum_dtype)
     mp_out, np_out = out_pad
     if (mp_out, np_out) != (m, n):
         c = F.pad(c, (0, np_out - n, 0, mp_out - m))
