@@ -193,7 +193,37 @@ drives the ported paths end to end through the public entry points:
   ``ServeEngine``'s ``MetricsServer``: return code 0, the engine's gauges
   and the memory panel in the frame.
 
-``python3 chip_smoke.py --phases 21,22,23`` (any subset of phases 19-24;
+- phase 25: the serving fleet around the engine at full width — phase 18's
+  model and engine settings per replica, every leg with the kernels' launch
+  counts set to 0 before it and read after. Leg (a): ``Router(factory,
+  replicas=2)`` with supervisors takes leg (a) of phase 18's 32 requests from
+  4 submitter threads while ``rolling_restart()`` rotates both replicas,
+  then the same 32 again on the rebuilt ones: one OK Result each, greedy
+  tokens == ``lm_generate``, sampled == the request served alone,
+  ``marlin_serve_migrations_total{leg="adopt"}`` risen, clean audits, decode
+  steps on every replica (old and rebuilt), each replica's ms per decode
+  step. Leg (b): ``freeze_rows`` on an engine held at a decode step,
+  corrupted blobs (a flipped byte, a truncation) refused with
+  ``MigrationCorruptError`` by a fresh target whose audit stays clean, then
+  ``adopt_rows`` on another: decode resumes == the uninterrupted streams;
+  the blob imported and re-exported through a pool on the card gives the
+  same page bodies byte for byte; rows, pages, bytes, freeze, export and
+  adopt times and the export's device-to-host GB/s; ``export_prefixes`` →
+  ``import_prefixes`` gives a fresh replica a hit on its first
+  shared-prompt request. Leg (c): ``serve.worker_crash`` at rate 0.03 (seed
+  9) under a supervisor, ``max_attempts=5``: one OK Result each == leg (a)'s
+  first tokens; then a crash every iteration under the default restart
+  budget opens the breaker, every request ends terminal and shutdown does
+  not hang. Leg (d): a p99 TTFT objective (``serve_slo``) breached by a
+  burst: ``/debug/slo`` shows it, a priority-0 request is shed with the
+  ``SHED_REASON_PREFIX`` reason and a priority-1 one served, the breach
+  clears after the quiet and admission reopens, a ``/metrics`` scrape
+  carries the ``marlin_slo_*`` families. Leg (e): a ``FleetController`` on
+  an injected clock over the router's fleet-merged burn scales out during a
+  burst (the new replica warmed before it joins) and scales in under load:
+  zero dropped, leg (a)'s tokens, ``/debug/fleet`` scraped.
+
+``python3 chip_smoke.py --phases 21,22,23`` (any subset of phases 19-25;
 20 runs 19 first) builds the kernels and runs only those phases, printing no
 result lines.
 
@@ -343,6 +373,24 @@ SERVE_FAMILIES = (
     "marlin_mem_live_bytes", "marlin_mem_unattributed_bytes",
     "marlin_serve_kv_pages_total", "marlin_serve_kv_pages_used",
     "marlin_serve_prefix_cache_total")
+# the serving fleet (phase 25) over phase 18's model and engine settings:
+# FLEET_REPLICAS replicas behind a Router; leg (b) freezes at the
+# FLEET_HOLD_STEP-th decode step; leg (c) serves CHAOS_STEPS-step requests
+# under seeded worker crashes with CHAOS_ATTEMPTS attempts each (an attempt
+# must survive some CHAOS_STEPS + 2 worker iterations at a crash rate of
+# 0.03 each); legs (d) and (e) declare a p99 TTFT objective of FLEET_TTFT_S
+# that a burst of twice leg (a)'s requests breaches, evaluated every 0.25 s
+# over a 3 s fast window
+FLEET_REPLICAS, FLEET_HOLD_STEP, FLEET_WAIT_S = 2, 24, 120.0
+CHAOS_STEPS, CHAOS_ATTEMPTS = 4, 5
+FLEET_TTFT_S = 0.25
+FLEET_SLO_KNOBS = dict(serve_slo_eval_interval_s=0.25,
+                       serve_slo_fast_window_s=3.0, serve_slo_burn_fast=5.0,
+                       serve_slo_hysteresis=2, serve_ts_bucket_s=0.5,
+                       serve_ts_window_s=60.0)
+SLO_FAMILIES = ("marlin_slo_compliance", "marlin_slo_budget_remaining",
+                "marlin_slo_burn_rate", "marlin_slo_breached",
+                "marlin_slo_shed_total")
 # the ml path at bench_all.py's sizes: config_als (one warm-up sweep, then
 # ALS["iters"] timed; blocked, as the 256 MB rule picks at these sizes),
 # config_nn (NN["warm"] warm-up steps, then NN["iters"]) and config_pagerank
@@ -3300,6 +3348,562 @@ def cli_path(torch, np, mt, ops, pa, smi) -> dict:
     return launched
 
 
+def _fleet_slo(mt):
+    """The config context of phase 25's SLO legs: a p99 TTFT objective of
+    FLEET_TTFT_S and FLEET_SLO_KNOBS."""
+    return mt.config_context(serve_slo=(
+        {"name": "ttft", "metric": "p99:marlin_serve_ttft_seconds",
+         "target": FLEET_TTFT_S, "window_s": 30.0},), **FLEET_SLO_KNOBS)
+
+
+def _wait_until(what, pred, timeout=FLEET_WAIT_S, poll=0.05):
+    """Poll ``pred()`` until it returns a truthy value; raise after
+    ``timeout`` seconds."""
+    t0 = time.perf_counter()
+    while True:
+        got = pred()
+        if got:
+            return got
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"phase 25: {what} not reached within "
+                                 f"{timeout} s")
+        time.sleep(poll)
+
+
+def _fleet_burn(payload) -> float:
+    """The worst fast-window burn of an SLO payload (0.0 without one)."""
+    if not payload:
+        return 0.0
+    return max((o.get("burn_rate") or 0.0
+                for o in payload.get("objectives", ())), default=0.0)
+
+
+def fleet_path(torch, np, mt, tt, ops, pa, smi):
+    """Phase 25: the serving fleet around the engine at full width (see the
+    module docstring). Returns the paged kernel's split and combine
+    launches over its five legs."""
+    import json as _json
+    import random
+    import threading
+    import urllib.request
+
+    from marlin_tpu_torch import obs
+    from marlin_tpu_torch.obs import memledger
+    from marlin_tpu_torch.obs.metrics import get_registry
+    from marlin_tpu_torch.serving import (FleetController,
+                                          MigrationCorruptError,
+                                          MigrationError, PagedKVPool,
+                                          Request, Router, ServeEngine,
+                                          Supervisor, kvpool)
+    from marlin_tpu_torch.serving.request import SHED_REASON_PREFIX
+    from marlin_tpu_torch.utils import faults
+
+    log(f"phase 25: the serving fleet over TransformerLM{tuple(LM.values())}"
+        f" f32, phase 18's engine settings per replica (buckets "
+        f"{ENGINE_BUCKETS}, max_batch {ROWS}, page_len {PAGE_LEN}, "
+        f"decode_kernel 'auto'); {smi}")
+    params = tt.TransformerLM(**LM).init_params()
+    specs = engine_specs(np)
+    reg = get_registry()
+    launches = {"split": 0, "combine": 0}
+
+    def make_engine(**kw):
+        eng = ServeEngine(params, LM["heads"], buckets=ENGINE_BUCKETS,
+                          max_batch=ROWS, page_len=PAGE_LEN,
+                          prefill_chunk=PREFILL_CHUNK, decode_kernel="auto",
+                          **kw)
+        if eng._decode_kernel != "pallas":
+            raise AssertionError(f"decode_kernel 'auto' resolved to "
+                                 f"{eng._decode_kernel!r} on the card")
+        eng.warmup()
+        return eng
+
+    class Leg:
+        """Set every kernel's launch count to 0 before a leg and read the
+        counts after it: the paged kernel must have launched."""
+
+        def __init__(self, label):
+            self.label = label
+
+        def __enter__(self):
+            ops.reset_launch_counts()
+            self.c0 = pa.paged_decode_attention.combine_launches
+            self.t0 = time.perf_counter()
+            return self
+
+        def __exit__(self, exc_type, *exc):
+            if exc_type is not None:
+                return False
+            counts = ops.launch_counts()
+            split = counts["paged_decode_attention"]
+            comb = pa.paged_decode_attention.combine_launches - self.c0
+            if split <= 0:
+                raise AssertionError(f"phase 25 {self.label}: the paged "
+                                     f"kernel never launched")
+            others = {k: v for k, v in counts.items()
+                      if v and k != "paged_decode_attention"}
+            launches["split"] += split
+            launches["combine"] += comb
+            log(f"  {self.label}: {time.perf_counter() - self.t0:.2f} s, "
+                f"paged kernel split {split} / combine {comb} launches"
+                + (f", others {others}" if others else ""))
+            return False
+
+    def adopted_total():
+        fam = reg._families.get("marlin_serve_migrations_total")
+        return fam.labels(leg="adopt").value if fam is not None else 0.0
+
+    def check_tokens(got, want, label):
+        bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+        if bad or len(got) != len(want):
+            raise AssertionError(f"phase 25 {label}: requests {bad} differ "
+                                 f"from the reference")
+
+    def audit_clean(eng, label):
+        audit = eng.kvpool_audit()
+        if not audit["ok"]:
+            raise AssertionError(f"phase 25 {label}: pool audit "
+                                 f"{audit['errors']}")
+
+    def step_ms(engines):
+        return ", ".join(
+            f"{e._name} {e.metrics.snapshot()['p50_step_s'] * 1e3:.3f}"
+            for e in engines if e.metrics.snapshot()["steps"])
+
+    greedy = [i for i, s in enumerate(specs) if "temperature" not in s]
+    sampled = [i for i in range(len(specs)) if i not in greedy]
+    refs = {i: tt.lm_generate(params, specs[i]["prompt"], 0,
+                              heads=LM["heads"],
+                              max_len=len(specs[i]["prompt"])
+                              + specs[i]["steps"],
+                              steps=specs[i]["steps"]).tolist()
+            for i in greedy}
+    with Leg("sampled requests served alone"):
+        solo = make_engine()
+        try:
+            for i in sampled:
+                refs[i] = engine_results([solo.submit(Request(**specs[i]))],
+                                         "solo")[0]
+        finally:
+            solo.close()
+    want = [refs[i] for i in range(len(specs))]
+
+    # (a) rolling restart under load
+    def factory():
+        return make_engine()
+
+    engines = []
+    adopt0 = adopted_total()
+    with Leg("(a) rolling restart under load"):
+        router = Router(factory, replicas=FLEET_REPLICAS,
+                        supervisor_kw=dict(backoff_s=0.005, poll_s=0.02),
+                        rng=random.Random(7))
+        try:
+            engines += [r.engine for r in router._replicas]
+            handles = submit_from_threads(router, Request, specs)
+            # both replicas decode before the rotation takes them, and the
+            # rotation starts while their rows are mid-stream
+            _wait_until("a decode step on every replica", lambda: all(
+                e.metrics.snapshot()["steps"] for e in engines), poll=0.001)
+            t0 = time.perf_counter()
+            rotated = router.rolling_restart()
+            t_rot = time.perf_counter() - t0
+            got_a = engine_results(handles, "leg (a)")
+            rebuilt = [r.engine for r in router._replicas]
+            engines += rebuilt
+            # a second wave reaches the rebuilt replicas
+            got_a2 = engine_results(
+                submit_from_threads(router, Request, specs), "leg (a) 2")
+            router.drain()
+            snap = router.snapshot()
+            for eng in rebuilt:
+                audit_clean(eng, "leg (a)")
+        finally:
+            router.close()
+    check_tokens(got_a, want, "leg (a)")
+    check_tokens(got_a2, want, "leg (a) second wave")
+    adopted = adopted_total() - adopt0
+    if sorted(rotated) != list(range(FLEET_REPLICAS)) or adopted <= 0:
+        raise AssertionError(f"phase 25 leg (a): rotated {rotated}, "
+                             f"adopted {adopted}")
+    idle = [e._name for e in engines if e.metrics.snapshot()["steps"] <= 0]
+    steps = sum(e.metrics.snapshot()["steps"] for e in engines)
+    if idle:
+        raise AssertionError(f"phase 25 leg (a): no decode step on {idle}")
+    log(f"  (a) {2 * len(specs)} requests one OK Result each ({len(greedy)}"
+        f" greedy == lm_generate, {len(sampled)} sampled == served alone, "
+        f"twice); rotation {t_rot:.3f} s, migrations_total{{leg=adopt}} "
+        f"+{adopted:.0f}, retries {snap['retries']}, prefix hits "
+        f"{snap['prefix_hits']}; decode steps {steps} on "
+        f"{len(engines)} replicas (old and rebuilt); ms per decode step "
+        f"(p50 of each replica's step records): {step_ms(engines)}; {smi}")
+
+    # (b) the blob: freeze a loaded engine, adopt on a fresh one
+    with Leg("(b) freeze / adopt / corruption / cache warm"):
+        small = [i for i, s in enumerate(specs)
+                 if len(s["prompt"]) <= ENGINE_BUCKETS[0][0]
+                 and s["steps"] <= ENGINE_BUCKETS[0][1]][:ROWS]
+        large = [i for i in range(len(specs)) if i not in small][:ROWS]
+        picked = small + large
+        src, dst, bad_dst = make_engine(start=False), make_engine(), \
+            make_engine()
+        try:
+            hs = [src.submit(Request(**specs[i])) for i in picked]
+            gate, release = threading.Event(), threading.Event()
+
+            class Hold(faults.Fault):
+                def on_fire(self, point, ctx):
+                    gate.set()
+                    release.wait(FLEET_WAIT_S)
+
+            # a decode step some 12 iterations in: the long prompts have
+            # prefilled, rows are mid-stream (or mid-prefill)
+            faults.inject("serve.decode_step",
+                          Hold(times=1, schedule=faults.Schedule(
+                              fire_on=[FLEET_HOLD_STEP])))
+            try:
+                src.start()
+                if not gate.wait(FLEET_WAIT_S):
+                    raise AssertionError("phase 25 leg (b): never held")
+            finally:
+                release.set()
+                faults.clear("serve.decode_step")
+            t0 = time.perf_counter()
+            frozen = src.freeze_rows()
+            t_freeze = time.perf_counter() - t0
+            blob = frozen["blob"]
+            done = sum(h.done() for h in hs)
+            if blob is None or len(frozen["entries"]) + done != len(picked) \
+                    or frozen["fallback"] or frozen["queued"]:
+                raise AssertionError(
+                    f"phase 25 leg (b): froze {len(frozen['entries'])} of "
+                    f"{len(picked)} rows ({done} done), fallback "
+                    f"{len(frozen['fallback'])}, queued "
+                    f"{len(frozen['queued'])}")
+            meta_len = kvpool._MIG_HDR.unpack_from(blob, 0)[3]
+            rows = _json.loads(blob[kvpool._MIG_HDR.size:
+                                    kvpool._MIG_HDR.size + meta_len])["rows"]
+            mid = sum(r["pf_next"] < 0 and r["steps_done"] > 1 for r in rows)
+            if not mid:
+                raise AssertionError("phase 25 leg (b): no row froze "
+                                     "mid-decode")
+            n_pages = sum(len(r["pages"]) for r in rows)
+            # the export alone, again, on the frozen pool: gather on the
+            # card, one copy to the host, the framing
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            again = src._kvpool.export_rows(rows)
+            t_export = time.perf_counter() - t0
+            if again != blob:
+                raise AssertionError("phase 25 leg (b): a second export of "
+                                     "the frozen rows differs")
+            page_bytes = len(blob) - kvpool._MIG_HDR.size * (len(rows) + 1) \
+                - meta_len
+            # import then re-export through a standalone pool on the card:
+            # the same page bodies, byte for byte
+            pool = PagedKVPool(params, LM["heads"],
+                               kvpool.auto_num_pages(ENGINE_BUCKETS, ROWS,
+                                                     PAGE_LEN), PAGE_LEN)
+            back = pool.export_rows(pool.import_rows(blob))
+            bodies = [b for k, b in kvpool._mig_chunks(back)
+                      if k == kvpool._MIG_ROW]
+            if bodies != [b for k, b in kvpool._mig_chunks(blob)
+                          if k == kvpool._MIG_ROW]:
+                raise AssertionError("phase 25 leg (b): re-exported page "
+                                     "bodies differ from the frozen ones")
+            del pool
+            # corruption: a flipped byte and a truncation each refused, the
+            # target's pool untouched
+            flipped = bytearray(blob)
+            flipped[len(blob) // 2] ^= 0xFF
+            for label, bad in (("flipped byte", bytes(flipped)),
+                               ("truncation", blob[:-7])):
+                try:
+                    bad_dst.adopt_rows({"blob": bad,
+                                        "entries": frozen["entries"]})
+                except MigrationError as exc:
+                    if not isinstance(exc.__cause__, MigrationCorruptError):
+                        raise AssertionError(
+                            f"phase 25 leg (b): {label} raised {exc!r}")
+                else:
+                    raise AssertionError(f"phase 25 leg (b): {label} "
+                                         f"adopted")
+            audit_clean(bad_dst, "leg (b) corrupt target")
+            if bad_dst._kvpool.used_count() != 0:
+                raise AssertionError("phase 25 leg (b): a refused blob "
+                                     "left pages behind")
+            t0 = time.perf_counter()
+            res = dst.adopt_rows(frozen)
+            t_adopt = time.perf_counter() - t0
+            if res["fallback"] or \
+                    len(res["adopted"]) != len(frozen["entries"]):
+                raise AssertionError(f"phase 25 leg (b): adopted "
+                                     f"{len(res['adopted'])} of "
+                                     f"{len(frozen['entries'])}")
+            for rid in res["adopted"]:
+                src._queue.release(frozen["entries"][rid].cost)
+            got_b = engine_results(hs, "leg (b)")
+            check_tokens(got_b, [want[i] for i in picked], "leg (b)")
+            if dst.metrics.snapshot()["retries"]:
+                raise AssertionError("phase 25 leg (b): a row restarted")
+            # prefix warm: a shared system prompt's chains move to a fresh
+            # replica, whose first shared-prompt request hits
+            rng = np.random.default_rng(25)
+            system = rng.integers(0, LM["vocab"], SYSTEM_PROMPT).astype(
+                np.int32)
+            shared = [np.concatenate([system, rng.integers(
+                0, LM["vocab"], 8)]).astype(np.int32) for _ in range(2)]
+            engine_results([dst.submit(Request(prompt=shared[0], steps=8))],
+                           "leg (b) warm source")
+            pblob = dst.export_prefixes(32)
+            warmed = bad_dst.import_prefixes(pblob)
+            got_w = engine_results([bad_dst.submit(
+                Request(prompt=shared[1], steps=8))], "leg (b) warmed")[0]
+            hits = bad_dst.metrics.snapshot()["prefix_hits"]
+            ref_w = tt.lm_generate(params, shared[1], 0, heads=LM["heads"],
+                                   max_len=len(shared[1]) + 8,
+                                   steps=8).tolist()
+            if not warmed or hits <= 0 or got_w != ref_w:
+                raise AssertionError(f"phase 25 leg (b): warmed {warmed}, "
+                                     f"hits {hits}, tokens == lm_generate "
+                                     f"{got_w == ref_w}")
+            dst.drain()
+            audit_clean(dst, "leg (b) target")
+        finally:
+            for eng in (src, dst, bad_dst):
+                eng.close()
+    log(f"  (b) {len(rows)} rows ({mid} mid-decode, {done} finished before "
+        f"the freeze), {n_pages} pages, blob {len(blob)} bytes "
+        f"({page_bytes} of page bodies); freeze_rows {t_freeze * 1e3:.2f} ms"
+        f" (park + export), export alone {t_export * 1e3:.2f} ms = "
+        f"{page_bytes / t_export / 1e9:.2f} GB/s device to host, adopt_rows "
+        f"{t_adopt * 1e3:.2f} ms; decode resumed == the uninterrupted "
+        f"streams; re-exported page bodies equal; flipped byte and "
+        f"truncation refused (MigrationCorruptError), target audit clean; "
+        f"{warmed} prefix chains warmed a fresh replica: {hits} hit on its "
+        f"first shared-prompt request; {smi}")
+
+    # (c) the supervisor: seeded worker crashes, then the breaker
+    short = [dict(s, steps=min(s["steps"], CHAOS_STEPS)) for s in specs]
+    want_c = [w[:len(s["prompt"]) + s["steps"]] for w, s in zip(want, short)]
+    with Leg("(c) supervisor"):
+        eng = make_engine()
+        try:
+            sup = Supervisor(eng, backoff_s=0.005, poll_s=0.02,
+                             restart_max=100000, restart_window_s=1e6)
+            try:
+                with faults.injected("serve.worker_crash", faults.RaiseFault(
+                        times=-1, schedule=faults.Schedule(seed=9,
+                                                           rate=0.03))):
+                    got_c = engine_results(
+                        submit_from_threads(eng, Request, short,
+                                            max_attempts=CHAOS_ATTEMPTS),
+                        "leg (c)")
+                restarts = sup.restart_count
+            finally:
+                sup.close()
+            check_tokens(got_c, want_c, "leg (c)")
+            if restarts <= 0 or sup.breaker_open:
+                raise AssertionError(f"phase 25 leg (c): restarts "
+                                     f"{restarts}, breaker {sup.breaker_open}")
+        finally:
+            eng.close()
+        eng = make_engine()
+        sup = Supervisor(eng, poll_s=0.02)   # the default restart budget
+        try:
+            with faults.injected("serve.worker_crash",
+                                 faults.RaiseFault(times=-1)):
+                statuses = [h.result(timeout=FLEET_WAIT_S).status for h in
+                            submit_from_threads(eng, Request, short,
+                                                max_attempts=10)]
+            t0 = time.perf_counter()
+            eng.close()
+            t_close = time.perf_counter() - t0
+        finally:
+            sup.close()
+            eng.close()
+        if not sup.breaker_open or eng._state != "closed" or \
+                not set(statuses) <= {"error", "shutting_down"} or \
+                t_close > 5.0 or eng._thread.is_alive():
+            raise AssertionError(
+                f"phase 25 leg (c): breaker {sup.breaker_open}, state "
+                f"{eng._state}, statuses {set(statuses)}, close {t_close} s")
+    log(f"  (c) serve.worker_crash at rate 0.03 (seed 9), max_attempts "
+        f"{CHAOS_ATTEMPTS}: {restarts} supervised restarts, {len(short)} "
+        f"requests one OK Result each == leg (a)'s first {CHAOS_STEPS} "
+        f"tokens; under a crash every iteration the default budget "
+        f"({sup.restart_max} in {sup.restart_window_s:.0f} s) opened the "
+        f"breaker, {len(statuses)} requests ended {sorted(set(statuses))}, "
+        f"close() took {t_close * 1e3:.1f} ms")
+
+    # (d) SLO and shedding
+    server = obs.MetricsServer(port=0)
+    server.start()
+    base = f"http://127.0.0.1:{server.port}"
+    burst = specs + specs
+    with Leg("(d) SLO breach, shedding, recovery"):
+        try:
+            with _fleet_slo(mt):
+                eng = make_engine()
+            try:
+                for i in range(3):
+                    engine_results([eng.submit(Request(**short[i]))],
+                                   "leg (d) healthy")
+                time.sleep(FLEET_SLO_KNOBS["serve_slo_eval_interval_s"])
+                p = eng._slo_payload()
+                if p["objectives"][0]["breached"]:
+                    raise AssertionError("phase 25 leg (d): breached while "
+                                         "healthy")
+                t0 = time.perf_counter()
+                got_d = engine_results(
+                    submit_from_threads(eng, Request, burst), "leg (d)")
+                t_burst = time.perf_counter() - t0
+                check_tokens(got_d, want + want, "leg (d) burst")
+                p = _wait_until("the breach", lambda: (
+                    lambda q: q if q["objectives"][0]["breached"]
+                    and q["shed_level"] else None)(eng._slo_payload()))
+                burn = p["objectives"][0]["burn_rate"]
+                ttft_p99 = p["objectives"][0]["value"]
+                scrape = urllib.request.urlopen(base + "/metrics",
+                                                timeout=60).read().decode()
+                debug = _json.loads(urllib.request.urlopen(
+                    base + "/debug/slo", timeout=60).read())
+                mine = [s for s in debug["scopes"] if s["scope"] == eng._name]
+                if not mine or not mine[0]["objectives"][0]["breached"]:
+                    raise AssertionError("phase 25 leg (d): /debug/slo does "
+                                         "not show the breach")
+                missing = [f for f in SLO_FAMILIES
+                           if f"# TYPE {f} " not in scrape]
+                if missing:
+                    raise AssertionError(f"phase 25 leg (d): /metrics lacks "
+                                         f"{missing}")
+                low = eng.submit(Request(**short[0])).result(FLEET_WAIT_S)
+                high = eng.submit(Request(**short[1], priority=1)).result(
+                    FLEET_WAIT_S)
+                if low.status != "rejected" or \
+                        not low.reason.startswith(SHED_REASON_PREFIX) or \
+                        high.status != "ok" or \
+                        high.tokens.tolist() != want_c[1]:
+                    raise AssertionError(
+                        f"phase 25 leg (d): low {low.status} {low.reason!r},"
+                        f" high {high.status}")
+                t0 = time.perf_counter()
+                _wait_until("the clear", lambda: (
+                    lambda q: not q["objectives"][0]["breached"]
+                    and q["shed_level"] == 0)(eng._slo_payload()))
+                t_clear = time.perf_counter() - t0
+                again = eng.submit(Request(**short[0])).result(FLEET_WAIT_S)
+                if again.status != "ok":
+                    raise AssertionError(f"phase 25 leg (d): after the clear "
+                                         f"{again.status} {again.reason}")
+                events = [e["state"] for e in eng._slo.payload()["events"]]
+                shed = eng._queue.shed_count
+            finally:
+                eng.close()
+        finally:
+            server.close()
+    log(f"  (d) p99 TTFT objective {FLEET_TTFT_S} s: a burst of "
+        f"{len(burst)} requests ({t_burst:.3f} s, one OK Result each == leg "
+        f"(a)) drove p99 TTFT to {ttft_p99:.3f} s, burn {burn:.1f}: breached"
+        f" on /debug/slo, {shed} low-priority request(s) shed ('"
+        f"{low.reason[:40]}...'), priority 1 served; cleared "
+        f"{t_clear:.2f} s later and admission reopened; transitions "
+        f"{events}; /metrics carries {len(SLO_FAMILIES)} marlin_slo_* "
+        f"families; {smi}")
+
+    # (e) the elastic fleet on an injected clock, fed by the router's
+    # fleet-merged burn
+    class Clock:
+        t = 0.0
+
+        def __call__(self):
+            return self.t
+
+    clk = Clock()
+    server = obs.MetricsServer(port=0)
+    server.start()
+    with Leg("(e) scale out, scale in"):
+        try:
+            with _fleet_slo(mt):
+                router = Router(factory, replicas=1,
+                                supervisor_kw=dict(backoff_s=0.005,
+                                                   poll_s=0.02),
+                                rng=random.Random(11))
+            ctl = FleetController(router, clock=clk, min_replicas=1,
+                                  max_replicas=FLEET_REPLICAS,
+                                  eval_interval_s=1.0, out_burn=1.0,
+                                  in_burn=0.1, hysteresis=1, cooldown_s=0.0,
+                                  flap_window_s=0.0, threaded=False)
+            try:
+                # a shared prompt first, so the fleet has chains to warm with
+                engine_results([router.submit(Request(**specs[0]))],
+                               "leg (e) first")
+                handles = submit_from_threads(router, Request, burst)
+                _wait_until("the fleet burn", lambda: _fleet_burn(
+                    router._fleet_slo()) >= 1.0)
+                clk.t += 1.0
+                d_out = ctl.tick()
+                if d_out.get("action") != "scale_out" or \
+                        router.replica_count() != 2 or \
+                        ctl._last_action["outcome"] != "ok":
+                    raise AssertionError(f"phase 25 leg (e): {d_out}, "
+                                         f"{ctl._last_action}")
+                fresh = router._replicas[-1].engine
+                warmed = fresh._kvpool.cached_count()
+                if warmed <= 0:
+                    raise AssertionError("phase 25 leg (e): the new replica "
+                                         "joined with a cold prefix cache")
+                got_e = engine_results(handles, "leg (e) burst")
+                check_tokens(got_e, want + want, "leg (e) burst")
+                # quiet: the burst's samples aged out of every replica's
+                # fast window and no replica sheds any more
+                _wait_until("the quiet", lambda: (
+                    lambda m: m is not None and _fleet_burn(m) <= 0.1
+                    and not any(o["breached"] for o in m["objectives"]))(
+                        router._fleet_slo()))
+                handles = submit_from_threads(router, Request, specs)
+                clk.t += 1.0
+                d_in = ctl.tick()
+                if d_in.get("action") != "scale_in" or \
+                        router.replica_count() != 1 or \
+                        ctl._last_action["outcome"] != "ok":
+                    raise AssertionError(f"phase 25 leg (e): {d_in}, "
+                                         f"{ctl._last_action}")
+                got_in = engine_results(handles, "leg (e) scale-in")
+                check_tokens(got_in, want, "leg (e) scale-in")
+                fleet = _json.loads(urllib.request.urlopen(
+                    f"http://127.0.0.1:{server.port}/debug/fleet",
+                    timeout=60).read())
+                mine = [f for f in fleet["fleets"]
+                        if f.get("controller") == ctl._name]
+                if not mine or [h["action"] for h in mine[0]["history"]] \
+                        != ["scale_out", "scale_in"]:
+                    raise AssertionError(f"phase 25 leg (e): /debug/fleet "
+                                         f"{mine}")
+                snap = router.snapshot()
+                router.drain()
+                for rep in router._replicas:
+                    audit_clean(rep.engine, "leg (e)")
+                if router.pending():
+                    raise AssertionError("phase 25 leg (e): work left")
+            finally:
+                ctl.close()
+                router.close()
+        finally:
+            server.close()
+    if memledger.get_ledger().totals().get("migration", 0):
+        raise AssertionError("phase 25: migration bytes left in the ledger")
+    log(f"  (e) FleetController (injected clock, hysteresis 1) on the "
+        f"router's fleet-merged burn: scale_out during a {len(burst)}-request"
+        f" burst (the new replica joined with {warmed} warm cache entries), "
+        f"scale_in under a {len(specs)}-request wave; zero dropped, tokens "
+        f"== leg (a); migrated in {snap['migrated_in']}, fallback "
+        f"{snap['migrate_fallback']}; /debug/fleet history scale_out, "
+        f"scale_in")
+    del params
+    torch.cuda.empty_cache()
+    return launches["split"], launches["combine"]
+
 def lct_reference(torch, np, tt):
     """Phase 11's uninterrupted run, for a run of phase 23 without phase 11:
     (stream, initial params, params and losses after TRAIN_STEPS steps)."""
@@ -3319,13 +3923,13 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=None,
-                    help="run the build, then only these of phases 19-24 "
+                    help="run the build, then only these of phases 19-25 "
                          "(comma-separated; 20 runs 19 first), and print no "
                          "result lines")
     only = ap.parse_args().phases
     only = None if only is None else {int(p) for p in only.split(",")}
-    if only is not None and not only <= {19, 20, 21, 22, 23, 24}:
-        ap.error("--phases takes a subset of 19,20,21,22,23,24")
+    if only is not None and not only <= {19, 20, 21, 22, 23, 24, 25}:
+        ap.error("--phases takes a subset of 19,20,21,22,23,24,25")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available", file=sys.stderr)
         return 2
@@ -3392,6 +3996,9 @@ def main() -> int:
         if 24 in only:
             cli_path(torch, np, mt, ops, pa, smi)
             lap("phase 24")
+        if 25 in only:
+            fleet_path(torch, np, mt, tt, ops, pa, smi)
+            lap("phase 25")
         log(f"phases {sorted(only)}: every check passed in "
             f"{time.perf_counter() - t_start:.1f} s")
         return 0
@@ -3747,15 +4354,20 @@ def main() -> int:
     lap("phase 23")
     cli = cli_path(torch, np, mt, ops, pa, smi)
     lap("phase 24")
+    fleet_split, fleet_combines = fleet_path(torch, np, mt, tt, ops, pa, smi)
+    lap("phase 25")
     paged_launches = path_counts["paged_decode_attention"] + \
-        engine_launches + prog_split + cli["paged_decode_attention"]
+        engine_launches + prog_split + cli["paged_decode_attention"] + \
+        fleet_split
+    combines = paged_combines + engine_combines + prog_combines + \
+        cli["paged_combine"] + fleet_combines
     log(f"paged kernel launches on the main paths: split {paged_launches} "
         f"(phase 8 {path_counts['paged_decode_attention']}, phase 18 "
         f"{engine_launches}, phase 20 {prog_split}, phase 24 "
-        f"{cli['paged_decode_attention']}); combine "
-        f"{paged_combines + engine_combines + prog_combines + cli['paged_combine']}"
-        f" (phase 8 {paged_combines}, phase 18 {engine_combines}, phase 20 "
-        f"{prog_combines}, phase 24 {cli['paged_combine']})")
+        f"{cli['paged_decode_attention']}, phase 25 {fleet_split}); combine "
+        f"{combines} (phase 8 {paged_combines}, phase 18 {engine_combines}, "
+        f"phase 20 {prog_combines}, phase 24 {cli['paged_combine']}, phase 25"
+        f" {fleet_combines})")
     for kname, before in (
             ("flash_attention_panel", path_counts["flash_attention_panel"]),
             ("flash_attention_bwd_dkv", train_counts["flash_attention_bwd_dkv"]),

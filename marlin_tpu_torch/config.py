@@ -138,8 +138,79 @@ class MarlinConfig:
     # Default relative deadline (seconds from submit) of requests that carry
     # none. None = requests without a deadline never expire.
     serve_default_deadline_s: float | None = None
-    # Serving SLOs; only () is served (obs/slo.py is not ported, ROADMAP).
+    # --- serving resilience (serving/supervisor.py, serving/router.py) ------
+    # Supervisor watchdog: a worker whose heartbeat is older than this many
+    # real seconds while work is pending is declared stuck and recovered.
+    # 0 disables the stuck-worker check (crash detection stays on).
+    serve_watchdog_s: float = 30.0
+    # Restart circuit breaker: more than serve_restart_max worker restarts
+    # inside a sliding serve_restart_window_s window fails the engine
+    # permanently instead of crash-looping.
+    serve_restart_max: int = 5
+    serve_restart_window_s: float = 60.0
+    # Base delay between worker restarts (doubles per restart in the
+    # window, capped at 16x).
+    serve_restart_backoff_s: float = 0.05
+    # Engine replicas a Router builds when none are passed explicitly.
+    serve_replicas: int = 2
+    # Prefix-affine routing: prompts sharing a first full KV page are
+    # rendezvous-hashed to one ready replica's prefix cache (from their
+    # second sighting on); False = always power-of-two-choices.
+    serve_prefix_affinity: bool = True
+    # How long a migration requester waits for the target worker to service
+    # an adopt / cache-warm handoff before cancelling it (unbound rows fall
+    # back to the retry path).
+    serve_migrate_timeout_s: float = 30.0
+    # Prefix-cache chains a rebuilt or added replica pulls from the warmest
+    # peer (best-effort). 0 disables cache warming.
+    serve_cache_warm_prefixes: int = 32
+    # --- serving SLOs (obs/slo.py, obs/timeseries.py) ------------------------
+    # Declarative objectives, a tuple of dicts {"name", "metric", "target",
+    # "window_s"[, "op", "budget"]} (metric grammar in obs/slo.py). Empty
+    # disables the SLO engine and the time-series store entirely.
     serve_slo: tuple = ()
+    # Seconds between SLO evaluations (the tick's rate limit).
+    serve_slo_eval_interval_s: float = 5.0
+    # The reactive burn window that trips breaches.
+    serve_slo_fast_window_s: float = 60.0
+    # Fast-window burn rate that flips an objective to breached.
+    serve_slo_burn_fast: float = 10.0
+    # Consecutive evaluations under half the threshold before a breach
+    # clears.
+    serve_slo_hysteresis: int = 2
+    # A breach sheds low-priority admissions (clean reject with a reason);
+    # False = observe only.
+    serve_slo_shed: bool = True
+    # Deadline slack (seconds) under which a request earns one tier of shed
+    # protection.
+    serve_slo_shed_slack_s: float = 2.0
+    # Time-series store geometry: longest trailing window, bucket width.
+    serve_ts_window_s: float = 600.0
+    serve_ts_bucket_s: float = 5.0
+    # --- elastic fleet (serving/fleet.py) ------------------------------------
+    # Fleet-size bounds the controller scales within.
+    serve_fleet_min_replicas: int = 1
+    serve_fleet_max_replicas: int = 8
+    # Seconds between controller evaluations on its own clock.
+    serve_fleet_eval_interval_s: float = 5.0
+    # Fleet-merged fast burn at/above which an evaluation counts toward
+    # scale-out, and at/below which it counts toward scale-in.
+    serve_fleet_out_burn: float = 1.0
+    serve_fleet_in_burn: float = 0.1
+    # Consecutive hot (or slack) evaluations before the controller acts.
+    serve_fleet_hysteresis: int = 3
+    # Seconds after an action during which the controller only observes.
+    serve_fleet_cooldown_s: float = 30.0
+    # An action reversing the previous one inside this window is damped.
+    serve_fleet_flap_window_s: float = 120.0
+    # Queue depth of the most loaded replica over the fleet mean that
+    # triggers a rebalance.
+    serve_fleet_rebalance_ratio: float = 3.0
+    # Share of the hot replica's rendezvous weight a rebalance sheds.
+    serve_fleet_shed_frac: float = 0.5
+    # An action still running past this many seconds is recorded as timed
+    # out; the controller starts nothing new until it ends.
+    serve_fleet_action_timeout_s: float = 60.0
     # --- observability (obs/) ------------------------------------------------
     # Port of the /metrics endpoint obs.start_from_config() starts: None
     # disables, 0 binds an ephemeral port.

@@ -8,8 +8,7 @@ and :mod:`~marlin_tpu_torch.obs.console`. Rewritten on their device side:
 costs, ``torch.profiler`` captures), :mod:`~marlin_tpu_torch.obs.memledger`
 (``torch.cuda.memory_allocated`` as the live view, no TPU calibration
 table) and :mod:`~marlin_tpu_torch.obs.collectors` (kernel builds as the
-compile tally, ``torch.cuda.memory_stats`` gauges). The SLO engine and the
-time-series store wait for the serving supervisor (ROADMAP queue 1 item 9).
+compile tally, ``torch.cuda.memory_stats`` gauges).
 
 - :mod:`~marlin_tpu_torch.obs.metrics` — thread-safe process-global registry
   of labeled ``Counter``/``Gauge``/``Histogram`` families with Prometheus
@@ -21,6 +20,13 @@ time-series store wait for the serving supervisor (ROADMAP queue 1 item 9).
   EventLog record carries ``trace_id``/``span_id``/``parent_id``.
 - :mod:`~marlin_tpu_torch.obs.report` — the post-hoc analyzer
   (``python -m marlin_tpu_torch.obs.report events.jsonl``).
+- :mod:`~marlin_tpu_torch.obs.timeseries` — bounded in-process windowed
+  store (a ring of aligned time buckets per series) fed from the registry
+  by a render-time collector (copied, stdlib-only).
+- :mod:`~marlin_tpu_torch.obs.slo` — declarative serving SLOs
+  (``serve_slo``) evaluated over the store: multi-window error-budget burn
+  rates with hysteresis, ``marlin_slo_*`` gauges, breach hooks that drive
+  admission shedding, ``GET /debug/slo`` (copied, stdlib-only).
 - :mod:`~marlin_tpu_torch.obs.console` — live terminal ops console
   (``python -m marlin_tpu_torch.obs.console``) polling ``/metrics`` +
   ``/debug/slo`` (copied, stdlib-only).
@@ -44,6 +50,8 @@ from .metrics import (  # noqa: F401
 from .exposition import MetricsServer, start_from_config  # noqa: F401
 from . import collectors  # noqa: F401  (imports utils.tracing lazily)
 from . import perf  # noqa: F401  (imports torch lazily)
+from .timeseries import TimeSeriesStore, install_collector  # noqa: F401
+from .slo import SloEngine, fleet_merge, objectives_from_config  # noqa: F401
 
 from .memledger import (  # noqa: F401
     MemoryLedger,
@@ -53,5 +61,7 @@ from .memledger import (  # noqa: F401
 
 __all__ = ["trace", "collectors", "memledger", "perf", "Counter", "Gauge",
            "Histogram", "MetricsRegistry", "get_registry", "percentile",
-           "MetricsServer", "start_from_config", "MemoryLedger",
-           "get_ledger", "get_leak_detector"]
+           "MetricsServer", "start_from_config", "TimeSeriesStore",
+           "install_collector", "SloEngine", "fleet_merge",
+           "objectives_from_config", "MemoryLedger", "get_ledger",
+           "get_leak_detector"]

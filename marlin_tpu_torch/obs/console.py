@@ -25,10 +25,11 @@ engine's, a bench's) and renders, at a poll interval:
 - **event tail** — the recent SLO breach/clear transitions plus the
   migration/restart counters' movement.
 
-The port registers no SLO scope or fleet controller yet (the SLO engine,
-router and fleet are ROADMAP queue 1 item 9), so against a port engine the
-topology and SLO panels render their empty rows; the process gauges and the
-memory panel carry the engine's state.
+An engine built with ``serve_slo`` registers its SLO scope, a
+:class:`~marlin_tpu_torch.serving.router.Router` the fleet-merged one, and a
+:class:`~marlin_tpu_torch.serving.fleet.FleetController` its
+``/debug/fleet`` payload; without them the topology, SLO and fleet panels
+render their empty rows.
 
 Everything is stdlib (``urllib`` + ANSI), read-only, and split into pure
 functions over captured payloads — :func:`render` takes the parsed

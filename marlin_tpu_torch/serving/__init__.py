@@ -1,10 +1,14 @@
-"""Serving: the continuous-batching engine over the paged KV pool.
+"""Serving: the continuous-batching engine over the paged KV pool, and the
+fleet around it.
 
 Counterpart of ``marlin_tpu/serving/``: :class:`ServeEngine` (the paged
-path), the request contracts, the serving metrics, the BucketProgram seam
-with the ALS, PageRank and classification programs, and the pool and bucket
-helpers. The dense-slab control, cross-engine
-migration and the supervisor, router and fleet are not ported yet (ROADMAP).
+path, with cross-engine migration through the MGRT blob and declared
+SLOs), the request contracts, the serving metrics, the BucketProgram seam
+with the ALS, PageRank and classification programs, the pool and bucket
+helpers, supervised worker recovery (:class:`Supervisor`), the
+multi-replica :class:`Router` with failover, rolling restarts and elastic
+membership, and the SLO-burn-driven :class:`FleetController`. The
+dense-slab control is not ported yet (ROADMAP).
 
 Quick start::
 
@@ -22,14 +26,16 @@ from .batcher import (  # noqa: F401
     normalize_buckets,
     pick_bucket,
 )
-from .engine import ServeEngine  # noqa: F401
+from .engine import MigrationError, ServeEngine  # noqa: F401
 from .kvpool import (  # noqa: F401
+    MigrationCorruptError,
     PagedGroup,
     PagedKVPool,
     PagePoolExhausted,
     auto_num_pages,
     warmup_paged,
 )
+from .fleet import FleetController  # noqa: F401
 from .metrics import ServeMetrics, percentile  # noqa: F401
 from .programs import (  # noqa: F401
     PROGRAM_REGISTRY,
@@ -42,6 +48,8 @@ from .programs import (  # noqa: F401
     available_programs,
     register_program,
 )
+from .router import Router  # noqa: F401
+from .supervisor import Supervisor  # noqa: F401
 from .request import (  # noqa: F401
     STATUS_ERROR,
     STATUS_EXPIRED,

@@ -57,12 +57,19 @@ What differs from the JAX package, and why:
   a failed launch fails (or retries) that bucket's rows, and never reruns
   them through ``gather``.
 
-Not ported yet, each raising ``NotImplementedError`` that names its ROADMAP
-item: the dense-slab control (``paged=False``), cross-engine migration
-(``freeze_rows``/``adopt_rows``/``adopt_entries``/``export_prefixes``/
-``import_prefixes``), SLOs (``serve_slo`` other than ``()``), and ``moe=``.
-The supervisor, router and fleet are not ported either;
-:meth:`ServeEngine.attach_supervisor` stays as the hook they call.
+Cross-engine migration (:meth:`ServeEngine.freeze_rows` /
+:meth:`~ServeEngine.adopt_rows` / :meth:`~ServeEngine.adopt_entries` /
+:meth:`~ServeEngine.export_prefixes` / :meth:`~ServeEngine.import_prefixes`)
+moves live rows between engines mid-stream through the JAX package's MGRT
+blob (:mod:`.kvpool`), byte-compatible both ways; the export runs on the
+freezing caller's thread after the worker has parked, every import on the
+target's worker through its mailbox. Declared SLOs (``serve_slo``) build a
+per-engine :class:`~marlin_tpu_torch.obs.slo.SloEngine` over a
+:class:`~marlin_tpu_torch.obs.timeseries.TimeSeriesStore`, whose breaches
+arm admission shedding. :class:`~.supervisor.Supervisor`,
+:class:`~.router.Router` and :class:`~.fleet.FleetController` drive these
+hooks. Not ported yet, each raising ``NotImplementedError`` that names its
+ROADMAP item: the dense-slab control (``paged=False``) and ``moe=``.
 
 Lifecycle: ``drain()`` stops admission and completes everything already
 accepted; ``close()`` stops admission, finishes the work in flight (live
@@ -81,6 +88,7 @@ envelopes.
 from __future__ import annotations
 
 import collections
+import contextlib
 import itertools
 import threading
 import time
@@ -94,8 +102,11 @@ from ..obs import memledger, perf, trace as obs_trace
 from ..obs.collectors import compile_count as _compile_count
 from ..obs.exposition import (register_health_provider,
                               register_kvpool_provider,
+                              register_slo_provider,
                               unregister_health_provider,
-                              unregister_kvpool_provider)
+                              unregister_kvpool_provider,
+                              unregister_slo_provider)
+from ..obs.metrics import get_registry
 from ..utils import faults
 from .batcher import BatchFormer, normalize_buckets
 from .kvpool import (PagedGroup, PagedKVPool, PagePoolExhausted,
@@ -103,27 +114,25 @@ from .kvpool import (PagedGroup, PagedKVPool, PagePoolExhausted,
                      warmup_paged)
 from .metrics import ServeMetrics
 from .programs import PagedLMProgram, ProgramRowSet
-from .request import (STATUS_ERROR, STATUS_EXPIRED, STATUS_OK,
-                      STATUS_REJECTED, STATUS_SHUTTING_DOWN, AdmissionQueue,
-                      Request, Result, ResultHandle)
+from .request import (SHED_REASON_PREFIX, STATUS_ERROR, STATUS_EXPIRED,
+                      STATUS_OK, STATUS_REJECTED, STATUS_SHUTTING_DOWN,
+                      AdmissionQueue, Request, Result, ResultHandle)
 
 __all__ = ["ServeEngine", "MigrationError"]
 
 # the ROADMAP items the parts not ported yet wait for
 _SLAB_ITEM = "ROADMAP queue 1 item 7 (the dense-slab control)"
-_MIGRATION_ITEM = ("ROADMAP queue 1 item 8 (cross-engine migration and the "
-                   "MGRT blob)")
-_SLO_ITEM = ("ROADMAP queue 1 item 9 (supervisor, router, fleet, obs.slo "
-             "and obs.timeseries)")
 _MOE_ITEM = "ROADMAP queue 1 item 12 (models/moe.py)"
 
 
 class MigrationError(RuntimeError):
-    """A freeze/adopt handoff could not run. Cross-engine migration is not
-    ported yet; the class is kept for the worker mailbox's error path."""
+    """A freeze/adopt handoff could not run (lifecycle, timeout, or a
+    failure on the target's worker) — the caller degrades those rows to the
+    retry path."""
 
 
 _engine_ids = itertools.count()
+_mig_tokens = itertools.count()  # distinct migration-blob ledger names
 
 # real-seconds cap on one condition wait under an INJECTED clock: bounds how
 # stale the worker's view of a fake clock can get (tests advance it between
@@ -230,10 +239,6 @@ class ServeEngine:
             raise NotImplementedError(
                 f"ServeEngine(paged=False): the dense-slab backend is not "
                 f"ported yet — {_SLAB_ITEM}")
-        if cfg.serve_slo:
-            raise NotImplementedError(
-                f"serve_slo={cfg.serve_slo!r}: serving SLOs are not ported "
-                f"yet — {_SLO_ITEM}")
         self.params = params
         self.heads = heads
         self.compute_dtype = compute_dtype
@@ -301,14 +306,19 @@ class ServeEngine:
             if p.name in self._programs:
                 raise ValueError(f"duplicate program name {p.name!r}")
             self._programs[p.name] = p
-        # running | draining | closing | closed
+        # running | draining | freezing | frozen | closing | closed —
+        # freezing/frozen are the migration pause (freeze_rows): the worker
+        # parks leaving its pools intact and the freezing thread takes over
         self._state = "running"
-        #: worker mailbox of cross-engine migration ops; nothing posts to it
-        #: until migration is ported, so servicing it is a no-op
+        #: worker mailbox for cross-engine migration ops (adopt_rows /
+        #: export_prefixes / import_prefixes): (kind, payload, event, box)
+        #: tuples serviced once per worker iteration — the pool stays
+        #: single-threaded, the requester waits on the event
         self._mig_inbox: collections.deque = collections.deque()
         self._started = False
-        #: True while warmup() runs the bucket programs on the caller's
-        #: thread
+        #: True while warmup() runs the bucket programs (and builds the
+        #: CUDA kernels) on the caller's thread — the supervisor's watchdog
+        #: skips the stuck check meanwhile (crash detection stays on)
         self._warming = False
         eid = next(_engine_ids)
         self._name = f"marlin-serve-{eid}"
@@ -362,6 +372,55 @@ class ServeEngine:
 
         register_health_provider(name, _health)
         register_kvpool_provider(name, _kvpool_report)
+        # --- serving SLOs (obs/slo.py + obs/timeseries.py) -----------------
+        # built only when objectives are configured (serve_slo) — otherwise
+        # the hot path carries one None check per worker iteration. The
+        # store and the SLO engine run on THIS engine's injected clock;
+        # evaluation is scrape- and worker-driven (tick is rate-limited),
+        # never a new thread.
+        self._slo = None
+        self._ts = None
+        self._ts_collector = None
+        if cfg.serve_slo:
+            from ..obs.slo import SloEngine, objectives_from_config
+            from ..obs.timeseries import TimeSeriesStore, install_collector
+
+            self._ts = TimeSeriesStore(
+                window_s=float(cfg.serve_ts_window_s),
+                bucket_s=float(cfg.serve_ts_bucket_s), clock=clock)
+            self.metrics.attach_timeseries(self._ts)
+            self._slo = SloEngine(objectives_from_config(cfg), self._ts,
+                                  scope=self._name, log=log, clock=clock)
+            # scrape-driven pump, restricted to the objectives' families
+            # (the registry is process-global, the store a bounded
+            # per-engine ring)
+            self._ts_collector = install_collector(
+                self._ts, only=self._slo.pump_families)
+            if cfg.serve_slo_shed:
+                # graceful degradation: a breach arms admission shedding at
+                # level = number of breached objectives; clear disarms.
+                # In-flight work is never touched.
+                slack = float(cfg.serve_slo_shed_slack_s)
+
+                def _on_breach(ev, _q=self._queue, _slack=slack):
+                    breached = ev.get("breached") or ()
+                    if breached:
+                        _q.set_shed(len(breached),
+                                    reason=",".join(breached),
+                                    protect_slack_s=_slack)
+                    else:
+                        _q.clear_shed()
+
+                self._slo.add_breach_hook(_on_breach)
+
+            def _slo_report():
+                eng = ref()
+                if eng is None:
+                    unregister_slo_provider(name)
+                    return None
+                return eng._slo_payload()
+
+            register_slo_provider(name, _slo_report)
         if start:
             self.start()
 
@@ -433,6 +492,7 @@ class ServeEngine:
         Lock-free reads of GIL-atomic fields — the probe must never contend
         with the worker."""
         state = {"running": "accepting", "draining": "draining",
+                 "freezing": "draining", "frozen": "draining",
                  "closing": "closed", "closed": "closed"}[self._state]
         hb = self._heartbeat
         return {
@@ -443,6 +503,28 @@ class ServeEngine:
             "heartbeat_age_s": (round(time.monotonic() - hb, 3)
                                 if hb is not None else None),
         }
+
+    def _slo_payload(self) -> dict | None:
+        """The ``GET /debug/slo`` scope payload for this engine: the SLO
+        engine's evaluation (ticked on the probe, so a scrape always sees
+        a fresh-enough verdict without any poller thread) plus the health
+        block and paged-pool gauges the ops console renders as topology.
+        None when no objectives are configured (the provider prunes)."""
+        slo = self._slo
+        if slo is None:
+            return None
+        try:
+            slo.tick(self._clock())
+            p = slo.payload()
+        except Exception:  # the probe must never 500
+            return None
+        p["health"] = self._health_info()
+        m = self.metrics
+        p["pages"] = {"total": m.pages_total, "used": m.pages_used,
+                      "shared": m.pages_shared}
+        p["shed_level"] = self._queue.shed_level
+        p["shed_count"] = self._queue.shed_count
+        return p
 
     def _prog_key(self, bucket) -> str:
         """The roofline-accounting key for this engine's programs at one
@@ -535,6 +617,11 @@ class ServeEngine:
             pass
         unregister_health_provider(self._name)
         unregister_kvpool_provider(self._name)
+        unregister_slo_provider(self._name)
+        if self._ts_collector is not None:
+            get_registry().remove_collector(self._ts_collector)
+            self._ts_collector = None
+        self.metrics.attach_timeseries(None)
 
     def _join_worker(self) -> None:
         """Join until no worker generation will run again — a supervisor
@@ -726,6 +813,9 @@ class ServeEngine:
             # verdict that raced a concurrent drain labeled as what it was
             if reason == self._queue.closed_reason:
                 return self._refuse(handle, STATUS_SHUTTING_DOWN, reason)
+            if (self._slo is not None
+                    and reason.startswith(SHED_REASON_PREFIX)):
+                self._slo.record_shed()
             return self._refuse(handle, STATUS_REJECTED, reason)
         entry = _Entry(request, handle, bucket, cost, now, trace=ctx)
         with self._cond:
@@ -795,8 +885,13 @@ class ServeEngine:
                     continue
                 seen.add(id(e))
                 undone.append(e)
-            supervised = (self._on_crash is not None
-                          and self._state in ("running", "draining"))
+            # "freezing" counts as supervised: freeze_rows() itself consumes
+            # the stash (the crashed rows ride the migration fallback) — a
+            # fail-everything here would break exactly-once for rows the
+            # freeze is about to hand to another replica
+            supervised = ((self._on_crash is not None
+                           and self._state in ("running", "draining"))
+                          or self._state == "freezing")
             if supervised:
                 self._crash = (exc, undone)
                 cb = self._on_crash
@@ -806,10 +901,11 @@ class ServeEngine:
             self._claimed = []
         self._flight_dump("worker-died")
         if supervised:
-            try:
-                cb()
-            except Exception:
-                pass
+            if cb is not None:
+                try:
+                    cb()
+                except Exception:
+                    pass
             return True
         for e in leftovers + undone:
             if not e.handle.done():
@@ -1104,43 +1200,400 @@ class ServeEngine:
 
     # ------------------------------------------------ cross-engine migration
 
+    def _device_scope(self):
+        """The engine's CUDA device as the calling thread's current one (a
+        no-op on the CPU): the freezing caller's export reads the slab from
+        its own thread."""
+        if self.device.type == "cuda":
+            return torch.cuda.device(self.device)
+        return contextlib.nullcontext()
+
     def freeze_rows(self) -> dict | None:
-        raise NotImplementedError(
-            f"ServeEngine.freeze_rows is not ported yet — {_MIGRATION_ITEM}")
+        """Pause this engine at a step boundary and take ownership of every
+        resident row for migration: admission closes, the worker parks at
+        its next iteration top (state ``freezing`` — pools left intact),
+        and the caller thread exports each row's KV pages + cursors into a
+        CRC-framed host blob (:meth:`PagedKVPool.export_rows`).
+
+        Returns ``{"engine", "blob", "entries", "queued", "fallback",
+        "ledger_token"}``: ``entries`` maps rid → the live in-process
+        ``_Entry`` (handle + admission reservation — both travel with the
+        row, the blob only carries device/cursor state); ``queued`` is the
+        former backlog (never started — moved wholesale, no retry twin);
+        ``fallback`` is rows that could not export (a ``serve.migrate``
+        export fault, or a worker crash mid-freeze — the pool is not
+        trusted after one) and must ride the retry path. Returns None when
+        the engine is already terminal — the caller falls back to a plain
+        drain. Terminal either way once it returns a dict: the worker has
+        exited and the router closes the engine next."""
+        self._queue.close("engine freezing for migration")
+        with self._cond:
+            if self._state not in ("running", "draining"):
+                return None
+            self._state = "freezing"
+            self._cond.notify_all()
+        self._join_worker()
+        self._fail_mig_inbox("engine froze for migration")
+        with self._cond:
+            crash = self._crash
+            self._crash = None
+            pools = dict(self._pools)
+            pool = self._kvpool
+            queued = self._former.take_all()
+        entries: dict = {}
+        rows: list[dict] = []
+        fallback: list = []
+        seen: set[int] = set()
+
+        def _viable(e) -> bool:
+            if (e is None or id(e) in seen or e.superseded
+                    or e.handle.done()):
+                return False
+            seen.add(id(e))
+            return True
+
+        if crash is not None:
+            # the worker died mid-freeze: the pool is not trusted — export
+            # nothing, every stashed row rides the retry fallback
+            for e in crash[1]:
+                if _viable(e):
+                    fallback.append(e)
+        else:
+            for bucket, group in pools.items():
+                if isinstance(group, ProgramRowSet):
+                    # one-shot program rows have no KV state to export: the
+                    # program's freeze hook may veto, otherwise they ride
+                    # the fallback lane and re-execute on the target
+                    # (exactly-once is the handle's, not the row's)
+                    prog = self._programs.get(bucket[0])
+                    for slot in group.occupied_slots():
+                        e = group.entries[slot]
+                        if not _viable(e):
+                            continue
+                        if prog is not None:
+                            prog.freeze(e)
+                        fallback.append(e)
+                    continue
+                for slot in group.occupied_slots():
+                    e = group.entries[slot]
+                    if not _viable(e):
+                        continue
+                    try:
+                        faults.fire(
+                            "serve.migrate",
+                            path=f"export:{e.request.rid}@{self._name}")
+                        rows.append(self._export_row(group, bucket, slot))
+                        entries[e.request.rid] = e
+                    except Exception:
+                        fallback.append(e)
+        blob = None
+        if rows and pool is not None:
+            try:
+                with self._device_scope():
+                    blob = pool.export_rows(rows)
+                self.metrics.record_migration("export", len(rows))
+            except Exception:
+                # the blob never materialized: every exported row falls
+                # back to the retry path
+                fallback.extend(entries.values())
+                entries = {}
+        token = None
+        if blob is not None:
+            # the frozen blob is migration bytes in flight: credit it to
+            # this engine until the adopt side consumes it (adopt_rows
+            # transfers ownership to the target, then debits exactly once;
+            # a never-adopted blob is swept by _finalize_obs's free_owner)
+            token = f"migration:{self._name}:{next(_mig_tokens)}"
+            memledger.get_ledger().register(token, len(blob), "migration",
+                                            owner=self._name)
+        with self._cond:
+            self._state = "frozen"
+        self._flight_dump("freeze")
+        return {"engine": self, "blob": blob, "entries": entries,
+                "queued": list(queued), "fallback": fallback,
+                "ledger_token": token}
+
+    def _export_row(self, group, bucket, slot: int) -> dict:
+        """One row's migration manifest: block table (position order),
+        cursors, host token stream, and sampling state — everything
+        :meth:`PagedGroup.restore` needs for a bit-identical resume. The
+        keys, their order and their int/float types are the JAX package's
+        (the meta chunk is this dict's ``json.dumps``)."""
+        e = group.entries[slot]
+        return {
+            "rid": e.request.rid,
+            "bucket": [int(b) for b in bucket],
+            "prompt": np.asarray(e.request.prompt, np.int32).tolist(),
+            "pages": [int(p) for p in (group.row_pages[slot] or [])],
+            "length": int(group.lengths[slot]),
+            "position": int(group.positions[slot]),
+            "steps_done": int(group.steps_done[slot]),
+            "cur_tok": int(group.cur_tok[slot]),
+            "pf_next": int(group.pf_next[slot]),
+            "n_shared": int(group.shared_pages[slot]),
+            "emitted": [int(t) for t in (group.emitted[slot] or [])],
+            "seed": int(e.request.seed),
+            "temperature": float(group.temperature[slot]),
+            "top_p": float(group.top_p[slot]),
+            "top_k": int(group.top_k[slot]),
+            "ttft_s": group.ttft_s[slot],
+            # the request's span context rides the manifest so an adopting
+            # engine — even in another process — continues the SAME trace
+            "trace": (None if e.trace is None else {
+                "trace_id": e.trace.trace_id, "span_id": e.trace.span_id,
+                "parent_id": e.trace.parent_id, "name": e.trace.name}),
+        }
 
     def adopt_rows(self, frozen: dict, timeout: float | None = None) -> dict:
-        raise NotImplementedError(
-            f"ServeEngine.adopt_rows is not ported yet — {_MIGRATION_ITEM}")
+        """Adopt a peer's frozen row set: import the blob's KV pages into
+        this engine's pool (re-deduplicating through the prefix cache) and
+        resume each row mid-stream. Runs on THIS engine's worker thread via
+        the migration mailbox — the pool stays single-threaded. Each row
+        binds under the engine lock: its admission reservation is adopted
+        (:meth:`AdmissionQueue.adopt`) at bind time and released by the
+        normal retirement path, so the reservation is carried exactly once
+        end to end (the caller releases the source's charge for adopted
+        rids). Rows whose entry was superseded or resolved while frozen
+        are dropped with their pages released. Returns ``{"adopted":
+        [rids], "fallback": [entries]}``; on a worker timeout the rows
+        bound so far count as adopted and the rest fall back — never
+        both."""
+        entries = dict(frozen["entries"])
+        blob = frozen.get("blob")
+        if blob is None or not entries:
+            return {"adopted": [], "fallback": list(entries.values())}
+        if timeout is None:
+            timeout = get_config().serve_migrate_timeout_s
+        box: dict = {"bound": [], "cancelled": False}
+        ev = threading.Event()
+        with self._cond:
+            if self._state != "running" or not self._started:
+                raise MigrationError(
+                    f"adopt target {self._name} not accepting "
+                    f"({self._state})")
+            self._mig_inbox.append(
+                ("adopt", {"blob": blob, "entries": entries}, ev, box))
+            if self._idle:
+                self._heartbeat = time.monotonic()
+            self._cond.notify_all()
+        # the handoff is committed: the blob's ledger entry moves to this
+        # engine and is debited exactly once below, whichever way the adopt
+        # resolves (the not-accepting raise above leaves it with the
+        # source, so a retry against another replica still finds it)
+        token = frozen.get("ledger_token")
+        led = memledger.get_ledger()
+        if token:
+            led.transfer(token, owner=self._name)
+        try:
+            if not ev.wait(timeout):
+                # cancel under the lock: rows not yet bound will be released
+                # by the worker when it gets there; rows already bound are
+                # this engine's responsibility now
+                with self._cond:
+                    box["cancelled"] = True
+                    bound = set(box["bound"])
+                return {"adopted": sorted(bound),
+                        "fallback": [e for rid, e in entries.items()
+                                     if rid not in bound]}
+            err = box.get("error")
+            if err is not None:
+                if isinstance(err, MigrationError):
+                    raise err
+                raise MigrationError(
+                    f"adopt failed on {self._name}: {type(err).__name__}: "
+                    f"{err}") from err
+            return box["result"]
+        finally:
+            if token:
+                led.free(token, strict=False)
 
     def adopt_entries(self, entries) -> bool:
-        raise NotImplementedError(
-            f"ServeEngine.adopt_entries is not ported yet — "
-            f"{_MIGRATION_ITEM}")
+        """Queue-only handoff for migrated work WITHOUT device state — the
+        frozen backlog and retry-fallback twins. Each entry's reservation
+        is force-admitted (the fleet already admitted this work; the gate
+        bounds new admissions only) and the entry queues normally. Returns
+        False when this engine is not accepting — the caller tries the
+        next replica."""
+        entries = list(entries)
+        if not entries:
+            return True
+        with self._cond:
+            if self._state != "running":
+                return False
+            for e in entries:
+                self._queue.adopt(e.cost)
+                self._former.add(e)
+            if self._idle:
+                self._heartbeat = time.monotonic()
+            self._cond.notify_all()
+        self.metrics.record_queue(self._queue.count,
+                                  self._queue.bytes_in_flight)
+        return True
 
-    def export_prefixes(self, n: int, timeout: float | None = None):
-        raise NotImplementedError(
-            f"ServeEngine.export_prefixes is not ported yet — "
-            f"{_MIGRATION_ITEM}")
+    def export_prefixes(self, n: int,
+                        timeout: float | None = None) -> bytes | None:
+        """The pool's N hottest prefix-cache chains as a migration blob
+        (worker-mediated; best-effort — returns None instead of raising:
+        cache warming must never fail a restart)."""
+        if n <= 0:
+            return None
+        if timeout is None:
+            timeout = get_config().serve_migrate_timeout_s
+        try:
+            return self._mig_post("export_prefixes", int(n), timeout)
+        except MigrationError:
+            return None
 
     def import_prefixes(self, blob: bytes | None,
                         timeout: float | None = None) -> int:
-        raise NotImplementedError(
-            f"ServeEngine.import_prefixes is not ported yet — "
-            f"{_MIGRATION_ITEM}")
+        """Warm this pool's prefix cache from a peer's exported chains
+        (worker-mediated; best-effort). Returns entries inserted."""
+        if not blob:
+            return 0
+        if timeout is None:
+            timeout = get_config().serve_migrate_timeout_s
+        try:
+            return int(self._mig_post("import_prefixes", blob, timeout) or 0)
+        except MigrationError:
+            return 0
 
-    def _service_migrations(self) -> None:
-        """Drain the migration mailbox on the worker thread (once per
-        iteration). Nothing posts to it until migration is ported, so with
-        the inbox empty this is a no-op; anything found there is failed
-        back to its requester."""
-        if self._mig_inbox:
-            self._fail_mig_inbox(
-                f"cross-engine migration is not ported yet — "
-                f"{_MIGRATION_ITEM}")
+    def _mig_post(self, kind: str, payload, timeout: float):
+        """Post one op to the worker's migration mailbox and wait."""
+        box: dict = {"bound": [], "cancelled": False}
+        ev = threading.Event()
+        with self._cond:
+            if self._state != "running" or not self._started:
+                raise MigrationError(
+                    f"{self._name} not accepting ({self._state})")
+            self._mig_inbox.append((kind, payload, ev, box))
+            if self._idle:
+                self._heartbeat = time.monotonic()
+            self._cond.notify_all()
+        if not ev.wait(timeout):
+            with self._cond:
+                box["cancelled"] = True
+            raise MigrationError(
+                f"{kind} timed out after {timeout}s on {self._name}")
+        err = box.get("error")
+        if err is not None:
+            raise MigrationError(
+                f"{kind} failed on {self._name}: {type(err).__name__}: "
+                f"{err}") from err
+        return box.get("result")
+
+    def _service_migrations(self, pool, pools, pf_queue) -> None:
+        """Drain the migration mailbox on the worker thread (called once
+        per iteration). Any failure lands in the requester's box — the
+        worker survives every migration fault; mid-migration failure must
+        degrade to the retry path, never kill the adoptive engine."""
+        while True:
+            with self._cond:
+                if not self._mig_inbox:
+                    return
+                kind, payload, ev, box = self._mig_inbox.popleft()
+                if box.get("cancelled"):
+                    box["error"] = MigrationError("cancelled by requester")
+                    ev.set()
+                    continue
+            try:
+                if kind == "adopt":
+                    box["result"] = self._mig_adopt(pool, pools, pf_queue,
+                                                    payload, box)
+                elif kind == "export_prefixes":
+                    box["result"] = pool.export_prefixes(payload)
+                elif kind == "import_prefixes":
+                    faults.fire("serve.migrate", path=f"warm@{self._name}")
+                    n = pool.import_prefixes(payload)
+                    self._record_pages(pool)
+                    box["result"] = n
+                else:
+                    box["error"] = MigrationError(
+                        f"unknown migration op {kind!r}")
+            except BaseException as exc:
+                box["error"] = exc
+            ev.set()
+
+    def _mig_adopt(self, pool, pools, pf_queue, payload, box) -> dict:
+        """Worker-side adopt: import the blob, then bind each row under
+        the engine lock (atomic against the requester's timeout-cancel —
+        a row is either bound here exactly once or reported back for the
+        fallback path, never both)."""
+        faults.fire("serve.migrate", path=f"import@{self._name}")
+        entries = payload["entries"]
+        rows = pool.import_rows(payload["blob"])
+        adopted: list = []
+        fallback: list = []
+        for row in rows:
+            rid = row["rid"]
+            e = entries.get(rid)
+            pages = row["pages"]
+            bucket = tuple(row["bucket"])
+            group = pools.get(bucket)
+            if group is None and bucket in self.buckets:
+                group = pools[bucket] = PagedGroup(
+                    bucket, self.max_batch, self._page_len,
+                    self._prefill_chunk)
+                capture_paged_costs(
+                    self.params, self.heads, bucket, self.max_batch,
+                    pool, self._prefill_chunk, self.compute_dtype,
+                    key=self._prog_key(bucket), kernel=self._decode_kernel)
+            bound = False
+            try:
+                faults.fire("serve.migrate",
+                            path=f"adopt:{rid}@{self._name}")
+                with self._cond:
+                    viable = (e is not None and not e.superseded
+                              and not e.handle.done()
+                              and not box.get("cancelled")
+                              and self._state == "running")
+                    free = group.free_slots() if group is not None else []
+                    if viable and free:
+                        slot = free[0]
+                        self._queue.adopt(e.cost)
+                        group.restore(slot, e, row, pages)
+                        if int(row["pf_next"]) >= 0:
+                            pf_queue.append((bucket, slot, rid))
+                        box["bound"].append(rid)
+                        bound = True
+            except Exception:
+                bound = False
+            if bound:
+                adopted.append(rid)
+                # re-activate the request's trace across the hop: a cross-
+                # process adopt has no live entry span, so rebuild it from
+                # the manifest; either way the migration itself becomes a
+                # child span, so freeze -> adopt -> result joins into one
+                # trace_id
+                base = e.trace
+                t = row.get("trace")
+                if base is None and t:
+                    base = obs_trace.SpanContext(
+                        t.get("trace_id"), t.get("span_id"),
+                        t.get("parent_id"),
+                        t.get("name") or f"serve.request.{rid}")
+                if base is not None:
+                    e.trace = base.child(f"serve.migrate.{rid}")
+                with obs_trace.use(e.trace):
+                    self.metrics.record_page_event(
+                        "adopt", rid=rid, pages=len(pages),
+                        shared=int(row["n_shared"]),
+                        used=pool.used_count(), total=pool.capacity)
+            else:
+                pool.release(pages)
+                if (e is not None and not e.superseded
+                        and not e.handle.done()):
+                    fallback.append(e)
+        if adopted:
+            self.metrics.record_migration("adopt", len(adopted))
+        self._record_pages(pool)
+        self._live_rows = sum(len(g.live_slots())
+                              for g in pools.values())
+        return {"adopted": adopted, "fallback": fallback}
 
     def _fail_mig_inbox(self, reason: str) -> None:
-        """Resolve every pending mailbox op with an error (a requester
-        blocked on its event must not wait out its full timeout)."""
+        """Resolve every pending mailbox op with an error (the worker is
+        gone — a requester blocked on its event must not wait out the
+        full timeout)."""
         while True:
             with self._cond:
                 if not self._mig_inbox:
@@ -1152,7 +1605,7 @@ class ServeEngine:
     def kvpool_audit(self) -> dict:
         """The pool invariant report (:meth:`PagedKVPool.audit`) over this
         engine's live groups — exact on a quiesced engine (closed,
-        drained); advisory under a running worker (the probe snapshot races
+        drained, frozen); advisory under a running worker (the probe snapshot races
         row transitions). Never raises — rides ``GET /debug/kvpool``."""
         with self._cond:
             pool = self._kvpool
@@ -1197,6 +1650,10 @@ class ServeEngine:
             while True:
                 if self._gen == gen:  # a superseded straggler must never
                     self._heartbeat = time.monotonic()  # fake a live pulse
+                if self._slo is not None:
+                    # rate-limited internally (serve_slo_eval_interval_s):
+                    # per-iteration cost is one float compare
+                    self._slo.tick(self._clock())
                 faults.fire("serve.worker_crash",
                             path=threading.current_thread().name)
                 claimed = []
@@ -1204,6 +1661,11 @@ class ServeEngine:
                     while True:
                         if self._gen != gen:
                             return  # superseded by a recovery
+                        if self._state == "freezing":
+                            # migration pause: park WITHOUT touching the
+                            # pools — freeze_rows() joins this thread and
+                            # takes over every resident row
+                            return
                         busy = any(p.occupied_slots()
                                    for p in pools.values())
                         if self._mig_inbox:
@@ -1235,7 +1697,7 @@ class ServeEngine:
                         # check so a stale generation never builds the live
                         # generation's pool
                         pool = self._ensure_kvpool()
-                self._service_migrations()
+                self._service_migrations(pool, pools, pf_queue)
                 prog_claimed = [e for e in claimed
                                 if self._is_program_bucket(e.bucket)]
                 lm_claimed = [e for e in claimed

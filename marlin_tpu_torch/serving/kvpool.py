@@ -29,10 +29,15 @@ package:
 The slab is updated in place by the programs (PyTorch has no donation);
 ``pool.pages`` still takes their return value, as with JAX.
 :func:`paged_program_key` and :func:`capture_paged_costs` are the roofline
-bookkeeping of the paged programs, the costs counted from the shapes. The
-migration blob (``export_rows``/``import_rows``/``*_prefixes``,
-``PagedGroup.restore``) belongs to cross-engine migration, which is not
-ported (ROADMAP).
+bookkeeping of the paged programs, the costs counted from the shapes.
+
+Cross-engine migration moves rows and prefix-cache chains between pools
+through the JAX package's MGRT blob, byte for byte: a blob either package
+exports imports into the other. Page contents travel as the slab's raw
+element bytes (bf16 as its 16-bit words, so no numpy bf16 is needed); the
+export gathers the pages on the device with ``index_select`` and reads them
+with one synchronous ``.cpu()``, and the import writes them with
+``index_copy_`` into the live slab tensors in place.
 
 Single-threaded by contract: only the scheduler touches a pool.
 """
@@ -40,18 +45,100 @@ Single-threaded by contract: only the scheduler touches a pool.
 from __future__ import annotations
 
 import hashlib
+import json
+import struct
+import zlib
 from collections import OrderedDict
 
 import numpy as np
 import torch
 
 __all__ = ["PagedKVPool", "PagedGroup", "PagePoolExhausted",
-           "auto_num_pages", "warmup_paged", "paged_program_key",
-           "capture_paged_costs"]
+           "MigrationCorruptError", "auto_num_pages", "warmup_paged",
+           "paged_program_key", "capture_paged_costs"]
 
 
 class PagePoolExhausted(RuntimeError):
     """alloc() found fewer free+evictable pages than requested."""
+
+
+class MigrationCorruptError(RuntimeError):
+    """A migration blob failed structural or CRC validation on import —
+    truncation, bit flips, or a geometry mismatch between pools. Import
+    never partially applies a corrupt blob."""
+
+
+# Migration wire format (the JAX package's): a flat sequence of
+# 32-byte-header chunks, each body independently CRC32-framed so a torn or
+# bit-flipped blob ALWAYS raises on import instead of resurrecting garbage
+# KV state on the target replica.
+#   header: magic "MGRT" | crc32(body) | kind | body_len | 12 pad bytes
+_MIG_MAGIC = b"MGRT"
+_MIG_HDR = struct.Struct("<4sIIQ12x")  # 32 bytes
+_MIG_META = 1      # JSON metadata (geometry + per-row/per-entry manifest)
+_MIG_ROW = 2       # one row's page contents, layers in order, k then v
+_MIG_PREFIX = 3    # prefix-cache pages (one body for the whole entry set)
+
+
+def _mig_frame(kind: int, body: bytes) -> bytes:
+    return _MIG_HDR.pack(_MIG_MAGIC, zlib.crc32(body) & 0xFFFFFFFF, kind,
+                         len(body)) + body
+
+
+def _mig_chunks(blob: bytes) -> list[tuple[int, bytes]]:
+    """Split and validate a migration blob; raises on any corruption."""
+    out = []
+    off = 0
+    n = len(blob)
+    while off < n:
+        if n - off < _MIG_HDR.size:
+            raise MigrationCorruptError(
+                f"truncated chunk header at offset {off}")
+        magic, crc, kind, length = _MIG_HDR.unpack_from(blob, off)
+        if magic != _MIG_MAGIC:
+            raise MigrationCorruptError(
+                f"bad chunk magic {magic!r} at offset {off}")
+        off += _MIG_HDR.size
+        body = blob[off:off + length]
+        if len(body) != length:
+            raise MigrationCorruptError(
+                f"truncated chunk body at offset {off}: "
+                f"need {length} bytes, have {len(body)}")
+        if zlib.crc32(body) & 0xFFFFFFFF != crc:
+            raise MigrationCorruptError(
+                f"chunk CRC mismatch at offset {off}")
+        out.append((kind, body))
+        off += length
+    return out
+
+
+def _mig_default(o):
+    """json.dumps default: numpy scalars/arrays from group vectors."""
+    if isinstance(o, np.integer):
+        return int(o)
+    if isinstance(o, np.floating):
+        return float(o)
+    if isinstance(o, np.ndarray):
+        return o.tolist()
+    raise TypeError(f"not JSON-serializable: {type(o).__name__}")
+
+
+def _mig_meta(blob: bytes, kind: str) -> tuple[dict, list]:
+    """Validate ``blob``'s chunks and parse its meta chunk, which must be
+    of ``kind``; returns (meta, the chunks after it)."""
+    chunks = _mig_chunks(blob)
+    if not chunks or chunks[0][0] != _MIG_META:
+        raise MigrationCorruptError("blob does not start with a meta "
+                                    "chunk")
+    try:
+        meta = json.loads(chunks[0][1].decode())
+    except ValueError as exc:
+        raise MigrationCorruptError(f"meta chunk not JSON: {exc}")
+    if meta.get("version") != 1 or meta.get("kind") != kind:
+        raise MigrationCorruptError(
+            f"unsupported blob version/kind: {meta.get('version')}/"
+            f"{meta.get('kind')}")
+    return meta, chunks[1:]
 
 def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
@@ -287,6 +374,241 @@ class PagedKVPool:
         self.cow_copies += 1
         return True
 
+    # ------------------------------------------------- cross-pool migration
+
+    def _layer_names(self) -> list[str]:
+        return sorted(self.pages, key=lambda s: int(s[1:]))
+
+    def _slabs(self) -> list[torch.Tensor]:
+        """The slab tensors in blob order: layers in order, k then v."""
+        return [t for name in self._layer_names() for t in self.pages[name]]
+
+    def _host_pages(self, pids) -> list[np.ndarray]:
+        """Pages ``pids`` of every slab tensor as raw bytes on the host, one
+        ``(len(pids), page_bytes)`` uint8 array per tensor in blob order:
+        gathered on the device, read back with one synchronous copy."""
+        slabs = self._slabs()
+        idx = torch.as_tensor(list(pids), dtype=torch.long,
+                              device=slabs[0].device)
+        with torch.no_grad():
+            flat = torch.cat([t.index_select(0, idx).reshape(-1)
+                              for t in slabs])
+            host = flat.view(torch.uint8).cpu().numpy()
+        page_nb = self._page_nbytes()
+        bounds = np.cumsum([len(idx) * nb for nb in page_nb])[:-1]
+        return [part.reshape(len(idx), nb)
+                for part, nb in zip(np.split(host, bounds), page_nb)]
+
+    def _write_pages(self, writes) -> None:
+        """Write host page bytes into the slab tensors in place:
+        ``writes[i]`` is a list of (page ids, uint8 bytes of those pages)
+        for the i-th slab tensor in blob order."""
+        for t, parts in zip(self._slabs(), writes):
+            if not parts:
+                continue
+            ids = [p for pids, _ in parts for p in pids]
+            data = np.concatenate([b.reshape(-1) for _, b in parts])
+            src = torch.from_numpy(data).view(t.dtype).reshape(
+                (len(ids),) + tuple(t.shape[1:]))
+            with torch.no_grad():
+                t.index_copy_(0, torch.as_tensor(ids, device=t.device),
+                              src.to(t.device))
+
+    def _geometry(self) -> dict:
+        names = self._layer_names()
+        leaf = self.pages[names[0]][0]
+        # the JAX package writes str(np.dtype(...)): "float32", "bfloat16"
+        return {"page_len": self.page_len, "layers": names,
+                "dtype": str(leaf.dtype).removeprefix("torch."),
+                "shapes": [list(self.pages[nm][0].shape[1:])
+                           for nm in names]}
+
+    def _check_geometry(self, meta: dict) -> None:
+        geo = self._geometry()
+        for field in ("page_len", "layers", "dtype", "shapes"):
+            if meta.get(field) != geo[field]:
+                raise MigrationCorruptError(
+                    f"pool geometry mismatch on {field!r}: blob has "
+                    f"{meta.get(field)!r}, target pool has {geo[field]!r}")
+
+    def _page_nbytes(self) -> list[int]:
+        """Bytes of one page of each slab tensor, in blob order."""
+        return [t[0].numel() * t.element_size() for t in self._slabs()]
+
+    def _row_nbytes(self, n_pages: int) -> int:
+        return n_pages * sum(self._page_nbytes())
+
+    def export_rows(self, rows) -> bytes:
+        """Serialize a row set into a CRC-framed host blob. Each element of
+        ``rows`` is a dict carrying the row's block table in position order
+        (``pages``), its prompt/cursor/sampling manifest (engine-provided;
+        travels verbatim in the meta chunk), and ``rid``. Page contents are
+        gathered device→host once for the whole set. The blob is
+        self-contained: :meth:`import_rows` on any pool with matching
+        geometry — of either package — rebuilds the rows without reference
+        to this pool."""
+        meta = {"version": 1, "kind": "rows", **self._geometry(),
+                "rows": [dict(r, pages=[int(p) for p in r["pages"]])
+                         for r in rows]}
+        host = self._host_pages(p for r in meta["rows"] for p in r["pages"])
+        blob = [_mig_frame(
+            _MIG_META, json.dumps(meta, default=_mig_default).encode())]
+        off = 0
+        for r in meta["rows"]:
+            n = len(r["pages"])
+            blob.append(_mig_frame(_MIG_ROW, b"".join(
+                part[off:off + n].tobytes() for part in host)))
+            off += n
+        return b"".join(blob)
+
+    def import_rows(self, blob: bytes) -> list[dict]:
+        """Rebuild an exported row set in THIS pool: validate every chunk
+        (corruption always raises :class:`MigrationCorruptError`), then per
+        row run the NORMAL allocation path — :meth:`match_prefix` first, so
+        a migrated shared prefix re-deduplicates against the target's cache
+        (and against earlier rows of this same blob, whose completed prompt
+        pages are re-inserted as they land), then :meth:`alloc` for the
+        remainder — and write the imported page contents into the slab.
+        Returns the row manifests with target-space ``pages``/``n_shared``/
+        ``shared_len`` rebound; the caller binds them to entries. On any
+        failure every page this call allocated is released (pages already
+        content-written stay valid for the cache entries that reference
+        them), so a failed import leaks nothing."""
+        meta, chunks = _mig_meta(blob, "rows")
+        self._check_geometry(meta)
+        bodies = [b for kind, b in chunks if kind == _MIG_ROW]
+        if len(bodies) != len(meta["rows"]):
+            raise MigrationCorruptError(
+                f"row count mismatch: meta lists {len(meta['rows'])} rows, "
+                f"blob carries {len(bodies)} page chunks")
+        for row, body in zip(meta["rows"], bodies):
+            if len(body) != self._row_nbytes(len(row["pages"])):
+                raise MigrationCorruptError(
+                    f"row {row.get('rid')}: page payload is {len(body)} "
+                    f"bytes, expected "
+                    f"{self._row_nbytes(len(row['pages']))}")
+        page_nb = self._page_nbytes()
+        writes: list[list] = [[] for _ in page_nb]
+        out: list[dict] = []
+        taken: list[list[int]] = []
+        try:
+            for row, body in zip(meta["rows"], bodies):
+                prompt = np.asarray(row["prompt"], np.int32)
+                n_pages = len(row["pages"])
+                shared_len, spages = self.match_prefix(prompt)
+                owned = self.alloc(n_pages - len(spages))
+                pages = list(spages) + owned
+                taken.append(pages)
+                if owned:
+                    raw = np.frombuffer(body, np.uint8)
+                    off = 0
+                    for w, nb in zip(writes, page_nb):
+                        part = raw[off:off + n_pages * nb].reshape(n_pages,
+                                                                   nb)
+                        w.append((owned, part[len(spages):]))
+                        off += n_pages * nb
+                row = dict(row, pages=pages, n_shared=len(spages),
+                           shared_len=shared_len)
+                out.append(row)
+                if int(row.get("pf_next", -1)) < 0:
+                    # prefill completed on the source: publish the prompt's
+                    # full pages so later arrivals — including later rows
+                    # of this same blob — share instead of re-importing
+                    self.insert_prefix(prompt, pages)
+        except BaseException:
+            # pages already claimed hold valid content once written — write
+            # them so any cache entry inserted above stays safe, then drop
+            # the row refs
+            self._write_pages(writes)
+            for pages in taken:
+                self.release(pages)
+            raise
+        self._write_pages(writes)
+        return out
+
+    def export_prefixes(self, n: int) -> bytes | None:
+        """The N hottest prefix-cache entries (MRU end of the LRU order),
+        closed over their parent chains (a child without its ancestors can
+        never be matched), as a CRC-framed blob for warming a peer's cache.
+        Keys are the content hashes themselves — no prompt tokens travel.
+        Returns None when there is nothing to export."""
+        if not self.prefix_cache_enabled or not self._cache:
+            return None
+        selected: set[bytes] = set()
+        for key in list(self._cache)[-max(1, int(n)):]:
+            while key is not None and key not in selected:
+                selected.add(key)
+                key = self._cache[key].parent
+
+        def depth(k: bytes) -> int:
+            d = 0
+            e = self._cache[k]
+            while e.parent is not None:
+                d += 1
+                e = self._cache[e.parent]
+            return d
+
+        ordered = sorted(selected, key=depth)  # parents import first
+        entries = []
+        for key in ordered:
+            e = self._cache[key]
+            entries.append({
+                "key": key.hex(),
+                "parent": None if e.parent is None else e.parent.hex()})
+        host = self._host_pages(self._cache[key].page for key in ordered)
+        body = b"".join(part[i].tobytes() for i in range(len(ordered))
+                        for part in host)
+        meta = {"version": 1, "kind": "prefixes", **self._geometry(),
+                "entries": entries}
+        return (_mig_frame(_MIG_META, json.dumps(meta).encode())
+                + _mig_frame(_MIG_PREFIX, body))
+
+    def import_prefixes(self, blob: bytes) -> int:
+        """Warm this pool's prefix cache from a peer's
+        :meth:`export_prefixes` blob: each entry allocates one page (LRU
+        eviction may make room; exhaustion stops the warm early rather than
+        failing it), takes the cache-owned reference, and links into the
+        parent chain. Entries already cached (or whose parent did not make
+        the cut) are skipped. Returns entries inserted."""
+        if not self.prefix_cache_enabled:
+            return 0
+        meta, chunks = _mig_meta(blob, "prefixes")
+        self._check_geometry(meta)
+        bodies = [b for kind, b in chunks if kind == _MIG_PREFIX]
+        body = bodies[0] if bodies else b""
+        per_entry = self._row_nbytes(1)
+        if len(body) != per_entry * len(meta["entries"]):
+            raise MigrationCorruptError(
+                f"prefix payload is {len(body)} bytes, expected "
+                f"{per_entry * len(meta['entries'])}")
+        page_nb = self._page_nbytes()
+        raw = np.frombuffer(body, np.uint8)
+        writes: list[list] = [[] for _ in page_nb]
+        inserted = 0
+        for i, ent in enumerate(meta["entries"]):
+            key = bytes.fromhex(ent["key"])
+            parent = None if ent["parent"] is None \
+                else bytes.fromhex(ent["parent"])
+            if key in self._cache:
+                self._cache.move_to_end(key)
+                continue
+            if parent is not None and parent not in self._cache:
+                continue  # chain broken (parent evicted/skipped)
+            try:
+                page = self.alloc(1)[0]
+            except PagePoolExhausted:
+                break  # a partial warm is still a warm
+            off = i * per_entry
+            for w, nb in zip(writes, page_nb):
+                w.append(([page], raw[off:off + nb]))
+                off += nb
+            self._cache[key] = _CacheEntry(page, parent)
+            if parent is not None:
+                self._cache[parent].children += 1
+            inserted += 1
+        self._write_pages(writes)
+        return inserted
+
     # -------------------------------------------------------------- audit
 
     def audit(self, groups=()) -> dict:
@@ -469,6 +791,37 @@ class PagedGroup:
         self.steps_done[slot] = 1
         self.cur_tok[slot] = first
         self.emitted[slot] = [int(first)]
+
+    def restore(self, slot: int, entry, row: dict,
+                pages: list[int]) -> None:
+        """Bind a MIGRATED row mid-stream (:meth:`PagedKVPool.import_rows`
+        manifest): like :meth:`assign` but restoring the source replica's
+        cursors — position, steps_done, current token, emitted stream, and
+        the prefill cursor for rows frozen mid-prefill. With the imported
+        KV pages in place, decode resumes bit-identically: the sampling
+        stream is ``fold_in(key(seed), step)``, composition-independent,
+        so only (seed, steps_done, KV, cur_tok) matter — all restored."""
+        r = entry.request
+        n = int(row["length"])
+        self.entries[slot] = entry
+        self.lengths[slot] = n
+        self.tables[slot, :] = 0
+        self.tables[slot, :len(pages)] = pages
+        self.row_pages[slot] = list(pages)
+        self.shared_pages[slot] = int(row["n_shared"])
+        self.pf_next[slot] = int(row["pf_next"])
+        padded = np.zeros(_round_up(n, self.chunk), np.int32)
+        padded[:n] = r.prompt
+        self.prompts[slot] = padded
+        self.positions[slot] = int(row["position"])
+        self.steps_done[slot] = int(row["steps_done"])
+        self.cur_tok[slot] = int(row["cur_tok"])
+        self.seeds[slot] = np.uint32(r.seed)
+        self.temperature[slot] = r.temperature
+        self.top_p[slot] = 1.0 if r.top_p is None else r.top_p
+        self.top_k[slot] = 0 if r.top_k is None else r.top_k
+        self.emitted[slot] = [int(t) for t in row["emitted"]]
+        self.ttft_s[slot] = row.get("ttft_s")
 
     def release(self, slot: int) -> list[int]:
         """Free the slot on ANY retirement path; returns the row's pages

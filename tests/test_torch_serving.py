@@ -303,17 +303,33 @@ def test_max_wait_ms_knob_and_refusal_alike(jparams, tparams):
     assert msgs[0] == msgs[1] and msgs[2] == msgs[3]
 
 
-def test_port_engine_refuses_what_is_not_ported(tparams, cpu):
+def test_port_engine_refuses_what_is_not_ported(jparams, tparams, cpu):
+    """The dense-slab control and MoE still raise, naming their ROADMAP
+    items; ``serve_slo`` and migration now do what the JAX engine does: an
+    engine with objectives builds its SLO engine, and ``freeze_rows`` on an
+    unstarted engine returns the same empty handoff."""
+    import marlin_tpu as jm
+
     for kw, item in ((dict(paged=False), "item 7"),
                      (dict(moe=(2, 1)), "item 12")):
         with pytest.raises(NotImplementedError, match=item):
             TEngine(tparams, HEADS, start=False, **_engine_kw(**kw))
-    with config_context(serve_slo=({"name": "x"},)):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            TEngine(tparams, HEADS, start=False, **_engine_kw())
+    slo = ({"name": "ttft", "metric": "p99:marlin_serve_ttft_seconds",
+            "target": 0.5, "window_s": 60.0},)
+    frozen = []
+    for cls, params, ctx in ((JEngine, jparams, jm.config_context),
+                             (TEngine, tparams, config_context)):
+        with ctx(serve_slo=slo):
+            with cls(params, HEADS, start=False, **_engine_kw()) as eng:
+                assert eng._slo is not None and eng._ts is not None
+                assert [o.name for o in eng._slo.objectives] == ["ttft"]
+        with cls(params, HEADS, start=False, **_engine_kw()) as eng:
+            fr = eng.freeze_rows()
+            frozen.append((fr["engine"] is eng, fr["blob"], fr["entries"],
+                           fr["queued"], fr["fallback"], fr["ledger_token"],
+                           eng._state))
+    assert frozen[0] == frozen[1] == (True, None, {}, [], [], None, "frozen")
     with TEngine(tparams, HEADS, start=False, **_engine_kw()) as eng:
-        with pytest.raises(NotImplementedError, match="item 8"):
-            eng.freeze_rows()
         assert eng._decode_kernel == "gather"
 
 
