@@ -222,8 +222,41 @@ drives the ported paths end to end through the public entry points:
   an injected clock over the router's fleet-merged burn scales out during a
   burst (the new replica warmed before it joins) and scales in under load:
   zero dropped, leg (a)'s tokens, ``/debug/fleet`` scraped.
+- phase 26: the mixture-of-experts family at ``bench_all.py``
+  ``config_moe``'s full width (config_lct's model and 32768-token stream,
+  8 experts, top-2, capacity factor 1.25, groups of 4096, remat, loss
+  chunks of 2048): one warm and 3 timed steps beside config_lct's dense
+  model on the same stream (ktok/s of both, the flash kernels' launches:
+  the forward twice a layer and step under remat, dK/dV and dQ once), one
+  step's loss and gradients against the plain attention path, ``moe_ffn``
+  on the card against the same call in f64 on the CPU over a 4096-token
+  group (dispatch equal, outputs within 1e-5 of max|ref|, the aux), the
+  paged kernel at the engine's shapes against its plain version, then
+  ``ServeEngine(moe=(2, 1.25, 4096))`` (paged, the CUDA decode kernel)
+  over the trained params at phase 18's load (32 requests of 16-512
+  tokens, most of several 64-token prefill chunks, every fourth sampled,
+  from 4 threads onto 8 rows): greedy tokens == the same chunked prefill
+  and gather decode done without the engine, sampled == served alone by
+  a second engine, tok/s and TTFT p50/p99.
+- phase 27: ``ServeEngine(paged=False)``, the dense-slab control, at
+  ``bench_all.py`` ``config_serve``'s widths (d_model 128, 8 heads of 16,
+  4 layers, vocab 256; its buckets and 8 rows, and a (2048, 8) bucket):
+  48 requests of config_serve's ranges, every fourth sampled, and 4
+  prompts of 2048 tokens whose ``lm_prefill_slot`` launches the flash
+  forward once a layer; then the same requests through the paged engine.
+  First the flash forward at 8 × 2048 × 16 and the paged kernel at kvh 8,
+  dh 16 and each bucket's table against their plain versions.
+  Greedy tokens == ``lm_generate`` on both; tok/s and TTFT p50/p99 of
+  each, the sampled rows' agreement between them.
+- phase 28: ``lazy.fuse`` over ``a.multiply(b).add(c).multiply(2.0)`` at
+  8192² f32 through inductor: one graph (counted by a backend that wraps
+  inductor's ``compile_fx``) holding one product, equal to the eager
+  chain within 1e-6 of
+  max|eager|, fused and eager times by CUDA events beside the f32 bound,
+  and ``lazy.grad`` of a fused sum returning a ``DenseVecMatrix`` equal to
+  ``ones @ b^T``.
 
-``python3 chip_smoke.py --phases 21,22,23`` (any subset of phases 19-25;
+``python3 chip_smoke.py --phases 21,22,23`` (any subset of phases 19-28;
 20 runs 19 first) builds the kernels and runs only those phases, printing no
 result lines.
 
@@ -486,6 +519,40 @@ CLI_GENMAT_N, CLI_LU_N = 2048, 1024
 # would only measure the growth; the port's CPU run at 1024 read 2.4e-7
 LU_BWD_TOL = 1e-5
 CLI_ALS = dict(users=10_000, items=2_000, nnz=200_000, rank=16, iters=5)
+# phase 26: bench_all.py config_moe — config_lct's model and stream with the
+# FFN of each layer replaced by 8 experts, top-2, capacity factor 1.25,
+# routing groups of 4096 tokens, remat and the LM head in 2048-token chunks
+MOE_LM = dict(LCT, n_experts=8, moe_top_k=2, moe_capacity_factor=1.25,
+              moe_group=4096, remat=True, loss_chunk=2048)
+MOE_ENGINE = (2, 1.25, 4096)
+# the served MoE workload: phase 18's leg (a) load (config_decode's 32
+# requests of 16-512-token prompts and 8-64 steps, every fourth sampled,
+# buckets (128, 32) and (512, 64) over 8 rows, pages of 16, 256 prompt
+# tokens an iteration) drawn over config_moe's vocab. The engine prefills in
+# 64-token chunks (kvpool.PagedGroup's cap at page_len 16) and routes each
+# chunk, zero-padded past the prompt, as a group of its own with that
+# group's capacity, as the JAX engine does; lm_generate routes the whole
+# prompt as one group, so under capacity drops the two differ. The greedy
+# reference is that chunked computation without the engine: lm_prefill_paged
+# chunk by chunk on a pool of its own, then lm_decode_paged's gather route,
+# one request at a time
+# moe_ffn on the card vs the same call on the CPU in f64 (routing in f32 on
+# both, so the choices are equal): per element within MOE_F64_TOL of
+# max|ref| (IEEE f32 products of 256- and 1024-long sums)
+MOE_F64_TOL = 1e-5
+# phase 27: bench_all.py config_serve's model (d_model 128, 8 heads, dh 16,
+# 4 layers, vocab 256), its buckets and batch, and a bucket of 2048-token
+# prompts so lm_prefill_slot takes the flash kernel; greedy and sampled
+# requests, config_serve's prompt and step ranges
+SERVE_MODEL = dict(vocab=256, d_model=128, heads=8, layers=4, seed=0)
+SLAB_BUCKETS = ((64, 32), (256, 32), (2048, 8))
+SLAB_BATCH, SLAB_REQUESTS, SLAB_LONG = 8, 48, 4
+# phase 28: lazy.fuse over a.multiply(b).add(c).multiply(2.0) at this size,
+# f32; fused vs eager per element within FUSE_TOL of max|eager| (the same
+# IEEE f32 product, the elementwise tail fused)
+FUSE_N, FUSE_TOL = 8192, 1e-6
+# what a product's node in the fused graph calls
+FUSE_PRODUCTS = ("matmul", "__matmul__", "mm", "addmm", "bmm", "linear")
 
 
 def log(msg: str) -> None:
@@ -2327,14 +2394,15 @@ def programs_path(torch, np, tt, pa, mlp_params, smi):
     return split, comb
 
 
-def engine_specs(np):
-    """Leg (a)'s request set, drawn from seed 0: prompts of 16-512 tokens,
-    8-64 steps, every ENGINE_SAMPLED_EVERY-th sampled with its own seed."""
+def engine_specs(np, vocab=LM["vocab"]):
+    """Leg (a)'s request set, drawn from seed 0: prompts of 16-512 tokens
+    over ``vocab``, 8-64 steps, every ENGINE_SAMPLED_EVERY-th sampled with
+    its own seed."""
     rng = np.random.default_rng(0)
     specs = []
     for i in range(ENGINE_REQUESTS):
         n, steps = int(rng.integers(16, 513)), int(rng.integers(8, 65))
-        spec = dict(prompt=rng.integers(0, LM["vocab"], n).astype(np.int32),
+        spec = dict(prompt=rng.integers(0, vocab, n).astype(np.int32),
                     steps=steps)
         if i % ENGINE_SAMPLED_EVERY == ENGINE_SAMPLED_EVERY - 1:
             spec.update(temperature=0.8, top_k=40, seed=1000 + i)
@@ -3904,6 +3972,391 @@ def fleet_path(torch, np, mt, tt, ops, pa, smi):
     torch.cuda.empty_cache()
     return launches["split"], launches["combine"]
 
+def moe_chunked_reference(np, tt, params, prompt, steps):
+    """Greedy tokens of one request computed as ServeEngine(moe=...) does,
+    without the engine: ``lm_prefill_paged`` over its bucket's chunks (the
+    last zero-padded) on a pool of its own, a table as wide as the bucket
+    gives a row, then ``lm_decode_paged`` through its gather route. Returns
+    prompt + generated tokens."""
+    from marlin_tpu_torch.serving import kvpool
+    from marlin_tpu_torch.serving.batcher import pick_bucket
+
+    n = len(prompt)
+    g = kvpool.PagedGroup(pick_bucket(n, steps, ENGINE_BUCKETS), ROWS,
+                          PAGE_LEN, PREFILL_CHUNK)
+    chunk, per_row = g.chunk, g.pages_per_row
+    table = np.arange(1, g.table_width + 1, dtype=np.int32)
+    heads = MOE_LM["heads"]
+    pages = tt.init_kv_pages(params, len(table) + 1, PAGE_LEN, heads)
+    for cs in range(0, n, chunk):
+        piece = np.zeros(chunk, np.int32)
+        piece[:min(chunk, n - cs)] = prompt[cs:cs + chunk]
+        pages, first = tt.lm_prefill_paged(params, pages, table, piece, cs,
+                                           n, heads=heads, page_len=PAGE_LEN,
+                                           moe=MOE_ENGINE)
+    toks = [int(first)]
+    for step in range(1, steps):
+        pages, nxt = tt.lm_decode_paged(
+            params, pages, table[None, :per_row], np.int32([n + step - 1]),
+            np.int32([toks[-1]]), np.int32([step]), np.uint32([0]),
+            np.float32([0.0]), np.float32([1.0]), np.int32([0]), heads=heads,
+            page_len=PAGE_LEN, moe=MOE_ENGINE, kernel="gather")
+        toks.append(int(nxt[0]))
+    return [int(t) for t in prompt] + toks
+
+
+def moe_path(torch, np, tt, fa, pa, ops, smi):
+    """Phase 26: bench_all.py config_moe on the card — one warm step and
+    TRAIN_STEPS timed steps beside config_lct's dense model on the same
+    stream, one step's loss and gradients against the plain attention path,
+    ``moe_ffn`` against an f64 CPU run on one 4096-token group, then greedy
+    ``lm_generate`` and ``ServeEngine(moe=...)`` over the trained params.
+    Returns the launch counts of the training and serving legs."""
+    from marlin_tpu_torch.models import moe as tm
+    from marlin_tpu_torch.serving import Request, ServeEngine, kvpool
+
+    log(f"phase 26: config_moe TransformerLM{tuple(MOE_LM.values())} f32 on "
+        f"a {TRAIN_SEQ}-token stream, Adam: 1 warm + {TRAIN_STEPS} steps "
+        f"beside config_lct's; {smi}")
+    stream = np.random.default_rng(0).integers(
+        0, MOE_LM["vocab"], TRAIN_SEQ).astype(np.int32)
+    rates = {}
+    for label, cfg in (("config_lct", LCT), ("config_moe", MOE_LM)):
+        lm = tt.TransformerLM(**cfg)
+        params0 = lm.init_params()
+        lm.train(stream, steps=1, params=params0)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        params, losses = lm.train(stream, steps=TRAIN_STEPS, params=params0)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        rates[label] = TRAIN_SEQ * TRAIN_STEPS / dt / 1e3
+        log(f"  {label}: losses {losses}; {rates[label]:.3f} ktok/s, "
+            f"{dt / TRAIN_STEPS * 1e3:.3f} ms per step (host clock), peak "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, "
+            f"launches {counts}")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{label}: losses {losses}")
+    train_counts = counts
+    # remat recomputes each block's forward in the backward: the forward
+    # kernel runs twice a layer and step, the backward pair once
+    want = MOE_LM["layers"] * TRAIN_STEPS
+    for kname, n in (("flash_attention_panel", 2 * want),
+                     ("flash_attention_bwd_dkv", want),
+                     ("flash_attention_bwd_dq", want)):
+        if train_counts[kname] != n:
+            raise AssertionError(f"config_moe: {kname} {train_counts[kname]} "
+                                 f"launches, want {n}")
+    log(f"  config_moe {rates['config_moe']:.3f} ktok/s against config_lct "
+        f"{rates['config_lct']:.3f} ktok/s "
+        f"({rates['config_moe'] / rates['config_lct']:.3f}x)")
+    # one step's loss and gradients against the plain attention path
+    knobs = dict(heads=MOE_LM["heads"], attn="ring", remat=True,
+                 loss_chunk=MOE_LM["loss_chunk"], moe=MOE_ENGINE)
+    loss_k, grads_k = tt.lm_value_and_grad(params0, stream, **knobs)
+    kernel_fwd, kernel_bwd = (fa.flash_attention_single_panel,
+                              fa.flash_attention_panel_bwd)
+    fa.flash_attention_single_panel = fa.flash_attention_single_panel_plain
+    fa.flash_attention_panel_bwd = fa.flash_attention_panel_bwd_plain
+    try:
+        ops.reset_launch_counts()
+        loss_p, grads_p = tt.lm_value_and_grad(params0, stream, **knobs)
+        if any(ops.launch_counts().values()):
+            raise AssertionError("phase 26: the plain run launched a kernel")
+    finally:
+        fa.flash_attention_single_panel = kernel_fwd
+        fa.flash_attention_panel_bwd = kernel_bwd
+    grads_k, grads_p = flat(grads_k), flat(grads_p)
+    grad_worst = max(float((grads_k[k] - g).abs().max())
+                     / max(float(g.abs().max()), 1e-30)
+                     for k, g in grads_p.items())
+    log(f"  step-1 loss {float(loss_k)!r} (plain {float(loss_p)!r}); "
+        f"gradients: largest |kernel - plain| / max|plain| over the leaves "
+        f"{grad_worst:.3e} (tol {TRAIN_GRAD_TOL:g}); router |grad| max "
+        f"{float(grads_k['l0/moe/wg'].abs().max()):.3e}")
+    if abs(float(loss_k) - float(loss_p)) > TRAIN_LOSS0_RTOL * abs(
+            float(loss_p)) or not grad_worst <= TRAIN_GRAD_TOL or not float(
+            grads_k["l0/moe/wg"].abs().max()) > 0:
+        raise AssertionError("phase 26: kernel and plain steps differ")
+    del grads_k, grads_p, params0
+    # moe_ffn on the card against the same call in f64 on the CPU
+    mp = params["l0"]["moe"]
+    x = params["emb"][torch.as_tensor(stream[:MOE_ENGINE[2]],
+                                      device="cuda").long()]
+    x = x + 0.1 * torch.randn(x.shape, generator=torch.Generator(
+        device="cuda").manual_seed(26), device="cuda")
+    out, aux = tm.moe_ffn(mp, x, top_k=MOE_ENGINE[0],
+                          capacity_factor=MOE_ENGINE[1],
+                          group_size=MOE_ENGINE[2])
+    mp64 = {k: v.double().cpu() for k, v in mp.items()}
+    ref, aux_ref = tm.moe_ffn(mp64, x.double().cpu(), top_k=MOE_ENGINE[0],
+                              capacity_factor=MOE_ENGINE[1],
+                              group_size=MOE_ENGINE[2])
+    disp = [tm._route_group(t, torch.ones(t.shape[0], device=t.device),
+                            w["wg"], MOE_ENGINE[0], tm.moe_capacity(
+                                t.shape[0], 8, *MOE_ENGINE[:2]))[0].cpu()
+            for t, w in ((x, mp), (x.double().cpu(), mp64))]
+    moe_err = float((out.double().cpu() - ref).abs().max()) / float(
+        ref.abs().max())
+    log(f"  moe_ffn on {x.shape[0]} tokens: card vs f64 CPU max err "
+        f"{moe_err:.3e} of max|ref| (tol {MOE_F64_TOL:g}); dispatch equal: "
+        f"{bool(torch.equal(disp[0], disp[1]))}; aux {float(aux):.4f} "
+        f"(f64 {float(aux_ref):.4f}, 1.0 = balanced)")
+    if not (torch.equal(disp[0], disp[1]) and moe_err <= MOE_F64_TOL
+            and abs(float(aux) - float(aux_ref)) <= 1e-4):
+        raise AssertionError("phase 26: moe_ffn on the card != f64 run")
+    # the paged kernel at the engine's shapes (kvh 2, group 1, dh 128, the
+    # buckets' tables) against its plain version
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    dh = MOE_LM["d_model"] // MOE_LM["heads"]
+    for p, s in ENGINE_BUCKETS:
+        check_paged(torch, pa, gen, ROWS, MOE_LM["heads"], 1, dh, PAGE_LEN,
+                    -(-(p + s) // PAGE_LEN), torch.float32)
+    # serve phase 18's load over the trained params
+    specs = engine_specs(np, MOE_LM["vocab"])
+    engine_kw = dict(moe=MOE_ENGINE, buckets=ENGINE_BUCKETS, max_batch=ROWS,
+                     page_len=PAGE_LEN, prefill_chunk=PREFILL_CHUNK,
+                     decode_kernel="auto")
+    with ServeEngine(params, MOE_LM["heads"], **engine_kw) as eng:
+        eng.warmup()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        combine0 = pa.paged_decode_attention.combine_launches
+        t0 = time.perf_counter()
+        served = engine_results(submit_from_threads(eng, Request, specs),
+                                "phase 26 engine")
+        wall = time.perf_counter() - t0
+        snap = eng.metrics.snapshot()
+        serve_counts = ops.launch_counts()
+        serve_counts["paged_combine"] = \
+            pa.paged_decode_attention.combine_launches - combine0
+    # the sampled requests one at a time on a second engine: resubmitted to
+    # the first, each would hit its own prompt in the prefix cache, and a
+    # hit moves the prefill chunks' boundaries and so the MoE's groups
+    sampled = [i for i, sp in enumerate(specs) if sp.get("temperature")]
+    with ServeEngine(params, MOE_LM["heads"], **engine_kw) as eng:
+        alone = {i: engine_results([eng.submit(Request(**specs[i]))],
+                                   "phase 26 alone")[0] for i in sampled}
+    gen_toks = sum(len(t) - len(sp["prompt"]) for t, sp in zip(served, specs))
+    chunk = kvpool.PagedGroup(ENGINE_BUCKETS[-1], ROWS, PAGE_LEN,
+                              PREFILL_CHUNK).chunk
+    multi = sum(1 for sp in specs if len(sp["prompt"]) > chunk)
+    log(f"  ServeEngine(moe={MOE_ENGINE}): {len(specs)} requests "
+        f"({len(sampled)} sampled, {multi} of more than one {chunk}-token "
+        f"prefill chunk) on {ROWS} rows: {gen_toks} tokens in {wall:.3f} s "
+        f"= {gen_toks / wall:.1f} tok/s, TTFT p50 "
+        f"{snap['p50_ttft_s'] * 1e3:.1f} ms, p99 "
+        f"{snap['p99_ttft_s'] * 1e3:.1f} ms (host clock); launches "
+        f"{serve_counts}")
+    if serve_counts["paged_decode_attention"] <= 0:
+        raise AssertionError("phase 26: the paged kernel never launched")
+    bad = [i for i in sampled if served[i] != alone[i]]
+    if bad:
+        raise AssertionError(f"phase 26: sampled requests {bad} differ from "
+                             f"the same requests served alone")
+    same_gen = 0
+    for i, sp in enumerate(specs):
+        if i in alone:
+            continue
+        ref = moe_chunked_reference(np, tt, params, sp["prompt"],
+                                    sp["steps"])
+        if served[i] != ref:
+            raise AssertionError(f"phase 26: request {i} greedy tokens != "
+                                 f"the chunked paged reference")
+        same_gen += ref == tt.lm_generate(
+            params, sp["prompt"], 0, heads=MOE_LM["heads"],
+            max_len=len(sp["prompt"]) + sp["steps"], steps=sp["steps"],
+            moe=MOE_ENGINE).tolist()
+    greedy = len(specs) - len(sampled)
+    log(f"  greedy tokens: engine == the chunked reference for all {greedy} "
+        f"requests ({same_gen} of them also == lm_generate's whole-prompt "
+        f"routing); sampled == served alone for all {len(sampled)}; phase 26"
+        f" result: every check passed; {smi}")
+    del params
+    torch.cuda.empty_cache()
+    return train_counts, serve_counts
+
+
+def _slab_traffic(np):
+    """Phase 27's requests: config_serve's prompt (8-191 tokens) and step
+    (4-32) ranges, every fourth request sampled, and SLAB_LONG prompts of
+    exactly 2048 tokens with 8 steps."""
+    rng = np.random.default_rng(27)
+    vocab = SERVE_MODEL["vocab"]
+    specs = []
+    for i in range(SLAB_REQUESTS):
+        spec = dict(prompt=rng.integers(0, vocab, int(rng.integers(8, 192)))
+                    .astype(np.int32), steps=int(rng.integers(4, 33)))
+        if i % 4 == 3:
+            spec.update(temperature=0.8, seed=1000 + i, top_p=0.95)
+        specs.append(spec)
+    for i in range(SLAB_LONG):
+        specs.insert(7 * i + 3, dict(
+            prompt=rng.integers(0, vocab, 2048).astype(np.int32), steps=8))
+    return specs
+
+
+def slab_path(torch, np, tt, fa, pa, ops, smi):
+    """Phase 27: ServeEngine(paged=False) over config_serve's model; the same
+    requests through the paged engine. The flash forward at the shape
+    ``lm_prefill_slot`` gives it (8 heads of 16 over 2048 positions) and the
+    paged kernel at the paged engine's (kvh 8, group 1, dh 16, each
+    bucket's table) are first held against their plain versions. Returns
+    the slab leg's and the paged leg's launch counts."""
+    from marlin_tpu_torch import config as mconfig
+    from marlin_tpu_torch.serving import Request, ServeEngine
+
+    lm = tt.TransformerLM(**SERVE_MODEL)
+    params = lm.init_params()
+    specs = _slab_traffic(np)
+    log(f"phase 27: ServeEngine(paged=False) over TransformerLM"
+        f"{tuple(SERVE_MODEL.values())} f32 (dh "
+        f"{SERVE_MODEL['d_model'] // SERVE_MODEL['heads']}), buckets "
+        f"{SLAB_BUCKETS}, {SLAB_BATCH} rows: {len(specs)} requests "
+        f"({sum(1 for s in specs if s.get('temperature'))} sampled, "
+        f"{SLAB_LONG} of 2048 tokens); then the paged engine; {smi}")
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    heads = SERVE_MODEL["heads"]
+    dh = SERVE_MODEL["d_model"] // heads
+    check_flash(torch, fa, gen, heads, SLAB_BUCKETS[-1][0], dh,
+                SLAB_BUCKETS[-1][0], torch.float32)
+    page_len = mconfig.get_config().serve_page_len
+    for p, s in SLAB_BUCKETS:
+        check_paged(torch, pa, gen, SLAB_BATCH, heads, 1, dh, page_len,
+                    -(-(p + s) // page_len), torch.float32)
+    legs = {}
+    for paged in (False, True):
+        with ServeEngine(params, SERVE_MODEL["heads"], buckets=SLAB_BUCKETS,
+                         max_batch=SLAB_BATCH, paged=paged,
+                         queue_depth=4 * len(specs)) as eng:
+            eng.warmup()
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            combine0 = pa.paged_decode_attention.combine_launches
+            t0 = time.perf_counter()
+            handles = [eng.submit(Request(**s)) for s in specs]
+            res = _served(handles, f"phase 27 paged={paged}")
+            wall = time.perf_counter() - t0
+            snap = eng.metrics.snapshot()
+        counts = ops.launch_counts()
+        counts["paged_combine"] = \
+            pa.paged_decode_attention.combine_launches - combine0
+        gen = sum(len(r.tokens) - len(s["prompt"]) for r, s in zip(res, specs))
+        legs[paged] = ([r.tokens.tolist() for r in res], counts)
+        log(f"  paged={paged}: {gen} tokens in {wall:.3f} s = "
+            f"{gen / wall:.1f} tok/s, TTFT p50 {snap['p50_ttft_s'] * 1e3:.1f}"
+            f" ms, p99 {snap['p99_ttft_s'] * 1e3:.1f} ms (host clock); "
+            f"launches {counts}")
+    slab_counts, paged_counts = legs[False][1], legs[True][1]
+    if slab_counts["flash_attention_panel"] != SLAB_LONG * \
+            SERVE_MODEL["layers"]:
+        raise AssertionError(f"phase 27: lm_prefill_slot launched the flash "
+                             f"forward {slab_counts['flash_attention_panel']}"
+                             f" times, want one a layer of each 2048-token "
+                             f"prompt")
+    if paged_counts["paged_decode_attention"] <= 0:
+        raise AssertionError("phase 27: the paged engine's kernel never "
+                             "launched")
+    same_sampled = 0
+    for i, s in enumerate(specs):
+        slab, paged = legs[False][0][i], legs[True][0][i]
+        if s.get("temperature"):
+            same_sampled += slab == paged
+            continue
+        ref = tt.lm_generate(params, s["prompt"], 0,
+                             heads=SERVE_MODEL["heads"],
+                             max_len=len(s["prompt"]) + s["steps"],
+                             steps=s["steps"]).tolist()
+        if slab != ref or paged != ref:
+            raise AssertionError(f"phase 27: request {i} greedy tokens "
+                                 f"(slab {slab == ref}, paged {paged == ref})"
+                                 f" != lm_generate")
+    n_sampled = sum(1 for s in specs if s.get("temperature"))
+    log(f"  greedy tokens: slab == paged == lm_generate for all "
+        f"{len(specs) - n_sampled} greedy requests; sampled rows equal "
+        f"across the two engines: {same_sampled} of {n_sampled}; phase 27 "
+        f"result: every check passed; {smi}")
+    del params
+    torch.cuda.empty_cache()
+    return slab_counts, paged_counts
+
+
+def fuse_target_name(node) -> str | None:
+    """The name of what an FX node calls (``torch.matmul`` -> "matmul",
+    ``aten.mm.default`` -> "mm", ``x.matmul(y)`` -> "matmul"), None for a
+    node that calls nothing."""
+    if node.op == "call_method":
+        return node.target
+    if node.op != "call_function":
+        return None
+    name = getattr(node.target, "__name__", None) or str(node.target)
+    return name.split(".")[0]
+
+
+def fuse_path(torch, np, mt, smi):
+    """Phase 28: lazy.fuse over a.multiply(b).add(c).multiply(2.0) at
+    FUSE_N² f32 through inductor: one graph, equal to the eager chain, its
+    time beside the eager chain's (CUDA events); lazy.grad of a fused
+    scalar loss returns a DenseVecMatrix."""
+    from torch._inductor.compile_fx import compile_fx
+
+    from marlin_tpu_torch import lazy
+
+    n = FUSE_N
+    log(f"phase 28: lazy.fuse over a.multiply(b).add(c).multiply(2.0) at "
+        f"{n}^2 f32 (inductor); {smi}")
+    a, b, c = (mt.DenseVecMatrix.random(s, n, n) for s in (280, 281, 282))
+    graphs = []
+
+    def backend(gm, example_inputs):
+        graphs.append(gm)
+        return compile_fx(gm, example_inputs)
+
+    def chain(a, b, c):
+        return a.multiply(b).add(c).multiply(2.0)
+
+    fused = mt.fuse(chain, backend=backend)
+    t0 = time.perf_counter()
+    out = fused(a, b, c)
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    eager = chain(a, b, c)
+    err = float((out.data - eager.data).abs().max()) / float(
+        eager.data.abs().max())
+    products = [fuse_target_name(node) for node in graphs[0].graph.nodes
+                if fuse_target_name(node) in FUSE_PRODUCTS]
+    log(f"  first call (trace + compile) {compile_s:.3f} s: {len(graphs)} "
+        f"graph, {len(products)} product(s) in it {products}; fused vs eager"
+        f" max err {err:.3e} of max|eager| (tol {FUSE_TOL:g})")
+    if len(graphs) != 1 or len(products) != 1 or not isinstance(
+            out, mt.DenseVecMatrix) or not err <= FUSE_TOL:
+        raise AssertionError("phase 28: the fused chain is not one graph "
+                             "with one product equal to the eager chain")
+    ms_fused = cuda_ms(torch, lambda: fused(a, b, c), 5)
+    ms_eager = cuda_ms(torch, lambda: chain(a, b, c), 5)
+    bound = 1e3 * max(2.0 * n ** 3 / F32_PEAK, 4.0 * n * n * 4 /
+                      HBM_BYTES_PER_S)
+    log(f"  fused {ms_fused:.3f} ms, eager {ms_eager:.3f} ms a call (CUDA "
+        f"events, TF32 off), bound {bound:.3f} ms (operations, f32 outside "
+        f"the tensor cores)")
+    loss = mt.fuse(lambda a, b: a.multiply(b).sum(), backend=backend)
+    g = lazy.grad(lambda a: loss(a, b))(a)
+    want = b.data.sum(dim=1)[None, :].expand(n, n)
+    gerr = float((g.data - want).abs().max()) / float(want.abs().max())
+    log(f"  lazy.grad of a fused sum: {type(g).__name__} {g.shape}, vs "
+        f"ones @ b^T max err {gerr:.3e} of max")
+    if not isinstance(g, mt.DenseVecMatrix) or g.shape != a.shape or \
+            not gerr <= 1e-5:
+        raise AssertionError("phase 28: lazy.grad cotangent wrong")
+    log(f"phase 28 result: every check passed; {smi}")
+    del a, b, c, out, eager, g, want
+    torch.cuda.empty_cache()
+    return ms_fused, ms_eager
+
+
 def lct_reference(torch, np, tt):
     """Phase 11's uninterrupted run, for a run of phase 23 without phase 11:
     (stream, initial params, params and losses after TRAIN_STEPS steps)."""
@@ -3923,13 +4376,13 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=None,
-                    help="run the build, then only these of phases 19-25 "
+                    help="run the build, then only these of phases 19-28 "
                          "(comma-separated; 20 runs 19 first), and print no "
                          "result lines")
     only = ap.parse_args().phases
     only = None if only is None else {int(p) for p in only.split(",")}
-    if only is not None and not only <= {19, 20, 21, 22, 23, 24, 25}:
-        ap.error("--phases takes a subset of 19,20,21,22,23,24,25")
+    if only is not None and not only <= set(range(19, 29)):
+        ap.error("--phases takes a subset of 19,20,...,28")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available", file=sys.stderr)
         return 2
@@ -3999,6 +4452,17 @@ def main() -> int:
         if 25 in only:
             fleet_path(torch, np, mt, tt, ops, pa, smi)
             lap("phase 25")
+        if only & {26, 27}:
+            from marlin_tpu_torch.ops import flash_attention as fa
+        if 26 in only:
+            moe_path(torch, np, tt, fa, pa, ops, smi)
+            lap("phase 26")
+        if 27 in only:
+            slab_path(torch, np, tt, fa, pa, ops, smi)
+            lap("phase 27")
+        if 28 in only:
+            fuse_path(torch, np, mt, smi)
+            lap("phase 28")
         log(f"phases {sorted(only)}: every check passed in "
             f"{time.perf_counter() - t_start:.1f} s")
         return 0
@@ -4356,25 +4820,38 @@ def main() -> int:
     lap("phase 24")
     fleet_split, fleet_combines = fleet_path(torch, np, mt, tt, ops, pa, smi)
     lap("phase 25")
+    moe_train, moe_serve = moe_path(torch, np, tt, fa, pa, ops, smi)
+    lap("phase 26")
+    slab_counts, slab_paged = slab_path(torch, np, tt, fa, pa, ops, smi)
+    lap("phase 27")
+    late_combines = moe_serve["paged_combine"] + slab_paged["paged_combine"]
+    fuse_path(torch, np, mt, smi)
+    lap("phase 28")
+    late = {k: moe_train[k] + moe_serve[k] + slab_counts[k] + slab_paged[k]
+            for k in moe_train}
     paged_launches = path_counts["paged_decode_attention"] + \
         engine_launches + prog_split + cli["paged_decode_attention"] + \
-        fleet_split
+        fleet_split + late["paged_decode_attention"]
     combines = paged_combines + engine_combines + prog_combines + \
-        cli["paged_combine"] + fleet_combines
+        cli["paged_combine"] + fleet_combines + late_combines
     log(f"paged kernel launches on the main paths: split {paged_launches} "
         f"(phase 8 {path_counts['paged_decode_attention']}, phase 18 "
         f"{engine_launches}, phase 20 {prog_split}, phase 24 "
-        f"{cli['paged_decode_attention']}, phase 25 {fleet_split}); combine "
-        f"{combines} (phase 8 {paged_combines}, phase 18 {engine_combines}, "
-        f"phase 20 {prog_combines}, phase 24 {cli['paged_combine']}, phase 25"
-        f" {fleet_combines})")
+        f"{cli['paged_decode_attention']}, phase 25 {fleet_split}, phase 26 "
+        f"{moe_serve['paged_decode_attention']}, phase 27 "
+        f"{slab_paged['paged_decode_attention']}); combine {combines} (phase "
+        f"8 {paged_combines}, phase 18 {engine_combines}, phase 20 "
+        f"{prog_combines}, phase 24 {cli['paged_combine']}, phase 25 "
+        f"{fleet_combines}, phases 26-27 {late_combines})")
     for kname, before in (
             ("flash_attention_panel", path_counts["flash_attention_panel"]),
             ("flash_attention_bwd_dkv", train_counts["flash_attention_bwd_dkv"]),
             ("flash_attention_bwd_dq", train_counts["flash_attention_bwd_dq"]),
             ("bsr_spmm_pallas", sparse_counts["bsr_spmm_pallas"])):
-        log(f"{kname} launches on the main paths: {before + cli[kname]} "
-            f"(phases 8/11/14 {before}, phase 24 {cli[kname]})")
+        log(f"{kname} launches on the main paths: "
+            f"{before + cli[kname] + late[kname]} (phases 8/11/14 {before}, "
+            f"phase 24 {cli[kname]}, phase 26 {moe_train[kname]}, phase 27 "
+            f"{slab_counts[kname]})")
 
     # ---------------------------------------------------- kernels line
     kernels = [
@@ -4400,7 +4877,7 @@ def main() -> int:
          "source": "marlin_tpu_torch/csrc/flash_attention.cuh",
          "replaces": "marlin_tpu/ops/flash_attention.py:93",
          "launches": path_counts["flash_attention_panel"]
-         + cli["flash_attention_panel"],
+         + cli["flash_attention_panel"] + late["flash_attention_panel"],
          "max_abs_err": flash_err, "ms": tf["ms"], "plain_ms": tf["plain"],
          "bound_ms": tf["bound"], "bound_by": "operations",
          "library_ms": tf["lib"]},
@@ -4408,7 +4885,7 @@ def main() -> int:
          "source": "marlin_tpu_torch/csrc/flash_attention_bwd.cu",
          "replaces": "marlin_tpu/ops/flash_attention.py:195",
          "launches": train_counts["flash_attention_bwd_dkv"]
-         + cli["flash_attention_bwd_dkv"],
+         + cli["flash_attention_bwd_dkv"] + late["flash_attention_bwd_dkv"],
          "max_abs_err": max(bwd_errs["dk"], bwd_errs["dv"]),
          "ms": t["ms_dkv"], "plain_ms": t["plain_bwd"],
          "bound_ms": t["bound_dkv"], "bound_by": "operations",
@@ -4417,7 +4894,7 @@ def main() -> int:
          "source": "marlin_tpu_torch/csrc/flash_attention_bwd.cu",
          "replaces": "marlin_tpu/ops/flash_attention.py:232",
          "launches": train_counts["flash_attention_bwd_dq"]
-         + cli["flash_attention_bwd_dq"],
+         + cli["flash_attention_bwd_dq"] + late["flash_attention_bwd_dq"],
          "max_abs_err": bwd_errs["dq"], "ms": t["ms_dq"],
          "plain_ms": t["plain_bwd"], "bound_ms": t["bound_dq"],
          "bound_by": "operations",

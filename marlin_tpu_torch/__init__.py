@@ -26,7 +26,11 @@ the IO stack and out-of-core streaming: the text formats (``io/text.py``,
 (``io/chunkstore.py``, ``native/``), MNIST idx files (``io/mnist.py``), the
 pinned-buffer prefetcher and the streamed Gramian and multiply
 (``parallel/{prefetch,streaming}.py``, ``matrix/out_of_core.py``), and
-checkpoints with resume (``io/checkpoint.py``, ``io/orbax_ckpt.py``).
+checkpoints with resume (``io/checkpoint.py``, ``io/orbax_ckpt.py``); the
+mixture-of-experts LM family (``models/moe.py``) through training,
+generation and both serving backends (the paged pool and the dense-slab
+control); and fused matrix expressions (``lazy.fuse`` over
+``torch.compile``, ``lazy.grad``).
 
 Quick start::
 
@@ -71,6 +75,7 @@ from .io import (  # noqa: F401
     save_matrix,
 )
 from .utils import evaluate, timer  # noqa: F401
-from . import io, linalg, ml, random  # noqa: F401
+from .lazy import fuse  # noqa: F401
+from . import io, lazy, linalg, ml, random  # noqa: F401
 
 __version__ = "0.1.0"

@@ -94,28 +94,37 @@ def matrices_from_numpy(arrays: dict[str, np.ndarray],
 
 
 _LM_LAYER_KEYS = ("wq", "wk", "wv", "wo", "ln1", "ln2", "w1", "w2")
+_MOE_KEYS = ("wg", "w1", "w2")
 
 
 def lm_params_from_numpy(params_np: dict, device=None, dtype: Any = None
                          ) -> dict:
     """The JAX package's transformer params (``emb``, ``l{i}`` with
-    ``wq, wk, wv, wo, ln1, ln2, w1, w2``, ``ln_f``; numpy arrays, e.g.
-    ``jax.tree.map(np.asarray, params)``) as the port's params dict, 1:1, on
-    ``device`` (default: the configured one), in ``dtype`` when given, else
-    each array's own. Raises on a key the port does not know (MoE layers)."""
+    ``wq, wk, wv, wo, ln1, ln2`` and either ``w1, w2`` or, in a
+    mixture-of-experts layer, a ``moe`` dict of ``wg, w1, w2``; ``ln_f``;
+    numpy arrays, e.g. ``jax.tree.map(np.asarray, params)``) as the port's
+    params dict, 1:1, on ``device`` (default: the configured one), in
+    ``dtype`` when given, else each array's own. Raises on a key the port
+    does not know."""
     out = {}
     for name, value in params_np.items():
         if name in ("emb", "ln_f"):
             out[name] = to_tensor(np.array(value), dtype, device)
         elif name.startswith("l") and name[1:].isdigit():
-            extra = set(value) - set(_LM_LAYER_KEYS)
-            if extra:
-                raise NotImplementedError(
-                    f"{name}: parameters {sorted(extra)} have no counterpart "
-                    f"in the port (mixture-of-experts layers: ROADMAP queue "
-                    f"1 item 12)")
-            out[name] = {k: to_tensor(np.array(value[k]), dtype, device)
-                         for k in _LM_LAYER_KEYS}
+            moe = "moe" in value
+            want = set(_LM_LAYER_KEYS[:6]) | ({"moe"} if moe else {"w1", "w2"})
+            if set(value) != want or (moe and set(value["moe"])
+                                      != set(_MOE_KEYS)):
+                raise ValueError(
+                    f"{name}: parameters {sorted(value)} are not a dense "
+                    f"layer's {list(_LM_LAYER_KEYS)} nor a mixture-of-experts"
+                    f" layer's (w1/w2 replaced by moe{list(_MOE_KEYS)})")
+            layer = {k: to_tensor(np.array(value[k]), dtype, device)
+                     for k in _LM_LAYER_KEYS if k in value}
+            if moe:
+                layer["moe"] = {k: to_tensor(np.array(value["moe"][k]), dtype,
+                                             device) for k in _MOE_KEYS}
+            out[name] = layer
         else:
             raise ValueError(f"unknown transformer parameter {name!r}")
     return out

@@ -6,13 +6,16 @@ Counterpart of ``marlin_tpu/models/transformer.py``: init, the training half
 ``lm_train_step`` with Adam, ``TransformerLM.train``; ``remat`` and
 ``mlp_chunk`` recompute through ``torch.utils.checkpoint``), the dense and
 flash prefill, the cached decode step, ``lm_generate`` /
-``lm_generate_batch``, and the paged trio ``init_kv_pages`` /
-``lm_prefill_paged`` / ``lm_decode_paged`` with ``kv_page_copy``. Names,
-parameter layout (``emb``, ``l{i}.{wq,wk,wv,wo,ln1,ln2,w1,w2}``, ``ln_f``) and
-contracts are the JAX package's. Training runs ring and Ulysses attention at
-world size 1 (``parallel/``); mixture-of-experts layers, ``offload_residuals``,
-multi-device training and the dense-slab programs (``init_kv_slab``,
-``lm_prefill_slot``, ``lm_decode_rows``) are not ported yet (ROADMAP).
+``lm_generate_batch``, the paged trio ``init_kv_pages`` /
+``lm_prefill_paged`` / ``lm_decode_paged`` with ``kv_page_copy``, and the
+dense-slab pair ``lm_prefill_slot`` / ``lm_decode_rows`` over
+``init_kv_slab``. Names, parameter layout (``emb``,
+``l{i}.{wq,wk,wv,wo,ln1,ln2,w1,w2}`` or, in a mixture-of-experts layer,
+``l{i}.moe.{wg,w1,w2}`` in place of ``w1``/``w2``; ``ln_f``) and contracts
+are the JAX package's; every program takes the ``moe`` routing tuple
+(``models/moe.py``). Training runs ring and Ulysses attention at world size
+1 (``parallel/``); ``offload_residuals`` and multi-device training are not
+ported yet (ROADMAP queue 1 item 12).
 
 Differences that follow from PyTorch:
 
@@ -54,13 +57,15 @@ from ..parallel.ulysses import ulysses_attention
 __all__ = ["TransformerLM", "init_transformer", "transformer_forward",
            "lm_loss", "lm_value_and_grad", "lm_train_step", "AdamState",
            "adam_init",
-           "lm_generate", "lm_generate_batch", "init_kv_pages",
+           "lm_generate", "lm_generate_batch", "init_kv_slab",
+           "lm_prefill_slot", "lm_decode_rows", "init_kv_pages",
            "lm_prefill_paged", "lm_decode_paged", "kv_page_copy",
            "resolve_decode_kernel", "synthetic_stream"]
 
 _MASKED = -1e30
-_NO_MOE = ("mixture-of-experts layers (models/moe.py) are not ported yet "
-           "(ROADMAP queue 1 item 12)")
+# the MoE routing knobs (top_k, capacity_factor, group) a MoE layer uses
+# when the caller passes no ``moe`` tuple, as in the JAX package
+_MOE_DEFAULTS = (2, 1.25, 4096)
 _NO_OFFLOAD = ("offload_residuals (remat checkpoints parked in host memory) "
                "is not ported yet (ROADMAP queue 1 item 12)")
 
@@ -81,12 +86,13 @@ def init_transformer(key, vocab: int, d_model: int, heads: int, layers: int,
                      kv_heads: int | None = None, n_experts: int | None = None,
                      moe_every: int = 1, device=None) -> dict:
     """Scaled-normal init with a tied embedding; ``kv_heads`` enables GQA
-    (wk/wv project to ``kv_heads·dh``). ``key`` is an int seed of a
+    (wk/wv project to ``kv_heads·dh``). ``n_experts`` turns the FFN of every
+    ``moe_every``-th layer (from layer ``moe_every - 1``) into a
+    mixture-of-experts (:func:`~.moe.init_moe` under the layer's ``"moe"``
+    key, in place of ``w1``/``w2``). ``key`` is an int seed of a
     ``torch.Generator`` on ``device``; the draws differ from ``jax.random``'s
     (carry JAX weights over with
     :func:`marlin_tpu_torch.interop.lm_params_from_numpy`)."""
-    if n_experts is not None:
-        raise NotImplementedError(_NO_MOE)
     d_ff = d_ff or 4 * d_model
     kvh = heads if kv_heads is None else kv_heads
     if kvh < 1 or heads % kvh:
@@ -105,16 +111,22 @@ def init_transformer(key, vocab: int, d_model: int, heads: int, layers: int,
     s = 1.0 / math.sqrt(d_model)
     p = {"emb": normal((vocab, d_model), 0.02)}
     for i in range(layers):
-        p[f"l{i}"] = {
+        lp = {
             "wq": normal((d_model, d_model), s),
             "wk": normal((d_model, kv_dim), s),
             "wv": normal((d_model, kv_dim), s),
             "wo": normal((d_model, d_model), s),
             "ln1": torch.ones(d_model, dtype=dtype, device=dev),
             "ln2": torch.ones(d_model, dtype=dtype, device=dev),
-            "w1": normal((d_model, d_ff), s),
-            "w2": normal((d_ff, d_model), 1.0 / math.sqrt(d_ff)),
         }
+        if n_experts is not None and (i + 1) % moe_every == 0:
+            from .moe import init_moe
+
+            lp["moe"] = init_moe(gen, d_model, d_ff, n_experts, dtype)
+        else:
+            lp["w1"] = normal((d_model, d_ff), s)
+            lp["w2"] = normal((d_ff, d_model), 1.0 / math.sqrt(d_ff))
+        p[f"l{i}"] = lp
     p["ln_f"] = torch.ones(d_model, dtype=dtype, device=dev)
     return p
 
@@ -125,10 +137,7 @@ def _n_layers(params: dict) -> int:
 
 
 def _layer(params: dict, i: int) -> dict:
-    lp = params[f"l{i}"]
-    if "moe" in lp:
-        raise NotImplementedError(_NO_MOE)
-    return lp
+    return params[f"l{i}"]
 
 
 def _rmsnorm(x, g):
@@ -165,10 +174,47 @@ def _mlp(h, lp, cd, chunk: int | None = None):
     return torch.cat(outs)
 
 
+def _moe_knobs(moe) -> tuple:
+    """The MoE routing tuple ``(top_k, capacity_factor, group)``: the
+    caller's, else :data:`_MOE_DEFAULTS`."""
+    return _MOE_DEFAULTS if moe is None else tuple(moe)
+
+
+def _ffn(h, lp, cd, moe=None, mesh=None, precision: str = "high",
+         chunk: int | None = None):
+    """The FFN over a (tokens, d) block: the layer's MoE
+    (:func:`~.moe.moe_ffn`, grouped routing with the knobs of ``moe``) or
+    the dense GELU FFN (``chunk`` as :func:`_mlp`'s). Returns ``(out,
+    aux)``, ``aux`` the MoE load-balance term (an exact f32 zero for a
+    dense layer)."""
+    if "moe" in lp:
+        from .moe import moe_ffn
+
+        tk, cf, gs = _moe_knobs(moe)
+        return moe_ffn(lp["moe"], h, mesh=mesh, top_k=tk, capacity_factor=cf,
+                       group_size=gs, precision=precision)
+    return (_mlp(h, lp, cd, chunk),
+            torch.zeros((), dtype=torch.float32, device=h.device))
+
+
+def _decode_ffn(h, lp, cd, moe=None):
+    """The decode FFN over one token a row (``h`` (B, d)): MoE layers route
+    each row exactly to its top-k experts (:func:`~.moe.moe_decode_ffn`)."""
+    if "moe" in lp:
+        from .moe import moe_decode_ffn
+
+        return moe_decode_ffn(lp["moe"], h, top_k=_moe_knobs(moe)[0])
+    return _mlp(h, lp, cd)
+
+
 def _f32_einsum(eq: str, a, b):
-    """An einsum with f32 results: bf16 operands are widened first, which is
-    exact (the products of two bf16 values fit in f32)."""
-    return torch.einsum(eq, a.float(), b.float())
+    """An einsum with at least f32 results (the JAX package's
+    ``preferred_element_type=f32``): bf16 operands are widened first, which
+    is exact (the products of two bf16 values fit in f32); f64 ones (a
+    reference run) stay f64."""
+    dt = torch.promote_types(torch.promote_types(a.dtype, b.dtype),
+                             torch.float32)
+    return torch.einsum(eq, a.to(dt), b.to(dt))
 
 
 def _head_logits(x, emb):
@@ -287,7 +333,7 @@ def _row_keys(seeds, steps, device) -> torch.Tensor:
 # ------------------------------------------------------------- decode step
 
 
-def _decode_step(params, x, caches, pos, heads: int):
+def _decode_step(params, x, caches, pos, heads: int, moe=None):
     """Cached decode at ``pos``: ``x`` is the embedded token in the compute
     dtype, ``caches`` maps layer -> (k, v). Batched form: ``x`` (B, d),
     caches (B, L, kv_heads, dh), ``pos`` (B,); the JAX package's single-row
@@ -318,7 +364,7 @@ def _decode_step(params, x, caches, pos, heads: int):
         p = torch.softmax(s, dim=-1)
         o = torch.einsum("bkgt,btkd->bkgd", p.to(cd), cv.to(cd))
         x = x + o.reshape(B, d) @ lp["wo"].to(cd)
-        x = x + _mlp(_rmsnorm(x, lp["ln2"]), lp, cd)
+        x = x + _decode_ffn(_rmsnorm(x, lp["ln2"]), lp, cd, moe)
     logits = _head_logits(_rmsnorm(x, params["ln_f"]), params["emb"])
     if single:
         return logits[0], {n: (k[0], v[0]) for n, (k, v) in caches.items()}
@@ -357,7 +403,8 @@ def _prefill_attn(q, k, v, cdtype):
     return out.permute(1, 0, 2)[:P].to(cdtype)
 
 
-def _prefill_hidden(params, prompt, heads: int, max_len: int, cdtype):
+def _prefill_hidden(params, prompt, heads: int, max_len: int, cdtype,
+                    moe=None):
     """The whole prompt in one parallel forward: final-norm hidden states
     (P, d) and per-layer KV caches (max_len, kv_heads, dh) in ``cdtype``."""
     P = prompt.shape[0]
@@ -382,13 +429,13 @@ def _prefill_hidden(params, prompt, heads: int, max_len: int, cdtype):
             k, v = (t.repeat_interleave(heads // kvh, dim=1) for t in (k, v))
         o = _prefill_attn(q, k, v, cdtype)
         x = x + o.reshape(P, d) @ lp["wo"].to(cdtype)
-        x = x + _mlp(_rmsnorm(x, lp["ln2"]), lp, cdtype)
+        x = x + _ffn(_rmsnorm(x, lp["ln2"]), lp, cdtype, moe)[0]
     return _rmsnorm(x, params["ln_f"]), caches
 
 
-def _prefill(params, prompt, heads: int, max_len: int, cdtype):
+def _prefill(params, prompt, heads: int, max_len: int, cdtype, moe=None):
     """Final-position logits + caches (the single-sequence prefill)."""
-    x, caches = _prefill_hidden(params, prompt, heads, max_len, cdtype)
+    x, caches = _prefill_hidden(params, prompt, heads, max_len, cdtype, moe)
     return _head_logits(x[-1], params["emb"]), caches
 
 
@@ -398,13 +445,14 @@ def _prefill(params, prompt, heads: int, max_len: int, cdtype):
 @_inference
 def lm_generate(params, prompt, key, heads: int, max_len: int, steps: int,
                 temperature=0.0, compute_dtype=None, top_p=None,
-                top_k: int | None = None):
+                top_k: int | None = None, moe=None):
     """KV-cached autoregressive decode: batched prefill of the prompt, then
     ``steps - 1`` decode steps. ``key`` is an int seed or key words
     (``jax.random.key_data``); one split per sampled token, as the JAX
     package draws. ``compute_dtype`` runs the residual stream and the caches
-    in that dtype (logits and softmax stay f32). Returns the ``(n_prompt +
-    steps,)`` token tensor on the params' device."""
+    in that dtype (logits and softmax stay f32); ``moe`` is the MoE layers'
+    ``(top_k, capacity_factor, group)``. Returns the ``(n_prompt + steps,)``
+    token tensor on the params' device."""
     dev = params["emb"].device
     prompt = _ints(prompt, dev)
     n = prompt.shape[0]
@@ -416,7 +464,7 @@ def lm_generate(params, prompt, key, heads: int, max_len: int, steps: int,
     pick = functools.partial(_pick_tokens, temperature, top_p, top_k)
     sample = float(temperature) > 0.0
     key = threefry.as_key(key, dev)
-    logits0, caches = _prefill(params, prompt, heads, max_len, cd)
+    logits0, caches = _prefill(params, prompt, heads, max_len, cd, moe)
     key, sub = threefry.split(key)
     tokens = torch.zeros(max_len, dtype=torch.long, device=dev)
     tokens[:n] = prompt
@@ -424,7 +472,7 @@ def lm_generate(params, prompt, key, heads: int, max_len: int, steps: int,
     caches = {name: (k[None], v[None]) for name, (k, v) in caches.items()}
     for pos in range(n, n + steps - 1):
         x = params["emb"][tokens[pos:pos + 1]].to(cd)
-        logits, caches = _decode_step(params, x, caches, [pos], heads)
+        logits, caches = _decode_step(params, x, caches, [pos], heads, moe)
         if sample:
             key, sub = threefry.split(key)
         tokens[pos + 1] = pick(logits[0], sub)
@@ -435,7 +483,7 @@ def lm_generate(params, prompt, key, heads: int, max_len: int, steps: int,
 def lm_generate_batch(params, prompts, lengths, key, heads: int,
                       max_len: int, steps: int, temperature=0.0,
                       compute_dtype=None, top_p=None,
-                      top_k: int | None = None):
+                      top_k: int | None = None, moe=None):
     """Batched KV-cached decode of ragged prompts: ``prompts`` (B, P) padded
     to a common P, ``lengths`` (B,) the true lengths; each row continues from
     its own position. Returns (B, max_len) tokens; row b's generation fills
@@ -455,7 +503,7 @@ def lm_generate_batch(params, prompts, lengths, key, heads: int,
     key = threefry.as_key(key, dev)
     rows = torch.arange(B, device=dev)
     hidden, per_row = zip(*(_prefill_hidden(params, prompts[b], heads, max_len,
-                                            cd) for b in range(B)))
+                                            cd, moe) for b in range(B)))
     caches = {name: tuple(torch.stack([c[name][j] for c in per_row])
                           for j in range(2)) for name in per_row[0]}
     hlast = torch.stack(hidden)[rows, lengths - 1]
@@ -466,11 +514,98 @@ def lm_generate_batch(params, prompts, lengths, key, heads: int,
     for t in range(steps - 1):
         pos = lengths + t
         x = params["emb"][tokens[rows, pos]].to(cd)
-        logits, caches = _decode_step(params, x, caches, pos, heads)
+        logits, caches = _decode_step(params, x, caches, pos, heads, moe)
         if sample:
             key, sub = threefry.split(key)
         tokens[rows, pos + 1] = pick(logits, sub)
     return tokens
+
+
+# -------------------------------------------------------- dense-slab serving
+# The serving engine's control backend (``ServeEngine(paged=False)``): one
+# persistent KV slab per bucket, a slot a row, each slot's cache as long as
+# the bucket's prompt plus its steps. Per-row results depend only on the row
+# (the same math as lm_generate; sampled rows draw fold_in(key(seed), step)),
+# never on which rows share a step.
+
+
+def init_kv_slab(params, rows: int, max_len: int, heads: int,
+                 compute_dtype=None):
+    """Zeroed persistent KV pool on the params' device: layer -> (k, v), each
+    (rows, max_len, kv_heads, dh) in the compute dtype, one slot a row."""
+    d = params["emb"].shape[1]
+    dh = d // heads
+    kvh = params["l0"]["wk"].shape[1] // dh
+    dt = _cdtype(compute_dtype, params)
+    dev = params["emb"].device
+    return {f"l{i}": tuple(torch.zeros((rows, max_len, kvh, dh), dtype=dt,
+                                       device=dev) for _ in range(2))
+            for i in range(_n_layers(params))}
+
+
+@_inference
+def lm_prefill_slot(params, caches, tokens, slot, prompt, length, heads: int,
+                    max_len: int, seed=0, temperature=0.0, top_p=None,
+                    top_k=None, compute_dtype=None, moe=None):
+    """Prefill one prompt into slot ``slot`` of a slab.
+
+    ``caches`` (from :func:`init_kv_slab`) and ``tokens`` (rows, max_len)
+    are updated IN PLACE (the JAX package donates them) and returned.
+    ``prompt`` (P,) is padded to the bucket width, ``length`` its true
+    length. The slot's whole cache row is written (a previous occupant's K/V
+    is overwritten), and its token row becomes ``prompt + first_token``.
+    Returns ``(caches, tokens, first_token)``, the token a 0-d tensor."""
+    dev = params["emb"].device
+    prompt = _ints(prompt, dev)
+    P = prompt.shape[0]
+    if P + 1 > max_len:
+        raise ValueError(f"bucket prompt width {P} leaves no room for a "
+                         f"generated token within max_len {max_len}")
+    slot, length = int(slot), int(length)
+    cd = _cdtype(compute_dtype, params)
+    x, row_caches = _prefill_hidden(params, prompt, heads, max_len, cd, moe)
+    # causal attention: positions < length never see the pad tail, so the
+    # hidden state at length - 1 is the unpadded prompt's last position
+    logits = _head_logits(x[length - 1:length], params["emb"])
+    first = _pick_token_row(
+        np.float32([temperature]), np.float32([1.0 if top_p is None else top_p]),
+        np.int64([0 if top_k is None else top_k]), logits,
+        _row_keys([seed], [0], dev))[0]
+    for name, kv in caches.items():
+        for slab, row in zip(kv, row_caches[name]):
+            slab[slot].copy_(row)
+    tokens[slot].zero_()
+    tokens[slot, :P] = prompt
+    tokens[slot, length] = first
+    return caches, tokens, first
+
+
+@_inference
+def lm_decode_rows(params, caches, tokens, positions, steps_done, seeds,
+                   temperature, top_p, top_k, heads: int, max_len: int,
+                   compute_dtype=None, moe=None):
+    """One decode step for every slot of a slab.
+
+    ``caches``/``tokens`` are updated IN PLACE and returned. Per-row vectors
+    (rows,): ``positions`` each row's last written position (free slots pass
+    0: a harmless dummy step inside their own row), ``steps_done`` the
+    emitted-token count feeding the row's sampling stream, ``seeds``,
+    ``temperature``, ``top_p``, ``top_k`` the sampling knobs (0 temperature
+    = greedy; pass numpy to keep the greedy check on the host). Writes each
+    row's next token at ``positions + 1`` and returns ``(caches, tokens,
+    next_tokens)``."""
+    dev = params["emb"].device
+    B = tokens.shape[0]
+    rows = torch.arange(B, device=dev)
+    cd = _cdtype(compute_dtype, params)
+    # a free slot (position 0) writes inside its own row, never past it
+    pos = torch.clamp(_ints(positions, dev), max=max_len - 2)
+    x = params["emb"][tokens[rows, pos]].to(cd)
+    logits, caches = _decode_step(params, x, caches, pos, heads, moe)
+    nxt = _pick_token_row(temperature, top_p, top_k, logits,
+                          _row_keys(seeds, steps_done, dev))
+    tokens[rows, pos + 1] = nxt.to(tokens.dtype)
+    return caches, tokens, nxt
 
 
 # ------------------------------------------------------------ paged serving
@@ -505,7 +640,7 @@ def init_kv_pages(params, num_pages: int, page_len: int, heads: int,
 @_inference
 def lm_prefill_paged(params, pages, table, chunk, chunk_start, length,
                      heads: int, page_len: int, seed=0, temperature=0.0,
-                     top_p=None, top_k=None, compute_dtype=None):
+                     top_p=None, top_k=None, compute_dtype=None, moe=None):
     """One chunk of a paged prefill.
 
     ``pages`` is the slab (updated in place and returned); ``table`` this
@@ -566,7 +701,7 @@ def lm_prefill_paged(params, pages, table, chunk, chunk_start, length,
         o = torch.einsum("hpt,thd->phd", torch.softmax(s, dim=-1).to(cd),
                          vv.to(cd))
         x = x + o.reshape(C, d) @ lp["wo"].to(cd)
-        x = x + _mlp(_rmsnorm(x, lp["ln2"]), lp, cd)
+        x = x + _ffn(_rmsnorm(x, lp["ln2"]), lp, cd, moe)[0]
         # the chunk's own pages, exactly the cp table slots it covers
         pk[own] = k.to(pk.dtype).reshape(cp, page_len, kvh, dh)
         pv[own] = v.to(pv.dtype).reshape(cp, page_len, kvh, dh)
@@ -606,7 +741,7 @@ def _scatter_kv_entries(pk, pv, k_new, v_new, pids, off):
 
 
 def _decode_paged_pallas(params, pages, tables, pos, x, heads: int,
-                         page_len: int):
+                         page_len: int, moe=None):
     """The kernel decode body: batched projections, the new K/V entry written
     to the slab FIRST (the kernel's length-masked read then covers it, as
     :func:`_decode_step` updates its cache before attending), then one
@@ -632,7 +767,7 @@ def _decode_paged_pallas(params, pages, tables, pos, x, heads: int,
         _scatter_kv_entries(pk, pv, k.to(pk.dtype), v.to(pv.dtype), pids, off)
         o = paged_decode_attention(q.to(pk.dtype), pk, pv, tables32, lengths)
         x = x + o.to(cd).reshape(B, d) @ lp["wo"].to(cd)
-        x = x + _mlp(_rmsnorm(x, lp["ln2"]), lp, cd)
+        x = x + _decode_ffn(_rmsnorm(x, lp["ln2"]), lp, cd, moe)
     return _head_logits(_rmsnorm(x, params["ln_f"]), params["emb"])
 
 
@@ -640,7 +775,7 @@ def _decode_paged_pallas(params, pages, tables, pos, x, heads: int,
 def lm_decode_paged(params, pages, tables, positions, cur_tokens,
                     steps_done, seeds, temperature, top_p, top_k,
                     heads: int, page_len: int, compute_dtype=None,
-                    kernel: str = "auto"):
+                    moe=None, kernel: str = "auto"):
     """One decode step for every row of a bucket over the paged pool.
 
     ``pages`` is the slab (updated in place and returned); ``tables`` (B, W)
@@ -669,11 +804,11 @@ def lm_decode_paged(params, pages, tables, positions, cur_tokens,
     x = params["emb"][_ints(cur_tokens, dev)].to(cd)
     if kernel == "pallas":
         logits = _decode_paged_pallas(params, pages, tables, pos, x, heads,
-                                      page_len)
+                                      page_len, moe)
     else:
         ctx = {name: tuple(t[tables].reshape(B, L, *t.shape[2:]) for t in kv)
                for name, kv in pages.items()}
-        logits, ctx = _decode_step(params, x, ctx, pos, heads)
+        logits, ctx = _decode_step(params, x, ctx, pos, heads, moe)
         pids = tables[rows, pos // page_len]
         off = pos % page_len
         for name, (pk, pv) in pages.items():
@@ -707,10 +842,13 @@ _ATTN_BACKENDS = {"ring": "auto", "ring_flash": "flash", "ring_xla": "xla"}
 
 
 def _block(lp, x, heads: int, mesh, attn: str, precision: str,
-           mlp_chunk: int | None = None):
+           mlp_chunk: int | None = None, moe=None):
     """One pre-norm block over the (seq, d) stream: attention through ring
     (``attn`` names its backend) or Ulysses attention over (heads, seq, dh)
-    views of the projections, then the FFN."""
+    views of the projections, then the FFN — the layer's MoE
+    (:func:`~.moe.moe_ffn`, routing knobs from ``moe``) or the dense one.
+    Returns ``(x, aux)``, ``aux`` the MoE load-balance term (an exact f32
+    zero for a dense layer)."""
     seq, d = x.shape
     dh = d // heads
     cd = x.dtype  # activations carry the compute dtype; params stay f32
@@ -732,15 +870,18 @@ def _block(lp, x, heads: int, mesh, attn: str, precision: str,
     else:
         o = ulysses_attention(q, k, v, mesh, causal=True, precision=precision)
     x = x + o.transpose(0, 1).reshape(seq, d).to(cd) @ lp["wo"].to(cd)
-    return x + _mlp(_rmsnorm(x, lp["ln2"]), lp, cd, mlp_chunk)
+    out, aux = _ffn(_rmsnorm(x, lp["ln2"]), lp, cd, moe, mesh=mesh,
+                    precision=precision, chunk=mlp_chunk)
+    return x + out, aux
 
 
 def _trunk(params, tokens, mesh, heads, attn, remat, precision,
-           compute_dtype=None, mlp_chunk=None, offload_residuals=False):
-    """Final-norm hidden states (seq, d_model): the forward minus the LM
-    head. ``remat`` recomputes each block in the backward
-    (``torch.utils.checkpoint``), keeping only the block inputs. ``mesh``
-    None is the default mesh, a world of one."""
+           compute_dtype=None, mlp_chunk=None, offload_residuals=False,
+           moe=None):
+    """Final-norm hidden states (seq, d_model) and the summed MoE aux: the
+    forward minus the LM head. ``remat`` recomputes each block in the
+    backward (``torch.utils.checkpoint``), keeping only the block inputs.
+    ``mesh`` None is the default mesh, a world of one."""
     if attn not in (*_ATTN_BACKENDS, "ulysses"):
         raise ValueError(f"unknown attention strategy: {attn!r}")
     if offload_residuals:
@@ -748,16 +889,25 @@ def _trunk(params, tokens, mesh, heads, attn, remat, precision,
             raise ValueError("offload_residuals requires remat=True (without "
                              "remat there are no residual checkpoints to "
                              "offload)")
+        trees = [params[f"l{i}"] for i in range(_n_layers(params))]
+        if any(set(t) != set(trees[0]) for t in trees[1:]):
+            raise ValueError(
+                "offload_residuals stacks the layers into one scan, which "
+                "needs uniform layer structure — moe_every > 1 mixes MoE "
+                "and dense FFN layers; use moe_every=1 or drop the offload")
         raise NotImplementedError(_NO_OFFLOAD)
     x = params["emb"][_ints(tokens, params["emb"].device)]
     if compute_dtype is not None:
         x = x.to(_cdtype(compute_dtype, params))
     blk = functools.partial(_block, heads=heads, mesh=mesh, attn=attn,
-                            precision=precision, mlp_chunk=mlp_chunk)
+                            precision=precision, mlp_chunk=mlp_chunk, moe=moe)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(_n_layers(params)):
         lp = _layer(params, i)
-        x = checkpoint(blk, lp, x, use_reentrant=False) if remat else blk(lp, x)
-    return _rmsnorm(x, params["ln_f"])
+        x, a = (checkpoint(blk, lp, x, use_reentrant=False) if remat
+                else blk(lp, x))
+        aux = aux + a
+    return _rmsnorm(x, params["ln_f"]), aux
 
 
 def transformer_forward(params: dict, tokens, mesh=None, heads: int = 4,
@@ -768,11 +918,11 @@ def transformer_forward(params: dict, tokens, mesh=None, heads: int = 4,
     """f32 logits (seq, vocab) for next-token prediction over ``tokens``
     (seq,). ``attn``: ``"ring"`` (backend picked by
     :func:`~marlin_tpu_torch.parallel.ring_attention.resolve_attention_backend`),
-    ``"ring_flash"`` / ``"ring_xla"`` (pinned), or ``"ulysses"``. ``moe`` is
-    read by mixture-of-experts layers only, which are not ported."""
+    ``"ring_flash"`` / ``"ring_xla"`` (pinned), or ``"ulysses"``. ``moe``:
+    the MoE layers' ``(top_k, capacity_factor, group)``."""
     with precision_scope("highest"):
-        x = _trunk(params, tokens, mesh, heads, attn, remat, precision,
-                   compute_dtype, mlp_chunk, offload_residuals)
+        x, _ = _trunk(params, tokens, mesh, heads, attn, remat, precision,
+                      compute_dtype, mlp_chunk, offload_residuals, moe)
         return _head_logits(x, params["emb"])
 
 
@@ -805,21 +955,25 @@ def lm_loss(params, tokens, mesh=None, heads: int = 4, attn: str = "ring",
     """Mean next-token cross-entropy over the stream, an f32 scalar tensor
     with its autograd graph. ``loss_chunk`` runs the LM head over that many
     tokens at a time (:func:`_chunked_nll`); ``compute_dtype`` runs the
-    activations in that dtype (the loss stays f32). Mixture-of-experts
-    layers (``moe``, ``moe_aux_weight``) are not ported: a dense model's
-    load-balance term is an exact zero, as in the JAX package."""
+    activations in that dtype (the loss stays f32). For MoE models
+    ``moe_aux_weight`` times the summed Switch load-balance term joins the
+    loss (``moe`` carries the routing knobs); a dense model's term is an
+    exact zero, as in the JAX package."""
     if loss_chunk is not None and loss_chunk < 1:
         raise ValueError(f"loss_chunk must be >= 1 or None, got {loss_chunk}")
     emb = params["emb"]
     tokens = _ints(tokens, emb.device)
     tgt = tokens[1:]
     with precision_scope("highest"):
-        x = _trunk(params, tokens[:-1], mesh, heads, attn, remat, precision,
-                   compute_dtype, mlp_chunk, offload_residuals)
+        x, aux = _trunk(params, tokens[:-1], mesh, heads, attn, remat,
+                        precision, compute_dtype, mlp_chunk,
+                        offload_residuals, moe)
         if loss_chunk is None:
             logp = torch.log_softmax(_head_logits(x, emb), dim=-1)
-            return -torch.gather(logp, 1, tgt[:, None]).mean()
-        return _chunked_nll(x, emb, tgt, loss_chunk) / tgt.shape[0]
+            nll = -torch.gather(logp, 1, tgt[:, None]).mean()
+        else:
+            nll = _chunked_nll(x, emb, tgt, loss_chunk) / tgt.shape[0]
+        return nll + moe_aux_weight * aux
 
 
 class AdamState(NamedTuple):
@@ -929,8 +1083,20 @@ class TransformerLM:
     offload_residuals: bool = False
     # grouped-query attention: heads // kv_heads query heads per K/V head
     kv_heads: int | None = None
+    # mixture-of-experts FFN (models/moe.py): n_experts switches every
+    # moe_every-th layer's FFN to that many experts; top_k, capacity and
+    # group are the routing knobs, aux_weight scales the load-balance term
     n_experts: int | None = None
     moe_every: int = 1
+    moe_top_k: int = _MOE_DEFAULTS[0]
+    moe_capacity_factor: float = _MOE_DEFAULTS[1]
+    moe_group: int = _MOE_DEFAULTS[2]
+    moe_aux_weight: float = 1e-2
+
+    def _moe(self) -> tuple | None:
+        if self.n_experts is None:
+            return None
+        return (self.moe_top_k, self.moe_capacity_factor, self.moe_group)
 
     def init_params(self, dtype=torch.float32, device=None) -> dict:
         return init_transformer(self.seed, self.vocab, self.d_model,
@@ -955,6 +1121,10 @@ class TransformerLM:
         ones, and runs the steps after it; ``losses`` then holds those
         steps' losses alone."""
         params = params if params is not None else self.init_params()
+        if self.n_experts is not None:
+            from .moe import shard_moe_params
+
+            params = shard_moe_params(params, mesh)
         tokens = _ints(tokens, params["emb"].device)
         opt_state = adam_init(params)
         start = 0
@@ -972,7 +1142,7 @@ class TransformerLM:
                 params, opt_state, tokens, mesh, self.heads, self.attn,
                 self.remat, self.precision, self.learning_rate,
                 self.loss_chunk, self.compute_dtype, self.mlp_chunk,
-                self.offload_residuals)
+                self.offload_residuals, self._moe(), self.moe_aux_weight)
             losses.append(float(loss))
             if log_every and (it + 1) % log_every == 0:
                 print(f"step {it + 1}: loss {losses[-1]:.4f}")
@@ -994,7 +1164,7 @@ class TransformerLM:
         return lm_generate(params, prompt, self.seed if seed is None else seed,
                            heads=self.heads, max_len=max_len, steps=steps,
                            temperature=temperature, top_p=top_p, top_k=top_k,
-                           compute_dtype=self.compute_dtype)
+                           compute_dtype=self.compute_dtype, moe=self._moe())
 
     def generate_batch(self, params, prompts, steps: int = 32,
                        max_len: int | None = None, temperature=0.0,
@@ -1015,6 +1185,7 @@ class TransformerLM:
                                 heads=self.heads, max_len=max_len,
                                 steps=steps, temperature=temperature,
                                 top_p=top_p, top_k=top_k,
-                                compute_dtype=self.compute_dtype)
+                                compute_dtype=self.compute_dtype,
+                                moe=self._moe())
         out = out.cpu().numpy()
         return [out[i, :lengths[i] + steps] for i in range(len(prompts))]

@@ -115,7 +115,14 @@ def precision_scope(precision: str | None):
     or waits for one. Scopes nest within a thread. A thread that must wait (entering, or
     leaving a nested scope for its outer one's setting) first stops holding
     its own scopes: it dispatches no product while it waits, and two threads
-    that both switch cannot wait on each other."""
+    that both switch cannot wait on each other.
+
+    Inside a ``torch.compile`` trace (:func:`marlin_tpu_torch.lazy.fuse`)
+    the scope is a no-op: a graph cannot hold a lock, and ``fuse`` enters
+    one scope around the whole compiled call instead."""
+    if torch.compiler.is_compiling():
+        yield
+        return
     want = tf32_for(_precision(precision))
     me = threading.get_ident()
     with _gate:

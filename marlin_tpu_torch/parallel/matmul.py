@@ -58,9 +58,13 @@ def _capture_matmul_cost(program: str, a, b, **meta) -> None:
     multiply's analytic one: ``2mkn`` flops and each operand read and the
     result written once (the counts ``tune_multiply`` uses). Gated on
     ``tried``: one set lookup per call after a configuration's first.
-    Reads shapes and dtypes only, never the card's data; never raises."""
+    Reads shapes and dtypes only, never the card's data; never raises.
+    Inside a ``torch.compile`` trace (:func:`marlin_tpu_torch.lazy.fuse`)
+    it lands nothing, as the JAX package's jitted chains land none."""
     from ..obs import perf
 
+    if torch.compiler.is_compiling():
+        return
     try:
         m, k = a.shape
         n = b.shape[1]

@@ -4,11 +4,13 @@ Counterpart of ``marlin_tpu/serving/batcher.py``. A bucket is a
 ``(P_bucket, steps_bucket)`` pair: a request pads its prompt up to the
 smallest fitting ``P_bucket``, and the bucket sizes its cache extent.
 :class:`BatchFormer` keeps one priority-ordered FIFO per bucket, from which
-the engine's freed rows claim work. :func:`bucket_program_key` and
+the engine's freed rows claim work. :class:`SlotPool` is one bucket's
+dense slab (the ``paged=False`` control), :func:`warmup_buckets` runs its
+program pair once. :func:`bucket_program_key` and
 :func:`capture_bucket_costs` are the roofline bookkeeping; the port has no
 compiler to ask for a cost model, so the costs are counted from the shapes
-(:func:`lm_call_cost`). The dense-slab ``SlotPool``, ``warmup_buckets`` and
-the AOT helpers belong to the slab control, which is not ported (ROADMAP).
+(:func:`lm_call_cost`). The JAX package's AOT helpers (compiler memory
+analysis) have no counterpart: eager PyTorch compiles nothing ahead.
 """
 
 from __future__ import annotations
@@ -16,11 +18,12 @@ from __future__ import annotations
 import collections
 from typing import Iterable, Sequence
 
+import numpy as np
 import torch
 
 __all__ = ["normalize_buckets", "pick_bucket", "bucket_kv_bytes",
-           "BatchFormer", "bucket_program_key", "capture_bucket_costs",
-           "lm_call_cost"]
+           "BatchFormer", "SlotPool", "bucket_program_key",
+           "capture_bucket_costs", "warmup_buckets", "lm_call_cost"]
 
 Bucket = tuple[int, int]  # (P_bucket, steps_bucket)
 
@@ -133,6 +136,89 @@ class BatchFormer:
         return self._groups[bucket].take(n) if bucket in self._groups else []
 
 
+class SlotPool:
+    """One bucket's persistent KV slab for the dense-slab control
+    (``ServeEngine(paged=False)``): which slot holds which entry, the per-row
+    vectors the decode step takes (positions, emitted-step counts, sampling
+    knobs; host numpy), and the slab itself (``caches`` from
+    :func:`~marlin_tpu_torch.models.transformer.init_kv_slab` and the
+    ``tokens`` rows, on the params' device, updated in place). Only the
+    engine's worker touches a pool."""
+
+    def __init__(self, params: dict, heads: int, bucket: Bucket, width: int,
+                 compute_dtype: str | None = None):
+        from ..models.transformer import init_kv_slab
+
+        p, s = bucket
+        self.bucket = bucket
+        self.width = width
+        self.max_len = p + s
+        self.caches = init_kv_slab(params, width, self.max_len, heads,
+                                   compute_dtype)
+        self.tokens = torch.zeros((width, self.max_len), dtype=torch.long,
+                                  device=params["emb"].device)
+        self.entries: list = [None] * width
+        # decode inputs; free slots keep position 0 (a harmless dummy step
+        # inside their own row — see lm_decode_rows)
+        self.positions = np.zeros(width, np.int32)
+        self.steps_done = np.zeros(width, np.int32)
+        self.lengths = np.zeros(width, np.int32)
+        self.seeds = np.zeros(width, np.uint32)
+        self.temperature = np.zeros(width, np.float32)
+        self.top_p = np.ones(width, np.float32)   # 1.0 = nucleus filter off
+        self.top_k = np.zeros(width, np.int32)    # 0 = rank filter off
+        self.ttft_s = [None] * width
+
+    def nbytes(self) -> int:
+        """Device bytes of the slab (caches and token rows)."""
+        return sum(t.numel() * t.element_size()
+                   for kv in self.caches.values() for t in kv) \
+            + self.tokens.numel() * self.tokens.element_size()
+
+    def live_slots(self) -> list[int]:
+        return [i for i, e in enumerate(self.entries) if e is not None]
+
+    def free_slots(self) -> list[int]:
+        return [i for i, e in enumerate(self.entries) if e is None]
+
+    def occupancy(self) -> float:
+        return len(self.live_slots()) / self.width
+
+    def assign(self, slot: int, entry) -> None:
+        """Bind an admitted entry to a freed slot after its prefill: the
+        row's position is its first emitted token (= prompt length) and its
+        sampling vectors come from the request."""
+        r = entry.request
+        self.entries[slot] = entry
+        n = r.prompt.shape[0]
+        self.lengths[slot] = n
+        self.positions[slot] = n          # index of the last written token
+        self.steps_done[slot] = 1         # prefill emitted the first token
+        self.seeds[slot] = np.uint32(r.seed)
+        self.temperature[slot] = r.temperature
+        self.top_p[slot] = 1.0 if r.top_p is None else r.top_p
+        self.top_k[slot] = 0 if r.top_k is None else r.top_k
+        self.ttft_s[slot] = None
+
+    def release(self, slot: int) -> None:
+        """Free a slot on any retirement path (the next occupant's prefill
+        overwrites the stale cache and token row whole)."""
+        self.entries[slot] = None
+        self.positions[slot] = 0
+        self.steps_done[slot] = 0
+        self.lengths[slot] = 0
+        self.temperature[slot] = 0.0
+        self.top_p[slot] = 1.0
+        self.top_k[slot] = 0
+        self.ttft_s[slot] = None
+
+
+def _dummy_batch(bucket: Bucket, batch: int):
+    """An inert full-width batch for a bucket: 1-token rows of token 0."""
+    p, _ = bucket
+    return np.zeros((batch, p), np.int32), np.ones((batch,), np.int32)
+
+
 def bucket_program_key(params: dict, bucket: Bucket, max_batch: int,
                        compute_dtype=None) -> str:
     """The roofline-accounting key for one bucket's programs (obs/perf.py),
@@ -154,28 +240,47 @@ def bucket_program_key(params: dict, bucket: Bucket, max_batch: int,
 
 def lm_call_cost(params: dict, heads: int, rows: int, tokens: int,
                  context: int, compute_dtype=None,
-                 attention: bool = True) -> dict:
+                 attention: bool = True, moe: tuple | None = None) -> dict:
     """Analytic cost of one LM program call, in the keys of XLA's
     ``cost_analysis()``: ``rows`` rows of ``tokens`` new tokens each,
     attending over ``context`` cache positions, then the LM head once per
-    row. FLOPs: the q/k/v/o projections and the MLP (2·d·n products per
-    token and layer), the two attention contractions (2·2·context·d per
-    token and layer) and the head (2·d·vocab per row). Bytes: every weight
-    read once, each row's K and V over ``context`` read once and its new
-    entries written once, the embedding rows read and the f32 logits
-    written. ``attention=False`` leaves the attention out of both, for a
-    caller that counts it itself (the paged kernel's cost)."""
-    from ..models.transformer import _cdtype, _leaves, _n_layers
+    row. FLOPs per token and layer: the q/k/v/o projections (2·d·n
+    products), the FFN — dense 2·2·d·ff; a mixture-of-experts layer its
+    router 2·d·E and its top-k experts k·2·2·d·ff (``moe``'s top_k, default
+    2) — and the two attention contractions (2·2·context·d); the head
+    2·d·vocab per row. Bytes: every weight a token can read, once (a MoE
+    layer's router whole, and of its experts ``min(E, tokens·k)``: the most
+    that many choices can reach), each row's K and V over ``context`` read
+    once and its new entries written once, the embedding rows read and the
+    f32 logits written. ``attention=False`` leaves the attention out of
+    both, for a caller that counts it itself (the paged kernel's cost)."""
+    from ..models.transformer import _cdtype, _moe_knobs, _n_layers
 
     v, d = params["emb"].shape
     n = _n_layers(params)
     kv_dim = params["l0"]["wk"].shape[1]
-    dff = params["l0"]["w1"].shape[1]
+    top_k = _moe_knobs(moe)[0]
     item = torch.empty((), dtype=_cdtype(compute_dtype, params)).element_size()
+    nbytes = lambda t: t.numel() * t.element_size()  # noqa: E731
     toks = rows * tokens
-    dense = 2.0 * d * (d + 2 * kv_dim + d + 2 * dff)
-    flops = toks * n * dense + 2.0 * rows * d * v
-    weights = sum(t.numel() * t.element_size() for t in _leaves(params))
+    per_tok = 0.0   # flops of one token through every layer
+    weights = nbytes(params["emb"]) + nbytes(params["ln_f"])
+    for i in range(n):
+        lp = params[f"l{i}"]
+        per_tok += 2.0 * d * (2 * d + 2 * kv_dim)
+        weights += sum(nbytes(lp[k]) for k in
+                       ("wq", "wk", "wv", "wo", "ln1", "ln2"))
+        if "moe" in lp:
+            mp = lp["moe"]
+            e, _, dff = mp["w1"].shape
+            per_tok += 2.0 * d * e + top_k * 2.0 * 2 * d * dff
+            reached = min(e, toks * top_k)
+            weights += nbytes(mp["wg"]) + reached * (
+                nbytes(mp["w1"]) + nbytes(mp["w2"])) // e
+        else:
+            per_tok += 2.0 * 2 * d * lp["w1"].shape[1]
+            weights += nbytes(lp["w1"]) + nbytes(lp["w2"])
+    flops = toks * per_tok + 2.0 * rows * d * v
     kv_new = rows * tokens * n * 2 * kv_dim * item
     bytes_ = weights + kv_new + toks * d * item + rows * v * 4
     if attention:
@@ -186,6 +291,7 @@ def lm_call_cost(params: dict, heads: int, rows: int, tokens: int,
 
 def capture_bucket_costs(params: dict, heads: int, bucket: Bucket,
                          max_batch: int, compute_dtype: str | None = None,
+                         moe: tuple | None = None,
                          key: str | None = None) -> None:
     """Record the analytic cost models of a bucket's dense-slab program pair
     (``lm_prefill_slot``: one row's whole padded prompt over the bucket
@@ -205,9 +311,41 @@ def capture_bucket_costs(params: dict, heads: int, bucket: Bucket,
     p, s = bucket
     try:
         costs.capture("lm_prefill_slot", key, cost=lm_call_cost(
-            params, heads, 1, p, p + s, compute_dtype))
+            params, heads, 1, p, p + s, compute_dtype, moe=moe))
         costs.capture("lm_decode_rows", key, cost=lm_call_cost(
-            params, heads, max_batch, 1, p + s, compute_dtype))
+            params, heads, max_batch, 1, p + s, compute_dtype, moe=moe))
     except Exception:
         for name in programs:  # even a failed count marks the attempt
             costs.capture(name, key)
+
+
+def warmup_buckets(params: dict, heads: int, buckets: Sequence[Bucket],
+                   max_batch: int, compute_dtype: str | None = None,
+                   moe: tuple | None = None) -> int:
+    """Run every bucket's dense-slab program pair once on dummy rows (a
+    slot prefill and one decode step over a throwaway slab): builds the CUDA
+    kernels the pair reaches and warms the allocator before traffic, and
+    records each bucket's cost models (:func:`capture_bucket_costs`). Paged
+    engines warm through :func:`~.kvpool.warmup_paged` instead. Returns the
+    buckets warmed."""
+    from ..models.transformer import lm_decode_rows, lm_prefill_slot
+
+    buckets = normalize_buckets(buckets)
+    for bucket in buckets:
+        p, s = bucket
+        prompts, _ = _dummy_batch(bucket, max_batch)
+        capture_bucket_costs(params, heads, bucket, max_batch,
+                             compute_dtype, moe)
+        pool = SlotPool(params, heads, bucket, max_batch, compute_dtype)
+        caches, tokens, _ = lm_prefill_slot(
+            params, pool.caches, pool.tokens, 0, prompts[0], 1,
+            heads=heads, max_len=p + s, compute_dtype=compute_dtype,
+            moe=moe)
+        _, _, nxt = lm_decode_rows(
+            params, caches, tokens, pool.positions, pool.steps_done,
+            pool.seeds, pool.temperature, pool.top_p, pool.top_k,
+            heads=heads, max_len=p + s, compute_dtype=compute_dtype,
+            moe=moe)
+        if nxt.device.type == "cuda":
+            torch.cuda.synchronize(nxt.device)
+    return len(buckets)

@@ -1,10 +1,16 @@
 """The continuous-batching serving engine: one worker thread over the paged
-KV pool.
+KV pool, or over dense per-bucket slabs.
 
-Counterpart of ``marlin_tpu/serving/engine.py``, its paged path.
-:class:`ServeEngine` is the front half of an inference stack over the LM's
-paged programs (:func:`~marlin_tpu_torch.models.transformer.lm_prefill_paged`
-and :func:`~marlin_tpu_torch.models.transformer.lm_decode_paged`): concurrent
+Counterpart of ``marlin_tpu/serving/engine.py``. :class:`ServeEngine` is the
+front half of an inference stack over the LM's paged programs
+(:func:`~marlin_tpu_torch.models.transformer.lm_prefill_paged` and
+:func:`~marlin_tpu_torch.models.transformer.lm_decode_paged`) or, with
+``paged=False``, its dense-slab control
+(:func:`~marlin_tpu_torch.models.transformer.lm_prefill_slot` and
+:func:`~marlin_tpu_torch.models.transformer.lm_decode_rows` over one
+:class:`~.batcher.SlotPool` a bucket: whole-prompt prefill on admission, the
+bucket's worst case charged at admission). A mixture-of-experts model serves
+through either with ``moe=(top_k, capacity_factor, group)``: concurrent
 callers ``submit`` requests; an admission gate (queue depth + in-flight
 KV-cache byte budget, request.py) rejects overload with a reason; a batch
 former (batcher.py) buckets prompts onto a small static shape set; and a
@@ -68,8 +74,8 @@ per-engine :class:`~marlin_tpu_torch.obs.slo.SloEngine` over a
 :class:`~marlin_tpu_torch.obs.timeseries.TimeSeriesStore`, whose breaches
 arm admission shedding. :class:`~.supervisor.Supervisor`,
 :class:`~.router.Router` and :class:`~.fleet.FleetController` drive these
-hooks. Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP item: the dense-slab control (``paged=False``) and ``moe=``.
+hooks; a slab engine does not migrate (``freeze_rows`` returns None,
+``adopt_rows`` raises :class:`MigrationError`), as in the JAX package.
 
 Lifecycle: ``drain()`` stops admission and completes everything already
 accepted; ``close()`` stops admission, finishes the work in flight (live
@@ -79,6 +85,7 @@ thread (named ``marlin-serve-*``) is joined before either returns. Chaos
 hooks (the port's own utils/faults.py registry): ``serve.enqueue`` fires in
 ``submit``; ``serve.prefill`` before each paged prefill CHUNK (a fault
 fails/retries that one request and the pool stays consistent);
+``serve.step`` before each slab prefill (the row being admitted);
 ``serve.decode_step`` before each decode step (a fault fails/retries only
 that step's live rows); ``serve.program_step`` before each one-shot program
 batch; ``serve.worker_crash`` once per worker iteration, outside those
@@ -108,7 +115,8 @@ from ..obs.exposition import (register_health_provider,
                               unregister_slo_provider)
 from ..obs.metrics import get_registry
 from ..utils import faults
-from .batcher import BatchFormer, normalize_buckets
+from .batcher import (BatchFormer, SlotPool, bucket_program_key,
+                      capture_bucket_costs, normalize_buckets, warmup_buckets)
 from .kvpool import (PagedGroup, PagedKVPool, PagePoolExhausted,
                      auto_num_pages, capture_paged_costs, paged_program_key,
                      warmup_paged)
@@ -119,11 +127,6 @@ from .request import (SHED_REASON_PREFIX, STATUS_ERROR, STATUS_EXPIRED,
                       AdmissionQueue, Request, Result, ResultHandle)
 
 __all__ = ["ServeEngine", "MigrationError"]
-
-# the ROADMAP items the parts not ported yet wait for
-_SLAB_ITEM = "ROADMAP queue 1 item 7 (the dense-slab control)"
-_MOE_ITEM = "ROADMAP queue 1 item 12 (models/moe.py)"
-
 
 class MigrationError(RuntimeError):
     """A freeze/adopt handoff could not run (lifecycle, timeout, or a
@@ -209,8 +212,10 @@ class ServeEngine:
     latency metrics) — injectable for deterministic tests. ``log``
     overrides the default EventLog for ``serve`` records.
 
-    ``paged`` must be True (the default): the dense-slab control is not
-    ported. ``programs`` registers additional
+    ``paged`` (``serve_paged``) picks the KV backend: the paged pool, or
+    with False the dense-slab control. ``moe`` is the mixture-of-experts
+    layers' ``(top_k, capacity_factor, group)``, passed to every program
+    call. ``programs`` registers additional
     :class:`~.programs.BucketProgram` instances served next to LM traffic —
     requests route by ``Request.program``.
 
@@ -231,18 +236,11 @@ class ServeEngine:
                  programs=None,
                  clock=time.monotonic, log=None, start: bool = True):
         cfg = get_config()
-        if moe is not None:
-            raise NotImplementedError(
-                f"ServeEngine(moe=...): mixture-of-experts layers are not "
-                f"ported yet — {_MOE_ITEM}")
-        if not (cfg.serve_paged if paged is None else paged):
-            raise NotImplementedError(
-                f"ServeEngine(paged=False): the dense-slab backend is not "
-                f"ported yet — {_SLAB_ITEM}")
         self.params = params
         self.heads = heads
         self.compute_dtype = compute_dtype
-        self.paged = True
+        self.moe = moe
+        self.paged = bool(cfg.serve_paged if paged is None else paged)
         self.device = params["emb"].device
         self.buckets = normalize_buckets(
             cfg.serve_buckets if buckets is None else buckets)
@@ -262,7 +260,7 @@ class ServeEngine:
             else decode_kernel, self.device)
         self._page_len = int(cfg.serve_page_len if page_len is None
                              else page_len)
-        if self._decode_kernel == "pallas":
+        if self.paged and self._decode_kernel == "pallas":
             from ..ops.paged_attention import align_page_len
 
             self._page_len = align_page_len(self._page_len)
@@ -276,10 +274,11 @@ class ServeEngine:
                                     self._page_len)
         self._num_pages = npages
         self._kvpool: PagedKVPool | None = None  # built lazily / on warmup
-        from ..models.planner import kv_page_bytes
+        if self.paged:
+            from ..models.planner import kv_page_bytes
 
-        self._page_bytes = kv_page_bytes(params, heads, self._page_len,
-                                         compute_dtype)
+            self._page_bytes = kv_page_bytes(params, heads, self._page_len,
+                                             compute_dtype)
         if hbm_budget_bytes is None:
             if self.device.type == "cuda":
                 from ..models.planner import usable_hbm_bytes
@@ -371,7 +370,8 @@ class ServeEngine:
             return eng.kvpool_audit()
 
         register_health_provider(name, _health)
-        register_kvpool_provider(name, _kvpool_report)
+        if self.paged:
+            register_kvpool_provider(name, _kvpool_report)
         # --- serving SLOs (obs/slo.py + obs/timeseries.py) -----------------
         # built only when objectives are configured (serve_slo) — otherwise
         # the hot path carries one None check per worker iteration. The
@@ -443,18 +443,27 @@ class ServeEngine:
         self._thread.start()
 
     def warmup(self) -> int:
-        """Run every bucket's chunked prefill + decode pair once, plus the
-        page copy, against THIS engine's pool (kvpool.warmup_paged): builds
-        the CUDA kernels and warms the allocator before traffic, and
-        records each bucket's cost models. Call before the first submit —
-        warmup drives the live pool. Returns the buckets warmed."""
+        """Run every bucket's programs once before traffic: the chunked
+        prefill + decode pair per bucket plus the page copy, against THIS
+        engine's pool (kvpool.warmup_paged), or in slab mode the slot
+        prefill + decode pair over a throwaway slab
+        (batcher.warmup_buckets). Builds the CUDA kernels and warms the
+        allocator, and records each bucket's cost models. Call before the
+        first submit — warmup drives the live pool. Returns the buckets
+        warmed."""
         self._warming = True
         try:
-            with self._cond:  # never race a worker's lazy pool creation
-                pool = self._ensure_kvpool()
-            n = warmup_paged(self.params, self.heads, self.buckets,
-                             self.max_batch, pool, self._prefill_chunk,
-                             self.compute_dtype, kernel=self._decode_kernel)
+            if self.paged:
+                with self._cond:  # never race a worker's lazy pool creation
+                    pool = self._ensure_kvpool()
+                n = warmup_paged(self.params, self.heads, self.buckets,
+                                 self.max_batch, pool, self._prefill_chunk,
+                                 self.compute_dtype, self.moe,
+                                 kernel=self._decode_kernel)
+            else:
+                n = warmup_buckets(self.params, self.heads, self.buckets,
+                                   self.max_batch, self.compute_dtype,
+                                   self.moe)
             for name, prog in self._programs.items():
                 if name != "lm":  # LM ran above against the live pool
                     n += prog.warmup()
@@ -531,9 +540,13 @@ class ServeEngine:
         bucket (cached — it sits on the per-step path)."""
         key = self._prog_keys.get(bucket)
         if key is None:
-            key = paged_program_key(self.params, bucket, self.max_batch,
-                                    self._page_len, self.compute_dtype,
-                                    self._decode_kernel)
+            if self.paged:
+                key = paged_program_key(self.params, bucket, self.max_batch,
+                                        self._page_len, self.compute_dtype,
+                                        self._decode_kernel)
+            else:
+                key = bucket_program_key(self.params, bucket, self.max_batch,
+                                         self.compute_dtype)
             self._prog_keys[bucket] = key
         return key
 
@@ -552,9 +565,11 @@ class ServeEngine:
             planner = bucket_kv_bytes(self.params, self.heads, pbucket,
                                       self.compute_dtype,
                                       batch=self.max_batch)
-            ratio = memledger.admission_ratio(
-                planner, ("lm_prefill_paged", "lm_decode_paged"),
-                self._prog_key(pbucket))
+            programs = (("lm_prefill_paged", "lm_decode_paged")
+                        if self.paged
+                        else ("lm_prefill_slot", "lm_decode_rows"))
+            ratio = memledger.admission_ratio(planner, programs,
+                                              self._prog_key(pbucket))
             self._calib_ratios[pbucket] = ratio
         return int(cost * ratio) if ratio != 1.0 else cost
 
@@ -603,7 +618,8 @@ class ServeEngine:
         self._finalized = True
         self._flight_dump("close")
         try:
-            families = ["lm_decode_paged", "lm_prefill_paged"]
+            families = ["lm_decode_paged", "lm_prefill_paged",
+                        "lm_decode_rows", "lm_prefill_slot"]
             families += [p.cost_program for n, p in self._programs.items()
                          if n != "lm" and p.cost_program]
             for prog in dict.fromkeys(families):
@@ -860,7 +876,10 @@ class ServeEngine:
             # allocations must land on the params' card whatever the
             # process default is
             torch.cuda.set_device(self.device)
-        self._run_paged(gen)
+        if self.paged:
+            self._run_paged(gen)
+        else:
+            self._run_rowlevel(gen)
 
     def _crash_handler(self, exc: BaseException, held: list,
                        gen: int) -> bool:
@@ -1140,8 +1159,8 @@ class ServeEngine:
         never retire a superseded entry), requeue every undone in-flight
         entry within its attempt budget (the rest fail with ``error``),
         drop the page pool — its block tables and prefix cache died with
-        the worker; it rebuilds zeroed on the next admission — and spawn a
-        fresh worker thread. Queued (former) entries are untouched.
+        the worker; it rebuilds zeroed on the next admission — or the slot
+        pools of a slab engine, likewise, and spawn a fresh worker thread. Queued (former) entries are untouched.
         ``respawn=False`` is the terminal path: supersede and fail
         everything held, mark the old thread abandoned, and spawn nothing.
         Returns counts for the caller's record."""
@@ -1160,6 +1179,12 @@ class ServeEngine:
                 stash = [e for p in self._pools.values()
                          for e in list(p.entries) if e is not None]
                 stash += list(self._claimed)
+            # the slab state died with the worker: the slot pools rebuild
+            # zeroed on the fresh generation's first admissions
+            for bucket, p in self._pools.items():
+                if isinstance(p, SlotPool):
+                    memledger.get_ledger().free(self._slab_name(bucket),
+                                                strict=False)
             self._pools = {}
             self._claimed = []
             if self._kvpool is not None:
@@ -1224,8 +1249,11 @@ class ServeEngine:
         export fault, or a worker crash mid-freeze — the pool is not
         trusted after one) and must ride the retry path. Returns None when
         the engine is already terminal — the caller falls back to a plain
-        drain. Terminal either way once it returns a dict: the worker has
-        exited and the router closes the engine next."""
+        drain; so does a slab engine, which has no blob to export. Terminal
+        either way once it returns a dict: the worker has exited and the
+        router closes the engine next."""
+        if not self.paged:
+            return None
         self._queue.close("engine freezing for migration")
         with self._cond:
             if self._state not in ("running", "draining"):
@@ -1362,6 +1390,9 @@ class ServeEngine:
         blob = frozen.get("blob")
         if blob is None or not entries:
             return {"adopted": [], "fallback": list(entries.values())}
+        if not self.paged:
+            raise MigrationError(
+                f"adopt target {self._name} is not a paged engine")
         if timeout is None:
             timeout = get_config().serve_migrate_timeout_s
         box: dict = {"bound": [], "cancelled": False}
@@ -1435,7 +1466,7 @@ class ServeEngine:
         """The pool's N hottest prefix-cache chains as a migration blob
         (worker-mediated; best-effort — returns None instead of raising:
         cache warming must never fail a restart)."""
-        if n <= 0:
+        if not self.paged or n <= 0:
             return None
         if timeout is None:
             timeout = get_config().serve_migrate_timeout_s
@@ -1448,7 +1479,7 @@ class ServeEngine:
                         timeout: float | None = None) -> int:
         """Warm this pool's prefix cache from a peer's exported chains
         (worker-mediated; best-effort). Returns entries inserted."""
-        if not blob:
+        if not self.paged or not blob:
             return 0
         if timeout is None:
             timeout = get_config().serve_migrate_timeout_s
@@ -1536,7 +1567,8 @@ class ServeEngine:
                 capture_paged_costs(
                     self.params, self.heads, bucket, self.max_batch,
                     pool, self._prefill_chunk, self.compute_dtype,
-                    key=self._prog_key(bucket), kernel=self._decode_kernel)
+                    self.moe, key=self._prog_key(bucket),
+                    kernel=self._decode_kernel)
             bound = False
             try:
                 faults.fire("serve.migrate",
@@ -1607,6 +1639,8 @@ class ServeEngine:
         engine's live groups — exact on a quiesced engine (closed,
         drained, frozen); advisory under a running worker (the probe snapshot races
         row transitions). Never raises — rides ``GET /debug/kvpool``."""
+        if not self.paged:
+            return {"ok": True, "errors": [], "note": "engine is not paged"}
         with self._cond:
             pool = self._kvpool
             groups = [g for g in self._pools.values()
@@ -1619,6 +1653,309 @@ class ServeEngine:
             return {"ok": False,
                     "errors": [f"audit crashed: {type(exc).__name__}: "
                                f"{exc}"]}
+
+    # ------------------------------------------------ dense-slab scheduler
+
+    def _run_rowlevel(self, gen: int) -> None:
+        """The slab slot-step loop: each iteration refills freed slots from
+        the queue (whole-prompt prefill on admission), retires finished or
+        expired rows, and runs one decode step per bucket with live rows.
+        ``pools`` maps bucket -> :class:`~.batcher.SlotPool` (or a program
+        bucket's row set) and persists across iterations; ``self._pools``/
+        ``self._claimed`` mirror the worker's hands so a recovery of a STUCK
+        generation can still find every in-flight entry."""
+        pools: dict[tuple, object] = {}
+        with self._cond:
+            if self._gen != gen:
+                return  # superseded before the first iteration
+            self._pools = pools
+        claimed: list[_Entry] = []
+        try:
+            while True:
+                if self._gen == gen:  # a superseded straggler must never
+                    self._heartbeat = time.monotonic()  # fake a live pulse
+                if self._slo is not None:
+                    self._slo.tick(self._clock())
+                faults.fire("serve.worker_crash",
+                            path=threading.current_thread().name)
+                claimed = []
+                with self._cond:
+                    while True:
+                        if self._gen != gen:
+                            return  # superseded by a recovery
+                        if self._state == "closing":
+                            # the live slots are the work in flight: finish
+                            # them (close() already emptied the former)
+                            if not any(p.live_slots()
+                                       for p in pools.values()):
+                                return
+                            break
+                        draining = self._state == "draining"
+                        claimed = self._claim_rowlevel(pools)
+                        if claimed or any(p.live_slots()
+                                          for p in pools.values()):
+                            break
+                        if draining:
+                            return  # nothing queued, nothing live
+                        self._idle = True
+                        self._cond.wait(None if self._real_clock
+                                        else _POLL_CAP_S)
+                        self._idle = False
+                        if self._gen == gen:
+                            self._heartbeat = time.monotonic()
+                    self._claimed = claimed
+                prog_claimed = [e for e in claimed
+                                if self._is_program_bucket(e.bucket)]
+                lm_claimed = [e for e in claimed
+                              if not self._is_program_bucket(e.bucket)]
+                self._admit_rowlevel(pools, lm_claimed)
+                self._admit_program_rows(pools, prog_claimed)
+                claimed = []
+                with self._cond:
+                    if self._gen == gen:  # never clobber a successor's
+                        self._claimed = []  # claimed mirror
+                self._step_rowlevel(pools)
+                self._step_program_rows(pools)
+        except BaseException as exc:  # worker death: recover or fail held
+            live = [p.entries[i] for p in pools.values()
+                    for i in p.live_slots()]
+            if self._crash_handler(exc, claimed + live, gen):
+                return
+            raise
+
+    def _slab_name(self, bucket) -> str:
+        """The memory-ledger name of one bucket's slab."""
+        return f"slab:{self._name}:{bucket[0]}x{bucket[1]}"
+
+    def _drop_slab(self, pools, bucket) -> None:
+        """Forget a bucket's slab (its ledger entry with it); the next
+        admission to the bucket builds a zeroed one."""
+        pools.pop(bucket, None)
+        memledger.get_ledger().free(self._slab_name(bucket), strict=False)
+
+    def _admit_rowlevel(self, pools, claimed) -> None:
+        """Prefill each claimed entry into a free slot of its bucket's slab
+        (built lazily and registered in the memory ledger). The first token
+        lands here — the row's TTFT."""
+        from ..models.transformer import lm_prefill_slot
+
+        for e in claimed:
+            with obs_trace.use(e.trace):
+                now = self._clock()
+                r = e.request
+                dl = r.deadline
+                p, s = e.bucket
+                if dl is not None and dl <= now:
+                    self._retire(e, Result(
+                        r.rid, STATUS_EXPIRED,
+                        reason=f"deadline {dl} passed before dispatch "
+                               f"(dispatched at {now})",
+                        metrics={"bucket": e.bucket,
+                                 "queue_s": now - e.enq_t,
+                                 "total_s": now - e.enq_t}))
+                    continue
+                e.queue_s = now - e.enq_t
+                try:
+                    faults.fire("serve.step", path=f"bucket-{p}x{s}")
+                    pool = pools.get(e.bucket)
+                    if pool is None:
+                        pool = pools[e.bucket] = SlotPool(
+                            self.params, self.heads, e.bucket,
+                            self.max_batch, self.compute_dtype)
+                        led = memledger.get_ledger()
+                        name = self._slab_name(e.bucket)
+                        led.free(name, strict=False)
+                        led.register(name, pool.nbytes(), "kvpool",
+                                     owner=self._name)
+                        # no-warmup path: the bucket's cost model still lands
+                        capture_bucket_costs(
+                            self.params, self.heads, e.bucket,
+                            self.max_batch, self.compute_dtype, self.moe,
+                            key=self._prog_key(e.bucket))
+                    slot = pool.free_slots()[0]
+                    prompt = np.zeros((p,), np.int32)
+                    n = r.prompt.shape[0]
+                    prompt[:n] = r.prompt
+                    t0 = time.perf_counter()
+                    caches, tokens, first = lm_prefill_slot(
+                        self.params, pool.caches, pool.tokens, slot, prompt,
+                        n, heads=self.heads, max_len=p + s, seed=r.seed,
+                        temperature=r.temperature, top_p=r.top_p,
+                        top_k=r.top_k, compute_dtype=self.compute_dtype,
+                        moe=self.moe)
+                    first = int(first)  # the row's one prefill read
+                    wall = time.perf_counter() - t0
+                except Exception as exc:
+                    self._admit_failure(pools, e, exc)
+                    continue
+                pool.caches, pool.tokens = caches, tokens
+                pool.assign(slot, e)
+                pool.ttft_s[slot] = self._clock() - e.enq_t
+                self.metrics.record_prefill(
+                    e.bucket, wall, rid=r.rid,
+                    program_key=self._prog_key(e.bucket),
+                    program="lm_prefill_slot")
+                self.flight.record(
+                    "prefill", bucket=[p, s], slot=slot, rid=r.rid,
+                    seconds=wall, queue_depth=self._queue.count,
+                    compiles=_compile_count())
+                if r.steps == 1 or (r.eos is not None and first == r.eos):
+                    self._retire_row(pool, slot, STATUS_OK, self._clock())
+        self._live_rows = sum(len(p.live_slots()) for p in pools.values())
+
+    def _step_rowlevel(self, pools) -> None:
+        """Retire expired live rows, then run ONE decode step per bucket
+        with live rows and retire rows that finished on it. Every bucket's
+        step is dispatched before any result is read (the card runs them
+        back to back)."""
+        from ..models.transformer import lm_decode_rows
+
+        launched = []
+        for bucket, pool in list(pools.items()):
+            if isinstance(pool, ProgramRowSet):
+                continue  # the program lane steps in _step_program_rows
+            now = self._clock()
+            for i in pool.live_slots():
+                dl = pool.entries[i].request.deadline
+                if dl is not None and dl <= now:
+                    self._retire_row(
+                        pool, i, STATUS_EXPIRED, now,
+                        reason=f"deadline {dl} passed mid-decode "
+                               f"(now {now})")
+            live = pool.live_slots()
+            if not live:
+                continue
+            p, s = bucket
+            try:
+                faults.fire("serve.decode_step", path=f"bucket-{p}x{s}")
+                t0 = time.perf_counter()
+                caches, tokens, nxt = lm_decode_rows(
+                    self.params, pool.caches, pool.tokens, pool.positions,
+                    pool.steps_done, pool.seeds, pool.temperature,
+                    pool.top_p, pool.top_k, heads=self.heads,
+                    max_len=pool.max_len, compute_dtype=self.compute_dtype,
+                    moe=self.moe)
+            except Exception as exc:
+                self._fail_pool(pools, bucket, exc)
+                continue
+            pool.caches, pool.tokens = caches, tokens
+            launched.append((bucket, pool, live, t0, nxt))
+        for bucket, pool, live, t0, nxt in launched:
+            try:
+                # THE one read of the card per decode step: the host must
+                # see the emitted tokens to retire rows
+                nxt = nxt.cpu().numpy()
+            except Exception as exc:
+                self._fail_pool(pools, bucket, exc)
+                continue
+            wall = time.perf_counter() - t0
+            self.metrics.record_step(bucket, len(live), self.max_batch, wall,
+                                     program_key=self._prog_key(bucket),
+                                     program="lm_decode_rows")
+            self.flight.record(
+                "step", bucket=list(bucket), rows=len(live),
+                seconds=wall, queue_depth=self._queue.count,
+                compiles=_compile_count())
+            now = self._clock()
+            host_tokens = None  # one slab read shared by this step's retirees
+            for i in live:
+                if pool.entries[i] is None:
+                    continue
+                pool.positions[i] += 1
+                pool.steps_done[i] += 1
+                r = pool.entries[i].request
+                if ((r.eos is not None and int(nxt[i]) == r.eos)
+                        or int(pool.steps_done[i]) >= r.steps):
+                    if host_tokens is None:
+                        host_tokens = pool.tokens.cpu().numpy()
+                    self._retire_row(pool, i, STATUS_OK, now,
+                                     host_tokens=host_tokens)
+        self._live_rows = sum(len(p.live_slots()) for p in pools.values())
+
+    def _retire_row(self, pool, slot: int, status: str, now: float,
+                    reason: str = "", host_tokens=None) -> None:
+        """Retire one slot's row and free the slot — the ONLY path a live
+        slot leaves the pool by, so every terminal status releases the
+        admission budget exactly once. ``host_tokens`` lets a step that
+        retires several rows share one read of the slab's token rows."""
+        e = pool.entries[slot]
+        metrics = {"bucket": pool.bucket, "slot": slot,
+                   "queue_s": e.queue_s, "ttft_s": pool.ttft_s[slot],
+                   "total_s": now - e.enq_t}
+        if status == STATUS_OK:
+            n = int(pool.lengths[slot])
+            emitted = int(pool.steps_done[slot])
+            if host_tokens is None:
+                host_tokens = pool.tokens.cpu().numpy()
+            toks = host_tokens[slot, :n + emitted].astype(np.int32)
+            result = Result(e.request.rid, STATUS_OK, tokens=toks,
+                            metrics=metrics)
+        else:
+            result = Result(e.request.rid, status, reason=reason,
+                            metrics=metrics)
+        pool.release(slot)
+        self._retire(e, result)
+
+    def _fail_pool(self, pools, bucket, exc: Exception) -> None:
+        """A slab decode step died: rows with attempt budget left requeue
+        for a transparent retry; the rest fail with error Results — only
+        that step's live rows are touched and the slot pool stays
+        consistent. The port updates the slab in place and never consumes
+        it; a CUDA out-of-memory error still drops the bucket's slab (it
+        rebuilds zeroed on the next admission), as a consumed slab is
+        dropped in the JAX package."""
+        pool = pools[bucket]
+        reason = f"decode step failed: {type(exc).__name__}: {exc}"
+        if memledger.is_oom_error(exc):
+            memledger.dump_oom_forensics(reason)
+        self.flight.record("decode_fault", bucket=list(bucket),
+                           rows=len(pool.live_slots()), error=reason,
+                           queue_depth=self._queue.count,
+                           compiles=_compile_count())
+        now = self._clock()
+        for i in pool.live_slots():
+            e = pool.entries[i]
+            if e.attempts_left():
+                pool.release(i)
+                self._requeue(e, reason)
+            else:
+                self._retire_row(pool, i, STATUS_ERROR, now, reason=reason)
+        if _is_cuda_oom(exc):
+            self._drop_slab(pools, bucket)
+        self._flight_dump("decode-step-failed")
+
+    def _admit_failure(self, pools, entry: _Entry, exc: Exception) -> None:
+        """A slab prefill died: the entry being admitted retries within its
+        attempt budget, else gets an error Result; co-resident live rows
+        survive unless a CUDA out-of-memory error drops the bucket's slab,
+        in which case they fail/retry too."""
+        now = self._clock()
+        reason = f"prefill failed: {type(exc).__name__}: {exc}"
+        if memledger.is_oom_error(exc):
+            memledger.dump_oom_forensics(reason)
+        if entry.attempts_left():
+            self._requeue(entry, reason)
+        else:
+            self._retire(entry, Result(
+                entry.request.rid, STATUS_ERROR, reason=reason,
+                metrics={"bucket": entry.bucket, "queue_s": entry.queue_s,
+                         "total_s": now - entry.enq_t}))
+        self.flight.record("prefill_fault", bucket=list(entry.bucket),
+                           rid=entry.request.rid, error=reason,
+                           queue_depth=self._queue.count,
+                           compiles=_compile_count())
+        pool = pools.get(entry.bucket)
+        if pool is not None and _is_cuda_oom(exc):
+            lost = f"slab lost to a failed prefill: {reason}"
+            for i in pool.live_slots():
+                e = pool.entries[i]
+                if e.attempts_left():
+                    pool.release(i)
+                    self._requeue(e, lost)
+                else:
+                    self._retire_row(pool, i, STATUS_ERROR, now, reason=lost)
+            self._drop_slab(pools, entry.bucket)
+        self._flight_dump("prefill-failed")
 
     # --------------------------------------------------- paged scheduler
 
@@ -1757,7 +2094,7 @@ class ServeEngine:
                     capture_paged_costs(
                         self.params, self.heads, e.bucket, self.max_batch,
                         pool, self._prefill_chunk, self.compute_dtype,
-                        key=self._prog_key(e.bucket),
+                        self.moe, key=self._prog_key(e.bucket),
                         kernel=self._decode_kernel)
                 slot = group.free_slots()[0]
                 n = r.prompt.shape[0]
@@ -1849,7 +2186,8 @@ class ServeEngine:
                     self.params, pool.pages, group.tables[slot], chunk, cs,
                     n, heads=self.heads, page_len=self._page_len,
                     seed=r.seed, temperature=r.temperature, top_p=r.top_p,
-                    top_k=r.top_k, compute_dtype=self.compute_dtype)
+                    top_k=r.top_k, compute_dtype=self.compute_dtype,
+                    moe=self.moe)
                 if final:
                     # the row's one prefill read of the card: its first
                     # token (an earlier chunk is not waited for — its
@@ -1940,7 +2278,7 @@ class ServeEngine:
                     group.steps_done, group.seeds, group.temperature,
                     group.top_p, group.top_k, heads=self.heads,
                     page_len=self._page_len,
-                    compute_dtype=self.compute_dtype,
+                    compute_dtype=self.compute_dtype, moe=self.moe,
                     kernel=self._decode_kernel)
             except Exception as exc:
                 self._fail_paged_bucket(pool, pools, bucket, exc)

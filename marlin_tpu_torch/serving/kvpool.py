@@ -879,7 +879,7 @@ def paged_program_key(params: dict, bucket, max_batch: int,
 
 def paged_decode_cost(params: dict, heads: int, max_batch: int,
                       pages_per_row: int, page_len: int,
-                      compute_dtype=None) -> dict:
+                      compute_dtype=None, moe: tuple | None = None) -> dict:
     """Analytic cost of one ``lm_decode_paged`` call over full tables: the
     projections, MLP and head of ``max_batch`` one-token rows
     (:func:`~.batcher.lm_call_cost` without attention) plus, per layer, the
@@ -894,7 +894,7 @@ def paged_decode_cost(params: dict, heads: int, max_batch: int,
     kvh = params["l0"]["wk"].shape[1] // dh
     item = torch.empty((), dtype=_cdtype(compute_dtype, params)).element_size()
     out = lm_call_cost(params, heads, max_batch, 1, 0, compute_dtype,
-                       attention=False)
+                       attention=False, moe=moe)
     kc = paged_attention_cost(max_batch, pages_per_row, page_len, kvh,
                               heads // kvh, dh, item)
     n = _n_layers(params)
@@ -904,6 +904,7 @@ def paged_decode_cost(params: dict, heads: int, max_batch: int,
 def capture_paged_costs(params: dict, heads: int, bucket, max_batch: int,
                         pool: PagedKVPool, prefill_chunk: int,
                         compute_dtype: str | None = None,
+                        moe: tuple | None = None,
                         key: str | None = None,
                         kernel: str = "gather") -> None:
     """Record the analytic cost models of a bucket's paged program pair in
@@ -927,10 +928,10 @@ def capture_paged_costs(params: dict, heads: int, bucket, max_batch: int,
         g = PagedGroup(bucket, max_batch, pool.page_len, prefill_chunk)
         costs.capture("lm_prefill_paged", key, cost=lm_call_cost(
             params, heads, 1, g.chunk, g.table_width * pool.page_len,
-            compute_dtype))
+            compute_dtype, moe=moe))
         costs.capture("lm_decode_paged", key, cost=paged_decode_cost(
             params, heads, max_batch, g.pages_per_row, pool.page_len,
-            compute_dtype))
+            compute_dtype, moe))
     except Exception:
         if key is not None:
             for name in programs:  # even a failed count marks the attempt
@@ -939,7 +940,8 @@ def capture_paged_costs(params: dict, heads: int, bucket, max_batch: int,
 
 def warmup_paged(params: dict, heads: int, buckets, max_batch: int,
                  pool: PagedKVPool, prefill_chunk: int,
-                 compute_dtype=None, kernel: str = "gather") -> int:
+                 compute_dtype=None, moe: tuple | None = None,
+                 kernel: str = "gather") -> int:
     """Run every bucket's paged program pair once against dummy page 0, plus
     the page copy: builds the CUDA kernels and warms the allocator and the
     library handles before traffic, and records each bucket's cost models
@@ -953,11 +955,11 @@ def warmup_paged(params: dict, heads: int, buckets, max_batch: int,
     for bucket in buckets:
         g = PagedGroup(bucket, max_batch, pool.page_len, prefill_chunk)
         capture_paged_costs(params, heads, bucket, max_batch, pool,
-                            prefill_chunk, compute_dtype, kernel=kernel)
+                            prefill_chunk, compute_dtype, moe, kernel=kernel)
         pool.pages, _ = lm_prefill_paged(
             params, pool.pages, np.zeros(g.table_width, np.int32),
             np.zeros(g.chunk, np.int32), 0, 1, heads=heads,
-            page_len=pool.page_len, compute_dtype=compute_dtype)
+            page_len=pool.page_len, compute_dtype=compute_dtype, moe=moe)
         w = max_batch
         pool.pages, _ = lm_decode_paged(
             params, pool.pages, np.zeros((w, g.pages_per_row), np.int32),
@@ -965,7 +967,7 @@ def warmup_paged(params: dict, heads: int, buckets, max_batch: int,
             np.zeros(w, np.int32), np.zeros(w, np.uint32),
             np.zeros(w, np.float32), np.ones(w, np.float32),
             np.zeros(w, np.int32), heads=heads, page_len=pool.page_len,
-            compute_dtype=compute_dtype, kernel=kernel)
+            compute_dtype=compute_dtype, moe=moe, kernel=kernel)
     pool.pages = kv_page_copy(pool.pages, 0, 0)
     dev = pool.pages["l0"][0].device
     if dev.type == "cuda":

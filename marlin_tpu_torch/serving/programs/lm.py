@@ -1,7 +1,6 @@
-"""The paged LM decode path as the first BucketProgram.
+"""The LM decode path (paged or dense-slab) as the first BucketProgram.
 
-Counterpart of ``marlin_tpu/serving/programs/lm.py``, with the dense-slab
-pricing left out: the port's engine serves the paged path only.
+Counterpart of ``marlin_tpu/serving/programs/lm.py``.
 
 This is the extraction end of the refactor: the *policy* the engine's
 ``_submit`` used to hardcode for LM traffic — bucket rounding
@@ -20,7 +19,7 @@ from __future__ import annotations
 
 import threading
 
-from ..batcher import pick_bucket
+from ..batcher import bucket_kv_bytes, pick_bucket
 from . import register_program
 from .base import BucketProgram
 
@@ -29,11 +28,12 @@ __all__ = ["PagedLMProgram"]
 
 @register_program
 class PagedLMProgram(BucketProgram):
-    """token prompt → generated tokens via the engine's paged loop."""
+    """token prompt → generated tokens via the engine's paged/slab loops."""
 
     name = "lm"
     cost_program = "lm_decode_paged"
-    resource_unit = "actual KV pages x page bytes"
+    resource_unit = ("actual KV pages x page bytes (paged) / "
+                     "bucket slab bytes (slab)")
 
     def __init__(self, engine):
         # no super().__init__: LM's batch axis is the engine's max_batch,
@@ -61,13 +61,17 @@ class PagedLMProgram(BucketProgram):
                 f"steps={request.steps} (buckets {list(self._eng.buckets)})")
 
     def admission_cost(self, request, bucket):
+        eng = self._eng
+        if not eng.paged:
+            # a slab row holds the bucket's whole extent
+            return bucket_kv_bytes(eng.params, eng.heads, bucket,
+                                   eng.compute_dtype)
         # admission charges the request's ACTUAL pages (the memory its
         # cache rows can ever write — planner.request_pages), not the
         # bucket worst case: short requests in long buckets stop reserving
         # capacity they never use
         from ...models.planner import request_pages
 
-        eng = self._eng
         pages = request_pages(request.prompt.shape[0], request.steps,
                               eng._page_len)
         if pages > eng._num_pages - 1:
@@ -87,5 +91,5 @@ class PagedLMProgram(BucketProgram):
 
     def step(self, bucket, requests):  # pragma: no cover - engine-executed
         raise RuntimeError(
-            "LM rows execute in the engine's paged loop, not via "
+            "LM rows execute in the engine's paged/slab loops, not via "
             "BucketProgram.step")

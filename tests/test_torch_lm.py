@@ -127,12 +127,25 @@ def test_params_interop_and_init(jparams, tparams):
         if isinstance(jparams[name], dict):
             for k, v in jparams[name].items():
                 assert own[name][k].shape == v.shape
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.init_transformer(0, 64, 32, HEADS, 2, n_experts=4, device="cpu")
+    # mixture-of-experts layers: the JAX package's structure and shapes,
+    # carried across 1:1; an incomplete layer is refused
+    jmoe = jt.init_transformer(jax.random.key(0), 64, 32, HEADS, 2,
+                               kv_heads=KV_HEADS, n_experts=4)
+    tmoe = tt.init_transformer(0, 64, 32, HEADS, 2, kv_heads=KV_HEADS,
+                               n_experts=4, device="cpu")
+    carried = interop.lm_params_from_numpy(jax.tree.map(np.asarray, jmoe),
+                                           device="cpu")
+    for i in range(2):
+        assert set(tmoe[f"l{i}"]) == set(jmoe[f"l{i}"]) == set(
+            carried[f"l{i}"])
+        for k, v in jmoe[f"l{i}"]["moe"].items():
+            assert tmoe[f"l{i}"]["moe"][k].shape == v.shape
+            assert np.array_equal(carried[f"l{i}"]["moe"][k].numpy(),
+                                  np.asarray(v))
     with pytest.raises(ValueError, match="kv_heads"):
         tt.init_transformer(0, 64, 32, 4, 2, kv_heads=3, device="cpu")
     moe = {"l0": {"moe": {}, "wq": np.zeros((2, 2))}}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="mixture-of-experts"):
         interop.lm_params_from_numpy(moe, device="cpu")
 
 

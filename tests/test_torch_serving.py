@@ -304,16 +304,24 @@ def test_max_wait_ms_knob_and_refusal_alike(jparams, tparams):
 
 
 def test_port_engine_refuses_what_is_not_ported(jparams, tparams, cpu):
-    """The dense-slab control and MoE still raise, naming their ROADMAP
-    items; ``serve_slo`` and migration now do what the JAX engine does: an
-    engine with objectives builds its SLO engine, and ``freeze_rows`` on an
-    unstarted engine returns the same empty handoff."""
+    """Nothing of the engine is refused any more: the dense-slab control
+    (``paged=False``) and ``moe=`` (read by MoE layers only, so a dense
+    model serves as without it) serve a request equal to ``lm_generate``,
+    as the JAX engine's do; ``serve_slo`` and migration do what the JAX
+    engine does: an engine with objectives builds its SLO engine, and
+    ``freeze_rows`` on an unstarted engine returns the same empty
+    handoff."""
     import marlin_tpu as jm
 
-    for kw, item in ((dict(paged=False), "item 7"),
-                     (dict(moe=(2, 1)), "item 12")):
-        with pytest.raises(NotImplementedError, match=item):
-            TEngine(tparams, HEADS, start=False, **_engine_kw(**kw))
+    prompt = np.array([3, 1, 4, 1, 5], np.int32)
+    for kw in (dict(paged=False), dict(moe=(2, 1.25, 64)),
+               dict(paged=False, moe=(2, 1.25, 64))):
+        with TEngine(tparams, HEADS, **_engine_kw(**kw)) as eng:
+            assert eng.paged == kw.get("paged", True)
+            r = eng.submit(TRequest(prompt=prompt, steps=3)).result(
+                timeout=WAIT_S)
+        assert r.status == "ok"
+        assert r.tokens.tolist() == _tref(tparams, prompt, 3)
     slo = ({"name": "ttft", "metric": "p99:marlin_serve_ttft_seconds",
             "target": 0.5, "window_s": 60.0},)
     frozen = []

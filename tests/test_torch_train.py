@@ -225,8 +225,8 @@ def test_facade_trains(attn, knobs):
     assert params["l0"]["wq"].device.type == "cpu"
 
 
-def test_bad_knobs_raise(models):
-    heads, _, tp = models[None]
+def test_bad_knobs_raise(jmesh, models):
+    heads, jp, tp = models[None]
     kw = dict(heads=heads)
     with pytest.raises(ValueError, match="attention strategy"):
         tt.lm_loss(tp, TOKS, attn="dense", **kw)
@@ -240,9 +240,22 @@ def test_bad_knobs_raise(models):
         tt.lm_loss(tp, TOKS, loss_chunk=0, **kw)
     with pytest.raises(ValueError, match="mlp_chunk"):
         tt.lm_loss(tp, TOKS, mlp_chunk=0, **kw)
-    moe = dict(tp, l0=dict(tp["l0"], moe={}))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
-        tt.lm_loss(moe, TOKS, **kw)
+    # a mixture-of-experts layer in place of l0's FFN trains: its loss (the
+    # load-balance term included) is the JAX package's
+    rng = np.random.default_rng(0)
+    d, ff = tp["l0"]["w1"].shape
+    mp = {"wg": rng.standard_normal((d, 4)) / np.sqrt(d),
+          "w1": rng.standard_normal((4, d, ff)) / np.sqrt(d),
+          "w2": rng.standard_normal((4, ff, d)) / np.sqrt(ff)}
+    mp = {k: v.astype(np.float32) for k, v in mp.items()}
+    dense = {k: v for k, v in jp["l0"].items() if k not in ("w1", "w2")}
+    jmoe = dict(jp, l0=dict(dense, moe={k: jnp.asarray(v)
+                                        for k, v in mp.items()}))
+    tmoe = interop.lm_params_from_numpy(jax.tree.map(np.asarray, jmoe),
+                                        device="cpu")
+    want = float(jt.lm_loss(jmoe, TOKS, jmesh, moe=(2, 1.25, 64), **kw))
+    got = float(tt.lm_loss(tmoe, TOKS, moe=(2, 1.25, 64), **kw))
+    np.testing.assert_allclose(got, want, rtol=LOSS_RTOL)
 
 
 @pytest.mark.cuda
