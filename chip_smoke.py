@@ -256,7 +256,24 @@ drives the ported paths end to end through the public entry points:
   and ``lazy.grad`` of a fused sum returning a ``DenseVecMatrix`` equal to
   ``ones @ b^T``.
 
-``python3 chip_smoke.py --phases 21,22,23`` (any subset of phases 19-28;
+- phase 29: the rest of long-context training and the collectives layer:
+  (a) config_lct's widths on its 32768-token stream at 2 and 8 layers, 2
+  remat steps with and without ``offload_residuals`` (losses, gradients and
+  params bit for bit, one residual a layer to pinned memory, ms a step and
+  peak memory; at 8 layers the offloaded peak must be lower); (b)
+  ``plan_context`` on config_lct's model with a budget halfway between its
+  first and last rung's measured peaks (the ladder climbs; the chosen
+  model's step stays within it) and with an unreachable 64 MiB (fits False,
+  the lowest-peak rung); (c) a one-rank NCCL world (``initialize_distributed``
+  with a file store, ``create_mesh((1, 1))``): ``ring_matmul`` and the RMM
+  at 8192² against ``torch.matmul``, ring and Ulysses attention at 8 ×
+  4096 × 128 causal, forward and backward, against the plain flash
+  versions, ``pipeline_apply`` against its stages in sequence, the
+  ``pipeline_training`` CLI, ``pp_lm_loss`` at 2048 tokens against the
+  plain flash version, and the time of a one-float ``all_reduce`` and
+  ``all_gather``; the group is destroyed after.
+
+``python3 chip_smoke.py --phases 21,22,23`` (any subset of phases 19-29;
 20 runs 19 first) builds the kernels and runs only those phases, printing no
 result lines.
 
@@ -553,6 +570,25 @@ SLAB_BATCH, SLAB_REQUESTS, SLAB_LONG = 8, 48, 4
 FUSE_N, FUSE_TOL = 8192, 1e-6
 # what a product's node in the fused graph calls
 FUSE_PRODUCTS = ("matmul", "__matmul__", "mm", "addmm", "bmm", "linear")
+
+
+# phase 29: config_lct's widths (LCT) on the TRAIN_SEQ stream at
+# OFFLOAD_LAYERS layers, OFFLOAD_STEPS remat steps with and without
+# offload_residuals; the planner on config_lct's model at TRAIN_SEQ tokens
+# and an unreachable PLAN_TINY_BUDGET; then a one-rank NCCL world: ring_matmul
+# and the RMM at DIST_N^2 (DIST_TOL of max|ref| against torch.matmul), ring
+# and Ulysses attention at DIST_ATTN (heads, seq, head dim) causal, the
+# pipeline over PIPE_SHAPE (batch, width; 2 tanh layers a stage, microbatches
+# of PIPE_MB; PIPE_TOL of max|ref| against the stages in sequence, whose
+# microbatches' products cuBLAS may block apart), the pipeline_training CLI at its defaults on PP_CLI (batch,
+# seq len, steps), and pp_lm_loss at PP_LONG tokens
+OFFLOAD_LAYERS, OFFLOAD_STEPS = (2, 8), 2
+PLAN_TINY_BUDGET = 64 * 2 ** 20
+DIST_N, DIST_TOL = 8192, 1e-4
+DIST_ATTN = (8, 4096, 128)
+PIPE_SHAPE, PIPE_MB, PIPE_TOL = (64, 1024), 8, 1e-5
+PP_CLI = ("8", "512", "8")
+PP_LONG = 2048
 
 
 def log(msg: str) -> None:
@@ -4357,6 +4393,322 @@ def fuse_path(torch, np, mt, smi):
     return ms_fused, ms_eager
 
 
+def plain_flash(fa):
+    """Swap the flash forward and backward wrappers for their plain versions
+    until the returned function is called (restores them)."""
+    saved = (fa.flash_attention_panel, fa.flash_attention_panel_bwd)
+    fa.flash_attention_panel = fa.flash_attention_panel_plain
+    fa.flash_attention_panel_bwd = fa.flash_attention_panel_bwd_plain
+
+    def restore():
+        fa.flash_attention_panel, fa.flash_attention_panel_bwd = saved
+    return restore
+
+
+def offload_leg(torch, np, tt, ops, smi) -> dict:
+    """Phase 29 (a): OFFLOAD_STEPS remat steps of config_lct's widths with
+    and without offload_residuals, at each of OFFLOAD_LAYERS: losses,
+    gradients and params bit for bit, ms a step, peak memory; with 8 layers
+    the offloaded peak must be lower. Returns the launch counts."""
+    stream = np.random.default_rng(0).integers(
+        0, LCT["vocab"], TRAIN_SEQ).astype(np.int32)
+    counts = dict.fromkeys(ops.launch_counts(), 0)
+    for layers in OFFLOAD_LAYERS:
+        lm = tt.TransformerLM(**dict(LCT, layers=layers), remat=True)
+        params0 = lm.init_params()
+        knobs = dict(heads=lm.heads, attn="ring", remat=True)
+        runs = {}
+        for offload in (False, True, False, True):  # warm, then timed
+            params, opt = params0, tt.adam_init(params0)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            moved = tt._ResidualOffload.moved
+            t0 = time.perf_counter()
+            losses, grads = [], []
+            for _ in range(OFFLOAD_STEPS):
+                loss, g = tt.lm_value_and_grad(params, stream,
+                                               offload_residuals=offload,
+                                               **knobs)
+                params, opt = tt._adam_update(params, g, opt,
+                                              lm.learning_rate)
+                losses.append(loss)
+                grads.append(g)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / OFFLOAD_STEPS * 1e3
+            peak = torch.cuda.max_memory_allocated()
+            host = [x.cpu() for x in losses + [y for g in grads
+                                               for y in tt._leaves(g)]
+                    + tt._leaves(params)]
+            runs[offload] = dict(host=host, ms=ms, peak=peak,
+                                 moved=tt._ResidualOffload.moved - moved,
+                                 losses=[float(x) for x in losses])
+            del params, opt, losses, grads
+            for k, n in ops.launch_counts().items():
+                counts[k] += n
+        plain, off = runs[False], runs[True]
+        if off["moved"] != layers * OFFLOAD_STEPS:
+            raise AssertionError(f"offload: {off['moved']} tensors moved, "
+                                 f"want one a layer and step")
+        if not all(torch.equal(a, b)
+                   for a, b in zip(plain["host"], off["host"])):
+            raise AssertionError(f"offload at {layers} layers: losses, "
+                                 f"gradients or params differ from remat")
+        log(f"  {layers} layers, {OFFLOAD_STEPS} remat steps: losses "
+            f"{off['losses']} bit-equal with and without "
+            f"offload (gradients and params too); {off['moved']} residuals "
+            f"to pinned host memory; ms a step (host clock) {plain['ms']:.3f} "
+            f"-> {off['ms']:.3f} offloaded; peak "
+            f"{plain['peak'] / 2 ** 20:.1f} -> {off['peak'] / 2 ** 20:.1f} "
+            f"MiB; {smi}")
+        if layers == max(OFFLOAD_LAYERS):
+            saved = plain["peak"] - off["peak"]
+            resid = (layers - 1) * TRAIN_SEQ * LCT["d_model"] * 4
+            log(f"  {layers} layers: offload lowers the peak by "
+                f"{saved / 2 ** 20:.1f} MiB, beside {layers - 1} residuals "
+                f"of {TRAIN_SEQ} x {LCT['d_model']} f32 = "
+                f"{resid / 2 ** 20:.1f} MiB")
+            if not saved > 0:
+                raise AssertionError(f"offload at {layers} layers: peak "
+                                     f"{off['peak']} not below {plain['peak']}")
+        del runs, plain, off, params0
+        torch.cuda.empty_cache()
+    return counts
+
+
+def planner_leg(torch, np, tt, mt, ops, smi) -> dict:
+    """Phase 29 (b): plan_context on config_lct's model at TRAIN_SEQ tokens
+    with a budget between the first and the last rung's measured peaks (the
+    ladder must climb), one training step of the chosen model within the
+    budget, and an unreachable budget (fits=False, the lowest-peak rung).
+    Returns the launch counts."""
+    from dataclasses import replace
+
+    from marlin_tpu_torch.models import planner
+
+    mesh = mt.create_mesh()
+    lm = tt.TransformerLM(**LCT)
+    ops.reset_launch_counts()
+    rungs = planner._ladder(lm, TRAIN_SEQ)
+    first, note0 = planner._measured_peak(lm, TRAIN_SEQ, mesh, mesh.device)
+    last, note1 = planner._measured_peak(replace(lm, **rungs[-1]), TRAIN_SEQ,
+                                         mesh, mesh.device)
+    if first is None or last is None or not last < first:
+        raise AssertionError(f"planner: rung peaks {first} ({note0}), "
+                             f"{last} ({note1})")
+    budget = (first + last) // 2
+    log(f"  rung 0 peak {first / 2 ** 20:.1f} MiB, last rung {rungs[-1]} "
+        f"{last / 2 ** 20:.1f} MiB; budget {budget / 2 ** 20:.1f} MiB; {smi}")
+    t0 = time.perf_counter()
+    plan = mt.models.plan_context(TRAIN_SEQ, lm, hbm_budget=budget)
+    log(f"  plan_context ({time.perf_counter() - t0:.1f} s):")
+    for line in plan.describe().splitlines():
+        log("    " + line)
+    if not plan.fits or not plan.knobs or len(plan.trail) < 2:
+        raise AssertionError(f"planner: the ladder did not climb to a fit: "
+                             f"{plan.describe()}")
+    stream = np.random.default_rng(0).integers(
+        0, LCT["vocab"], TRAIN_SEQ).astype(np.int32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _, losses = plan.model.train(stream, steps=1, mesh=mesh)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  the chosen model {plan.knobs} trained one step (loss "
+        f"{losses[0]:.4f}) at a peak of {peak / 2 ** 20:.1f} MiB of the "
+        f"{budget / 2 ** 20:.1f} MiB budget")
+    if not (peak <= budget and math.isfinite(losses[0])):
+        raise AssertionError(f"planner: the chosen model's step peaked at "
+                             f"{peak}, budget {budget}")
+    tiny = mt.models.plan_context(TRAIN_SEQ, lm, hbm_budget=PLAN_TINY_BUDGET)
+    peaks = [p for _, p, _, _ in tiny.trail if p is not None]
+    log(f"  unreachable budget {PLAN_TINY_BUDGET / 2 ** 20:.0f} MiB: fits "
+        f"{tiny.fits}, the lowest-peak rung {tiny.knobs} at "
+        f"{tiny.peak_bytes / 2 ** 20:.1f} MiB of {len(tiny.trail)} probed")
+    if tiny.fits or tiny.peak_bytes != min(peaks):
+        raise AssertionError(f"planner: unreachable budget gave "
+                             f"{tiny.describe()}")
+    torch.cuda.empty_cache()
+    return ops.launch_counts()
+
+
+def nccl_leg(torch, np, mt, tt, fa, ops, smi) -> tuple[dict, dict]:
+    """Phase 29 (c): a one-rank NCCL world on the card, its mesh, and the
+    multi-rank paths through it against their references. Returns the
+    launch counts of the user calls and the NCCL overheads."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch.distributed as dist
+
+    from marlin_tpu_torch import mesh as mm
+    from marlin_tpu_torch.examples import pipeline_training
+    from marlin_tpu_torch.models import pipeline_lm as pl
+    from marlin_tpu_torch.parallel import (matmul, pipeline_apply,
+                                           ring_attention, ring_matmul,
+                                           stack_stage_params,
+                                           ulysses_attention)
+
+    counts = dict.fromkeys(ops.launch_counts(), 0)
+
+    def add():
+        for k, n in ops.launch_counts().items():
+            counts[k] += n
+
+    overhead = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        mm.initialize_distributed(f"file://{tmp}/store", 1, 0)
+        try:
+            mesh = mm.create_mesh((1, 1))
+            log(f"  {dist.get_backend()} world of {mm.world_size()} on "
+                f"{mesh.device}, mesh {mesh.shape} over ranks {mesh.ranks}")
+            if dist.get_backend() != "nccl" or mesh.ranks != (0,):
+                raise AssertionError("phase 29: not an NCCL rank mesh")
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(29)
+            a = torch.randn((DIST_N, DIST_N), generator=gen, device="cuda")
+            b = torch.randn((DIST_N, DIST_N), generator=gen, device="cuda")
+            local_matmul = mt.ops.local.local_matmul
+            ref = local_matmul(a, b, "highest")
+            scale = float(ref.abs().max())
+            for label, fn in (
+                    ("ring_matmul", lambda: ring_matmul(a, b, mesh,
+                                                        precision="high")),
+                    ("matmul(strategy='rmm')", lambda: matmul(
+                        a, b, mesh, strategy="rmm", precision="high"))):
+                rel = float((fn() - ref).abs().max()) / scale
+                ms = cuda_ms(torch, fn, 3)
+                overhead[label] = ms
+                log(f"  {label} {DIST_N}^2 through NCCL: max err {rel:.3e} "
+                    f"of max|ref| (tol {DIST_TOL}), {ms:.3f} ms; {smi}")
+                if not rel <= DIST_TOL:
+                    raise AssertionError(f"{label}: {rel} > {DIST_TOL}")
+            overhead["torch.matmul"] = cuda_ms(
+                torch, lambda: local_matmul(a, b, "highest"), 3)
+            one = torch.ones(1, device="cuda")
+            overhead["all_reduce"] = cuda_ms(
+                torch, lambda: dist.all_reduce(one), 100) * 1e3
+            overhead["all_gather"] = cuda_ms(
+                torch, lambda: dist.all_gather([torch.empty_like(one)], one),
+                100) * 1e3
+            log(f"  torch.matmul {overhead['torch.matmul']:.3f} ms (TF32 "
+                f"off); NCCL at world 1: all_reduce of 1 float "
+                f"{overhead['all_reduce']:.1f} us, all_gather "
+                f"{overhead['all_gather']:.1f} us a call; {smi}")
+            del a, b, ref
+            # ring and Ulysses attention, forward and backward
+            h, s, d = DIST_ATTN
+            q, k, v, ct = (torch.randn((h, s, d), generator=gen,
+                                       device="cuda") for _ in range(4))
+
+            def attn(fn):
+                xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
+                out = fn(*xs)
+                grads = torch.autograd.grad((out * ct).sum(), xs)
+                return out.detach(), grads
+
+            for label, fn in (
+                    ("ring_attention(backend='flash')",
+                     lambda *x: ring_attention(*x, mesh, causal=True,
+                                               backend="flash")),
+                    ("ulysses_attention",
+                     lambda *x: ulysses_attention(*x, mesh, causal=True))):
+                ops.reset_launch_counts()
+                out, grads = attn(fn)
+                torch.cuda.synchronize()
+                add()
+                restore = plain_flash(fa)
+                try:
+                    out_p, grads_p = attn(fn)
+                finally:
+                    restore()
+                attn_close(torch, f"{label} {DIST_ATTN} out", out, out_p,
+                           torch.float32)
+                for name, g, w in zip("qkv", grads, grads_p):
+                    bwd_close(torch, f"{label} d{name}", g, w, torch.float32)
+            # the pipeline against its stages in sequence
+            batch, width = PIPE_SHAPE
+            w = torch.randn((1, 2, width, width), generator=gen,
+                            device="cuda") / math.sqrt(width)
+            x = torch.randn((batch, width), generator=gen, device="cuda")
+
+            def stage(p, xs):
+                for j in range(p["w"].shape[0]):
+                    xs = torch.tanh(xs @ p["w"][j])
+                return xs
+
+            with mt.ops.local.precision_scope("highest"):
+                got = pipeline_apply(stack_stage_params([{"w": w[0]}], mesh),
+                                     stage, x, mesh, microbatch=PIPE_MB)
+                want = stage({"w": w[0]}, x)
+            rel = float((got - want).abs().max()) / float(want.abs().max())
+            log(f"  pipeline_apply {PIPE_SHAPE}, microbatches of {PIPE_MB}: "
+                f"max err {rel:.3e} of max|ref| against the stages in "
+                f"sequence (tol {PIPE_TOL:g})")
+            if not rel <= PIPE_TOL:
+                raise AssertionError(f"pipeline_apply: {rel}")
+            # the CLI at its defaults
+            ops.reset_launch_counts()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                losses = pipeline_training.main(list(PP_CLI))
+            add()
+            for line in buf.getvalue().splitlines():
+                log(f"  pipeline_training {' '.join(PP_CLI)}: {line}")
+            log(f"  ({smi})")
+            if not losses[-1] < losses[0]:
+                raise AssertionError(f"pipeline_training: losses {losses}")
+            # pp_lm_loss at PP_LONG tokens: the flash forward in each stage
+            params = tt.init_transformer(0, 512, 128, 2, 2)
+            sp, outer = pl.pp_stage_params(params, mesh)
+            toks = np.random.default_rng(0).integers(
+                0, 512, (2, PP_LONG + 1)).astype(np.int32)
+            ops.reset_launch_counts()
+            with torch.no_grad():
+                got = pl.pp_lm_loss(sp, outer, toks, mesh, heads=2)
+                torch.cuda.synchronize()
+                add()
+                n_flash = ops.launch_counts()["flash_attention_panel"]
+                restore = plain_flash(fa)
+                try:
+                    want = pl.pp_lm_loss(sp, outer, toks, mesh, heads=2)
+                finally:
+                    restore()
+            rel = abs(float(got) - float(want)) / abs(float(want))
+            log(f"  pp_lm_loss at {PP_LONG} tokens (2 x 2 layers, no grad): "
+                f"{float(got):.6f}, plain flash {float(want):.6f}, rel "
+                f"{rel:.3e}; {n_flash} flash forward launches")
+            if not (rel <= 1e-5 and n_flash == 2 * 2):
+                raise AssertionError(f"pp_lm_loss at {PP_LONG}: rel {rel}, "
+                                     f"{n_flash} launches")
+        finally:
+            mm.shutdown_distributed()
+    if mm.distributed():
+        raise AssertionError("phase 29: the process group is still up")
+    return counts, overhead
+
+
+def collectives_path(torch, np, mt, tt, fa, ops, smi) -> dict:
+    """Phase 29: offloaded residuals, the planner, and the collectives layer
+    at world size 1 over NCCL. Returns the launch counts of its user
+    paths."""
+    log(f"phase 29: (a) offload_residuals at config_lct's widths, "
+        f"{OFFLOAD_LAYERS} layers; (b) plan_context; (c) a one-rank NCCL "
+        f"world; {smi}")
+    totals = offload_leg(torch, np, tt, ops, smi)
+    for k, n in planner_leg(torch, np, tt, mt, ops, smi).items():
+        totals[k] += n
+    counts, _ = nccl_leg(torch, np, mt, tt, fa, ops, smi)
+    for k, n in counts.items():
+        totals[k] += n
+    log(f"  phase 29 launches: {totals}")
+    for kname in ("flash_attention_panel", "flash_attention_bwd_dkv",
+                  "flash_attention_bwd_dq"):
+        if totals[kname] <= 0:
+            raise AssertionError(f"phase 29: {kname} never launched")
+    return totals
+
+
 def lct_reference(torch, np, tt):
     """Phase 11's uninterrupted run, for a run of phase 23 without phase 11:
     (stream, initial params, params and losses after TRAIN_STEPS steps)."""
@@ -4376,13 +4728,13 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=None,
-                    help="run the build, then only these of phases 19-28 "
+                    help="run the build, then only these of phases 19-29 "
                          "(comma-separated; 20 runs 19 first), and print no "
                          "result lines")
     only = ap.parse_args().phases
     only = None if only is None else {int(p) for p in only.split(",")}
-    if only is not None and not only <= set(range(19, 29)):
-        ap.error("--phases takes a subset of 19,20,...,28")
+    if only is not None and not only <= set(range(19, 30)):
+        ap.error("--phases takes a subset of 19,20,...,29")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available", file=sys.stderr)
         return 2
@@ -4452,7 +4804,7 @@ def main() -> int:
         if 25 in only:
             fleet_path(torch, np, mt, tt, ops, pa, smi)
             lap("phase 25")
-        if only & {26, 27}:
+        if only & {26, 27, 29}:
             from marlin_tpu_torch.ops import flash_attention as fa
         if 26 in only:
             moe_path(torch, np, tt, fa, pa, ops, smi)
@@ -4463,6 +4815,9 @@ def main() -> int:
         if 28 in only:
             fuse_path(torch, np, mt, smi)
             lap("phase 28")
+        if 29 in only:
+            collectives_path(torch, np, mt, tt, fa, ops, smi)
+            lap("phase 29")
         log(f"phases {sorted(only)}: every check passed in "
             f"{time.perf_counter() - t_start:.1f} s")
         return 0
@@ -4827,8 +5182,10 @@ def main() -> int:
     late_combines = moe_serve["paged_combine"] + slab_paged["paged_combine"]
     fuse_path(torch, np, mt, smi)
     lap("phase 28")
+    lc29 = collectives_path(torch, np, mt, tt, fa, ops, smi)
+    lap("phase 29")
     late = {k: moe_train[k] + moe_serve[k] + slab_counts[k] + slab_paged[k]
-            for k in moe_train}
+            + lc29[k] for k in moe_train}
     paged_launches = path_counts["paged_decode_attention"] + \
         engine_launches + prog_split + cli["paged_decode_attention"] + \
         fleet_split + late["paged_decode_attention"]
@@ -4851,7 +5208,7 @@ def main() -> int:
         log(f"{kname} launches on the main paths: "
             f"{before + cli[kname] + late[kname]} (phases 8/11/14 {before}, "
             f"phase 24 {cli[kname]}, phase 26 {moe_train[kname]}, phase 27 "
-            f"{slab_counts[kname]})")
+            f"{slab_counts[kname]}, phase 29 {lc29[kname]})")
 
     # ---------------------------------------------------- kernels line
     kernels = [

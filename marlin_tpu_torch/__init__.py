@@ -29,8 +29,12 @@ pinned-buffer prefetcher and the streamed Gramian and multiply
 checkpoints with resume (``io/checkpoint.py``, ``io/orbax_ckpt.py``); the
 mixture-of-experts LM family (``models/moe.py``) through training,
 generation and both serving backends (the paged pool and the dense-slab
-control); and fused matrix expressions (``lazy.fuse`` over
-``torch.compile``, ``lazy.grad``).
+control); fused matrix expressions (``lazy.fuse`` over
+``torch.compile``, ``lazy.grad``); host-offloaded remat residuals and the
+long-context memory planner (``models/planner.py``); and the collectives
+layer over ``torch.distributed`` (``initialize_distributed``, a mesh over
+ranks, the ring, RMM and broadcast multiplies, ring and Ulysses attention
+across ranks, the GPipe pipeline and the pipeline LM).
 
 Quick start::
 
@@ -42,7 +46,14 @@ Quick start::
 """
 
 from .config import MarlinConfig, config_context, get_config, set_config  # noqa: F401
-from .mesh import COLS, ROWS, create_mesh, default_mesh, set_default_mesh  # noqa: F401
+from .mesh import (  # noqa: F401
+    COLS,
+    ROWS,
+    create_mesh,
+    default_mesh,
+    initialize_distributed,
+    set_default_mesh,
+)
 from .matrix import (  # noqa: F401
     BlockMatrix,
     CoordinateMatrix,
@@ -51,6 +62,7 @@ from .matrix import (  # noqa: F401
     DistributedIntVector,
     DistributedMatrix,
     DistributedVector,
+    OutOfCoreMatrix,
     SparseVecMatrix,
 )
 from .parallel import (  # noqa: F401
@@ -59,6 +71,7 @@ from .parallel import (  # noqa: F401
     matmul,
     prefetch_chunks,
     ring_attention,
+    ring_matmul,
     rmm_matmul,
     split_method,
     streamed_gramian,
@@ -76,6 +89,6 @@ from .io import (  # noqa: F401
 )
 from .utils import evaluate, timer  # noqa: F401
 from .lazy import fuse  # noqa: F401
-from . import io, lazy, linalg, ml, random  # noqa: F401
+from . import io, lazy, linalg, ml, obs, random  # noqa: F401
 
 __version__ = "0.1.0"

@@ -8,19 +8,16 @@ tokens/s.
 args: ``<seq len> <steps> [d_model] [heads] [layers] [ring|ulysses] [remat
 0|1] [loss_chunk] [dtype]`` — ``loss_chunk`` runs the LM head over chunks
 of tokens and ``dtype`` (``bfloat16``) selects mixed-precision activations.
-``plan`` in place of the knob tail (``... [ring|ulysses] plan``) asks the
-JAX package's ``plan_context``, which reads the TPU compiler's memory
-accounting; the port raises ``NotImplementedError`` there (ROADMAP queue 1
-item 12). After training, a greedy ``lm_generate`` sample continues the
-stream from a short prompt.
+``plan`` in place of the knob tail (``... [ring|ulysses] plan``) lets
+:func:`marlin_tpu_torch.models.plan_context` pick every memory knob, one
+measured training step per probed rung on the card (the CPU has no default
+measure: it raises). After training, a greedy ``lm_generate`` sample
+continues the stream from a short prompt.
 """
 
 import sys
 
 from marlin_tpu_torch.examples._common import die, millis
-
-_NO_PLAN = ("plan_context (models/planner.py: knobs from the TPU compiler's "
-            "memory accounting) is not ported yet (ROADMAP queue 1 item 12)")
 
 
 def main(argv=None):
@@ -55,7 +52,18 @@ def main(argv=None):
                        layers=layers, attn=attn, remat=remat,
                        loss_chunk=loss_chunk, compute_dtype=compute_dtype)
     if use_planner:
-        raise NotImplementedError(_NO_PLAN)
+        from marlin_tpu_torch.models import plan_context
+
+        # plan for the ring the training step runs over: the sequence
+        # shards across the mesh "rows" axis
+        plan = plan_context(seq, lm, chips=mesh.shape["rows"], mesh=mesh)
+        print(plan.describe())
+        if not plan.fits:
+            die("no knob set fits usable HBM — shard over more chips "
+                "(plan_context(chips=...)) or shrink the model")
+        lm = plan.model
+        remat, loss_chunk, compute_dtype = lm.remat, lm.loss_chunk, \
+            lm.compute_dtype
     lm.train(tokens, steps=1, mesh=mesh)  # warm-up
     t0 = millis()
     params, losses = lm.train(tokens, steps=steps, mesh=mesh)

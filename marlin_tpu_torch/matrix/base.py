@@ -3,9 +3,8 @@
 Counterpart of ``marlin_tpu/matrix/base.py``, mirroring the reference's
 ``DistributedMatrix`` trait (matrix/DistributedMatrix.scala:9-76): dims,
 elementwise/scalar arithmetic, sum, dotProduct (elementwise product),
-transpose, cBind, print. ``toBreeze()`` — "collect to a local dense matrix,
-for test only" — becomes :meth:`to_numpy`. ``save_to_file_system`` is not
-part of the contract yet: it arrives with the IO slice.
+transpose, cBind, saveToFileSystem, print. ``toBreeze()`` — "collect to a
+local dense matrix, for test only" — becomes :meth:`to_numpy`.
 """
 
 from __future__ import annotations
@@ -49,6 +48,9 @@ class DistributedMatrix(abc.ABC):
 
     @abc.abstractmethod
     def c_bind(self, other): ...
+
+    @abc.abstractmethod
+    def save_to_file_system(self, path: str): ...
 
     @abc.abstractmethod
     def print_matrix(self): ...

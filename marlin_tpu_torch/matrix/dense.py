@@ -31,7 +31,8 @@ import torch.nn.functional as F
 
 from ..config import get_config
 from ..interop import to_tensor
-from ..mesh import COLS, ROWS, Mesh, default_mesh, pad_to_multiple
+from ..mesh import (COLS, ROWS, Mesh, Sharding, default_mesh,
+                    pad_to_multiple)
 from ..ops.local import local_matmul, matvec
 from ..random import random_array
 from .base import DistributedMatrix
@@ -63,6 +64,13 @@ class DenseMatrix(DistributedMatrix):
         self._shape = (int(shape[0]), int(shape[1]))
         self.mesh = mesh
         self.spec = tuple(spec)
+
+    @property
+    def sharding(self):
+        """The layout as a :class:`~marlin_tpu_torch.mesh.Sharding` over the
+        mesh (the JAX package's ``NamedSharding``); ``.local(data)`` cuts a
+        rank's block. The tensor itself stays whole on every rank."""
+        return Sharding(self.mesh, self.spec)
 
     # ------------------------------------------------------------- factories
     @classmethod

@@ -1,9 +1,42 @@
-"""Model families: the causal transformer LM (training at world size 1 and
-serving), its mixture-of-experts FFN, and the page arithmetic of its
-planner."""
+"""Model families (canonical namespace).
+
+The reference's "models" are workloads built from its matrix primitives: a
+2-layer MLP, logistic regression, PageRank and ALS matrix factorization,
+implemented in :mod:`marlin_tpu_torch.ml` and re-exported here (resolved
+at first use: ``ml`` imports the trainer's Adam from this package). The
+causal transformer LM (training, serving), its mixture-of-experts FFN, the
+pipeline-parallel LM and the memory planner complete it.
+"""
+
+import importlib
+
+_ML = {"ALSModel": "als", "als_run": "als",
+       "LogisticRegressionModel": "logistic_regression",
+       "logistic_regression": "logistic_regression",
+       "NeuralNetwork": "neural_network", "mlp_forward": "neural_network",
+       "mlp_init": "neural_network", "train_step": "neural_network",
+       "build_transition_matrix": "pagerank", "pagerank": "pagerank"}
+
+
+def __getattr__(name):
+    if name in _ML:
+        mod = importlib.import_module(f"..ml.{_ML[name]}", __name__)
+        return getattr(mod, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_ML))
 
 from .moe import init_moe, moe_ffn, shard_moe_params  # noqa: F401
-from .planner import kv_page_bytes, request_pages, usable_hbm_bytes  # noqa: F401
+from .pipeline_lm import pp_lm_loss, pp_lm_train_step, pp_stage_params  # noqa: F401
+from .planner import (  # noqa: F401
+    ContextPlan,
+    kv_page_bytes,
+    plan_context,
+    request_pages,
+    usable_hbm_bytes,
+)
 from .transformer import (  # noqa: F401
     AdamState,
     TransformerLM,

@@ -31,7 +31,6 @@ from torch.utils.checkpoint import checkpoint
 from ..config import resolve_device
 from ..mesh import ROWS
 from ..ops.local import precision_scope
-from ..parallel.ring_attention import _world_of_one
 from .transformer import _f32_einsum, _gelu
 
 __all__ = ["init_moe", "moe_ffn", "moe_decode_ffn", "moe_capacity",
@@ -68,12 +67,22 @@ def moe_capacity(group: int, n_experts: int, top_k: int,
     return max(1, math.ceil(group * top_k * capacity_factor / n_experts))
 
 
+def _one_device_experts(mesh, axis: str, what: str) -> None:
+    """Raise unless ``mesh`` (None: the default mesh) has size 1 along
+    ``axis``: experts across ranks are not ported yet."""
+    p_size = 1 if mesh is None else mesh.shape[axis]
+    if p_size != 1:
+        raise NotImplementedError(
+            f"{what} over a '{axis}' axis of {p_size} devices is not ported "
+            f"yet (ROADMAP queue 1 item 12)")
+
+
 def shard_moe_params(params, mesh, axis: str = ROWS):
     """Place the expert tensors with their expert axis over ``axis``. At
     world size 1 placement is the identity: returns ``params`` (one
     :func:`init_moe` dict or a whole transformer params dict) unchanged, and
     raises for an axis of more than one device."""
-    _world_of_one(mesh, axis, "expert sharding")
+    _one_device_experts(mesh, axis, "expert sharding")
     return params
 
 
@@ -128,7 +137,7 @@ def moe_ffn(mp: dict, x, mesh=None, axis: str = ROWS, top_k: int = 2,
             raise ValueError(
                 f"n_experts ({e}) must be a multiple of mesh axis {axis!r} "
                 f"({mesh.shape[axis]}) so each device holds whole experts")
-        _world_of_one(mesh, axis, "expert parallelism")
+        _one_device_experts(mesh, axis, "expert parallelism")
     g = min(group_size, s) if group_size else s
     cap = moe_capacity(g, e, top_k, capacity_factor)
     n_groups = -(-s // g)

@@ -13,8 +13,10 @@ dense-slab pair ``lm_prefill_slot`` / ``lm_decode_rows`` over
 ``l{i}.{wq,wk,wv,wo,ln1,ln2,w1,w2}`` or, in a mixture-of-experts layer,
 ``l{i}.moe.{wg,w1,w2}`` in place of ``w1``/``w2``; ``ln_f``) and contracts
 are the JAX package's; every program takes the ``moe`` routing tuple
-(``models/moe.py``). Training runs ring and Ulysses attention at world size
-1 (``parallel/``); ``offload_residuals`` and multi-device training are not
+(``models/moe.py``). Training runs ring and Ulysses attention
+(``parallel/``); ``offload_residuals`` parks the remat checkpoints' block
+inputs in pinned host memory between the forward and the backward
+(:class:`_ResidualOffload`). Training sequence-sharded over ranks is not
 ported yet (ROADMAP queue 1 item 12).
 
 Differences that follow from PyTorch:
@@ -51,6 +53,7 @@ from ..config import get_config, resolve_device
 from ..ops import flash_attention as _flash
 from ..ops.local import precision_scope
 from ..ops.paged_attention import paged_decode_attention
+from ..parallel.pipeline import _leaves, _tree_map
 from ..parallel.ring_attention import ring_attention
 from ..parallel.ulysses import ulysses_attention
 
@@ -66,9 +69,6 @@ _MASKED = -1e30
 # the MoE routing knobs (top_k, capacity_factor, group) a MoE layer uses
 # when the caller passes no ``moe`` tuple, as in the JAX package
 _MOE_DEFAULTS = (2, 1.25, 4096)
-_NO_OFFLOAD = ("offload_residuals (remat checkpoints parked in host memory) "
-               "is not ported yet (ROADMAP queue 1 item 12)")
-
 
 def synthetic_stream(seq: int, vocab: int = 64, seed: int = 0,
                      period: int = 8, step: int = 3,
@@ -875,13 +875,59 @@ def _block(lp, x, heads: int, mesh, attn: str, precision: str,
     return x + out, aux
 
 
+class _ResidualOffload:
+    """Saved-tensor hooks that park the block input a remat checkpoint saves
+    in host memory: the JAX package's ``_OFFLOAD_POLICY``, which offloads
+    only the residual it names ``marlin_resid``. The pack hook copies that
+    one tensor (matched by storage and shape) into pinned host memory with
+    ``non_blocking=True`` and leaves every other saved tensor where it is;
+    the unpack hook brings it back to its device when the backward recomputes
+    the block. Bytes move, no arithmetic changes, so the loss and gradients
+    equal the plain remat run's bit for bit. ``moved`` counts the tensors
+    the pack hook has copied to the host. The hooks keep the residual's
+    address and shape only: autograd keeps them as long as the saved
+    tensor, and a reference would pin the residual on the device."""
+
+    moved = 0
+
+    def __init__(self, resid: torch.Tensor):
+        self.key = (resid.data_ptr(), resid.shape)
+
+    def pack(self, t):
+        if (t.data_ptr(), t.shape) != self.key:
+            return t
+        host = torch.empty(t.shape, dtype=t.dtype, device="cpu",
+                           pin_memory=t.device.type == "cuda")
+        host.copy_(t, non_blocking=True)
+        _ResidualOffload.moved += 1
+        return (t.device, host)
+
+    @staticmethod
+    def unpack(packed):
+        if isinstance(packed, tuple):
+            dev, host = packed
+            return host.to(dev, non_blocking=True)
+        return packed
+
+
+def _remat_block(blk, lp, x, offload: bool):
+    """``blk(lp, x)`` recomputed in the backward, keeping only ``x`` —
+    parked on the host with ``offload``."""
+    if not offload:
+        return checkpoint(blk, lp, x, use_reentrant=False)
+    hooks = _ResidualOffload(x)
+    with torch.autograd.graph.saved_tensors_hooks(hooks.pack, hooks.unpack):
+        return checkpoint(blk, lp, x, use_reentrant=False)
+
+
 def _trunk(params, tokens, mesh, heads, attn, remat, precision,
            compute_dtype=None, mlp_chunk=None, offload_residuals=False,
            moe=None):
     """Final-norm hidden states (seq, d_model) and the summed MoE aux: the
     forward minus the LM head. ``remat`` recomputes each block in the
-    backward (``torch.utils.checkpoint``), keeping only the block inputs.
-    ``mesh`` None is the default mesh, a world of one."""
+    backward (``torch.utils.checkpoint``), keeping only the block inputs;
+    ``offload_residuals`` (needs ``remat``) keeps those in pinned host
+    memory (:class:`_ResidualOffload`). ``mesh`` None is the default mesh."""
     if attn not in (*_ATTN_BACKENDS, "ulysses"):
         raise ValueError(f"unknown attention strategy: {attn!r}")
     if offload_residuals:
@@ -895,7 +941,6 @@ def _trunk(params, tokens, mesh, heads, attn, remat, precision,
                 "offload_residuals stacks the layers into one scan, which "
                 "needs uniform layer structure — moe_every > 1 mixes MoE "
                 "and dense FFN layers; use moe_every=1 or drop the offload")
-        raise NotImplementedError(_NO_OFFLOAD)
     x = params["emb"][_ints(tokens, params["emb"].device)]
     if compute_dtype is not None:
         x = x.to(_cdtype(compute_dtype, params))
@@ -904,7 +949,7 @@ def _trunk(params, tokens, mesh, heads, attn, remat, precision,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(_n_layers(params)):
         lp = _layer(params, i)
-        x, a = (checkpoint(blk, lp, x, use_reentrant=False) if remat
+        x, a = (_remat_block(blk, lp, x, offload_residuals) if remat
                 else blk(lp, x))
         aux = aux + a
     return _rmsnorm(x, params["ln_f"]), aux
@@ -989,19 +1034,6 @@ class AdamState(NamedTuple):
 _ADAM_B1, _ADAM_B2, _ADAM_EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults
 
 
-def _tree_map(fn, *trees):
-    """``fn`` over the leaves of params-shaped nested dicts."""
-    if isinstance(trees[0], dict):
-        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
-    return fn(*trees)
-
-
-def _leaves(tree) -> list:
-    if isinstance(tree, dict):
-        return [x for k in tree for x in _leaves(tree[k])]
-    return [tree]
-
-
 def adam_init(params: dict) -> AdamState:
     """Zero moments for ``params`` — ``optax.adam(lr).init(params)``."""
     zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)  # noqa: E731
@@ -1079,7 +1111,7 @@ class TransformerLM:
     compute_dtype: str | None = None
     # the FFN over chunks of tokens: caps the (seq, d_ff) GELU intermediate
     mlp_chunk: int | None = None
-    # remat checkpoints in host memory: not ported (ROADMAP queue 1 item 12)
+    # remat checkpoints' block inputs in pinned host memory (needs remat)
     offload_residuals: bool = False
     # grouped-query attention: heads // kv_heads query heads per K/V head
     kv_heads: int | None = None

@@ -1,4 +1,4 @@
-"""Distributed matrix multiply strategies, at world size 1.
+"""Distributed matrix multiply strategies.
 
 Counterpart of ``marlin_tpu/parallel/matmul.py``: the replication matrix
 multiply ("RMM", matrix/BlockMatrix.scala:149-220), the broadcast multiply
@@ -6,19 +6,28 @@ for small operands (DenseVecMatrix.scala:196-207, 1660-1680), the
 partitioner-scheduled contraction ("gspmd") and the ring, chosen by the
 reference's adaptive dispatch (DenseVecMatrix.scala:196-231).
 
-On one device every strategy is one local product (``torch.matmul`` at the
-requested precision, ops.local.local_matmul): there is nothing to replicate,
-split or reduce. The API and the dispatch stay as they are — strategy names,
-the broadcast threshold, the CARMA split and its device-count check, the
-error types — so the multi-device schedules can come back on
-``torch.distributed`` without changing a caller.
+With no process group every strategy is one local product (``torch.matmul``
+at the requested precision, ops.local.local_matmul): there is nothing to
+replicate, split or reduce. Over ``torch.distributed`` ranks
+(:func:`~marlin_tpu_torch.mesh.initialize_distributed`):
 
-All functions take/return *logical* (unpadded) tensors, except
-:func:`matmul_padded`, which takes and returns its matrices' padded layouts
-and runs the strategy's function on the logical slices. Each strategy
-function lands its multiply's analytic cost in the process ``ProgramCosts``
-registry (:func:`_capture_matmul_cost`) under the JAX package's program
-names and keys.
+- :func:`rmm_matmul` lays the world's ranks on the (m, k, n) grid of the
+  CARMA split; each rank multiplies its (m, k) block of A by its (k, n)
+  block of B, an ``all_reduce`` over the k line sums them (the JAX
+  package's ``psum``), and a gather over the world assembles C;
+- :func:`broadcast_matmul` uses the replicated operand each rank already
+  holds (``sc.broadcast``), takes this rank's row block of A (or column
+  block of B) times it, and gathers the blocks;
+- :func:`gspmd_matmul` has no partitioner to defer to: it runs the RMM
+  split :func:`_resolve_strategy` would choose (ROADMAP queue 3);
+- ``"ring"`` is :func:`~marlin_tpu_torch.parallel.ring.ring_matmul`.
+
+All functions take/return *logical* (unpadded) tensors, the same on every
+rank, except :func:`matmul_padded`, which takes and returns its matrices'
+padded layouts and runs the strategy's function on the logical slices.
+Each strategy function lands its multiply's analytic cost in the process
+``ProgramCosts`` registry (:func:`_capture_matmul_cost`) under the JAX
+package's program names and keys, once per rank.
 """
 
 from __future__ import annotations
@@ -27,8 +36,10 @@ import torch
 import torch.nn.functional as F
 
 from ..config import get_config, resolve_device
-from ..mesh import Mesh, default_mesh
+from ..mesh import (Mesh, default_mesh, distributed, pad_to_multiple,
+                    rank_grid, world_size)
 from ..ops.local import local_matmul
+from . import collectives as col
 from .carma import split_method
 
 _M, _K, _N = "m", "k", "n"
@@ -86,13 +97,52 @@ def _capture_matmul_cost(program: str, a, b, **meta) -> None:
 def build_rmm_mesh(split: tuple[int, int, int], devices=None) -> Mesh:
     """Arrange devices into the (m_split, k_split, n_split) grid chosen by the
     CARMA heuristic (the descendant of ``MatrixMultPartitioner``'s m·k·n
-    partition space). Raises when the split needs more devices than exist."""
-    devs = list(devices) if devices is not None else [resolve_device()]
+    partition space): with a process group, the first m·k·n ranks of the
+    world (every rank must call it); else ``devices`` (default: the
+    configured device). Raises when the split needs more devices than
+    exist."""
     pm, pk, pn = split
     need = pm * pk * pn
-    if need > len(devs):
-        raise ValueError(f"split {split} needs {need} devices, have {len(devs)}")
+    have = world_size() if distributed() else \
+        len(list(devices) if devices is not None else [None])
+    if need > have:
+        raise ValueError(f"split {split} needs {need} devices, have {have}")
+    if distributed():
+        return rank_grid(split, (_M, _K, _N))
+    devs = list(devices) if devices is not None else [resolve_device()]
     return Mesh(torch.device(devs[0]), (pm, pk, pn), (_M, _K, _N))
+
+
+def _rmm_ranks(a, b, mesh3: Mesh, precision, accum_dtype):
+    """The RMM across ranks, logical in/out: each rank of the (m, k, n) grid
+    multiplies its blocks, an ``all_reduce`` over its k line sums the
+    partial products, and a gather over the world assembles C from the
+    k = 0 ranks (a rank past the grid contributes zeros and computes
+    nothing)."""
+    import torch.distributed as dist
+
+    m, k = a.shape
+    n = b.shape[1]
+    pm, pk, pn = mesh3.grid
+    mp, kp, np_ = (pad_to_multiple(m, pm), pad_to_multiple(k, pk),
+                   pad_to_multiple(n, pn))
+    a = F.pad(a, (0, kp - k, 0, mp - m))
+    b = F.pad(b, (0, np_ - n, 0, kp - k))
+    bm, bk, bn = mp // pm, kp // pk, np_ // pn
+    rank = dist.get_rank()
+    if rank < mesh3.size:
+        i, kk, j = (mesh3.coords()[ax] for ax in (_M, _K, _N))
+        c = local_matmul(a[i * bm:(i + 1) * bm, kk * bk:(kk + 1) * bk],
+                         b[kk * bk:(kk + 1) * bk, j * bn:(j + 1) * bn],
+                         precision, accum_dtype).contiguous()
+        dist.all_reduce(c, group=mesh3.group(_K))
+    else:
+        c = torch.zeros((bm, bn), dtype=accum_dtype, device=a.device)
+    parts = [torch.empty_like(c) for _ in range(world_size())]
+    dist.all_gather(parts, c)
+    rows = [torch.cat([parts[(i * pk) * pn + j] for j in range(pn)], dim=1)
+            for i in range(pm)]
+    return torch.cat(rows, dim=0)[:m, :n]
 
 
 def rmm_matmul(
@@ -110,11 +160,16 @@ def rmm_matmul(
     ``multiply(other, (m, k, n))`` (DenseVecMatrix.scala:109-141) and must
     fit the devices. With one device the grid is (1, 1, 1): one product."""
     m, k, n = _check_inner(a, b)
-    devs = list(devices) if devices is not None else [resolve_device()]
+    if distributed():
+        n_dev = world_size()
+    else:
+        n_dev = len(list(devices)) if devices is not None else 1
     if split is None:
-        split = split_method(m, k, n, len(devs))
-    build_rmm_mesh(split, devs)
+        split = split_method(m, k, n, n_dev)
+    mesh3 = build_rmm_mesh(split, devices)
     _capture_matmul_cost("rmm_matmul", a, b, split="x".join(map(str, split)))
+    if mesh3.ranks is not None:
+        return _rmm_ranks(a, b, mesh3, precision, accum_dtype or a.dtype)
     return local_matmul(a, b, precision, accum_dtype)
 
 
@@ -128,12 +183,30 @@ def broadcast_matmul(
 ) -> torch.Tensor:
     """Small-operand multiply: replicate one side (the analog of Spark's
     ``collect`` + ``sc.broadcast``, DenseVecMatrix.scala:196-207 and
-    1660-1680) and keep the big side where it is. One device: one product."""
+    1660-1680) and keep the big side where it is. Across ranks every rank
+    already holds the replicated operand whole (the logical in/out
+    contract), so only the big one is split, by rows (``replicate="b"``) or
+    columns (``"a"``) over every rank of the mesh, and the blocks of C are
+    gathered. One device: one product."""
     if replicate not in ("a", "b"):
         raise ValueError(f"replicate must be 'a' or 'b', got {replicate!r}")
-    _check_inner(a, b)
+    m, _, n = _check_inner(a, b)
     _capture_matmul_cost("broadcast_matmul", a, b, replicate=replicate)
-    return local_matmul(a, b, precision, accum_dtype)
+    if mesh is None and distributed():
+        mesh = default_mesh()
+    if mesh is None or mesh.ranks is None:
+        return local_matmul(a, b, precision, accum_dtype)
+    flat = rank_grid((mesh.size,), ("all",))
+    p = flat.size
+    if replicate == "b":
+        big = F.pad(a, (0, 0, 0, pad_to_multiple(m, p) - m))
+        c = local_matmul(col.block(big, flat, "all", 0), b, precision,
+                         accum_dtype)
+        return col.all_gather_cat(c, flat, "all", 0)[:m]
+    big = F.pad(b, (0, pad_to_multiple(n, p) - n))
+    c = local_matmul(a, col.block(big, flat, "all", 1), precision,
+                     accum_dtype)
+    return col.all_gather_cat(c, flat, "all", 1)[:, :n]
 
 
 def gspmd_matmul(
@@ -143,12 +216,18 @@ def gspmd_matmul(
     precision: str | None = None,
     accum_dtype=None,
 ) -> torch.Tensor:
-    """The contraction whose collective schedule the partitioner picks; on
-    one device, one product."""
-    _check_inner(a, b)
+    """The contraction whose collective schedule the partitioner picks. No
+    partitioner exists here: across ranks it runs the CARMA RMM split over
+    the mesh's ranks (ROADMAP queue 3); on one device, one product."""
+    m, k, n = _check_inner(a, b)
+    if mesh is None and distributed():
+        mesh = default_mesh()
     _capture_matmul_cost("gspmd_matmul", a, b,
                          devices=1 if mesh is None else mesh.size)
-    return local_matmul(a, b, precision, accum_dtype)
+    if mesh is None or mesh.ranks is None:
+        return local_matmul(a, b, precision, accum_dtype)
+    mesh3 = build_rmm_mesh(split_method(m, k, n, mesh.size))
+    return _rmm_ranks(a, b, mesh3, precision, accum_dtype or a.dtype)
 
 
 _STRATEGIES = ("auto", "broadcast", "broadcast_a", "rmm", "gspmd", "ring")
@@ -255,6 +334,7 @@ def matmul(
                           accum_dtype)
     if strategy == "gspmd":
         return gspmd_matmul(a, b, mesh, precision, accum_dtype)
-    # ring: one device holds the whole ring, so one product
-    _check_inner(a, b)
-    return local_matmul(a, b, precision, accum_dtype)
+    from .ring import ring_matmul
+
+    return ring_matmul(a, b, mesh, mesh.axis_names[0], precision,
+                       accum_dtype)

@@ -1,22 +1,35 @@
-"""Ring attention: exact attention over a sequence, at world size 1.
+"""Ring attention: exact attention over a sequence sharded around a ring.
 
-Counterpart of ``marlin_tpu/parallel/ring_attention.py``. There the sequence
-is sharded over a mesh axis and K/V panels rotate around the device ring;
-every device keeps its Q rows, sees each panel once and carries the softmax
-state ``(m, l, acc)`` across the panels. On one device the ring is the home
-panel alone (the JAX package's ``p_size == 1`` branches), which is what this
-module runs: a mesh axis larger than 1 raises, the rotation over
-``torch.distributed`` waits (ROADMAP queue 1 item 12).
+Counterpart of ``marlin_tpu/parallel/ring_attention.py``. The sequence is
+split over a mesh axis; every rank keeps its Q rows while the K/V panels
+rotate around the ring (``torch.distributed.batch_isend_irecv`` to the next
+rank and from the previous one, the next panel posted before the resident
+panel is folded in), and carries the softmax state ``(m, l, acc)`` across
+the panels with masks at global positions. The backward
+(:class:`_RingAttention`, the JAX package's custom VJP) runs the same
+rotation with dK/dV accumulators riding the ring beside their panels, so
+after ``p`` steps every panel's gradient sum is home; dQ accumulates
+locally. Logical in/out: every rank passes the whole (padded) sequence, and
+the output and the gradients are gathered back whole, so each rank holds the
+whole tensors; :class:`_RingAttention` alone is the layer that works on this
+rank's panels. With no process group
+the ring is the home panel alone (the JAX package's ``p_size == 1``
+branches).
 
 Backends:
 
-- ``"flash"``: one flash panel through :class:`~marlin_tpu_torch.ops.
-  flash_attention.FlashAttention` — the CUDA forward kernel, and the dK/dV
-  and dQ kernels in the backward, over all heads in one launch each (the
-  plain versions for CPU tensors).
-- ``"xla"``: the JAX package's tiled formulation in plain PyTorch — the
-  panel in ``_KV_TILE``-key tiles folded by :func:`softmax_tile_update`,
-  with autograd through it, as JAX differentiates its XLA path.
+- ``"flash"``: each panel through :func:`~marlin_tpu_torch.ops.
+  flash_attention.flash_attention_panel` at its global offsets, and its
+  backward through :func:`~marlin_tpu_torch.ops.flash_attention.
+  flash_attention_panel_bwd` — the CUDA forward, dK/dV and dQ kernels, over
+  all heads in one launch each (the plain versions for CPU tensors). In a
+  world of one the home panel is :class:`~marlin_tpu_torch.ops.
+  flash_attention.FlashAttention`.
+- ``"xla"``: the JAX package's tiled formulation in plain PyTorch — each
+  panel in ``_KV_TILE``-key tiles folded by :func:`softmax_tile_update`. In
+  a world of one autograd runs through the tiles, as JAX differentiates its
+  XLA path; across ranks the backward rebuilds each panel's probabilities
+  from the logsumexp rows, the plain recompute of the flash backward.
 - ``"auto"``: ``"flash"`` for tensors on a CUDA device with a head dim of at
   most 256, ``"xla"`` above it and for CPU tensors
   (:func:`resolve_attention_backend`). The rule is the reach of the flash
@@ -40,9 +53,10 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..mesh import ROWS, pad_to_multiple
+from ..mesh import ROWS, default_mesh, distributed, pad_to_multiple
 from ..ops import flash_attention as _flash
 from ..ops.local import precision_scope
+from . import collectives as col
 
 __all__ = ["ring_attention", "attention_reference", "softmax_tile_update",
            "resolve_attention_backend"]
@@ -125,15 +139,111 @@ def _xla_attention(q, k, v, valid_len: int, causal: bool, scale: float):
     return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
 
 
-def _world_of_one(mesh, axis: str, what: str) -> None:
-    """Raise unless ``mesh`` (None: the default mesh, a world of one) has
-    size 1 along ``axis``."""
-    p_size = 1 if mesh is None else mesh.shape[axis]
-    if p_size != 1:
-        raise NotImplementedError(
-            f"{what} over a '{axis}' axis of {p_size} devices needs "
-            f"torch.distributed, which is not ported yet (ROADMAP queue 1 "
-            f"item 12)")
+def _xla_panel(q, k, v, m, l, acc, q_off: int, k_off: int, valid_len: int,
+               causal: bool, scale: float):
+    """Fold one K/V panel at global offsets into ``(m, l, acc)`` in
+    ``_KV_TILE``-key tiles (the whole panel when it is not a tile
+    multiple)."""
+    sq, skv = q.shape[-2], k.shape[-2]
+    tile = _KV_TILE if skv % _KV_TILE == 0 else skv
+    q_pos = q_off + torch.arange(sq, device=q.device)
+    for off in range(0, skv, tile):
+        k_pos = k_off + off + torch.arange(tile, device=q.device)
+        m, l, acc = softmax_tile_update(
+            q, k[..., off:off + tile, :], v[..., off:off + tile, :], m, l,
+            acc, q_pos, k_pos, valid_len, causal, scale)
+    return m, l, acc
+
+
+class _RingAttention(torch.autograd.Function):
+    """Ring attention over this rank's ``(H, sq, d)`` panels, returning its
+    output panel: ``_RingAttention.apply(q, k, v, mesh, axis, valid_len,
+    causal, scale, flash)``. The forward saves the panels, the output and the
+    logsumexp rows; the backward rotates K/V with their dK/dV accumulators
+    (``parallel/ring_attention.py:160-210`` of the JAX package)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mesh, axis, valid_len, causal, scale, flash):
+        p = mesh.shape[axis]
+        r = mesh.index(axis)
+        sq, skv = q.shape[-2], k.shape[-2]
+        if flash:
+            b = _flash.block_divisor(min(sq, skv))
+
+            def panel(kc, vc, m, l, acc, owner):
+                return _flash.flash_attention_panel(
+                    q, kc, vc, m, l, acc, r * sq, owner * skv, valid_len,
+                    causal=causal, scale=scale, bq=b, bkv=b)
+        else:
+            def panel(kc, vc, m, l, acc, owner):
+                return _xla_panel(q, kc, vc, m, l, acc, r * sq, owner * skv,
+                                  valid_len, causal, scale)
+        m = torch.full(q.shape[:-1], _NEG, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+        k_cur, v_cur = k, v
+        for i in range(p):
+            if i < p - 1:  # the next panel travels while this one folds in
+                pending = col.ring_send_recv([k_cur, v_cur], mesh, axis)
+            m, l, acc = panel(k_cur, v_cur, m, l, acc, (r - i) % p)
+            if i < p - 1:
+                k_cur, v_cur = col.finish(*pending)
+        lf = torch.clamp(l, min=1e-30)
+        out = (acc / lf[..., None]).to(q.dtype)
+        ctx.save_for_backward(q, k, v, out, m + torch.log(lf))
+        ctx.meta = (mesh, axis, valid_len, causal, scale, flash)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        mesh, axis, valid_len, causal, scale, flash = ctx.meta
+        p = mesh.shape[axis]
+        r = mesh.index(axis)
+        sq, skv = q.shape[-2], k.shape[-2]
+        do = dout.to(q.dtype).contiguous()
+        delta = torch.sum(dout.float() * out.float(), dim=-1)
+        if flash:
+            b = _flash.block_divisor(min(sq, skv))
+            panel_bwd, bq, bkv = _flash.flash_attention_panel_bwd, b, b
+        else:
+            tile = _KV_TILE if skv % _KV_TILE == 0 else skv
+            panel_bwd = _flash.flash_attention_panel_bwd_plain
+            bq, bkv = sq, tile
+        dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+        dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+        dv = torch.zeros_like(dk)
+        k_cur, v_cur = k, v
+        for i in range(p):
+            if i < p - 1:
+                pending = col.ring_send_recv([k_cur, v_cur], mesh, axis)
+            owner = (r - i) % p
+            dq_p, dk_p, dv_p = panel_bwd(
+                q, k_cur, v_cur, do, lse, delta, r * sq, owner * skv,
+                valid_len, causal=causal, scale=scale, bq=bq, bkv=bkv)
+            dq = dq + dq_p
+            # the accumulators ride the ring with their panels: after p
+            # hops every panel's gradient sum is home
+            if p > 1:
+                dk, dv = col.finish(*col.ring_send_recv(
+                    [dk + dk_p, dv + dv_p], mesh, axis, tag0=2))
+            else:
+                dk, dv = dk + dk_p, dv + dv_p
+            if i < p - 1:
+                k_cur, v_cur = col.finish(*pending)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
+                None, None, None, None)
+
+
+def _ring_ranks(q, k, v, mesh, axis: str, valid_len: int, causal: bool,
+                scale: float, flash: bool):
+    """Logical (H, sp, d) in and out: cut this rank's panels, run the ring,
+    gather the output panels."""
+    qb, kb, vb = (col.Scatter.apply(t, mesh, axis, 1) for t in (q, k, v))
+    out = _RingAttention.apply(qb, kb, vb, mesh, axis, valid_len, causal,
+                               scale, flash)
+    return col.Gather.apply(out, mesh, axis, 1)
 
 
 def ring_attention(q, k, v, mesh=None, axis: str = ROWS, causal: bool = False,
@@ -160,12 +270,20 @@ def ring_attention(q, k, v, mesh=None, axis: str = ROWS, causal: bool = False,
         raise ValueError(f"unknown ring attention precision: {precision!r}")
     seq, d = q.shape[-2], q.shape[-1]
     flash = resolve_attention_backend(backend, q.device, d) == "flash"
-    _world_of_one(mesh, axis, "ring attention")
-    sp = seq
-    if sp > _KV_TILE:
-        sp = pad_to_multiple(sp, _KV_TILE)
+    if mesh is None and distributed():
+        mesh = default_mesh()
+    ranks = mesh is not None and getattr(mesh, "ranks", None) is not None
+    p_size = mesh.shape[axis] if ranks else 1
+    if not ranks and mesh is not None and mesh.shape[axis] != 1:
+        raise ValueError(f"a '{axis}' axis of {mesh.shape[axis]} devices "
+                         f"needs a mesh over torch.distributed ranks "
+                         f"(initialize_distributed, then create_mesh)")
+    sp = pad_to_multiple(seq, p_size)
+    if sp // p_size > _KV_TILE:
+        sp = p_size * pad_to_multiple(sp // p_size, _KV_TILE)
     if flash:
-        sp = pad_to_multiple(sp, 1024 if sp > 1024 else 128)
+        panel = sp // p_size
+        sp = p_size * pad_to_multiple(panel, 1024 if panel > 1024 else 128)
     if sp != seq:
         q, k, v = (F.pad(x, (0, 0, 0, sp - seq)) for x in (q, k, v))
     out_dtype = q.dtype
@@ -173,7 +291,15 @@ def ring_attention(q, k, v, mesh=None, axis: str = ROWS, causal: bool = False,
         q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
     scale_val = float(scale if scale is not None else 1.0 / math.sqrt(d))
     with precision_scope("highest"):
-        if flash:
+        if ranks:
+            single = q.ndim == 2
+            if single:
+                q, k, v = (x.unsqueeze(0) for x in (q, k, v))
+            out = _ring_ranks(q, k, v, mesh, axis, seq, causal, scale_val,
+                              flash)
+            if single:
+                out = out[0]
+        elif flash:
             out = _flash.FlashAttention.apply(q, k, v, seq, causal, scale_val)
         else:
             out = _xla_attention(q, k, v, seq, causal, scale_val)

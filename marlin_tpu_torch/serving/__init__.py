@@ -7,8 +7,9 @@ SLOs), the request contracts, the serving metrics, the BucketProgram seam
 with the ALS, PageRank and classification programs, the pool and bucket
 helpers, supervised worker recovery (:class:`Supervisor`), the
 multi-replica :class:`Router` with failover, rolling restarts and elastic
-membership, and the SLO-burn-driven :class:`FleetController`. The
-dense-slab control is not ported yet (ROADMAP).
+membership, and the SLO-burn-driven :class:`FleetController`; and the dense-slab control
+(``ServeEngine(paged=False)`` over one :class:`SlotPool` a bucket, warmed by
+:func:`warmup_buckets`).
 
 Quick start::
 
@@ -22,9 +23,12 @@ Quick start::
 
 from .batcher import (  # noqa: F401
     BatchFormer,
+    SlotPool,
     bucket_kv_bytes,
     normalize_buckets,
     pick_bucket,
+    planner_ratio_warning,
+    warmup_buckets,
 )
 from .engine import MigrationError, ServeEngine  # noqa: F401
 from .kvpool import (  # noqa: F401

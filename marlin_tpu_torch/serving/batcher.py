@@ -9,8 +9,10 @@ dense slab (the ``paged=False`` control), :func:`warmup_buckets` runs its
 program pair once. :func:`bucket_program_key` and
 :func:`capture_bucket_costs` are the roofline bookkeeping; the port has no
 compiler to ask for a cost model, so the costs are counted from the shapes
-(:func:`lm_call_cost`). The JAX package's AOT helpers (compiler memory
-analysis) have no counterpart: eager PyTorch compiles nothing ahead.
+(:func:`lm_call_cost`). :func:`planner_ratio_warning` is the JAX
+package's threshold on a measured peak against the slab arithmetic; its AOT
+helper ``aot_compile_buckets`` (compiler memory analysis on a TPU topology)
+has no counterpart: eager PyTorch compiles nothing ahead.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ import torch
 
 __all__ = ["normalize_buckets", "pick_bucket", "bucket_kv_bytes",
            "BatchFormer", "SlotPool", "bucket_program_key",
-           "capture_bucket_costs", "warmup_buckets", "lm_call_cost"]
+           "capture_bucket_costs", "warmup_buckets", "lm_call_cost",
+           "planner_ratio_warning"]
 
 Bucket = tuple[int, int]  # (P_bucket, steps_bucket)
 
@@ -317,6 +320,26 @@ def capture_bucket_costs(params: dict, heads: int, bucket: Bucket,
     except Exception:
         for name in programs:  # even a failed count marks the attempt
             costs.capture(name, key)
+
+
+def planner_ratio_warning(bucket: Bucket, peak_bytes: int,
+                          planner_bytes: int,
+                          factor: float = 2.0) -> str | None:
+    """The warning text when a bucket's measured peak exceeds the planner's
+    slab arithmetic (``bucket_kv_bytes`` at full batch) by more than
+    ``factor``, else ``None``: the admission budget is then not what the
+    device will see, and ``serve_max_batch`` sized from it runs out of
+    memory under load. Pure arithmetic, the JAX package's threshold."""
+    if planner_bytes <= 0:
+        return None
+    ratio = peak_bytes / planner_bytes
+    if ratio <= factor:
+        return None
+    return (f"bucket {bucket}: compiler peak {peak_bytes} B is "
+            f"{ratio:.1f}x the planner's {planner_bytes} B slab "
+            f"arithmetic — size serve_buckets/serve_max_batch from the "
+            f"measured peak, not the planner (docs/serving.md, bucket "
+            f"tuning)")
 
 
 def warmup_buckets(params: dict, heads: int, buckets: Sequence[Bucket],

@@ -449,9 +449,48 @@ def test_long_context_training_cli(world1, jax_init, capsys, args):
 
 
 def test_long_context_training_cli_plan_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
+    """On the CPU the plan mode raises the planner's error: its default
+    measure trains one step per rung on a CUDA device, never on the CPU."""
+    with pytest.raises(ValueError, match="needs a CUDA device"):
         tcli("long_context_training")(["128", "2", "32", "4", "1", "ring",
                                        "plan"])
+
+
+@pytest.mark.skipif(not modern_jax, reason="the JAX CLI needs modern jax")
+def test_long_context_training_cli_plan_stubbed(world1, jax_init, capsys,
+                                                monkeypatch):
+    """Under one stubbed measure (the peak falls with remat) and budget,
+    both CLIs print the same plan, pick remat and train alike."""
+    import functools
+
+    import marlin_tpu.models as jmodels
+    import marlin_tpu_torch.models as tmodels
+
+    gib = 1024 ** 3
+
+    def measure(m):
+        return (6 if m.remat else 10) * gib, ""
+
+    for mod in (jmodels, tmodels):
+        monkeypatch.setattr(mod, "plan_context", functools.partial(
+            mod.plan_context, measure=measure, hbm_budget=8 * gib))
+    args = ["128", "3", "32", "4", "1", "ring", "plan"]
+    jl, jout = _run(jcli("long_context_training"), args, capsys)
+    tl, tout = _run(tcli("long_context_training"), args, capsys)
+    assert tout[:3] == jout[:3]  # describe(): the verdict and two rungs
+    assert "fits" in tout[0] and "'remat': True" in tout[0]
+    _close(tl, jl, TRAIN_TOL, "losses")
+    assert " remat" in tout[3] and " remat" in jout[3]
+    assert tout[-1] == jout[-1]
+
+
+def test_pipeline_training_cli_world_of_one(capsys):
+    """With no process group the pipeline is one stage holding every
+    block; the loss falls (across ranks: tests/test_torch_pipeline_lm.py)."""
+    losses, out = _run(tcli("pipeline_training"),
+                       ["8", "33", "4", "32", "2", "2"], capsys)
+    assert out[0] == "pipeline: 1 stages x 2 blocks, batch 8 x 33 tokens"
+    assert "tok/s" in out[-1] and losses[-1] < losses[0]
 
 
 @pytest.mark.skipif(not modern_jax, reason="the JAX CLI needs modern jax")

@@ -22,7 +22,6 @@ none.
 
 import importlib
 import math
-import types
 
 import ml_dtypes
 import numpy as np
@@ -414,10 +413,11 @@ def test_attention_reference_matches_jax():
                                    atol=F32_TOL)
 
 
-def test_backend_resolution_and_errors():
+def test_backend_resolution_and_errors(tmp_path):
     """"auto" is the kernel on a CUDA device up to the flash kernels' head
     dim of 256, and the tiled plain path above it and elsewhere; bad knobs
-    and meshes wider than one device raise."""
+    raise; a mesh over torch.distributed ranks takes the collective path,
+    which in a one-rank gloo world equals the world of one."""
     res = tra.resolve_attention_backend
     assert res("auto", "cuda", 128) == "flash"
     assert res("auto", torch.device("cuda", 0), 64) == "flash"
@@ -437,11 +437,27 @@ def test_backend_resolution_and_errors():
         tra.ring_attention(x, x[:, :4], x)
     with pytest.raises(ValueError, match="heads"):
         tul.ulysses_attention(x[0], x[0], x[0])
-    wide = types.SimpleNamespace(shape={"rows": 2, "cols": 1})
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
-        tra.ring_attention(x, x, x, wide)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
-        tul.ulysses_attention(x, x, x, wide)
+    from marlin_tpu_torch import mesh as tmesh
+
+    x = torch.randn((2, 40, 8), generator=torch.Generator().manual_seed(0))
+    with config_context(device="cpu"):
+        tmesh.initialize_distributed(f"file://{tmp_path / 'store'}", 1, 0,
+                                     device="cpu")
+        try:
+            ranks = tmesh.create_mesh((1, 1))
+            assert ranks.ranks == (0,) and ranks.group("rows") is not None
+            for backend in ("xla", "flash"):
+                got = tra.ring_attention(x, x, x, ranks, causal=True,
+                                         backend=backend)
+                want = tra.ring_attention(x, x, x, causal=True,
+                                          backend=backend)
+                np.testing.assert_allclose(_np(got), _np(want), rtol=0,
+                                           atol=F32_TOL)
+            got = tul.ulysses_attention(x, x, x, ranks, causal=True)
+            np.testing.assert_array_equal(
+                _np(got), _np(tul.ulysses_attention(x, x, x, causal=True)))
+        finally:
+            tmesh.shutdown_distributed()
 
 
 # ----------------------------------------------------- the card's kernels

@@ -128,7 +128,10 @@ class FakeRouter:
     queue depths."""
 
     def __init__(self, n=1, burn=0.0, loads=None):
-        self._name = f"fake-router-{next(_fake_ids)}"
+        # not tests/test_fleet.py's "fake-router-N": the JAX registry's
+        # per-router counters would carry that file's replica-seconds over
+        # when both files run in one process
+        self._name = f"torch-fake-router-{next(_fake_ids)}"
         self.n = n
         self.burn = burn
         self.loads = loads
