@@ -272,8 +272,21 @@ drives the ported paths end to end through the public entry points:
   ``pipeline_training`` CLI, ``pp_lm_loss`` at 2048 tokens against the
   plain flash version, and the time of a one-float ``all_reduce`` and
   ``all_gather``; the group is destroyed after.
+- phase 30: the workloads across ranks, in a one-rank NCCL world (their
+  plain runs made first, outside it): config_lct on phase 11's stream with
+  the stream sharded over the ranks (``TransformerLM.train(mesh=rank
+  mesh)``: embedding to loss on this rank's block, ``ring_attention_shard``
+  / ``ulysses_attention_shard``) with ``ring_flash`` and ``ulysses`` (the
+  flash forward, dK/dV and dQ kernels each once a layer a step), held
+  against phase 11's logical run (losses and params, phase 11's
+  tolerances); config_moe with its experts over the ranks (the
+  expert-parallel path: two all-to-alls a MoE layer) against its logical
+  trainer (one step's loss and gradients, then 3 steps' losses); the
+  ``distributed_training`` CLI at (1, 1) against the same CLI
+  outside the world; blocked ALS and edge-sharded PageRank through their
+  rank paths against their plain paths.
 
-``python3 chip_smoke.py --phases 21,22,23`` (any subset of phases 19-29;
+``python3 chip_smoke.py --phases 21,22,23`` (any subset of phases 19-30;
 20 runs 19 first) builds the kernels and runs only those phases, printing no
 result lines.
 
@@ -589,6 +602,30 @@ DIST_ATTN = (8, 4096, 128)
 PIPE_SHAPE, PIPE_MB, PIPE_TOL = (64, 1024), 8, 1e-5
 PP_CLI = ("8", "512", "8")
 PP_LONG = 2048
+# phase 30: the workloads across ranks in a one-rank NCCL world. config_lct
+# on the TRAIN_SEQ stream sharded over the ranks with each of RANKS_ATTN,
+# held against phase 11's logical run with phase 11's tolerances
+# (TRAIN_LOSS_RTOL on the losses; params: at most TRAIN_OUTLIER_SHARE of the
+# elements past lr/10, difference TRAIN_DIFF_SHARE of the distance moved);
+# config_moe (MOE_LM) through the expert-parallel path against its logical
+# trainer: one step's loss and gradients with phase 26's tolerances
+# (TRAIN_LOSS0_RTOL, TRAIN_GRAD_TOL of each leaf's max) and the losses of
+# TRAIN_STEPS steps within TRAIN_LOSS_RTOL; the params' drift is logged, not
+# held: the paths sum the expert batches in other orders (an H100 read
+# 4.6e-6 of max on the step's gradients), and Adam moves an element whose
+# gradient sits within that of 0 by up to 2·lr apart (871 of 9049344
+# elements past lr/10 after 3 steps); the distributed_training CLI at (1, 1)
+# on RANKS_NN_CLI (iterations, hidden, batch) against the same CLI outside
+# the world (step losses within RANKS_TOL relative); blocked ALS at
+# RANKS_ALS and PageRank at RANKS_PR through their rank paths against their
+# plain paths (RANKS_TOL of the largest |entry|: the segment sums and the
+# edge sums are index_add_ atomics, summed in another order each run)
+RANKS_ATTN = ("ring_flash", "ulysses")
+RANKS_NN_CLI = ("100", "64", "256")
+RANKS_ALS = dict(users=100_000, items=20_000, nnz=2_000_000, rank=32,
+                 iters=3, block=4096)
+RANKS_PR = dict(n=1_000_000, e=10_000_000, iters=10)
+RANKS_TOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -4709,6 +4746,304 @@ def collectives_path(torch, np, mt, tt, fa, ops, smi) -> dict:
     return totals
 
 
+def params_close(label, got, want, start, lr) -> str:
+    """Phase 11's test of two trainers' params after TRAIN_STEPS steps:
+    at most TRAIN_OUTLIER_SHARE of the elements off by more than lr/10 and
+    the difference at most TRAIN_DIFF_SHARE of the distance moved from
+    ``start``. Returns the logged figures."""
+    fg, fw, f0 = flat(got), flat(want), flat(start)
+    n_el = sum(t.numel() for t in fw.values())
+    n_off = sum(int(((fg[k] - fw[k]).abs() > lr / 10).sum()) for k in fw)
+    diff = math.sqrt(sum(float(((fg[k] - fw[k]) ** 2).sum()) for k in fw))
+    moved = math.sqrt(sum(float(((fw[k] - f0[k]) ** 2).sum()) for k in fw))
+    if n_off > TRAIN_OUTLIER_SHARE * n_el or diff > TRAIN_DIFF_SHARE * moved:
+        raise AssertionError(f"{label}: params differ ({n_off} of {n_el} "
+                             f"past lr/10, {diff / moved:.3e} of the "
+                             f"distance moved)")
+    return (f"{n_off} of {n_el} elements past lr/10, difference "
+            f"{diff / moved:.3e} of the distance moved")
+
+
+def losses_close(label, got, want) -> float:
+    """The largest relative difference of two runs' losses, within
+    TRAIN_LOSS_RTOL."""
+    worst = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    if len(got) != len(want) or not worst <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"{label}: losses {got} vs {want}")
+    return worst
+
+
+def log_shard_bytes(torch, mm, tt) -> None:
+    """Per rank, analytic: the f32 activations a config_lct training step
+    holds a layer when its TRAIN_SEQ stream is sharded over 1, 2 and 4
+    ranks with the ring's flash rule (the layout ``_seq_shards`` gives):
+    the residual stream, q/k/v/o, the FFN's (rows, 4·d) intermediate, and
+    the logits of the LM head."""
+    d, vocab = LCT["d_model"], LCT["vocab"]
+    for p in (1, 2, 4):
+        sh = tt._seq_shards(mm.Mesh(torch.device("cuda"), (p, 1)),
+                            TRAIN_SEQ - 1, "ring_flash", d // LCT["heads"],
+                            "cuda")
+        mib = {name: sh.rows * width * 4 / 2 ** 20 for name, width in (
+            ("residual", d), ("q/k/v/o", 4 * d), ("ffn", 4 * d),
+            ("logits", vocab))}
+        log(f"  per rank at p = {p} (analytic, f32): {sh.rows} of "
+            f"{sh.padded} rows; residual {mib['residual']:g} MiB, q/k/v/o "
+            f"{mib['q/k/v/o']:g} MiB a layer, FFN intermediate "
+            f"{mib['ffn']:g} MiB, logits {mib['logits']:g} MiB")
+
+
+def moe_knobs() -> dict:
+    """config_moe's lm_loss arguments, as TransformerLM(**MOE_LM) passes
+    them."""
+    return dict(heads=MOE_LM["heads"], attn="ring", remat=MOE_LM["remat"],
+                loss_chunk=MOE_LM["loss_chunk"], moe=(
+                    MOE_LM["moe_top_k"], MOE_LM["moe_capacity_factor"],
+                    MOE_LM["moe_group"]))
+
+
+def ranks_references(torch, np, mt, tt):
+    """Phase 30's plain runs, made outside the process group: config_moe's
+    logical trainer, the distributed_training CLI's step losses, blocked
+    ALS and PageRank in a world of one; with the inputs the rank paths
+    take."""
+    import contextlib
+    import io
+    import json
+    import tempfile
+
+    from marlin_tpu_torch.examples import distributed_training
+    from marlin_tpu_torch.ml import build_transition_operator, pagerank
+
+    ref = {}
+    stream = np.random.default_rng(0).integers(
+        0, LCT["vocab"], TRAIN_SEQ).astype(np.int32)
+    moe = tt.TransformerLM(**MOE_LM)
+    ref["moe_params0"] = moe.init_params()
+    ref["moe"] = moe.train(stream, steps=TRAIN_STEPS,
+                           params=ref["moe_params0"])
+    ref["moe_grads"] = tt.lm_value_and_grad(ref["moe_params0"], stream,
+                                            **moe_knobs())
+    with tempfile.TemporaryDirectory() as tmp:
+        with contextlib.redirect_stdout(io.StringIO()):
+            distributed_training.main([*RANKS_NN_CLI, tmp])
+        with open(os.path.join(tmp, "events.jsonl")) as f:
+            ref["nn_cli"] = [json.loads(ln)["loss"] for ln in f
+                             if json.loads(ln)["kind"] == "step"]
+    rng = np.random.default_rng(30)
+    a = RANKS_ALS
+    ref["als_in"] = (rng.integers(0, a["users"], a["nnz"]),
+                     rng.integers(0, a["items"], a["nnz"]),
+                     rng.random(a["nnz"]).astype(np.float32) * 4 + 1)
+    coo = mt.CoordinateMatrix(*ref["als_in"], shape=(a["users"],
+                                                     a["items"]))
+    model = coo.als(rank=a["rank"], iterations=a["iters"], lam=0.05,
+                    shard=True, segment_block=a["block"])
+    ref["als"] = (model.user_features.logical().clone(),
+                  model.product_features.logical().clone())
+    n, e = RANKS_PR["n"], RANKS_PR["e"]
+    ref["pr_edges"] = np.stack([rng.integers(0, n, e), rng.integers(0, n, e)],
+                               axis=1)
+    ref["pr"] = pagerank(build_transition_operator(ref["pr_edges"], n=n),
+                         iterations=RANKS_PR["iters"])
+    torch.cuda.synchronize()
+    return ref
+
+
+def ranks_path(torch, np, mt, tt, ops, lct_run, smi) -> dict:
+    """Phase 30: the workloads across ranks (the sequence-sharded trainer,
+    the expert-parallel MoE trainer, the (dp, tp) MLP CLI, blocked ALS and
+    edge-sharded PageRank) in a one-rank NCCL world, each against its
+    logical or plain run. Returns the launch counts of the rank paths."""
+    import contextlib
+    import io
+    import json
+    import tempfile
+
+    import torch.distributed as dist
+
+    from marlin_tpu_torch import mesh as mm
+    from marlin_tpu_torch.examples import distributed_training
+    from marlin_tpu_torch.ml import build_transition_operator, pagerank
+
+    stream, params0, params_ref, losses_ref = lct_run
+    log(f"phase 30: the workloads across ranks in a one-rank NCCL world: "
+        f"config_lct sharded ({', '.join(RANKS_ATTN)}), config_moe "
+        f"expert-parallel, distributed_training {' '.join(RANKS_NN_CLI)}, "
+        f"ALS {RANKS_ALS}, PageRank {RANKS_PR}; {smi}")
+    t_ref = time.perf_counter()
+    ref = ranks_references(torch, np, mt, tt)
+    log(f"  the plain runs (outside the world): "
+        f"{time.perf_counter() - t_ref:.1f} s")
+    counts = dict.fromkeys(ops.launch_counts(), 0)
+
+    def add():
+        for k, n in ops.launch_counts().items():
+            counts[k] += n
+
+    lr = tt.TransformerLM.learning_rate
+    log_shard_bytes(torch, mm, tt)
+    with tempfile.TemporaryDirectory() as tmp:
+        mm.initialize_distributed(f"file://{tmp}/store", 1, 0)
+        try:
+            mesh = mm.create_mesh((1, 1))
+            if dist.get_backend() != "nccl" or mesh.ranks != (0,):
+                raise AssertionError("phase 30: not an NCCL rank mesh")
+            # (a) config_lct with the stream sharded over the ranks
+            for attn in RANKS_ATTN:
+                lm = tt.TransformerLM(**LCT, attn=attn)
+                lm.train(stream, steps=1, mesh=mesh, params=params0)
+                torch.cuda.synchronize()
+                ops.reset_launch_counts()
+                t0 = time.perf_counter()
+                params, losses = lm.train(stream, steps=TRAIN_STEPS,
+                                          mesh=mesh, params=params0)
+                torch.cuda.synchronize()
+                dt = (time.perf_counter() - t0) / TRAIN_STEPS
+                got = ops.launch_counts()
+                add()
+                for kname in ("flash_attention_panel",
+                              "flash_attention_bwd_dkv",
+                              "flash_attention_bwd_dq"):
+                    if got[kname] != LCT["layers"] * TRAIN_STEPS:
+                        raise AssertionError(
+                            f"phase 30 {attn}: {kname} launched "
+                            f"{got[kname]} times, want one a layer a step")
+                worst = losses_close(f"phase 30 {attn}", losses, losses_ref)
+                note = params_close(f"phase 30 {attn}", params, params_ref,
+                                    params0, lr)
+                shards = tt._seq_shards(mesh, TRAIN_SEQ - 1, attn,
+                                        LCT["d_model"] // LCT["heads"],
+                                        "cuda")
+                log(f"  config_lct {attn} over the ranks: losses {losses} "
+                    f"(phase 11 {losses_ref}; largest rel diff "
+                    f"{worst:.3e}, tol {TRAIN_LOSS_RTOL:g}); params {note}; "
+                    f"{dt * 1e3:.3f} ms a step (host clock); this rank's "
+                    f"block {shards.rows} of {shards.padded} rows; launches "
+                    f"{got}")
+                del params
+            # (b) config_moe's experts over the ranks: one step's loss and
+            # gradients (phase 26's test), then TRAIN_STEPS Adam steps
+            moe = tt.TransformerLM(**MOE_LM)
+            ops.reset_launch_counts()
+            loss_g, grads = tt.lm_value_and_grad(ref["moe_params0"], stream,
+                                                 mesh, **moe_knobs())
+            want_loss, want_grads = ref.pop("moe_grads")
+            fg, fw = flat(grads), flat(want_grads)
+            grad_worst = {k: float((fg[k] - g).abs().max())
+                          / max(float(g.abs().max()), 1e-30)
+                          for k, g in fw.items()}
+            worst_leaf = max(grad_worst, key=grad_worst.get)
+            log(f"  config_moe expert-parallel, one step: loss "
+                f"{float(loss_g)!r} (logical {float(want_loss)!r}); "
+                f"gradients: largest |ranks - logical| / max|logical| "
+                f"{grad_worst[worst_leaf]:.3e} ({worst_leaf}; tol "
+                f"{TRAIN_GRAD_TOL:g})")
+            if abs(float(loss_g) - float(want_loss)) > TRAIN_LOSS0_RTOL * \
+                    abs(float(want_loss)) or not \
+                    grad_worst[worst_leaf] <= TRAIN_GRAD_TOL:
+                raise AssertionError("phase 30: config_moe's step differs")
+            del grads, want_grads, fg, fw
+            t0 = time.perf_counter()
+            params, losses = moe.train(stream, steps=TRAIN_STEPS, mesh=mesh,
+                                       params=ref["moe_params0"])
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) / TRAIN_STEPS
+            got = ops.launch_counts()
+            add()
+            want_params, want_losses = ref.pop("moe")
+            worst = losses_close("phase 30 config_moe", losses, want_losses)
+            fg, fw, f0 = (flat(t) for t in (params, want_params,
+                                            ref["moe_params0"]))
+            lr = moe.learning_rate
+            off = {k: int(((fg[k] - w).abs() > lr / 10).sum())
+                   for k, w in fw.items()}
+            diff = math.sqrt(sum(float(((fg[k] - w) ** 2).sum())
+                                 for k, w in fw.items()))
+            moved = math.sqrt(sum(float(((w - f0[k]) ** 2).sum())
+                                  for k, w in fw.items()))
+            log(f"  config_moe expert-parallel, {TRAIN_STEPS} steps: losses "
+                f"{losses} (logical {want_losses}; largest rel diff "
+                f"{worst:.3e}); params past lr/10 by leaf "
+                f"{ {k: n for k, n in off.items() if n} }, difference "
+                f"{diff / moved:.3e} of the distance moved; "
+                f"{dt * 1e3:.3f} ms a step (host clock, no warm-up); "
+                f"launches {got}")
+            del params, want_params, fg, fw, f0
+            torch.cuda.empty_cache()
+            # (c) the (dp, tp) MLP CLI at (1, 1)
+            ops.reset_launch_counts()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                distributed_training.main([*RANKS_NN_CLI, tmp + "/nn"])
+            add()
+            lines = buf.getvalue().splitlines()
+            for ln in lines:
+                log(f"    | {ln}")
+            with open(os.path.join(tmp, "nn", "rank0", "events.jsonl")) as f:
+                nn_losses = [json.loads(ln)["loss"] for ln in f
+                             if json.loads(ln)["kind"] == "step"]
+            rel = max(abs(a - b) / abs(b)
+                      for a, b in zip(nn_losses, ref["nn_cli"]))
+            log(f"  distributed_training at (1, 1): {len(nn_losses)} step "
+                f"losses, largest rel diff {rel:.3e} against the CLI outside "
+                f"the world (tol {RANKS_TOL:g})")
+            if not (lines[0] == "mesh: 1 data-parallel x 1 tensor-parallel "
+                                "over 1 devices"
+                    and len(nn_losses) == len(ref["nn_cli"])
+                    and rel <= RANKS_TOL):
+                raise AssertionError(f"phase 30: distributed_training "
+                                     f"{lines} {rel}")
+            # (d) blocked ALS, the blocks over the ranks
+            a = RANKS_ALS
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            coo = mt.CoordinateMatrix(*ref["als_in"],
+                                      shape=(a["users"], a["items"]),
+                                      mesh=mesh)
+            model = coo.als(rank=a["rank"], iterations=a["iters"], lam=0.05,
+                            shard=True, segment_block=a["block"])
+            got_u = model.user_features.logical()
+            got_v = model.product_features.logical()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            add()
+            errs = [float((g - w).abs().max()) / float(w.abs().max())
+                    for g, w in zip((got_u, got_v), ref["als"])]
+            log(f"  ALS over the ranks: {dt:.3f} s; factors vs the plain "
+                f"blocked run {errs[0]:.3e} / {errs[1]:.3e} of the largest "
+                f"entry (tol {RANKS_TOL:g}); rmse {model.rmse(coo):.6f}")
+            if not max(errs) <= RANKS_TOL:
+                raise AssertionError(f"phase 30 ALS: {errs}")
+            del coo, model, got_u, got_v
+            # (e) PageRank, the edges over the ranks
+            n = RANKS_PR["n"]
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            op = build_transition_operator(ref["pr_edges"], n=n, mesh=mesh)
+            r = pagerank(op, iterations=RANKS_PR["iters"])
+            dt = time.perf_counter() - t0
+            add()
+            rel = float(np.abs(r - ref["pr"]).max()) / float(ref["pr"].max())
+            log(f"  PageRank over the ranks: {n} nodes, {op.nnz} edges on "
+                f"this rank, {dt:.3f} s with the host build; vs the plain "
+                f"operator {rel:.3e} of the largest rank (tol {RANKS_TOL:g})")
+            if not rel <= RANKS_TOL:
+                raise AssertionError(f"phase 30 PageRank: {rel}")
+            del op
+        finally:
+            mm.shutdown_distributed()
+    if mm.distributed():
+        raise AssertionError("phase 30: the process group is still up")
+    log(f"  phase 30 launches: {counts}")
+    for kname in ("flash_attention_panel", "flash_attention_bwd_dkv",
+                  "flash_attention_bwd_dq"):
+        if counts[kname] <= 0:
+            raise AssertionError(f"phase 30: {kname} never launched")
+    torch.cuda.empty_cache()
+    return counts
+
+
 def lct_reference(torch, np, tt):
     """Phase 11's uninterrupted run, for a run of phase 23 without phase 11:
     (stream, initial params, params and losses after TRAIN_STEPS steps)."""
@@ -4728,13 +5063,13 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=None,
-                    help="run the build, then only these of phases 19-29 "
+                    help="run the build, then only these of phases 19-30 "
                          "(comma-separated; 20 runs 19 first), and print no "
                          "result lines")
     only = ap.parse_args().phases
     only = None if only is None else {int(p) for p in only.split(",")}
-    if only is not None and not only <= set(range(19, 30)):
-        ap.error("--phases takes a subset of 19,20,...,29")
+    if only is not None and not only <= set(range(19, 31)):
+        ap.error("--phases takes a subset of 19,20,...,30")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available", file=sys.stderr)
         return 2
@@ -4818,6 +5153,10 @@ def main() -> int:
         if 29 in only:
             collectives_path(torch, np, mt, tt, fa, ops, smi)
             lap("phase 29")
+        if 30 in only:
+            ranks_path(torch, np, mt, tt, ops, lct_reference(torch, np, tt),
+                       smi)
+            lap("phase 30")
         log(f"phases {sorted(only)}: every check passed in "
             f"{time.perf_counter() - t_start:.1f} s")
         return 0
@@ -5169,7 +5508,6 @@ def main() -> int:
     disk_path(torch, np, mt, smi)
     lap("phase 22")
     checkpoint_path(torch, np, mt, tt, lct_run, smi)
-    del lct_run
     lap("phase 23")
     cli = cli_path(torch, np, mt, ops, pa, smi)
     lap("phase 24")
@@ -5184,8 +5522,11 @@ def main() -> int:
     lap("phase 28")
     lc29 = collectives_path(torch, np, mt, tt, fa, ops, smi)
     lap("phase 29")
+    lc30 = ranks_path(torch, np, mt, tt, ops, lct_run, smi)
+    del lct_run
+    lap("phase 30")
     late = {k: moe_train[k] + moe_serve[k] + slab_counts[k] + slab_paged[k]
-            + lc29[k] for k in moe_train}
+            + lc29[k] + lc30[k] for k in moe_train}
     paged_launches = path_counts["paged_decode_attention"] + \
         engine_launches + prog_split + cli["paged_decode_attention"] + \
         fleet_split + late["paged_decode_attention"]
@@ -5208,7 +5549,8 @@ def main() -> int:
         log(f"{kname} launches on the main paths: "
             f"{before + cli[kname] + late[kname]} (phases 8/11/14 {before}, "
             f"phase 24 {cli[kname]}, phase 26 {moe_train[kname]}, phase 27 "
-            f"{slab_counts[kname]}, phase 29 {lc29[kname]})")
+            f"{slab_counts[kname]}, phase 29 {lc29[kname]}, phase 30 "
+            f"{lc30[kname]})")
 
     # ---------------------------------------------------- kernels line
     kernels = [

@@ -9,7 +9,7 @@ end to end, with the hand-written CUDA GEMM and masked-fill kernels
 (``ops/pallas_kernels.py``); the serving half of the transformer LM
 (``models/``, ``serving/kvpool.py``) with the paged decode-attention and
 flash forward kernels (``ops/paged_attention.py``,
-``ops/flash_attention.py``); and its training half at world size 1
+``ops/flash_attention.py``); and its training half
 (``lm_loss``, ``lm_train_step``, ``TransformerLM.train``) through ring and
 Ulysses attention (``parallel/``), with the flash backward kernels; and the
 sparse × dense multiply (``SparseVecMatrix``, ``CoordinateMatrix``; the
@@ -34,7 +34,9 @@ control); fused matrix expressions (``lazy.fuse`` over
 long-context memory planner (``models/planner.py``); and the collectives
 layer over ``torch.distributed`` (``initialize_distributed``, a mesh over
 ranks, the ring, RMM and broadcast multiplies, ring and Ulysses attention
-across ranks, the GPipe pipeline and the pipeline LM).
+across ranks, the GPipe pipeline and the pipeline LM), with the workloads
+on it: the LM trainer on the ranks' sequence shards, MoE experts across
+ranks, the (dp, tp) MLP, blocked ALS and edge-sharded PageRank.
 
 Quick start::
 

@@ -3,14 +3,22 @@
 (examples/NeuralNetwork.scala) on a (data-parallel, tensor-parallel) mesh,
 stepped through a ResilientLoop that checkpoints every k steps.
 
-The port's world is one device: the mesh is ``best_grid(1)`` = (1, 1), and
-the whole batch and hidden dimension live on it. The multi-device form
-(batch over "rows", hidden over "cols") waits for ``torch.distributed``
-(ROADMAP queue 1 item 12).
+The mesh is ``best_grid`` of the world's ranks: the sampled batch rows over
+"rows", the hidden dimension over "cols" (``w0``'s columns, ``w1``'s rows),
+one all-reduce of the second product over "cols" and of the gradients over
+"rows" (``ml.neural_network.train_step(mesh=...)``). Without a process
+group the world is one device; run as a module under ``torchrun`` it joins
+the world itself (or call :func:`marlin_tpu_torch.mesh.
+initialize_distributed`, then this ``main`` on every rank). Every rank keeps
+the same whole params and checkpoints them into its own ``rank{r}``
+directory below the checkpoint dir.
+
+    torchrun --nproc-per-node 4 -m marlin_tpu_torch.examples.distributed_training 500
 
 args: ``[iterations] [hidden] [batch] [checkpoint dir]``
 """
 
+import os
 import sys
 
 import numpy as np
@@ -28,15 +36,19 @@ def main(argv=None):
     import torch
 
     import marlin_tpu_torch as mt
+    from marlin_tpu_torch import mesh as mm
     from marlin_tpu_torch.io.mnist import synthetic_mnist
     from marlin_tpu_torch.mesh import best_grid
     from marlin_tpu_torch.ml.neural_network import mlp_forward, mlp_init, train_step
     from marlin_tpu_torch.utils import EventLog, ResilientLoop
 
-    n_dev = 1
+    n_dev = mm.world_size()
     dp, tp = best_grid(n_dev)
     mesh = mt.create_mesh((dp, tp))
     print(f"mesh: {dp} data-parallel x {tp} tensor-parallel over {n_dev} devices")
+    run_dir = ckpt_dir
+    if mm.distributed():
+        run_dir = os.path.join(ckpt_dir, f"rank{torch.distributed.get_rank()}")
 
     x_np, y_np = synthetic_mnist(4096)
     classes = int(y_np.max()) + 1
@@ -47,15 +59,15 @@ def main(argv=None):
 
     params = mlp_init(0, (x.shape[1], hidden, classes), device=mesh.device)
 
-    log = EventLog(ckpt_dir + "/events.jsonl")
+    log = EventLog(run_dir + "/events.jsonl")
 
     def step(params, i):
         # the library's step (strided sampling, grad, SGD update)
-        params, loss = train_step(params, x, y, i, batch, 1.0)
+        params, loss = train_step(params, x, y, i, batch, 1.0, mesh=mesh)
         log.event("step", step=i, loss=float(loss))
         return params, float(loss)
 
-    loop = ResilientLoop(step, ckpt_dir, checkpoint_every=max(1, iterations // 5))
+    loop = ResilientLoop(step, run_dir, checkpoint_every=max(1, iterations // 5))
     t0 = millis()
     params, losses = loop.run(params, iterations)
     dt = millis() - t0
@@ -73,4 +85,11 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    from marlin_tpu_torch import mesh
+
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:  # started by torchrun
+        mesh.initialize_distributed()
+    try:
+        main()
+    finally:
+        mesh.shutdown_distributed()

@@ -12,7 +12,9 @@ of tokens and ``dtype`` (``bfloat16``) selects mixed-precision activations.
 :func:`marlin_tpu_torch.models.plan_context` pick every memory knob, one
 measured training step per probed rung on the card (the CPU has no default
 measure: it raises). After training, a greedy ``lm_generate`` sample
-continues the stream from a short prompt.
+continues the stream from a short prompt. Called on every rank of a
+``torch.distributed`` world, each rank of the mesh's rows axis trains on
+its block of the stream.
 """
 
 import sys

@@ -1,10 +1,13 @@
 """Mixture-of-experts LM training demo (counterpart of
 ``examples/moe_training.py``; no reference analog): the FFN of every layer
 routes each token to its top-k of E experts (GShard capacity routing,
-``models/moe.py``), trained with Adam at world size 1 (the flash forward and
-backward kernels on the card). Prints the loss trajectory, the load-balance
-aux (1.0 = perfectly balanced routing), tokens/s, and a greedy sample
-decoded through the exact single-token MoE path.
+``models/moe.py``), trained with Adam (the flash forward and backward
+kernels on the card). Called on every rank of a ``torch.distributed``
+world, the stream is sharded over the mesh's rows axis and the experts
+with it (expert parallelism: two all-to-alls a MoE layer). Prints the loss
+trajectory, the load-balance aux (1.0 = perfectly balanced routing),
+tokens/s, and a greedy sample decoded through the exact single-token MoE
+path.
 
 args: ``<seq len> <steps> [n_experts] [top_k] [d_model] [layers]``
 """

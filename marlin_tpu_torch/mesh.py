@@ -110,6 +110,23 @@ class Mesh:
                 for i in range(self.shape[axis])]
 
 
+def over_ranks(mesh: Mesh | None, axes: Sequence[str] | None = None) -> bool:
+    """Whether ``mesh`` lies over ``torch.distributed`` ranks: the test that
+    picks a function's multi-rank path (a one-rank world takes it too). A
+    mesh that is not over ranks but has more than one device on one of
+    ``axes`` (default: every axis) raises ``ValueError``."""
+    if mesh is None:
+        return False
+    if getattr(mesh, "ranks", None) is not None:
+        return True
+    for axis in (mesh.axis_names if axes is None else axes):
+        if mesh.shape[axis] != 1:
+            raise ValueError(f"a '{axis}' axis of {mesh.shape[axis]} devices "
+                             f"needs a mesh over torch.distributed ranks "
+                             f"(initialize_distributed, then create_mesh)")
+    return False
+
+
 def _ravel(coords: dict, mesh: Mesh) -> int:
     pos = 0
     for name, n in zip(mesh.axis_names, mesh.grid):

@@ -21,7 +21,12 @@ segment blocks) is a loop over a static ``(total_blocks, max_nnz)`` layout
 packed once on the host: the stat tensor materializes one ``segment_block``
 at a time, which is what lets a million users fit the card. Nothing in the
 sweeps reads the card; only the two index-max reads and the host packing
-before the loop do.
+before the loop do. On a mesh over ``torch.distributed`` ranks the blocks
+are cut over every rank of the mesh (the JAX package's ``P(axes)``): each
+rank holds and solves a contiguous run of them against the whole other
+side, and the solved runs are all-gathered, so every rank holds the whole
+factors after each half-step (the JAX package's all-gather of the fixed
+side, done after the solve).
 """
 
 from __future__ import annotations
@@ -32,11 +37,11 @@ import numpy as np
 import torch
 
 from .. import threefry
+from ..mesh import over_ranks
 from ..ops.local import precision_scope
+from ..parallel import collectives as col
 
 __all__ = ["als_run", "ALSModel"]
-
-_MESH_ITEM = "ROADMAP queue 1 item 12"
 
 
 @dataclasses.dataclass
@@ -167,13 +172,10 @@ def _solve_side_sharded(factors_other, blk_sid, blk_oid, blk_val, lam, alpha,
                         *, mesh, block, weighted, implicit):
     """One blocked half-step: each segment block's stats are accumulated and
     solved in turn (the JAX package's ``lax.scan`` over the blocks a device
-    owns, at one device), so the ``(segments, rank, rank)`` stat tensor never
-    exists beyond one block. Returns the ``(total_blocks · block, rank)``
-    padded factors."""
-    if mesh is not None and mesh.size > 1:
-        raise NotImplementedError(
-            f"blocked ALS over a mesh of {mesh.size} devices: the sharded "
-            f"half-step is not ported yet — {_MESH_ITEM}")
+    owns), so the ``(segments, rank, rank)`` stat tensor never exists beyond
+    one block. On a rank ``mesh`` the blocks given are this rank's run and
+    the solved runs are all-gathered in mesh order. Returns the
+    ``(total_blocks · block, rank)`` padded factors."""
     with precision_scope("highest"):
         yty = factors_other.T @ factors_other if implicit else None
         out = []
@@ -188,7 +190,10 @@ def _solve_side_sharded(factors_other, blk_sid, blk_oid, blk_val, lam, alpha,
                                                           r, block)
                 out.append(_solve_explicit_stats(xtx, xty, counts, lam,
                                                  weighted))
-        return torch.cat(out)
+        out = torch.cat(out)
+        if over_ranks(mesh):
+            out = col.all_gather_mesh(out, mesh, 0)
+        return out
 
 
 def als_run(ratings, rank: int, iterations: int = 10, lam: float = 0.01,
@@ -210,11 +215,16 @@ def als_run(ratings, rank: int, iterations: int = 10, lam: float = 0.01,
     ``shard`` selects the blocked solver: stats materialize one
     ``segment_block`` at a time instead of ``(num_segments, rank, rank)`` at
     once. ``None`` enables it when the full stat tensor of either side would
-    exceed 256 MB, the JAX package's rule."""
+    exceed 256 MB, the JAX package's rule. On a mesh over ranks every rank
+    passes the same ratings and gets the same model; the blocked solver
+    spreads the segment blocks over the ranks (module docstring), the
+    unblocked one runs whole on every rank. A mesh that is not over ranks
+    must be of one device (``ValueError``)."""
     del num_user_blocks, num_product_blocks
     from ..matrix.dense import DenseVecMatrix
 
     mesh = mesh or ratings.mesh
+    over_ranks(mesh)
     num_users, num_items = ratings.shape
     # entries carried over from a JAX jit may hold padding (indices ==
     # shape); two scalar reads decide, so clean ratings never pay a host
@@ -266,12 +276,9 @@ def _als_sharded(mesh, u, v, users, items, vals, num_users, num_items,
                  segment_block, n_dev):
     """Drive the blocked half-steps: pack both rating orientations once on
     the host (user-sorted for the user update, item-sorted for the item
-    update), move the packed blocks to the device, and alternate half-steps.
-    Factors stay padded across the loop and are sliced once at the end."""
-    if n_dev > 1:
-        raise NotImplementedError(
-            f"blocked ALS over a mesh of {n_dev} devices: the sharded "
-            f"half-step is not ported yet — {_MESH_ITEM}")
+    update), move the packed blocks to the device — on a rank mesh only
+    this rank's run of them — and alternate half-steps. Factors stay padded
+    across the loop and are sliced once at the end."""
     dev = u.device
     block = max(8, min(segment_block, -(-max(num_users, num_items) // n_dev)))
 
@@ -281,9 +288,14 @@ def _als_sharded(mesh, u, v, users, items, vals, num_users, num_items,
         users_np, items_np, vals_np, num_users, n_dev, block)
     v_sid, v_oid, v_val, pad_items = _block_ratings_by_segment(
         items_np, users_np, vals_np, num_items, n_dev, block)
+    at = col.mesh_index(mesh) if over_ranks(mesh) else 0
+
+    def mine(x):  # this rank's run of the packed blocks, on the device
+        run = x.shape[0] // n_dev
+        return torch.from_numpy(x[at * run:(at + 1) * run]).to(dev)
+
     u_sid, u_oid, u_val, v_sid, v_oid, v_val = (
-        torch.from_numpy(x).to(dev)
-        for x in (u_sid, u_oid, u_val, v_sid, v_oid, v_val))
+        mine(x) for x in (u_sid, u_oid, u_val, v_sid, v_oid, v_val))
 
     u = torch.nn.functional.pad(u, (0, 0, 0, pad_users - num_users))
     v = torch.nn.functional.pad(v, (0, 0, 0, pad_items - num_items))

@@ -18,6 +18,16 @@ out term by term (``sgd``, ``sgd`` with a momentum trace, ``adam``). The
 initial weights are the JAX package's threefry ``uniform`` draws, bit for
 bit. The losses stay on the device and are read once, at the end of
 :meth:`NeuralNetwork.train`, unless ``log_every`` asks for more.
+
+On a (data-parallel, tensor-parallel) mesh over ``torch.distributed``
+ranks (``train_step(..., mesh=)``, the JAX package's ``NamedSharding``
+placements of ``examples/distributed_training.py``): the sampled batch
+rows are cut over ``rows``; the weights alternate between their columns
+over ``cols`` (``w0``) and their rows over ``cols`` (``w1``), the
+product of a row-cut weight summed over ``cols`` (one all-reduce); each
+rank's gradients of its blocks are summed over ``rows`` and the blocks
+gathered over ``cols``, so every rank applies the same whole update to the
+same whole params.
 """
 
 from __future__ import annotations
@@ -33,8 +43,10 @@ import torch.utils.checkpoint
 from .. import threefry
 from ..config import resolve_device
 from ..interop import to_tensor
+from ..mesh import COLS, ROWS, Sharding, over_ranks
 from ..models.transformer import _adam_update, adam_init
 from ..ops.local import precision_scope
+from ..parallel import collectives as col
 
 __all__ = ["NeuralNetwork", "mlp_init", "mlp_forward", "mlp_loss",
            "train_step", "train_step_optax", "MomentumState"]
@@ -113,15 +125,55 @@ def _sample_indices(key, m: int, batch_size: int, device=None
     return (offset + steps) % m
 
 
-def _sampled_loss_and_grads(params, x, y, key, batch_size, remat, activation):
+def _weight_spec(i: int, mesh) -> Sharding:
+    """Layer ``i``'s placement on a (dp, tp) mesh: its columns over
+    ``cols`` for an even layer, its rows for an odd one."""
+    return Sharding(mesh, (None, COLS) if i % 2 == 0 else (COLS, None))
+
+
+def _mlp_loss_blocks(ws, xb, yb, batch: int, activation: str, mesh):
+    """This rank's share of :func:`mlp_loss` over its batch rows ``xb``
+    with its weight blocks ``ws``: an even layer's output is this rank's
+    columns of the features, an odd layer's product is summed over ``cols``
+    (the last layer's columns gathered if it is an even one), and the input
+    of an even layer past the first sums its gradient over ``cols``. The
+    shares sum over ``rows`` to the loss of the batch."""
+    act = _activation(activation)
+    h = xb
+    for i, w in enumerate(ws):
+        if i % 2 == 0 and i:  # each rank's columns take a share of h's grad
+            h = col.Replicate.apply(h, mesh, COLS)
+        z = h @ w
+        if i % 2:
+            z = col.AllReduce.apply(z, mesh, COLS)
+        last = i == len(ws) - 1
+        if last and i % 2 == 0:
+            z = col.Gather.apply(z, mesh, COLS, 1)
+        h = torch.sigmoid(z) if last else act(z)
+    return 0.5 * torch.sum((h - yb) ** 2) / batch
+
+
+def _sampled_loss_and_grads(params, x, y, key, batch_size, remat, activation,
+                            mesh=None):
     """Shared core of both step variants: strided batch sample + grad, with
-    TF32 off. Returns the loss (a 0-d tensor) and params-shaped grads."""
+    TF32 off. Returns the loss (a 0-d tensor) and params-shaped grads. On a
+    rank ``mesh`` each rank runs its block of the batch and the weights
+    (module docstring); the loss and grads returned are the whole ones, the
+    same on every rank."""
     idx = _sample_indices(key, x.shape[0], batch_size, x.device)
     xb, yb = x.index_select(0, idx), y.index_select(0, idx)
     names = list(params)
-    leaves = [params[k].detach().requires_grad_(True) for k in names]
+    ranks = over_ranks(mesh)
+    if ranks:
+        xb, yb = (Sharding(mesh, (ROWS, None)).local(t) for t in (xb, yb))
+        leaves = [_weight_spec(i, mesh).local(params[k]).detach()
+                  .requires_grad_(True) for i, k in enumerate(names)]
+    else:
+        leaves = [params[k].detach().requires_grad_(True) for k in names]
 
     def loss_fn(*ws):
+        if ranks:
+            return _mlp_loss_blocks(ws, xb, yb, len(idx), activation, mesh)
         return mlp_loss(dict(zip(names, ws)), xb, yb, activation)
 
     with precision_scope("highest"), torch.enable_grad():
@@ -131,20 +183,28 @@ def _sampled_loss_and_grads(params, x, y, key, batch_size, remat, activation):
         else:
             loss = loss_fn(*leaves)
         grads = torch.autograd.grad(loss, leaves)
-    return loss.detach(), dict(zip(names, grads))
+    loss = loss.detach()
+    if ranks:
+        *grads, loss = col.all_reduce_leaves([*grads, loss], mesh, ROWS)
+        grads = [col.all_gather_cat(g, mesh, COLS, 1 - i % 2)
+                 for i, g in enumerate(grads)]
+    return loss, dict(zip(names, grads))
 
 
 @torch.no_grad()
 def train_step(params, x, y, key, batch_size: int, lr: float,
-               remat: bool = False, activation: str = "sigmoid"):
+               remat: bool = False, activation: str = "sigmoid", mesh=None):
     """One step: strided batch sample + grad + SGD update (the reference's
     plain update, examples/NeuralNetwork.scala:244-248). ``key`` is a
     threefry key: host words (:func:`~marlin_tpu_torch.threefry.split_words`)
     or a key tensor. ``remat=True``
     recomputes the forward in the backward pass
-    (``torch.utils.checkpoint``). Returns ``(new_params, loss)``."""
+    (``torch.utils.checkpoint``). ``mesh`` (a (dp, tp) mesh over ranks)
+    places the batch and the weights as the JAX package's
+    ``NamedSharding`` does (module docstring); every rank passes the same
+    whole ``params``, ``x`` and ``y``. Returns ``(new_params, loss)``."""
     loss, grads = _sampled_loss_and_grads(params, x, y, key, batch_size,
-                                          remat, activation)
+                                          remat, activation, mesh)
     return {k: params[k] - lr * grads[k] for k in params}, loss
 
 
@@ -185,13 +245,14 @@ def _apply(optimizer: str, lr: float, momentum: float, params, grads,
 
 def train_step_optax(params, opt_state, x, y, key, batch_size: int,
                      optimizer: str, lr: float, momentum: float = 0.9,
-                     remat: bool = False, activation: str = "sigmoid"):
+                     remat: bool = False, activation: str = "sigmoid",
+                     mesh=None):
     """The optimizer-parameterized step: optax's momentum/adam rules instead
-    of the reference's plain SGD. Same sampling and grad core. Returns
-    ``(new_params, new_opt_state, loss)``."""
+    of the reference's plain SGD. Same sampling and grad core (``mesh`` as
+    :func:`train_step`'s). Returns ``(new_params, new_opt_state, loss)``."""
     _check_optimizer(optimizer)
     loss, grads = _sampled_loss_and_grads(params, x, y, key, batch_size,
-                                          remat, activation)
+                                          remat, activation, mesh)
     params, opt_state = _apply(optimizer, lr, momentum, params, grads,
                                opt_state)
     return params, opt_state, loss

@@ -12,6 +12,13 @@ out-degree table, and a step is a gather of ``r[src] / outdeg[src]`` and an
 ``index_add_`` into the destinations (the ``segment_sum`` of the JAX
 package). ``index_add_`` on the card sums with atomics, so the order of the
 f32 sums, and the last bits of the ranks, vary from run to run.
+
+On a mesh over ``torch.distributed`` ranks the destination-sorted edges are
+cut over every rank of the mesh (the JAX package's ``P(axes)`` edge
+sharding): each rank keeps its contiguous run, a step adds its edges'
+contributions into a whole-length vector, and the ranks' partial vectors
+are summed (the ``psum``) before the step is finished, so every rank holds
+the same ranks.
 """
 
 from __future__ import annotations
@@ -23,19 +30,12 @@ import torch
 
 from ..config import resolve_device
 from ..interop import to_tensor
+from ..mesh import over_ranks
 from ..ops.local import precision_scope
+from ..parallel import collectives as col
 
 __all__ = ["pagerank", "build_transition_matrix", "build_transition_operator",
            "TransitionOperator"]
-
-_MESH_ITEM = "ROADMAP queue 1 item 12"
-
-
-def _check_world_of_one(mesh) -> None:
-    if mesh is not None and mesh.size > 1:
-        raise NotImplementedError(
-            f"PageRank over a mesh of {mesh.size} devices: the edge-parallel "
-            f"reduce across devices is not ported yet — {_MESH_ITEM}")
 
 
 def build_transition_matrix(edges, n: int | None = None) -> np.ndarray:
@@ -62,7 +62,7 @@ class TransitionOperator:
     mass spread uniformly — the math of :func:`build_transition_matrix`
     without the n×n materialization."""
 
-    src: torch.Tensor  # (E,) int32
+    src: torch.Tensor  # (E,) int32; on a rank mesh this rank's run
     dst: torch.Tensor  # (E,) int32, sorted ascending
     inv_deg: torch.Tensor  # (n,) f32, 1/outdegree, 0 at dangling nodes
     dangling: torch.Tensor  # (n,) f32, 1.0 at dangling nodes
@@ -89,9 +89,12 @@ def build_transition_operator(edges, n: int | None = None,
 
     The degrees and the destination sort are host numpy; the arrays then go
     to ``mesh``'s device, or the configured one. With ``mesh`` the operator
-    carries it and an all-ones ``weight``, as the JAX package's edge-sharded
-    form does at one device."""
-    _check_world_of_one(mesh)
+    carries it and a ``weight`` per edge. On a mesh over ranks the edge
+    arrays are padded to a multiple of the mesh's size (pad edges weigh 0
+    and point at node ``n - 1``, so the run stays sorted) and each rank
+    keeps its contiguous run of them; a mesh that is not over ranks must be
+    of one device (``ValueError``)."""
+    ranks = over_ranks(mesh)
     edges = np.asarray(edges if hasattr(edges, "ndim") else list(edges),
                        dtype=np.int64)
     if edges.size == 0:
@@ -110,8 +113,17 @@ def build_transition_operator(edges, n: int | None = None,
     src = edges[order, 0].astype(np.int32)
     dst = edges[order, 1].astype(np.int32)
     dev = mesh.device if mesh is not None else resolve_device(None)
-    weight = (torch.ones(len(src), dtype=torch.float32, device=dev)
-              if mesh is not None else None)
+    weight = None if mesh is None else np.ones(len(src), np.float32)
+    if ranks:
+        pad = (-len(src)) % mesh.size
+        src = np.concatenate([src, np.zeros(pad, np.int32)])
+        dst = np.concatenate([dst, np.full(pad, n - 1, np.int32)])
+        weight = np.concatenate([weight, np.zeros(pad, np.float32)])
+        run = len(src) // mesh.size
+        at = col.mesh_index(mesh) * run
+        src, dst, weight = (a[at:at + run] for a in (src, dst, weight))
+    if weight is not None:
+        weight = to_tensor(weight, device=dev)
     return TransitionOperator(to_tensor(src, device=dev),
                               to_tensor(dst, device=dev),
                               to_tensor(inv_deg, device=dev),
@@ -119,15 +131,20 @@ def build_transition_operator(edges, n: int | None = None,
                               weight)
 
 
-def _pagerank_step(r, src, dst, weight, inv_deg, dangling, damping, n):
+def _pagerank_step(r, src, dst, weight, inv_deg, dangling, damping, n,
+                   mesh=None):
     """One power-iteration step in edge form: gather per-edge contributions,
     add them into their destinations (the reduceByKey of
     examples/PageRank.scala:52), spread the dangling mass uniformly.
-    ``damping`` is an f32 tensor, so every term rounds in f32."""
+    ``damping`` is an f32 tensor, so every term rounds in f32. With a rank
+    ``mesh`` the edges are this rank's run and the ranks' sums are added
+    together first."""
     contrib = (r * inv_deg).index_select(0, src)
     if weight is not None:
         contrib = contrib * weight
     acc = torch.zeros_like(r).index_add_(0, dst, contrib)
+    if mesh is not None:
+        acc = col.all_reduce_mesh(acc, mesh)
     d_mass = torch.sum(r * dangling)
     r = damping * (acc + d_mass / n) + (1.0 - damping) / n
     return r / torch.sum(r)
@@ -136,11 +153,13 @@ def _pagerank_step(r, src, dst, weight, inv_deg, dangling, damping, n):
 def _pagerank_edges(src, dst, weight, inv_deg, dangling, damping, n: int,
                     iterations: int, mesh=None) -> torch.Tensor:
     """``iterations`` steps from the uniform vector on the operator's
-    device. ``mesh`` is the operator's; only a world of one runs."""
-    _check_world_of_one(mesh)
+    device. ``mesh`` is the operator's: over ranks, ``src``/``dst``/
+    ``weight`` are this rank's run of the edges."""
+    sum_over = mesh if over_ranks(mesh) else None
     r = torch.full((n,), 1.0 / n, dtype=torch.float32, device=src.device)
     for _ in range(iterations):
-        r = _pagerank_step(r, src, dst, weight, inv_deg, dangling, damping, n)
+        r = _pagerank_step(r, src, dst, weight, inv_deg, dangling, damping, n,
+                           sum_over)
     return r
 
 

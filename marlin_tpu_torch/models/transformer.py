@@ -1,5 +1,5 @@
-"""The causal transformer LM: training at world size 1, generation and paged
-decode.
+"""The causal transformer LM: training (in a world of one or with the stream
+sharded over ranks), generation and paged decode.
 
 Counterpart of ``marlin_tpu/models/transformer.py``: init, the training half
 (``transformer_forward``, ``lm_loss`` with the chunked LM head,
@@ -16,8 +16,13 @@ are the JAX package's; every program takes the ``moe`` routing tuple
 (``models/moe.py``). Training runs ring and Ulysses attention
 (``parallel/``); ``offload_residuals`` parks the remat checkpoints' block
 inputs in pinned host memory between the forward and the backward
-(:class:`_ResidualOffload`). Training sequence-sharded over ranks is not
-ported yet (ROADMAP queue 1 item 12).
+(:class:`_ResidualOffload`). On a mesh over ``torch.distributed`` ranks the
+stream is sharded over the mesh's ``rows`` axis, as the JAX package's GSPMD
+shards its residual stream: each rank holds its block of the padded
+stream from the embedding to the loss (:class:`_SeqShards`), attention runs
+on the blocks, a MoE layer's experts are spread over the same axis, and
+the replicated parameters' gradients are summed over it before Adam; the
+caller passes and gets back the whole params.
 
 Differences that follow from PyTorch:
 
@@ -40,6 +45,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import inspect
 import math
 from typing import NamedTuple
 
@@ -50,12 +56,17 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import threefry
 from ..config import get_config, resolve_device
+from ..mesh import ROWS, default_mesh, distributed, over_ranks
 from ..ops import flash_attention as _flash
 from ..ops.local import precision_scope
 from ..ops.paged_attention import paged_decode_attention
+from ..parallel import collectives as col
 from ..parallel.pipeline import _leaves, _tree_map
-from ..parallel.ring_attention import ring_attention
-from ..parallel.ulysses import ulysses_attention
+from ..parallel.ring_attention import (resolve_attention_backend,
+                                       ring_attention, ring_attention_shard,
+                                       ring_padded_len)
+from ..parallel.ulysses import (ulysses_attention, ulysses_attention_shard,
+                                ulysses_padded_len)
 
 __all__ = ["TransformerLM", "init_transformer", "transformer_forward",
            "lm_loss", "lm_value_and_grad", "lm_train_step", "AdamState",
@@ -181,16 +192,22 @@ def _moe_knobs(moe) -> tuple:
 
 
 def _ffn(h, lp, cd, moe=None, mesh=None, precision: str = "high",
-         chunk: int | None = None):
+         chunk: int | None = None, shards=None):
     """The FFN over a (tokens, d) block: the layer's MoE
-    (:func:`~.moe.moe_ffn`, grouped routing with the knobs of ``moe``) or
-    the dense GELU FFN (``chunk`` as :func:`_mlp`'s). Returns ``(out,
-    aux)``, ``aux`` the MoE load-balance term (an exact f32 zero for a
-    dense layer)."""
+    (:func:`~.moe.moe_ffn`, grouped routing with the knobs of ``moe``; on
+    this rank's rows of a sharded stream ``shards`` the expert-parallel
+    :func:`~.moe._moe_ffn_shards`) or the dense GELU FFN (``chunk`` as
+    :func:`_mlp`'s). Returns ``(out, aux)``, ``aux`` the MoE load-balance
+    term (an exact f32 zero for a dense layer; this rank's share of it on
+    shards)."""
     if "moe" in lp:
-        from .moe import moe_ffn
+        from .moe import _moe_ffn_shards, moe_ffn
 
         tk, cf, gs = _moe_knobs(moe)
+        if shards is not None:
+            return _moe_ffn_shards(lp["moe"], h, shards, top_k=tk,
+                                   capacity_factor=cf, group_size=gs,
+                                   precision=precision)
         return moe_ffn(lp["moe"], h, mesh=mesh, top_k=tk, capacity_factor=cf,
                        group_size=gs, precision=precision)
     return (_mlp(h, lp, cd, chunk),
@@ -832,23 +849,77 @@ def kv_page_copy(pages, src: int, dst: int):
 
 
 # ---------------------------------------------------------------- training
-# One long token stream per step (the context-parallel regime), at world size
-# 1: the mesh's axes all have size 1 and ring/Ulysses attention run their
-# home panel. Parameters stay in the params dict; gradients come from
-# torch.autograd, through the flash kernels' autograd function.
+# One long token stream per step (the context-parallel regime). Parameters
+# stay in the params dict; gradients come from torch.autograd, through the
+# flash kernels' autograd function. In a world of one (or on a mesh whose
+# axes all have size 1) ring and Ulysses attention run their home panel over
+# the whole stream. On a mesh over ranks the stream is sharded: each rank
+# holds its block of the (padded) sequence from the embedding to the loss
+# (:class:`_SeqShards`), attention runs on the blocks
+# (``ring_attention_shard``, ``ulysses_attention_shard``), the MoE layers
+# send each expert's batch to the rank that owns it, and each rank's loss
+# covers its own rows.
 
 
 _ATTN_BACKENDS = {"ring": "auto", "ring_flash": "flash", "ring_xla": "xla"}
+# the mesh axis the training stream is sharded over
+_SEQ_AXIS = ROWS
+
+
+@dataclasses.dataclass(frozen=True)
+class _SeqShards:
+    """The training stream over a rank mesh: ``seq`` positions padded to
+    ``padded`` (the attention's block rule, :func:`_seq_shards`) and cut
+    into ``mesh.shape[axis]`` blocks of ``rows``; this rank holds the one
+    from ``start``, of which the first ``n_valid`` rows are positions before
+    ``seq``."""
+
+    mesh: object
+    axis: str
+    seq: int
+    padded: int
+    rows: int
+    start: int
+
+    @property
+    def n_valid(self) -> int:
+        return max(0, min(self.rows, self.seq - self.start))
+
+
+def _seq_shards(mesh, seq: int, attn: str, head_dim: int,
+                device) -> _SeqShards:
+    """The layout of a ``seq``-position stream over ``mesh``'s sequence
+    axis, padded once to the rule of ``attn``: Ulysses' slab rule, or ring
+    attention's panel rule for the backend ``attn`` resolves to."""
+    p = mesh.shape[_SEQ_AXIS]
+    if attn == "ulysses":
+        padded = ulysses_padded_len(seq, p)
+    else:
+        flash = resolve_attention_backend(_ATTN_BACKENDS[attn], device,
+                                          head_dim) == "flash"
+        padded = ring_padded_len(seq, p, flash)
+    rows = padded // p
+    return _SeqShards(mesh, _SEQ_AXIS, seq, padded, rows,
+                      mesh.index(_SEQ_AXIS) * rows)
+
+
+def _train_mesh(mesh):
+    """``mesh``, else the default mesh inside a process group (else None,
+    the world of one)."""
+    if mesh is None and distributed():
+        return default_mesh()
+    return mesh
 
 
 def _block(lp, x, heads: int, mesh, attn: str, precision: str,
-           mlp_chunk: int | None = None, moe=None):
-    """One pre-norm block over the (seq, d) stream: attention through ring
-    (``attn`` names its backend) or Ulysses attention over (heads, seq, dh)
-    views of the projections, then the FFN — the layer's MoE
-    (:func:`~.moe.moe_ffn`, routing knobs from ``moe``) or the dense one.
-    Returns ``(x, aux)``, ``aux`` the MoE load-balance term (an exact f32
-    zero for a dense layer)."""
+           mlp_chunk: int | None = None, moe=None, shards=None):
+    """One pre-norm block over the (seq, d) stream — or over this rank's
+    rows of it, ``shards`` — attention through ring (``attn`` names its
+    backend) or Ulysses attention over (heads, seq, dh) views of the
+    projections, then the FFN — the layer's MoE (:func:`~.moe.moe_ffn`,
+    routing knobs from ``moe``) or the dense one. Returns ``(x, aux)``,
+    ``aux`` the MoE load-balance term (an exact f32 zero for a dense
+    layer)."""
     seq, d = x.shape
     dh = d // heads
     cd = x.dtype  # activations carry the compute dtype; params stay f32
@@ -864,14 +935,24 @@ def _block(lp, x, heads: int, mesh, attn: str, precision: str,
         # gradient of the repeat sums over the group
         group = heads // k.shape[0]
         k, v = (t.repeat_interleave(group, dim=0) for t in (k, v))
-    if attn in _ATTN_BACKENDS:
+    if shards is not None:
+        if attn in _ATTN_BACKENDS:
+            o = ring_attention_shard(q, k, v, shards.mesh, shards.seq,
+                                     shards.axis, causal=True,
+                                     backend=_ATTN_BACKENDS[attn],
+                                     precision=precision)
+        else:
+            o = ulysses_attention_shard(q, k, v, shards.mesh, shards.seq,
+                                        shards.axis, causal=True,
+                                        precision=precision)
+    elif attn in _ATTN_BACKENDS:
         o = ring_attention(q, k, v, mesh, causal=True, precision=precision,
                            backend=_ATTN_BACKENDS[attn])
     else:
         o = ulysses_attention(q, k, v, mesh, causal=True, precision=precision)
     x = x + o.transpose(0, 1).reshape(seq, d).to(cd) @ lp["wo"].to(cd)
     out, aux = _ffn(_rmsnorm(x, lp["ln2"]), lp, cd, moe, mesh=mesh,
-                    precision=precision, chunk=mlp_chunk)
+                    precision=precision, chunk=mlp_chunk, shards=shards)
     return x + out, aux
 
 
@@ -922,12 +1003,16 @@ def _remat_block(blk, lp, x, offload: bool):
 
 def _trunk(params, tokens, mesh, heads, attn, remat, precision,
            compute_dtype=None, mlp_chunk=None, offload_residuals=False,
-           moe=None):
+           moe=None, shards=None):
     """Final-norm hidden states (seq, d_model) and the summed MoE aux: the
     forward minus the LM head. ``remat`` recomputes each block in the
     backward (``torch.utils.checkpoint``), keeping only the block inputs;
     ``offload_residuals`` (needs ``remat``) keeps those in pinned host
-    memory (:class:`_ResidualOffload`). ``mesh`` None is the default mesh."""
+    memory (:class:`_ResidualOffload`). ``mesh`` None is the default mesh.
+    With ``shards`` (a rank mesh) ``tokens`` are the whole stream's ids and
+    the result is this rank's ``(shards.rows, d_model)`` block (the pad past
+    ``seq`` embeds token 0 and is masked downstream) and its share of the
+    aux."""
     if attn not in (*_ATTN_BACKENDS, "ulysses"):
         raise ValueError(f"unknown attention strategy: {attn!r}")
     if offload_residuals:
@@ -941,11 +1026,16 @@ def _trunk(params, tokens, mesh, heads, attn, remat, precision,
                 "offload_residuals stacks the layers into one scan, which "
                 "needs uniform layer structure — moe_every > 1 mixes MoE "
                 "and dense FFN layers; use moe_every=1 or drop the offload")
-    x = params["emb"][_ints(tokens, params["emb"].device)]
+    ids = _ints(tokens, params["emb"].device)
+    if shards is not None:  # embed this rank's block of the padded stream
+        ids = F.pad(ids, (0, shards.padded - ids.shape[0]))
+        ids = ids[shards.start:shards.start + shards.rows]
+    x = params["emb"][ids]
     if compute_dtype is not None:
         x = x.to(_cdtype(compute_dtype, params))
     blk = functools.partial(_block, heads=heads, mesh=mesh, attn=attn,
-                            precision=precision, mlp_chunk=mlp_chunk, moe=moe)
+                            precision=precision, mlp_chunk=mlp_chunk, moe=moe,
+                            shards=shards)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(_n_layers(params)):
         lp = _layer(params, i)
@@ -953,6 +1043,16 @@ def _trunk(params, tokens, mesh, heads, attn, remat, precision,
                 else blk(lp, x))
         aux = aux + a
     return _rmsnorm(x, params["ln_f"]), aux
+
+
+def _shards_for(params, tokens, mesh, heads, attn):
+    """The stream's layout over ``mesh`` when it lies over ranks, else None
+    (``tokens`` the positions the trunk runs over)."""
+    if not over_ranks(mesh, (_SEQ_AXIS,)):
+        return None
+    d = params["emb"].shape[1]
+    return _seq_shards(mesh, len(tokens), attn, d // heads,
+                       params["emb"].device)
 
 
 def transformer_forward(params: dict, tokens, mesh=None, heads: int = 4,
@@ -964,31 +1064,45 @@ def transformer_forward(params: dict, tokens, mesh=None, heads: int = 4,
     (seq,). ``attn``: ``"ring"`` (backend picked by
     :func:`~marlin_tpu_torch.parallel.ring_attention.resolve_attention_backend`),
     ``"ring_flash"`` / ``"ring_xla"`` (pinned), or ``"ulysses"``. ``moe``:
-    the MoE layers' ``(top_k, capacity_factor, group)``."""
+    the MoE layers' ``(top_k, capacity_factor, group)``. On a rank mesh the
+    trunk runs on each rank's block of the stream and the logits are
+    gathered whole on every rank."""
+    mesh = _train_mesh(mesh)
+    shards = _shards_for(params, tokens, mesh, heads, attn)
     with precision_scope("highest"):
         x, _ = _trunk(params, tokens, mesh, heads, attn, remat, precision,
-                      compute_dtype, mlp_chunk, offload_residuals, moe)
-        return _head_logits(x, params["emb"])
+                      compute_dtype, mlp_chunk, offload_residuals, moe,
+                      shards)
+        logits = _head_logits(x, params["emb"])
+        if shards is None:
+            return logits
+        logits = col.Gather.apply(logits, shards.mesh, shards.axis, 0)
+        return logits[:shards.seq]
 
 
-def _chunked_nll(x, emb, targets, chunk: int):
+def _chunked_nll(x, emb, targets, chunk: int, weight=None):
     """Summed next-token NLL over ``chunk``-token slices of the LM head, each
     recomputed in the backward, so the (seq, vocab) logits are never held
-    whole; the remainder is projected after the full chunks."""
+    whole; the remainder is projected after the full chunks. ``weight``
+    (seq,) scales each position's term (0 masks it)."""
 
-    def nll_sum(xc, tc):
+    def nll_sum(xc, tc, wc=None):
         logp = torch.log_softmax(_head_logits(xc, emb), dim=-1)
-        return -torch.gather(logp, 1, tc[:, None]).sum()
+        nll = -torch.gather(logp, 1, tc[:, None])[:, 0]
+        return (nll if wc is None else nll * wc).sum()
 
     seq = x.shape[0]
     n_full = seq // chunk
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(n_full):
         s = slice(i * chunk, (i + 1) * chunk)
-        total = total + checkpoint(nll_sum, x[s], targets[s],
+        w = () if weight is None else (weight[s],)
+        total = total + checkpoint(nll_sum, x[s], targets[s], *w,
                                    use_reentrant=False)
     if seq % chunk:
-        total = total + nll_sum(x[n_full * chunk:], targets[n_full * chunk:])
+        s = slice(n_full * chunk, seq)
+        total = total + nll_sum(x[s], targets[s],
+                                *(() if weight is None else (weight[s],)))
     return total
 
 
@@ -1003,22 +1117,53 @@ def lm_loss(params, tokens, mesh=None, heads: int = 4, attn: str = "ring",
     activations in that dtype (the loss stays f32). For MoE models
     ``moe_aux_weight`` times the summed Switch load-balance term joins the
     loss (``moe`` carries the routing knobs); a dense model's term is an
-    exact zero, as in the JAX package."""
+    exact zero, as in the JAX package.
+
+    On a mesh over ranks each rank runs its block of the stream and the NLL
+    of its own rows; the value is their sum over the sequence axis (the
+    loss of the whole stream, on every rank), and autograd gives each rank
+    its own rows' share of the gradients (:func:`lm_value_and_grad` sums
+    them)."""
     if loss_chunk is not None and loss_chunk < 1:
         raise ValueError(f"loss_chunk must be >= 1 or None, got {loss_chunk}")
     emb = params["emb"]
     tokens = _ints(tokens, emb.device)
     tgt = tokens[1:]
+    mesh = _train_mesh(mesh)
+    shards = _shards_for(params, tgt, mesh, heads, attn)
     with precision_scope("highest"):
         x, aux = _trunk(params, tokens[:-1], mesh, heads, attn, remat,
                         precision, compute_dtype, mlp_chunk,
-                        offload_residuals, moe)
+                        offload_residuals, moe, shards)
+        if shards is not None:
+            return _shard_loss(x, aux, emb, tgt, shards, loss_chunk,
+                               moe_aux_weight)
         if loss_chunk is None:
             logp = torch.log_softmax(_head_logits(x, emb), dim=-1)
             nll = -torch.gather(logp, 1, tgt[:, None]).mean()
         else:
             nll = _chunked_nll(x, emb, tgt, loss_chunk) / tgt.shape[0]
         return nll + moe_aux_weight * aux
+
+
+def _shard_loss(x, aux, emb, tgt, shards: _SeqShards, loss_chunk,
+                moe_aux_weight):
+    """The loss from this rank's block: the NLL of its rows (the pad rows
+    weighted 0, so every rank's backward runs through the whole trunk and
+    its collectives) over ``seq``, plus its aux share, summed over the
+    sequence axis (:class:`~marlin_tpu_torch.parallel.collectives.AllReduce`:
+    the backward leaves each rank its own share)."""
+    tgt = F.pad(tgt, (0, shards.padded - tgt.shape[0]))
+    tgt = tgt[shards.start:shards.start + shards.rows]
+    live = (torch.arange(shards.rows, device=x.device)
+            < shards.n_valid).to(torch.float32)
+    if loss_chunk is None:
+        logp = torch.log_softmax(_head_logits(x, emb), dim=-1)
+        nll = -(torch.gather(logp, 1, tgt[:, None])[:, 0] * live).sum()
+    else:
+        nll = _chunked_nll(x, emb, tgt, loss_chunk, live)
+    share = nll / shards.seq + moe_aux_weight * aux
+    return col.AllReduce.apply(share, shards.mesh, shards.axis)
 
 
 class AdamState(NamedTuple):
@@ -1061,16 +1206,44 @@ def _adam_update(params, grads, state: AdamState, lr: float):
     return _tree_map(step, params, mu, nu), AdamState(count, mu, nu)
 
 
+def _expert_leaf(path: tuple) -> bool:
+    """Whether the leaf at ``path`` is an expert tensor (``l{i}.moe.w1`` or
+    ``w2``): each rank of a mesh holds its own experts' rows of it."""
+    return len(path) == 3 and path[1] == "moe" and path[2] in ("w1", "w2")
+
+
+def _paths(tree, prefix=()) -> list:
+    """The key paths of a params dict's leaves, in :func:`_leaves`'s
+    order."""
+    if isinstance(tree, dict):
+        return [p for k in tree for p in _paths(tree[k], (*prefix, k))]
+    return [prefix]
+
+
 def lm_value_and_grad(params, tokens, *args, **kwargs):
     """:func:`lm_loss` (same arguments) and its gradient by autograd — what
     ``jax.value_and_grad(lm_loss)`` gives. Returns ``(loss, grads)``: the
     loss a 0-d tensor on the device, ``grads`` params-shaped. Forward and
-    backward run with TF32 off."""
+    backward run with TF32 off. On a rank mesh each rank's gradient of a
+    replicated leaf covers its own rows, so they are summed over the
+    sequence axis in one flat all-reduce (in the leaves' order, the same on
+    every rank); the expert tensors' gradients are each rank's own."""
+    mesh = inspect.signature(lm_loss).bind(params, tokens, *args,
+                                           **kwargs).arguments.get("mesh")
+    mesh = _train_mesh(mesh)
     leaves = _tree_map(lambda p: p.detach().requires_grad_(True), params)
     with precision_scope("highest"):
         loss = lm_loss(leaves, tokens, *args, **kwargs)
-        grads = iter(torch.autograd.grad(loss, _leaves(leaves)))
-    return loss.detach(), _tree_map(lambda _: next(grads), leaves)
+        grads = list(torch.autograd.grad(loss, _leaves(leaves)))
+    if over_ranks(mesh, (_SEQ_AXIS,)):
+        shared = [i for i, path in enumerate(_paths(leaves))
+                  if not _expert_leaf(path)]
+        summed = col.all_reduce_leaves([grads[i] for i in shared], mesh,
+                                       _SEQ_AXIS)
+        for i, g in zip(shared, summed):
+            grads[i] = g
+    it = iter(grads)
+    return loss.detach(), _tree_map(lambda _: next(it), leaves)
 
 
 def lm_train_step(params, opt_state: AdamState, tokens, mesh, heads: int,
@@ -1144,6 +1317,14 @@ class TransformerLM:
         from ``init_params()`` on the configured device unless given; the
         tokens go to the params' device.
 
+        On a mesh over ranks (``mesh``, or the default one inside a process
+        group) the stream is sharded over the ranks of its sequence axis
+        (:func:`lm_loss`), and a MoE model's experts over the same axis
+        (:func:`~.moe.shard_moe_params`: each rank keeps its experts and
+        their Adam moments). The caller passes the whole params and gets
+        the whole params back, the same on every rank; the experts are
+        gathered before every checkpoint and at the end.
+
         With ``checkpoint_dir`` and ``checkpoint_every``, ``{"params",
         "opt_state"}`` is saved as generation ``it + 1`` after every
         ``checkpoint_every``-th step (:func:`~marlin_tpu_torch.io.checkpoint.
@@ -1152,12 +1333,19 @@ class TransformerLM:
         newest generation there that verifies, falling back past corrupt
         ones, and runs the steps after it; ``losses`` then holds those
         steps' losses alone."""
-        params = params if params is not None else self.init_params()
-        if self.n_experts is not None:
-            from .moe import shard_moe_params
+        from .moe import _gather_moe_params, shard_moe_params
 
-            params = shard_moe_params(params, mesh)
+        mesh = _train_mesh(mesh)
+        params = params if params is not None else self.init_params()
         tokens = _ints(tokens, params["emb"].device)
+        experts = self.n_experts is not None
+
+        def logical(tree):  # the whole experts again, on every rank
+            return _gather_moe_params(tree, mesh) if experts else tree
+
+        def local(tree):  # this rank's experts
+            return shard_moe_params(tree, mesh) if experts else tree
+
         opt_state = adam_init(params)
         start = 0
         if checkpoint_dir and resume:
@@ -1168,6 +1356,9 @@ class TransformerLM:
                 who="TransformerLM.train")
             if state is not None:
                 params, opt_state = state["params"], state["opt_state"]
+        params = local(params)
+        opt_state = opt_state._replace(mu=local(opt_state.mu),
+                                       nu=local(opt_state.nu))
         losses = []
         for it in range(start, steps):
             params, opt_state, loss = lm_train_step(
@@ -1182,9 +1373,15 @@ class TransformerLM:
                     (it + 1) % checkpoint_every == 0:
                 from ..io.checkpoint import save_checkpoint
 
-                save_checkpoint({"params": params, "opt_state": opt_state},
-                                checkpoint_dir, it + 1)
-        return params, losses
+                state = {"params": logical(params),
+                         "opt_state": opt_state._replace(
+                             mu=logical(opt_state.mu),
+                             nu=logical(opt_state.nu))}
+                # every rank holds the same state: the mesh's first rank
+                # writes it, every rank reads it on resume
+                if not over_ranks(mesh) or col.mesh_index(mesh) == 0:
+                    save_checkpoint(state, checkpoint_dir, it + 1)
+        return logical(params), losses
 
     def generate(self, params, prompt, steps: int = 32,
                  max_len: int | None = None, temperature=0.0, top_p=None,

@@ -15,6 +15,10 @@ loss from the same logical output, so
 - :class:`AllReduce` sums over the axis, and its backward is the identity
   (the gradient of a replicated output is the same on every rank), the
   transpose of ``psum`` under ``shard_map``;
+- :class:`Replicate` is the identity on a replicated tensor that each rank
+  feeds into its own share of a function (the shares then summed by
+  :class:`AllReduce`), and its backward sums the shares' gradients, so each
+  rank holds the whole gradient again;
 - :class:`AllToAll` re-splits a tensor across ranks, and its backward is
   the inverse all-to-all;
 - :class:`Shift` sends to the next rank of the axis and receives from the
@@ -32,9 +36,10 @@ import torch.distributed as dist
 
 from ..mesh import Sharding
 
-__all__ = ["Scatter", "Gather", "AllReduce", "AllToAll", "Shift",
-           "all_gather_cat", "all_reduce_sum", "block", "ring_send_recv",
-           "finish"]
+__all__ = ["Scatter", "Gather", "AllReduce", "Replicate", "AllToAll", "Shift",
+           "all_gather_cat", "all_reduce_sum", "all_reduce_leaves", "block",
+           "ring_send_recv", "finish", "mesh_index", "all_gather_mesh",
+           "all_reduce_mesh"]
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
@@ -139,6 +144,57 @@ class AllReduce(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None, None
+
+
+class Replicate(torch.autograd.Function):
+    """``Replicate.apply(x, mesh, axis)``: ``x`` itself, for a rank that
+    computes its share of a function of the replicated ``x``; backward sums
+    the shares' gradients over the axis."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.meta = (mesh, axis)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis = ctx.meta
+        return all_reduce_sum(g, mesh, axis), None, None
+
+
+def all_reduce_leaves(tensors, mesh, axis: str) -> list:
+    """Each tensor summed over ``axis``, in one flat all-reduce a dtype: the
+    tensors are joined in the order given (every rank must pass the same
+    shapes in the same order), reduced, and cut apart again."""
+    out = list(tensors)
+    for dt in dict.fromkeys(t.dtype for t in out):
+        idx = [i for i, t in enumerate(out) if t.dtype == dt]
+        flat = all_reduce_sum(torch.cat([out[i].reshape(-1) for i in idx]),
+                              mesh, axis)
+        for i, part in zip(idx, flat.split([out[i].numel() for i in idx])):
+            out[i] = part.view_as(out[i])
+    return out
+
+
+def mesh_index(mesh) -> int:
+    """This rank's position in the mesh's row-major order of ranks (0 in a
+    world of one)."""
+    return 0 if mesh.ranks is None else mesh.ranks.index(dist.get_rank())
+
+
+def all_gather_mesh(x: torch.Tensor, mesh, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` joined along ``dim`` in the mesh's row-major rank
+    order: the gather over each axis in turn, the last axis first."""
+    for axis in reversed(mesh.axis_names):
+        x = all_gather_cat(x, mesh, axis, dim)
+    return x
+
+
+def all_reduce_mesh(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The sum of every rank's ``x`` over the whole mesh."""
+    for axis in mesh.axis_names:
+        x = all_reduce_sum(x, mesh, axis)
+    return x
 
 
 def _all_to_all(x, mesh, axis):

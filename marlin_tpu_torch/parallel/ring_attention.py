@@ -9,10 +9,11 @@ the panels with masks at global positions. The backward
 (:class:`_RingAttention`, the JAX package's custom VJP) runs the same
 rotation with dK/dV accumulators riding the ring beside their panels, so
 after ``p`` steps every panel's gradient sum is home; dQ accumulates
-locally. Logical in/out: every rank passes the whole (padded) sequence, and
-the output and the gradients are gathered back whole, so each rank holds the
-whole tensors; :class:`_RingAttention` alone is the layer that works on this
-rank's panels. With no process group
+locally. :func:`ring_attention_shard` is the layer that works on this
+rank's panels alone (the sequence-sharded trainer calls it);
+:func:`ring_attention` keeps the logical in/out contract over it: every rank
+passes the whole (padded) sequence, and the output and the gradients are
+gathered back whole. With no process group
 the ring is the home panel alone (the JAX package's ``p_size == 1``
 branches).
 
@@ -53,12 +54,14 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..mesh import ROWS, default_mesh, distributed, pad_to_multiple
+from ..mesh import (ROWS, default_mesh, distributed, over_ranks,
+                    pad_to_multiple)
 from ..ops import flash_attention as _flash
 from ..ops.local import precision_scope
 from . import collectives as col
 
-__all__ = ["ring_attention", "attention_reference", "softmax_tile_update",
+__all__ = ["ring_attention", "ring_attention_shard", "ring_padded_len",
+           "attention_reference", "softmax_tile_update",
            "resolve_attention_backend"]
 
 _NEG = -1e30
@@ -236,14 +239,42 @@ class _RingAttention(torch.autograd.Function):
                 None, None, None, None)
 
 
-def _ring_ranks(q, k, v, mesh, axis: str, valid_len: int, causal: bool,
-                scale: float, flash: bool):
-    """Logical (H, sp, d) in and out: cut this rank's panels, run the ring,
-    gather the output panels."""
-    qb, kb, vb = (col.Scatter.apply(t, mesh, axis, 1) for t in (q, k, v))
-    out = _RingAttention.apply(qb, kb, vb, mesh, axis, valid_len, causal,
-                               scale, flash)
-    return col.Gather.apply(out, mesh, axis, 1)
+def ring_padded_len(seq: int, p: int, flash: bool) -> int:
+    """The padded length of a ``seq``-token sequence cut into ``p`` panels,
+    the JAX package's rule: a multiple of ``p``; panels longer than
+    ``_KV_TILE`` a tile multiple; on the flash path panels of 1024 multiples
+    above 1024 tokens, else of 128."""
+    sp = pad_to_multiple(seq, p)
+    if sp // p > _KV_TILE:
+        sp = p * pad_to_multiple(sp // p, _KV_TILE)
+    if flash:
+        panel = sp // p
+        sp = p * pad_to_multiple(panel, 1024 if panel > 1024 else 128)
+    return sp
+
+
+def ring_attention_shard(q, k, v, mesh, valid_len: int, axis: str = ROWS,
+                         causal: bool = False, scale: float | None = None,
+                         backend: str = "auto", precision: str = "high"):
+    """Ring attention over this rank's ``(heads, panel, d)`` panels of a
+    sequence cut in ``mesh.shape[axis]`` panels in axis order, padded by the
+    caller to :func:`ring_padded_len`; keys at or past ``valid_len`` are
+    masked. Returns this rank's output panel (q's dtype); autograd returns
+    each rank the gradients of its own panels. No rank holds more of the
+    sequence than its panel and the one in flight."""
+    if precision not in ("high", "default"):
+        raise ValueError(f"unknown ring attention precision: {precision!r}")
+    flash = resolve_attention_backend(backend, q.device, q.shape[-1]) == \
+        "flash"
+    out_dtype = q.dtype
+    if precision == "default":
+        q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    scale_val = float(scale if scale is not None
+                      else 1.0 / math.sqrt(q.shape[-1]))
+    with precision_scope("highest"):
+        out = _RingAttention.apply(q, k, v, mesh, axis, valid_len, causal,
+                                   scale_val, flash)
+    return out.to(out_dtype)
 
 
 def ring_attention(q, k, v, mesh=None, axis: str = ROWS, causal: bool = False,
@@ -256,7 +287,9 @@ def ring_attention(q, k, v, mesh=None, axis: str = ROWS, causal: bool = False,
     masks the pad exactly. ``precision="default"`` casts q/k/v to bfloat16
     for the products (softmax statistics and the accumulator stay f32);
     ``"high"`` keeps their dtype, with f32 products in IEEE f32. The output
-    has q's dtype and shape."""
+    has q's dtype and shape. Over ranks every rank passes the whole
+    sequence: its panels are cut, :func:`ring_attention_shard` runs, and the
+    output panels are gathered."""
     if q.ndim < 2 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q/k/v shape mismatch: {tuple(q.shape)} "
                          f"{tuple(k.shape)} {tuple(v.shape)}")
@@ -272,34 +305,28 @@ def ring_attention(q, k, v, mesh=None, axis: str = ROWS, causal: bool = False,
     flash = resolve_attention_backend(backend, q.device, d) == "flash"
     if mesh is None and distributed():
         mesh = default_mesh()
-    ranks = mesh is not None and getattr(mesh, "ranks", None) is not None
+    ranks = over_ranks(mesh, (axis,))
     p_size = mesh.shape[axis] if ranks else 1
-    if not ranks and mesh is not None and mesh.shape[axis] != 1:
-        raise ValueError(f"a '{axis}' axis of {mesh.shape[axis]} devices "
-                         f"needs a mesh over torch.distributed ranks "
-                         f"(initialize_distributed, then create_mesh)")
-    sp = pad_to_multiple(seq, p_size)
-    if sp // p_size > _KV_TILE:
-        sp = p_size * pad_to_multiple(sp // p_size, _KV_TILE)
-    if flash:
-        panel = sp // p_size
-        sp = p_size * pad_to_multiple(panel, 1024 if panel > 1024 else 128)
+    sp = ring_padded_len(seq, p_size, flash)
     if sp != seq:
         q, k, v = (F.pad(x, (0, 0, 0, sp - seq)) for x in (q, k, v))
+    if ranks:
+        single = q.ndim == 2
+        if single:
+            q, k, v = (x.unsqueeze(0) for x in (q, k, v))
+        qb, kb, vb = (col.Scatter.apply(t, mesh, axis, 1) for t in (q, k, v))
+        out = col.Gather.apply(ring_attention_shard(
+            qb, kb, vb, mesh, seq, axis, causal, scale, backend, precision),
+            mesh, axis, 1)
+        if single:
+            out = out[0]
+        return out[..., :seq, :] if sp != seq else out
     out_dtype = q.dtype
     if precision == "default":
         q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
     scale_val = float(scale if scale is not None else 1.0 / math.sqrt(d))
     with precision_scope("highest"):
-        if ranks:
-            single = q.ndim == 2
-            if single:
-                q, k, v = (x.unsqueeze(0) for x in (q, k, v))
-            out = _ring_ranks(q, k, v, mesh, axis, seq, causal, scale_val,
-                              flash)
-            if single:
-                out = out[0]
-        elif flash:
+        if flash:
             out = _flash.FlashAttention.apply(q, k, v, seq, causal, scale_val)
         else:
             out = _xla_attention(q, k, v, seq, causal, scale_val)

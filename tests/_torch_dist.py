@@ -456,6 +456,229 @@ def case_pp_cli(inp):
             "loss_line": np.array(lines[1])}
 
 
+# the sequence-sharded trainer: ``inp`` holds the JAX package's params
+# (flattened as above), the stream, ``steps`` and ``knobs`` (the
+# TransformerLM fields, JSON); the mesh is (world, 1)
+
+def _knobs(inp):
+    import json
+
+    return json.loads(str(inp["knobs"]))
+
+
+def lm_train_case(inp):
+    """TransformerLM.train over the ranks: the losses and the final params
+    (whole, on every rank)."""
+    from marlin_tpu_torch import mesh as mm
+    from marlin_tpu_torch.models import transformer as tt
+
+    mesh = mm.create_mesh((mm.world_size(), 1))
+    lm = tt.TransformerLM(**_knobs(inp))
+    params, losses = lm.train(inp["tokens"], steps=int(inp["steps"]),
+                              mesh=mesh, params=_lm_params(inp))
+    out = {"losses": np.array(losses)}
+    out.update({f"p/{k}": v for k, v in _flat(params).items()})
+    return out
+
+
+def case_lm_shards(inp):
+    """What each rank holds in one training step's forward: the rows of the
+    residual stream each block sees, the attention's q/k/v panels, the
+    experts, and every all_gather_cat the forward made; with the loss and
+    transformer_forward's (gathered) logits."""
+    import torch
+
+    import marlin_tpu_torch.parallel.collectives as col
+    from marlin_tpu_torch import mesh as mm
+    from marlin_tpu_torch.models import moe as tm
+    from marlin_tpu_torch.models import transformer as tt
+
+    mesh = mm.create_mesh((mm.world_size(), 1))
+    knobs = _knobs(inp)
+    lm = tt.TransformerLM(**knobs)
+    params = tm.shard_moe_params(_lm_params(inp), mesh)
+    seen = {"block": [], "panel": [], "gather": []}
+    real = (tt._block, tt.ring_attention_shard, tt.ulysses_attention_shard,
+            col.all_gather_cat)
+
+    def block(lp, x, *a, **k):
+        seen["block"].append(x.shape)
+        return real[0](lp, x, *a, **k)
+
+    def attention(fn):
+        def run(q, k, v, *a, **kw):
+            seen["panel"].append(q.shape + k.shape + v.shape)
+            return fn(q, k, v, *a, **kw)
+        return run
+
+    def gather(x, *a, **k):
+        seen["gather"].append(x.shape)
+        return real[3](x, *a, **k)
+
+    tt._block = block
+    tt.ring_attention_shard = attention(real[1])
+    tt.ulysses_attention_shard = attention(real[2])
+    col.all_gather_cat = gather
+    try:
+        leaves = tt._tree_map(lambda t: t.detach().requires_grad_(True),
+                              params)
+        loss = tt.lm_loss(leaves, inp["tokens"], mesh, lm.heads, lm.attn,
+                          lm.remat, moe=lm._moe())
+        forward_gathers = list(seen["gather"])
+        torch.autograd.grad(loss, tt._leaves(leaves))
+    finally:
+        (tt._block, tt.ring_attention_shard, tt.ulysses_attention_shard,
+         col.all_gather_cat) = real
+    with torch.no_grad():
+        logits = tt.transformer_forward(params, inp["tokens"][:-1], mesh,
+                                        lm.heads, lm.attn, moe=lm._moe())
+    out = {"rank_block": np.array(seen["block"]),
+           "rank_panel": np.array(seen["panel"]),
+           "rank_forward_gathers": np.array(len(forward_gathers)),
+           "loss": _np(loss), "logits": _np(logits)}
+    if lm.n_experts:
+        out["rank_w1"] = np.array(params["l0"]["moe"]["w1"].shape)
+    return out
+
+
+def case_moe_ffn(inp):
+    """moe_ffn under the logical contract on the rank mesh: this rank's
+    experts (shard_moe_params), every token on every rank; the output, the
+    aux and the gradients of sum(out * ct) + aux (the experts' gathered)."""
+    import torch
+
+    import marlin_tpu_torch.parallel.collectives as col
+    from marlin_tpu_torch import mesh as mm
+    from marlin_tpu_torch.models import moe as tm
+
+    mesh = mm.create_mesh((mm.world_size(), 1))
+    mp = tm.shard_moe_params({k: _t(inp[k]) for k in ("wg", "w1", "w2")},
+                             mesh)
+    mp = {k: v.requires_grad_(True) for k, v in mp.items()}
+    x = _t(inp["x"], True)
+    out, aux = tm.moe_ffn(mp, x, mesh=mesh, top_k=2,
+                          group_size=int(inp["group"]))
+    g = torch.autograd.grad((out * _t(inp["ct"])).sum() + aux,
+                            (x, mp["wg"], mp["w1"], mp["w2"]))
+    return {"out": _np(out), "aux": _np(aux), "gx": _np(g[0]),
+            "gwg": _np(g[1]), "rank_w1": np.array(mp["w1"].shape),
+            "gw1": _np(col.all_gather_cat(g[2], mesh, "rows", 0)),
+            "gw2": _np(col.all_gather_cat(g[3], mesh, "rows", 0))}
+
+
+def _cli(module, inp, params=None):
+    """A CLI's main on every rank (``inp["argv"]``), its return value and
+    its printed lines; with ``params`` the model's init returns them."""
+    import contextlib
+    import importlib
+    import io
+
+    from marlin_tpu_torch.models import transformer as tt
+
+    main = importlib.import_module(
+        f"marlin_tpu_torch.examples.{module}").main
+    real = tt.init_transformer
+    if params is not None:
+        tt.init_transformer = lambda *a, **k: params
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            got = main([str(a) for a in inp["argv"]])
+    finally:
+        tt.init_transformer = real
+    return got, buf.getvalue().splitlines()
+
+
+def case_lct_cli(inp):
+    losses, lines = _cli("long_context_training", inp, _lm_params(inp))
+    return {"losses": np.array(losses), "rank_lines": np.array(lines)}
+
+
+def case_moe_cli(inp):
+    losses, lines = _cli("moe_training", inp, _lm_params(inp))
+    return {"losses": np.array(losses), "rank_lines": np.array(lines)}
+
+
+# the ML workloads on the default mesh over the ranks (best_grid: (2, 2)
+# at four ranks)
+
+def case_nn_cli(inp):
+    """The distributed_training CLI: its printed lines and the step losses
+    its EventLog holds (in this rank's directory)."""
+    import json
+    import tempfile
+
+    import torch
+
+    d = tempfile.mkdtemp()
+    _, lines = _cli("distributed_training", {"argv": [*inp["argv"], d]})
+    rank = torch.distributed.get_rank()
+    with open(os.path.join(d, f"rank{rank}", "events.jsonl")) as f:
+        losses = [json.loads(ln)["loss"] for ln in f
+                  if json.loads(ln)["kind"] == "step"]
+    return {"rank_lines": np.array(lines), "losses": np.array(losses),
+            "rank_dirs": np.array(sorted(os.listdir(d)))}
+
+
+def case_nn_step(inp):
+    """train_step on the default (dp, tp) mesh: ``steps`` SGD steps of a
+    model of ``sizes`` (3 layers: the last layer's columns are cut)."""
+    import torch
+
+    import importlib
+
+    from marlin_tpu_torch.mesh import default_mesh
+
+    nn = importlib.import_module("marlin_tpu_torch.ml.neural_network")
+
+    mesh = default_mesh()
+    params = {k: _t(inp[k]) for k in sorted(inp) if k.startswith("w")}
+    x, y = _t(inp["x"]), _t(inp["y"])
+    losses = []
+    for i in range(int(inp["steps"])):
+        params, loss = nn.train_step(params, x, y, i, int(inp["batch"]), 0.5,
+                                     activation="tanh", mesh=mesh)
+        losses.append(float(loss))
+    out = {k: _np(v) for k, v in params.items()}
+    out["losses"] = np.array(losses)
+    return out
+
+
+def _als(inp, **kw):
+    import marlin_tpu_torch as tm
+
+    coo = tm.CoordinateMatrix(inp["users"], inp["items"], inp["vals"],
+                              shape=tuple(int(n) for n in inp["shape"]))
+    model = coo.als(rank=4, iterations=5, lam=0.05, shard=True,
+                    segment_block=8, **kw)
+    return {"u": model.user_features.to_numpy(),
+            "v": model.product_features.to_numpy(),
+            "rmse": np.array(model.rmse(coo))}
+
+
+def case_als_explicit(inp):
+    return _als(inp)
+
+
+def case_als_implicit(inp):
+    return _als(inp, implicit_prefs=True, alpha=5.0)
+
+
+def case_pagerank(inp):
+    """The edge-sharded operator on the default mesh: the ranks, and this
+    rank's run of the padded edges."""
+    import importlib
+
+    from marlin_tpu_torch.mesh import default_mesh
+
+    pr = importlib.import_module("marlin_tpu_torch.ml.pagerank")
+    op = pr.build_transition_operator(inp["edges"], n=int(inp["n"]),
+                                      mesh=default_mesh())
+    return {"ranks": pr.pagerank(op, iterations=int(inp["iters"])),
+            "rank_edges": np.array(op.src.shape[0]),
+            "rank_weight": _np(op.weight.sum())}
+
+
 for _name in ("dense", "causal", "uneven", "uneven_causal", "multihead",
               "scale", "tile_pad", "flash", "flash_causal", "flash_multihead",
               "flash_odd", "bf16_xla", "bf16_flash", "grad_xla", "grad_flash",
@@ -469,6 +692,10 @@ for _name in ("pipeline_seq", "pipeline_default_mb", "pipeline_mb1",
     globals()[f"case_{_name}"] = pipeline_case
 for _name in ("pp_loss", "pp_gqa", "pp_flagship", "pp_grad", "pp_train"):
     globals()[f"case_{_name}"] = pp_case
+for _name in ("ring", "ring_xla", "ring_flash", "ulysses", "moe", "moe_span"):
+    globals()[f"case_lm_{_name}"] = lm_train_case
+for _name in ("ring", "ulysses", "moe"):
+    globals()[f"case_lm_shards_{_name}"] = case_lm_shards
 
 
 def _rank_main(rank: int, world: int, tmp: str, cases: list[str]) -> None:

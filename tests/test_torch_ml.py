@@ -310,11 +310,13 @@ def test_pagerank_operator_graph_scale():
 
 
 def test_pagerank_mesh_of_many_refused():
+    """Edges across devices need a mesh over torch.distributed ranks (the
+    rank path: tests/test_torch_dist_ml.py)."""
     mesh = Mesh(torch.device("cpu"), (2, 1))
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ValueError, match="mesh over torch.distributed ranks"):
         tpr.build_transition_operator(EDGES, mesh=mesh)
     op = tpr.build_transition_operator(EDGES)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ValueError, match="mesh over torch.distributed ranks"):
         tpr._pagerank_edges(op.src, op.dst, op.weight, op.inv_deg,
                             op.dangling, torch.tensor(0.85), op.n, 2, mesh)
 

@@ -220,9 +220,10 @@ def test_moe_validation_and_placement():
     with pytest.raises(ValueError, match="moe precision"):
         tm.moe_ffn(tp, x, precision="low")
     _, tp8 = _moe_pair(5, e=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
+    # experts across devices need a mesh over torch.distributed ranks
+    with pytest.raises(ValueError, match="mesh over torch.distributed ranks"):
         tm.moe_ffn(tp8, x, mesh=wide)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
+    with pytest.raises(ValueError, match="mesh over torch.distributed ranks"):
         tm.shard_moe_params(tp8, wide)
     one = Mesh(torch.device("cpu"), (1, 1))
     assert tm.shard_moe_params(tp8, one) is tp8
