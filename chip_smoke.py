@@ -272,6 +272,15 @@ drives the ported paths end to end through the public entry points:
   ``pipeline_training`` CLI, ``pp_lm_loss`` at 2048 tokens against the
   plain flash version, and the time of a one-float ``all_reduce`` and
   ``all_gather``; the group is destroyed after.
+- phase 31: the matrices across ranks, in a one-rank NCCL world: two
+  20000² ``DenseVecMatrix.random`` over the rank mesh (each rank draws its
+  block by threefry counter) multiplied by ``multiply`` (auto: the RMM on
+  blocks) against the world-of-one multiply of the gathered inputs, timed
+  by CUDA events and the host clock, with the peak memory and the bytes a
+  rank holds; phase 16's 8192² LU legs and Cholesky on row blocks against
+  the logical path; phase 17's ``compute_svd`` ``dist-eigs`` on row blocks
+  against the logical path; ``save_sharded``/``load_sharded`` of a 20000²
+  matrix bit for bit, and its restore outside the world.
 - phase 30: the workloads across ranks, in a one-rank NCCL world (their
   plain runs made first, outside it): config_lct on phase 11's stream with
   the stream sharded over the ranks (``TransformerLM.train(mesh=rank
@@ -286,7 +295,7 @@ drives the ported paths end to end through the public entry points:
   outside the world; blocked ALS and edge-sharded PageRank through their
   rank paths against their plain paths.
 
-``python3 chip_smoke.py --phases 21,22,23`` (any subset of phases 19-30;
+``python3 chip_smoke.py --phases 21,22,23`` (any subset of phases 19-31;
 20 runs 19 first) builds the kernels and runs only those phases, printing no
 result lines.
 
@@ -626,6 +635,15 @@ RANKS_ALS = dict(users=100_000, items=20_000, nnz=2_000_000, rank=32,
                  iters=3, block=4096)
 RANKS_PR = dict(n=1_000_000, e=10_000_000, iters=10)
 RANKS_TOL = 1e-4
+# phase 31: the matrices across ranks in a one-rank NCCL world: two N x N
+# DenseVecMatrix.random over the rank mesh multiplied (auto) against the
+# world-of-one multiply of the gathered inputs (F64_TOL of the largest
+# |entry|); LINALG_N's LU legs and Cholesky through the row-block path
+# against the logical path (perm equal, LINALG_TOL); compute_svd dist-eigs at
+# SVD_M x SVD_N (s within LINALG_TOL of s[0]); save_sharded/load_sharded of
+# an N x N matrix, bit for bit, restored in the world and outside it. The
+# rank count's analytic bytes a rank holds at MATRIX_RANKS.
+MATRIX_RANKS = (1, 2, 4)
 
 
 def log(msg: str) -> None:
@@ -4850,6 +4868,217 @@ def ranks_references(torch, np, mt, tt):
     return ref
 
 
+def matrices_ranks_path(torch, np, mt, ops, smi) -> dict:
+    """Phase 31: the matrices across ranks (rank-local blocks, the RMM on
+    blocks, linalg on row blocks, sharded checkpoints) in a one-rank NCCL
+    world, each against the world-of-one path on the same logical inputs.
+    Returns the kernels' launch counts of the phase."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from marlin_tpu_torch import mesh as mm
+    from marlin_tpu_torch.io import checkpoint as ck
+
+    log(f"phase 31: the matrices across ranks in a one-rank NCCL world: "
+        f"{N}^2 random + multiply, LU/Cholesky at {LINALG_N}^2, dist-eigs at "
+        f"{SVD_M} x {SVD_N}, save/load_sharded at {N}^2; {smi}")
+    for p in MATRIX_RANKS:
+        log(f"  a rank's block of an {N}^2 f32 DenseVecMatrix at p = {p} "
+            f"(analytic): {N * N * 4 / p / 1e6:g} MB")
+    one = mm.Mesh(torch.device("cuda"))  # the world of one: no ranks
+    ops.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        mm.initialize_distributed(f"file://{tmp}/store", 1, 0)
+        try:
+            mesh = mm.create_mesh((1, 1))
+            if dist.get_backend() != "nccl" or mesh.ranks != (0,):
+                raise AssertionError("phase 31: not an NCCL rank mesh")
+            ad, bd, cd, rank_times = matrices_multiply(torch, mt, mesh)
+            matrices_linalg(torch, np, mt, mesh, one)
+            path = os.path.join(tmp, "sharded")
+            m = mt.DenseVecMatrix.random(3, N, N, mesh=mesh)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ck.save_sharded(m, path)
+            back = ck.load_sharded(path, m.sharding)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            if not torch.equal(back, m.data):
+                raise AssertionError("phase 31: load_sharded over the rank "
+                                     "mesh differs from what was saved")
+            del back
+        finally:
+            mm.shutdown_distributed()
+        if dist.is_initialized():
+            raise AssertionError("phase 31: the process group is still up")
+        # outside the world a matrix of the world of one multiplies alone
+        matrices_world_of_one(torch, mt, one, ad, bd, cd, rank_times)
+        del ad, bd, cd
+        whole = ck.load_sharded(path)
+        if not torch.equal(whole, m.data):  # one rank's block is the whole
+            raise AssertionError("phase 31: the one-rank save restored into "
+                                 "the world of one differs")
+        log(f"  save_sharded + load_sharded {N}^2 over the rank mesh: "
+            f"{dt:.3f} s, bit-identical; restored outside the world "
+            f"bit-identical")
+        del m, whole
+    torch.cuda.empty_cache()
+    counts = dict(ops.launch_counts())
+    log(f"  phase 31 launches: {counts}")
+    return counts
+
+
+def _timed_ms(torch, fn):
+    """(result, CUDA-event ms, host ms, peak GiB above the start) of one
+    call."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    host = (time.perf_counter() - t0) * 1e3
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    return out, start.elapsed_time(end), host, peak
+
+
+def matrices_multiply(torch, mt, mesh):
+    """Phase 31 (a), in the world: the N² draws and the multiply over the
+    rank mesh (a warm-up call, then one timed), beside the logical in/out
+    RMM over the same world (``parallel.rmm_matmul``: C gathered whole, the
+    path a matrix's multiply over ranks took before its blocks). Returns
+    the operands' and the product's blocks (the whole matrices at p = 1)
+    and the rank multiply's (ms, host ms, peak GiB)."""
+    from marlin_tpu_torch.parallel import rmm_matmul
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a = mt.DenseVecMatrix.random(0, N, N, mesh=mesh)
+    b = mt.DenseVecMatrix.random(1, N, N, mesh=mesh)
+    torch.cuda.synchronize()
+    draw = time.perf_counter() - t0
+    held = a.data.numel() * a.data.element_size()
+    if tuple(a.data.shape) != (N, N):
+        raise AssertionError(f"phase 31: a one-rank block {a.data.shape}")
+    log(f"  two {N}^2 threefry draws over the rank mesh: {draw:.3f} s; a "
+        f"rank holds {held / 1e6:g} MB of each (measured, p = 1)")
+    a.multiply(b, precision="high")  # warm-up: the rank grid's groups
+    c, ev, host, peak = _timed_ms(torch, lambda: a.multiply(
+        b, precision="high"))
+    if c.data.shape != (N, N) or not bool(torch.isfinite(c.data).all()):
+        raise AssertionError("phase 31: the rank product is bad")
+    log(f"  multiply over the rank mesh (RMM on blocks): {ev:.3f} ms (CUDA "
+        f"events), {host:.3f} ms host, peak +{peak:.2f} GiB")
+    c_log, ev_l, host_l, peak_l = _timed_ms(torch, lambda: rmm_matmul(
+        a.data, b.data, precision="high"))
+    if not torch.equal(c_log, c.data):
+        raise AssertionError("phase 31: the logical RMM differs")
+    log(f"  the logical in/out RMM over the same world (C gathered): "
+        f"{ev_l:.3f} ms, {host_l:.3f} ms host, peak +{peak_l:.2f} GiB; "
+        f"equal bit for bit")
+    del c_log
+    torch.cuda.empty_cache()
+    return a.data, b.data, c.data, (ev, host, peak)
+
+
+def matrices_world_of_one(torch, mt, one, ad, bd, cd, rank_times) -> None:
+    """Phase 31 (a), outside the world: the world of one's multiply of the
+    same logical inputs against the rank product, timed alike."""
+    a1 = mt.DenseVecMatrix.from_array(ad, one)
+    b1 = mt.DenseVecMatrix.from_array(bd, one)
+    a1.multiply(b1, precision="high")  # warm-up
+    c1, ev1, host1, peak1 = _timed_ms(torch, lambda: a1.multiply(
+        b1, precision="high"))
+    scale = float(c1.data.abs().max())
+    rel = float((cd - c1.data).abs().max()) / scale
+    ev, host, _ = rank_times
+    log(f"  the world of one: {ev1:.3f} ms (CUDA events), {host1:.3f} ms "
+        f"host, peak +{peak1:.2f} GiB; the rank mesh's {ev / ev1:.4f}x its "
+        f"time; max rel diff {rel:.3e} (tol {F64_TOL})")
+    if not rel <= F64_TOL:
+        raise AssertionError(f"phase 31: the rank multiply differs: {rel}")
+
+
+def matrices_linalg(torch, np, mt, mesh, one) -> None:
+    """Phase 31 (b, c): phase 16's LU legs and Cholesky and phase 17's
+    dist-eigs SVD on row blocks against the logical path, the same logical
+    matrices."""
+    # warm-up: each path's first factorization and eigh in the process
+    # carry the solver libraries' set-up, so neither is timed cold
+    w = 1024
+    gen = torch.Generator(device="cuda").manual_seed(310)
+    tall = torch.randn((w, 64), device="cuda", generator=gen)
+    for where in (mesh, one):
+        small = mt.BlockMatrix.from_array(torch.eye(w, device="cuda") * 2,
+                                          where)
+        small.lu_decompose(mode="dist", block_size=128)
+        small.cholesky_decompose(mode="dist", block_size=128)
+        mt.DenseVecMatrix.from_array(tall, where).compute_svd(
+            4, mode="dist-eigs")
+    torch.cuda.synchronize()
+    n = LINALG_N
+    eye = torch.eye(n, device="cuda")
+    a = mt.BlockMatrix.random(0, n, n, mesh=mesh).add(
+        mt.BlockMatrix.from_array(n * eye, mesh))
+    a1 = mt.BlockMatrix.from_array(a.logical(), one)
+    scale = float(a1.data.abs().max())
+
+    def run(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    for sched, piv in LU_LEGS:
+        (l, u, p), dt = run(lambda: a.lu_decompose(
+            mode="dist", schedule=sched, pivot=piv))
+        (l1, u1, p1), dt1 = run(lambda: a1.lu_decompose(
+            mode="dist", schedule=sched, pivot=piv))
+        if not torch.equal(p, p1):
+            raise AssertionError(f"phase 31 LU {sched}/{piv}: perm differs")
+        err = max(float((l.logical() - l1.data).abs().max()),
+                  float((u.logical() - u1.data).abs().max()))
+        linalg_close(f"LU {sched}/{piv} on row blocks {dt:.3f} s, logical "
+                     f"{dt1:.3f} s; L, U vs logical", err, scale)
+        del l, u, p, l1, u1, p1
+    r = mt.BlockMatrix.from_array(torch.randn(
+        (n, n), device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(31)), one)
+    spd1 = r.multiply(r.transpose(), precision="high").add(
+        mt.BlockMatrix.from_array(n * eye, one))
+    spd = mt.BlockMatrix.from_array(spd1.data, mesh)
+    del r
+    s_scale = float(spd1.data.abs().max())
+    for sched in CHOL_LEGS:
+        l, dt = run(lambda: spd.cholesky_decompose(
+            mode="dist", schedule=sched))
+        l1, dt1 = run(lambda: spd1.cholesky_decompose(
+            mode="dist", schedule=sched))
+        linalg_close(f"Cholesky {sched} on row blocks {dt:.3f} s, logical "
+                     f"{dt1:.3f} s; L vs logical",
+                     float((l.logical() - l1.data).abs().max()), s_scale)
+        del l, l1
+    del a, a1, spd, spd1, eye
+    torch.cuda.empty_cache()
+    m_svd = mt.DenseVecMatrix.random(0, SVD_M, SVD_N, mesh=mesh)
+    m1 = mt.DenseVecMatrix.from_array(m_svd.logical(), one)
+    svd, dt = run(lambda: m_svd.compute_svd(SVD_K, mode="dist-eigs",
+                                                   compute_u=False))
+    svd1, dt1 = run(lambda: m1.compute_svd(SVD_K, mode="dist-eigs",
+                                                  compute_u=False))
+    linalg_close(f"compute_svd dist-eigs on row blocks {dt:.3f} s, logical "
+                 f"{dt1:.3f} s; s vs logical",
+                 float(np.abs(svd.s - svd1.s).max()), float(svd1.s[0]))
+    del m_svd, m1
+    torch.cuda.empty_cache()
+
+
 def ranks_path(torch, np, mt, tt, ops, lct_run, smi) -> dict:
     """Phase 30: the workloads across ranks (the sequence-sharded trainer,
     the expert-parallel MoE trainer, the (dp, tp) MLP CLI, blocked ALS and
@@ -5063,13 +5292,13 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=None,
-                    help="run the build, then only these of phases 19-30 "
+                    help="run the build, then only these of phases 19-31 "
                          "(comma-separated; 20 runs 19 first), and print no "
                          "result lines")
     only = ap.parse_args().phases
     only = None if only is None else {int(p) for p in only.split(",")}
-    if only is not None and not only <= set(range(19, 31)):
-        ap.error("--phases takes a subset of 19,20,...,30")
+    if only is not None and not only <= set(range(19, 32)):
+        ap.error("--phases takes a subset of 19,20,...,31")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available", file=sys.stderr)
         return 2
@@ -5157,6 +5386,9 @@ def main() -> int:
             ranks_path(torch, np, mt, tt, ops, lct_reference(torch, np, tt),
                        smi)
             lap("phase 30")
+        if 31 in only:
+            matrices_ranks_path(torch, np, mt, ops, smi)
+            lap("phase 31")
         log(f"phases {sorted(only)}: every check passed in "
             f"{time.perf_counter() - t_start:.1f} s")
         return 0
@@ -5525,8 +5757,10 @@ def main() -> int:
     lc30 = ranks_path(torch, np, mt, tt, ops, lct_run, smi)
     del lct_run
     lap("phase 30")
+    lc31 = matrices_ranks_path(torch, np, mt, ops, smi)
+    lap("phase 31")
     late = {k: moe_train[k] + moe_serve[k] + slab_counts[k] + slab_paged[k]
-            + lc29[k] + lc30[k] for k in moe_train}
+            + lc29[k] + lc30[k] + lc31[k] for k in moe_train}
     paged_launches = path_counts["paged_decode_attention"] + \
         engine_launches + prog_split + cli["paged_decode_attention"] + \
         fleet_split + late["paged_decode_attention"]
@@ -5550,7 +5784,7 @@ def main() -> int:
             f"{before + cli[kname] + late[kname]} (phases 8/11/14 {before}, "
             f"phase 24 {cli[kname]}, phase 26 {moe_train[kname]}, phase 27 "
             f"{slab_counts[kname]}, phase 29 {lc29[kname]}, phase 30 "
-            f"{lc30[kname]})")
+            f"{lc30[kname]}, phase 31 {lc31[kname]})")
 
     # ---------------------------------------------------- kernels line
     kernels = [

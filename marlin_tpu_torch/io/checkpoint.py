@@ -11,7 +11,12 @@ lists and tuples (named tuples included) in order, ``None`` and empty
 containers with no leaf, the port's matrices and vectors by their ``data``
 tensor, and everything else (tensors, arrays, Python scalars) as one leaf.
 A process group of ``torch.distributed``, when one is initialized, takes the
-place of JAX's processes; without one the world is a single process.
+place of JAX's processes; without one the world is a single process. A
+matrix or vector on a mesh over several ranks is a leaf that spans
+processes: each rank writes its own block under its global index (JAX's
+addressable shards), and a restore reads only the new rank's region from the
+shard files that overlap it, so a checkpoint saved on one world size
+restores onto another.
 
 The reference has *no* training-state checkpointing — only text-format matrix
 persistence — and it inherits fault tolerance from Spark's lineage
@@ -193,12 +198,14 @@ def _matrix_types() -> tuple:
     return DenseMatrix, DistributedVector
 
 
-def tree_flatten(tree) -> tuple[list, object]:
+def tree_flatten(tree, owners: list | None = None) -> tuple[list, object]:
     """``(leaves, spec)`` of a state in ``jax.tree.flatten``'s order: dicts
     by sorted key, lists/tuples/named tuples in order, ``None`` with no leaf,
     the port's matrices and vectors as their ``data`` tensor (the JAX
     package's pytree registration of them), anything else as one leaf.
-    :func:`tree_unflatten` rebuilds the state from the spec."""
+    :func:`tree_unflatten` rebuilds the state from the spec. ``owners``,
+    when given, receives per leaf the matrix or vector it is the data of
+    (else ``None``)."""
     leaves: list = []
 
     def walk(node):
@@ -212,8 +219,12 @@ def tree_flatten(tree) -> tuple[list, object]:
             return ("seq", type(node), [walk(x) for x in node])
         if isinstance(node, _matrix_types()):
             leaves.append(node.data)
+            if owners is not None:
+                owners.append(node)
             return ("matrix", node)
         leaves.append(node)
+        if owners is not None:
+            owners.append(None)
         return ("leaf",)
 
     return leaves, walk(tree)
@@ -339,32 +350,51 @@ def _clear_stale_shards(path: str) -> None:
         _barrier("marlin_shard_clear")
 
 
+def _spans(x) -> bool:
+    """Whether ``x`` is a matrix or vector holding one block of a mesh over
+    ranks."""
+    return getattr(getattr(x, "mesh", None), "ranks", None) is not None
+
+
 def save_sharded(arr, path: str) -> dict:
     """Write one .npy per shard + a JSON manifest. A tensor lies whole on one
-    device, so it is one shard covering the whole array (a matrix is saved
-    by its logical tensor). Returns the integrity records
-    ``{relname: {"crc32", "bytes"}}`` of the files this process wrote (folded
-    into the checkpoint-level integrity manifest by
+    device, so it is one shard covering the whole array (a matrix of a world
+    of one is saved by its logical tensor). A matrix or vector on a mesh
+    over ranks writes this rank's block of its padded array under the
+    block's global index, with its ``replica_id`` (> 0 for the copies along
+    a mesh axis its spec does not name); every rank calls it. Returns the
+    integrity records ``{relname: {"crc32", "bytes"}}`` of the files this
+    process wrote (folded into the checkpoint-level integrity manifest by
     :func:`save_checkpoint`). The layout is the JAX package's, so either
     package's :func:`load_sharded` reads it."""
-    if hasattr(arr, "logical"):
-        arr = arr.logical()
+    if _spans(arr):
+        shape = arr._padded_shape
+        sh = arr.sharding
+        starts = [a for a, _ in sh.bounds(shape)]
+        index = [list(b) for b in sh.bounds(shape)]
+        replica = sh.replica_id()
+        arr = arr.data
+    else:
+        if hasattr(arr, "logical"):
+            arr = arr.logical()
+        shape = tuple(arr.shape)
+        starts, index, replica = [0] * len(shape), [[0, d] for d in shape], 0
     ensure_dir(path)
     _clear_stale_shards(path)
     proc, _ = _process()
     integ: dict[str, dict] = {}
     host = _host_array(arr)
-    fname = f"shard_0_{'_'.join('0' for _ in host.shape)}.npy"
+    fname = f"shard_{replica}_{'_'.join(map(str, starts))}.npy"
     with _staging_accounted(fname) as note:
         buf = _io.BytesIO()
         np.save(buf, host)
         note(buf.getbuffer().nbytes)
         rec = _write_bytes(join_path(path, fname), buf.getbuffer())
     integ[fname] = rec
-    shards = [{"file": fname, "index": [[0, d] for d in host.shape],
-               "replica_id": 0, "crc32": rec["crc32"]}]
+    shards = [{"file": fname, "index": index, "replica_id": replica,
+               "crc32": rec["crc32"]}]
     manifest = {
-        "shape": list(host.shape),
+        "shape": list(shape),
         "dtype": str(arr.dtype).replace("torch.", ""),
         "shards": shards,
         "process_index": proc,
@@ -447,13 +477,21 @@ def load_sharded(path: str, sharding=None) -> torch.Tensor:
     """Restore a sharded-array checkpoint as one tensor, assembled from the
     shard files that cover it (memory-mapped locally; remote shard downloads
     go through a byte-bounded LRU, ``ckpt_cache_bytes``, so a file is fetched
-    once). ``sharding`` is where the tensor goes: a device, a
-    :class:`~marlin_tpu_torch.mesh.Mesh` (its device) or a tensor (its
-    device); None is the configured device. The world is one device, so the
-    whole array is one region — written by either package under any
-    sharding."""
-    from ..config import resolve_device
+    once) — written by either package under any sharding.
 
+    ``sharding`` is where the tensor goes. A
+    :class:`~marlin_tpu_torch.mesh.Sharding` over ranks gives this rank's
+    block of the saved array zero-padded to that sharding's grid, read only
+    from the files that overlap it (on the mesh's device). Otherwise the
+    whole array, on a device, a :class:`~marlin_tpu_torch.mesh.Mesh` (its
+    device) or a tensor (its device); None is the configured device."""
+    from ..config import resolve_device
+    from ..mesh import Sharding
+
+    if isinstance(sharding, Sharding) and sharding.mesh.ranks is not None:
+        shape = _read_manifests(path)[0]
+        return _load_region(path, sharding.bounds(
+            sharding.padded_shape(shape)), sharding.mesh.device)
     shape, dtype, files, bf16 = _read_manifests(path)
     if isinstance(sharding, torch.Tensor):
         device = sharding.device
@@ -466,6 +504,50 @@ def load_sharded(path: str, sharding=None) -> torch.Tensor:
     if bf16:
         host = host.view(torch.bfloat16)
     return host.to(device)
+
+
+def _load_region(path: str, bounds, device) -> torch.Tensor:
+    """The ``bounds`` block (``(start, stop)`` a dimension) of a saved
+    array; zero where it reaches past the saved shape (a grid's pad)."""
+    shape, dtype, files, bf16 = _read_manifests(path)
+    inside = tuple((min(a, n), min(b, n)) for (a, b), n in zip(bounds, shape))
+    out = np.zeros(tuple(b - a for a, b in bounds), dtype)
+    if all(b > a for a, b in inside):
+        region = tuple(slice(a, b) for a, b in inside)
+        part = _read_region(path, files, region, shape, dtype,
+                            _ByteLRU(get_config().ckpt_cache_bytes))
+        out[tuple(slice(0, b - a) for a, b in inside)] = part
+    host = torch.from_numpy(out)
+    if bf16:
+        host = host.view(torch.bfloat16)
+    return host.to(device)
+
+
+def _fits(saved, owner) -> bool:
+    """Whether a saved padded array holds ``owner``'s logical matrix: each
+    saved dimension is its logical size zero-padded to a grid axis (of at
+    most :data:`_MAX_GRID_AXIS` devices)."""
+    logical = owner.shape if hasattr(owner, "_shape") else (owner.length,)
+    return len(saved) == len(logical) and all(
+        n <= s < n + _MAX_GRID_AXIS for s, n in zip(saved, logical))
+
+
+# the largest grid axis whose padding a restore accepts
+_MAX_GRID_AXIS = 256
+
+
+def _owner_block(arr: np.ndarray, owner) -> torch.Tensor:
+    """The block of a saved whole (padded) array that ``owner``, a matrix
+    or vector over ranks, holds on this rank, on its device and dtype."""
+    from ..matrix.dense import _cut
+
+    if not _fits(arr.shape, owner):
+        raise ValueError(f"saved array of shape {arr.shape} does not hold a "
+                         f"matrix of shape {getattr(owner, 'shape', None)} — "
+                         "the checkpoint belongs to a different "
+                         "configuration")
+    blk = _cut(arr, owner.sharding.bounds(owner._padded_shape))
+    return _restore_leaf(np.ascontiguousarray(blk), owner.data)
 
 
 def list_generations(path: str, committed_only: bool = True) -> list[int]:
@@ -586,10 +668,12 @@ def save_checkpoint(state, path: str, step: int, keep: int | None = None) -> Non
     """Save a training state (a tree of tensors: weights, optimizer
     moments, …; see :func:`tree_flatten`).
 
-    Every leaf lies whole on one device, so the state goes into one
-    ``state.npz``. (A multi-host run of the JAX package writes leaves that
-    span processes in a per-leaf layout of :func:`save_sharded` directories;
-    :func:`load_checkpoint` reads either layout.)
+    Where every leaf lies whole on each process, the state goes into one
+    ``state.npz`` from process 0. Where a leaf spans processes (a matrix or
+    vector on a mesh over several ranks), every leaf gets its own entry:
+    a spanning leaf a :func:`save_sharded` directory to which every rank
+    writes its block, the others one ``.npy`` from process 0 — the JAX
+    package's multi-process layout. :func:`load_checkpoint` reads either.
 
     Either way the payload lands inside one generation directory that is
     committed atomically (local: staged in ``ckpt_<step>.tmp`` and renamed;
@@ -607,7 +691,8 @@ def _save_checkpoint(state, path: str, step: int, keep: int | None) -> None:
     ensure_dir(path)
     final = join_path(path, _gen_name(step))
     _faults.fire("ckpt.write", path=final, step=step)
-    leaves, _ = tree_flatten(state)
+    owners: list = []
+    leaves, _ = tree_flatten(state, owners)
     proc, nproc = _process()
     multiproc = nproc > 1
     lp = local_path(path)
@@ -636,11 +721,23 @@ def _save_checkpoint(state, path: str, step: int, keep: int | None) -> None:
     if multiproc:
         _barrier(f"marlin_ckpt_stage_{step}")
     integ: dict[str, dict] = {}
-    # every leaf lies whole on one device, so the state is one state.npz,
-    # from one writer (proc 0): concurrent same-file writes would tear. (The
-    # JAX package's per-leaf layout for arrays spanning processes is read by
-    # load_checkpoint.)
-    if not multiproc or proc == 0:
+    spans = multiproc and any(o is not None and _spans(o) for o in owners)
+    if spans:
+        ensure_dir(work)
+        for i, (x, o) in enumerate(zip(leaves, owners)):
+            if o is not None and _spans(o):
+                sub = save_sharded(o, join_path(work, f"leaf_{i}"))
+                integ.update({f"leaf_{i}/{k}": v for k, v in sub.items()})
+            elif proc == 0:  # leaves whole on every rank: once
+                with _staging_accounted(f"leaf_{i}.npy") as note:
+                    buf = _io.BytesIO()
+                    np.save(buf, _host_array(x))
+                    note(buf.getbuffer().nbytes)
+                    integ[f"leaf_{i}.npy"] = _write_bytes(
+                        join_path(work, f"leaf_{i}.npy"), buf.getbuffer())
+    # otherwise every leaf lies whole on each process: one state.npz from
+    # one writer (proc 0), as concurrent same-file writes would tear
+    elif not multiproc or proc == 0:
         ensure_dir(work)
         with _staging_accounted("state.npz") as note:
             buf = _io.BytesIO()
@@ -741,7 +838,8 @@ def _load_npz(state_like, npz_path: str, path: str, step: int):
         # npz is a zip: needs a seekable stream; buffer the remote read
         with open_path(npz_path, "rb") as f:
             data = np.load(_io.BytesIO(f.read()))
-    leaves, treedef = tree_flatten(state_like)
+    owners: list = []
+    leaves, treedef = tree_flatten(state_like, owners)
     n_stored = sum(1 for k in data.files if k.startswith("leaf_"))
     if n_stored != len(leaves):
         raise ValueError(
@@ -752,6 +850,9 @@ def _load_npz(state_like, npz_path: str, path: str, step: int):
     new_leaves = []
     for i, tmpl in enumerate(leaves):
         arr = data[f"leaf_{i}"]
+        if owners[i] is not None and _spans(owners[i]):
+            new_leaves.append(_owner_block(arr, owners[i]))
+            continue
         tmpl_shape = tuple(getattr(tmpl, "shape", arr.shape))
         if tuple(arr.shape) != tmpl_shape:
             raise ValueError(
@@ -769,7 +870,8 @@ def _load_checkpoint_dir(state_like, base: str, path: str, step: int):
     leaf's sharding — the current run's process count and mesh, not the
     saving run's — so a 2-process checkpoint resumes cleanly in 1 process
     and vice versa (the region reads pull only the overlapping shard files)."""
-    leaves, treedef = tree_flatten(state_like)
+    owners: list = []
+    leaves, treedef = tree_flatten(state_like, owners)
     names = set(list_names(base))
     n_stored = sum(1 for n in names if re.fullmatch(r"leaf_\d+(\.npy)?", n))
     if n_stored != len(leaves):
@@ -779,6 +881,22 @@ def _load_checkpoint_dir(state_like, base: str, path: str, step: int):
             "different configuration")
     new_leaves = []
     for i, tmpl in enumerate(leaves):
+        owner = owners[i]
+        if owner is not None and _spans(owner):
+            sub = join_path(base, f"leaf_{i}")
+            if f"leaf_{i}" in names:  # this rank's region of the shards
+                if not _fits(_read_manifests(sub)[0], owner):
+                    raise ValueError(
+                        f"checkpoint leaf {i} at {path} step {step} does not "
+                        f"hold a matrix of shape {owner.shape} — it belongs "
+                        "to a different configuration")
+                leaf = _load_region(sub, owner.sharding.bounds(
+                    owner._padded_shape), tmpl.device).to(tmpl.dtype)
+            else:
+                with open_path(join_path(base, f"leaf_{i}.npy"), "rb") as f:
+                    leaf = _owner_block(np.load(f), owner)
+            new_leaves.append(leaf)
+            continue
         if f"leaf_{i}" in names:  # a sharded-array directory
             leaf = load_sharded(join_path(base, f"leaf_{i}"),
                                 sharding=tmpl if isinstance(

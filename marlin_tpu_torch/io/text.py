@@ -26,6 +26,13 @@ Directory variants mirror the reference's ``wholeTextFiles`` loaders
 Paths may carry a URL scheme (``memory://``, ``s3://``, ``hdfs://`` — the
 reference's loaders take Hadoop FileSystem URIs); they route through the
 :mod:`marlin_tpu_torch.io.fs` hook (fsspec by default).
+
+On a mesh over ``torch.distributed`` ranks the dense loaders keep only this
+rank's block: each format is read twice, once for the shape (the row
+indices and widths, or the block headers) and once parsing only the rows or
+blocks that overlap this rank's block. :func:`save_matrix` gathers to the
+first rank, which alone writes (the JAX package's save also collects the
+whole matrix), then every rank meets at a barrier.
 """
 
 from __future__ import annotations
@@ -34,6 +41,8 @@ import os
 import re
 
 import numpy as np
+
+import torch
 
 from .fs import iter_lines as _iter_lines
 from .fs import local_path, make_parent_dirs, open_path
@@ -73,12 +82,67 @@ def _rows_from_lines(lines):
     return out
 
 
+def _ranked(mesh) -> bool:
+    return getattr(mesh, "ranks", None) is not None
+
+
+def _values(text: str) -> list[str]:
+    return [x for x in _SEP.split(text.strip()) if x]
+
+
+def _rank_rows(path, mesh, parse_row, width=None):
+    """This rank's block of a row-per-line file over ``mesh``'s ``rows``
+    axis: a first pass reads each line's row index (and its value count,
+    for the width, unless ``width`` is given), a second parses the lines of
+    this rank's rows only (``parse_row(line, width)`` → (index, values)).
+    Returns the DenseVecMatrix."""
+    from ..interop import to_tensor
+    from ..matrix.dense import DenseVecMatrix
+    from ..mesh import Sharding
+
+    nrows, ncols = 0, width or 0
+    for line in _iter_lines(path):
+        line = line.strip()
+        if not line:
+            continue
+        head, _, rest = line.partition(":") if width is None \
+            else line.partition(" ")
+        nrows = max(nrows, int(head) + 1)
+        if width is None:
+            ncols = max(ncols, len(_values(rest)))
+    spec = DenseVecMatrix._default_spec
+    sh = Sharding(mesh, spec)
+    (r0, r1), (c0, c1) = sh.bounds(sh.padded_shape((nrows, ncols)))
+    block = np.zeros((r1 - r0, c1 - c0))
+    for line in _iter_lines(path):
+        line = line.strip()
+        if not line:
+            continue
+        idx, vals = parse_row(line, ncols)
+        if r0 <= idx < r1:
+            block[idx - r0] = 0.0
+            block[idx - r0, :len(vals)] = vals
+    DenseVecMatrix._check_2d((nrows, ncols))
+    return DenseVecMatrix(to_tensor(block, _dtype(), mesh.device),
+                          (nrows, ncols), mesh, spec)
+
+
+def _row_line(line, ncols):
+    head, vals = line.split(":", 1)
+    return int(head), np.array([float(x) for x in _values(vals)])
+
+
 def load_matrix_file(path: str, mesh=None):
     """``rowIdx:v,v,...`` → DenseVecMatrix (MTUtils.loadMatrixFile). Single
     files go through the native C++ parser when built (marlin_tpu_torch.native);
-    directories and fallback use the Python parser."""
+    directories and fallback use the Python parser. Over ranks each rank
+    parses only its rows."""
     from ..matrix.dense import DenseVecMatrix
+    from ..mesh import default_mesh
 
+    mesh = mesh or default_mesh()
+    if _ranked(mesh):
+        return _rank_rows(path, mesh, _row_line)
     local = local_path(path)
     if local is not None and os.path.isfile(local):
         # the native parser needs a real file descriptor — local only
@@ -245,10 +309,67 @@ def _blocks_from_lines(lines):
     return out
 
 
-def load_block_matrix_file(path: str, mesh=None):
-    """Block text format → BlockMatrix (MTUtils.loadBlockMatrixFile)."""
+def _rank_blocks(path, mesh):
+    """This rank's block of a block-text file over ``mesh``: a first pass
+    reads the block headers for the grid's extents, a second parses only
+    the blocks that overlap this rank's block. Returns the BlockMatrix."""
+    from ..interop import to_tensor
     from ..matrix.dense import BlockMatrix
+    from ..mesh import Sharding
 
+    heights, widths = {}, {}
+    for line in _iter_lines(path):
+        line = line.strip()
+        if line:
+            br, bc, r, c = (int(x) for x in line.split(":", 1)[0]
+                            .split("-")[:4])
+            heights[br], widths[bc] = r, c
+    if not heights:
+        return BlockMatrix.from_array(np.zeros((0, 0)), mesh)
+    missing_r = [i for i in range(max(heights) + 1) if i not in heights]
+    missing_c = [j for j in range(max(widths) + 1) if j not in widths]
+    if missing_r or missing_c:
+        raise ValueError(
+            "block text file has no blocks at all in grid "
+            f"row(s) {missing_r} / column(s) {missing_c} — extents are "
+            "unrecoverable; the file is truncated or not block-text format")
+    row_offs = np.concatenate([[0], np.cumsum(
+        [heights[i] for i in range(len(heights))])])
+    col_offs = np.concatenate([[0], np.cumsum(
+        [widths[j] for j in range(len(widths))])])
+    shape = (int(row_offs[-1]), int(col_offs[-1]))
+    spec = BlockMatrix._default_spec
+    sh = Sharding(mesh, spec)
+    (r0, r1), (c0, c1) = sh.bounds(sh.padded_shape(shape))
+    block = np.zeros((r1 - r0, c1 - c0))
+    for line in _iter_lines(path):
+        line = line.strip()
+        if not line:
+            continue
+        head, vals = line.split(":", 1)
+        br, bc, r, c = (int(x) for x in head.split("-")[:4])
+        top, left = int(row_offs[br]), int(col_offs[bc])
+        if top >= r1 or top + r <= r0 or left >= c1 or left + c <= c0:
+            continue
+        blk = np.array([float(x) for x in _values(vals)]).reshape((c, r)).T
+        y0, y1 = max(top, r0), min(top + r, r1)
+        x0, x1 = max(left, c0), min(left + c, c1)
+        block[y0 - r0:y1 - r0, x0 - c0:x1 - c0] = \
+            blk[y0 - top:y1 - top, x0 - left:x1 - left]
+    BlockMatrix._check_2d(shape)
+    return BlockMatrix(to_tensor(block, _dtype(), mesh.device), shape, mesh,
+                       spec)
+
+
+def load_block_matrix_file(path: str, mesh=None):
+    """Block text format → BlockMatrix (MTUtils.loadBlockMatrixFile). Over
+    ranks each rank parses only the blocks that overlap its own."""
+    from ..matrix.dense import BlockMatrix
+    from ..mesh import default_mesh
+
+    mesh = mesh or default_mesh()
+    if _ranked(mesh):
+        return _rank_blocks(path, mesh)
     return BlockMatrix.from_array(_blocks_from_lines(_iter_lines(path)), mesh,
                                   dtype=_dtype())
 
@@ -280,9 +401,22 @@ def load_coordinate_matrix(path: str, shape=None, mesh=None):
 
 def load_svm_den_vec_matrix(path: str, vector_len: int, mesh=None):
     """SVM-like rows with 1-based sparse features → dense DenseVecMatrix
-    (MTUtils.loadSVMDenVecMatrix; the head item is the row index, not a label)."""
+    (MTUtils.loadSVMDenVecMatrix; the head item is the row index, not a
+    label). Over ranks each rank parses only its rows."""
     from ..matrix.dense import DenseVecMatrix
+    from ..mesh import default_mesh
 
+    mesh = mesh or default_mesh()
+    if _ranked(mesh):
+        def parse(line, ncols):
+            items = line.split(" ")
+            arr = np.zeros(ncols)
+            for item in items[1:]:
+                i, v = item.split(":")
+                arr[int(i) - 1] = float(v)
+            return int(items[0]), arr
+
+        return _rank_rows(path, mesh, parse, width=vector_len)
     rows = {}
     for line in _iter_lines(path):
         line = line.strip()
@@ -305,8 +439,28 @@ def load_svm_den_vec_matrix(path: str, vector_len: int, mesh=None):
 def save_matrix(mat, path: str, fmt: str = "text", description: bool = False):
     """Save in row-text or block-text format (DenseVecMatrix.saveToFileSystem /
     BlockMatrix.save). ``description=True`` writes the ``_description`` sidecar
-    (DenseVecMatrix.saveWithDescription)."""
-    arr = mat.to_numpy()
+    (DenseVecMatrix.saveWithDescription). Over ranks the matrix gathers to
+    the mesh's first rank, which alone writes; every rank returns after a
+    barrier."""
+    if _ranked(getattr(mat, "mesh", None)):
+        import torch.distributed as dist
+
+        from ..parallel import collectives
+
+        first = mat.mesh.ranks[0]
+        whole = collectives.gather_logical(mat.data, mat.sharding, mat.shape,
+                                           mat._padded_shape, dst=first)
+        if dist.get_rank() == first:
+            t = whole.detach().cpu()
+            _write_matrix(mat, t.float().numpy() if t.dtype ==
+                          torch.bfloat16 else t.numpy(), path, fmt,
+                          description)
+        dist.barrier()
+        return
+    _write_matrix(mat, mat.to_numpy(), path, fmt, description)
+
+
+def _write_matrix(mat, arr, path, fmt, description):
     lp = local_path(path)  # file:// counts as local
     remote = lp is None
     parent = make_parent_dirs(path)

@@ -43,8 +43,14 @@ ill-conditioned pivot block carries κ·eps into the panel); callers with
 adversarial inputs take ``mode="local"``.
 
 Square inputs are padded with an identity tail to a multiple of
-``lcm(block, row shards)`` (one shard here), so the padded problem stays
-nonsingular.
+``lcm(block, row shards)`` (one shard in a world of one), so the padded
+problem stays nonsingular.
+
+On a mesh over ``torch.distributed`` ranks the ``dist`` modes run on row
+blocks (:mod:`marlin_tpu_torch.linalg.rows`): each rank holds and updates
+its rows only, and the factors come back rank-local in the input's layout,
+with the permutation whole on every rank. The ``local`` modes gather the
+matrix, as the JAX package's size rule picks them only at small sizes.
 """
 
 from __future__ import annotations
@@ -314,7 +320,7 @@ def _mode_to_local(mode: str, n: int) -> bool:
 
 
 def _row_shards(mat) -> int:
-    """The row-axis shard count of the matrix (1 on the port's mesh)."""
+    """The row-axis shard count of the matrix (1 in a world of one)."""
     ax = mat.spec[0] if len(mat.spec) > 0 else None
     return mat.mesh.shape[ax] if ax is not None else 1
 
@@ -322,8 +328,30 @@ def _row_shards(mat) -> int:
 def _padded_size(mat, n: int, block: int) -> int:
     """The padded size of a blocked factorization: a multiple of
     lcm(block, row shards), the JAX package's ``_pad_and_sharding`` rule
-    (here without its sharding constraint: one device holds the matrix)."""
+    (here without its sharding constraint: one device holds the matrix;
+    over ranks ``rows.padded_size``)."""
     return pad_to_multiple(n, math.lcm(block, _row_shards(mat)))
+
+
+def _ranked(mat) -> bool:
+    return getattr(mat.mesh, "ranks", None) is not None
+
+
+def _row_layout(mat, block: int):
+    from .rows import RowLayout, padded_size
+
+    return RowLayout(mat, padded_size(mat.num_rows(), block,
+                                      _row_shards(mat)))
+
+
+def _lu_ranks(mat, block: int, pivot: str, schedule: str):
+    """The blocked LU on row blocks: (layout, LU rows, permutation)."""
+    from .rows import lu_rows
+
+    lay = _row_layout(mat, block)
+    sched = _resolve_schedule(schedule, lay.n_pad // block, pivot)
+    lu, perm = lu_rows(lay, lay.load(mat), block, pivot, sched)
+    return lay, lu, perm
 
 
 def _lu_factor(schedule: str, pivot: str):
@@ -350,6 +378,14 @@ def lu_decompose(mat, mode: str = "auto", block_size: int | None = None,
     _require_pivot(pivot)
     _resolve_schedule(schedule, 1, pivot)  # arg validation in EVERY mode
     n = mat.num_rows()
+    if _ranked(mat) and not _mode_to_local(mode, n):
+        from .rows import triangles
+
+        b = min(block_size or get_config().lu_base_size, n)
+        with precision_scope("highest"):
+            lay, lu, perm = _lu_ranks(mat, b, pivot, schedule)
+            l, u = triangles(lay, lu)
+        return lay.store(l, mat), lay.store(u, mat), perm[:n]
     a = mat.logical()
     with precision_scope("highest"):
         if _mode_to_local(mode, n):
@@ -376,6 +412,15 @@ def cholesky_decompose(mat, mode: str = "auto", block_size: int | None = None,
     _require_square(mat)
     _resolve_schedule(schedule, 1, op="cholesky")  # arg validation in EVERY mode
     n = mat.num_rows()
+    if _ranked(mat) and not _mode_to_local(mode, n):
+        from .rows import cholesky_rows
+
+        b = min(block_size or get_config().cholesky_base_size, n)
+        lay = _row_layout(mat, b)
+        sched = _resolve_schedule(schedule, lay.n_pad // b, op="cholesky")
+        with precision_scope("highest"):
+            l_rows = cholesky_rows(lay, lay.load(mat), b, sched)
+        return lay.store(l_rows, mat)
     a = mat.logical()
     with precision_scope("highest"):
         if _mode_to_local(mode, n):
@@ -414,6 +459,18 @@ def inverse(mat, mode: str = "auto", block_size: int | None = None,
     _require_pivot(pivot)
     _resolve_schedule(schedule, 1, pivot)  # arg validation in EVERY mode
     n = mat.num_rows()
+    if _ranked(mat) and not _mode_to_local(mode, n):
+        from .rows import backward, eye_rows, forward, triangles
+
+        b = min(block_size or get_config().inverse_base_size, n)
+        with precision_scope("highest"):
+            lay, lu, perm = _lu_ranks(mat, b, pivot, schedule)
+            l, u = triangles(lay, lu)
+            # A[perm] = L U  =>  A^{-1} = (U^{-1} L^{-1}) P
+            w = backward(lay, u, forward(lay, l, eye_rows(lay, lu.dtype,
+                                                          lu.device), True))
+            inv = w[:, torch.argsort(perm)]
+        return lay.store(inv, mat)
     a = mat.logical()
     with precision_scope("highest"):
         if _mode_to_local(mode, n):

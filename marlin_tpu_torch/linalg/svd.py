@@ -13,6 +13,12 @@ values are.
 The start vector is the JAX package's own, ``jax.random.normal(key(seed),
 (n,))``, drawn by :func:`marlin_tpu_torch.threefry.normal`, so a Lanczos run
 here follows the reference's basis (to the last place of ``erfinv``).
+
+On a mesh over ``torch.distributed`` ranks ``dist-eigs`` keeps the matrix in
+row blocks (a BlockMatrix is redistributed to rows): each matvec is the
+rank's ``Aᵢᵀ(Aᵢ v)`` and one all-reduce over the rows axis, the small basis
+is whole on every rank, and ``U`` comes back rank-local in the input's
+layout. The ``local-*`` modes gather the matrix, as their size rule allows.
 """
 
 from __future__ import annotations
@@ -90,8 +96,15 @@ def symmetric_eigs(matvec, n: int, k: int, num_iters: int | None = None,
     DenseVecMatrix.scala:1743-1834). The start vector lies on the configured
     device. Returns (eigenvalues descending, vectors (n, k)), tensors
     there."""
+    return lanczos_op(matvec, n, k, dtype, resolve_device(), num_iters, seed)
+
+
+def lanczos_op(matvec, n: int, k: int, dtype, device,
+               num_iters: int | None = None, seed: int = 0):
+    """Top-k eigenpairs of the symmetric operator ``matvec`` on ``device``
+    (:func:`lanczos` with the operator given)."""
     num_iters = _resolve_iters(n, k, num_iters)
-    v0 = normal(prng_key(seed, resolve_device()), (n,), dtype)
+    v0 = normal(prng_key(seed, device), (n,), dtype)
     with precision_scope("highest"):
         alphas, betas, qs = _lanczos_scan(matvec, v0, num_iters)
         return _ritz_topk(alphas, betas, qs, k, num_iters)
@@ -102,13 +115,8 @@ def lanczos(a: torch.Tensor, k: int, num_iters: int | None = None,
     """Top-k eigenpairs of AᵀA — the specialisation the SVD path uses (the
     role of ARPACK ``dsaupd``/``dseupd`` in the reference), on ``a``'s
     device."""
-    n = a.shape[1]
-    num_iters = _resolve_iters(n, k, num_iters)
-    v0 = normal(prng_key(seed, a.device), (n,), a.dtype)
-    with precision_scope("highest"):
-        alphas, betas, qs = _lanczos_scan(lambda v: a.T @ (a @ v), v0,
-                                          num_iters)
-        return _ritz_topk(alphas, betas, qs, k, num_iters)
+    return lanczos_op(lambda v: a.T @ (a @ v), a.shape[1], k, a.dtype,
+                      a.device, num_iters, seed)
 
 
 def compute_svd(mat, k: int, mode: str = "auto", compute_u: bool = True,
@@ -134,6 +142,8 @@ def compute_svd(mat, k: int, mode: str = "auto", compute_u: bool = True,
         else:
             mode = "dist-eigs"
 
+    if mode == "dist-eigs" and getattr(mat.mesh, "ranks", None) is not None:
+        return _dist_eigs_ranks(mat, k, compute_u, rcond, seed)
     a = mat.logical()
     with precision_scope("highest"):
         if mode == "local-svd":
@@ -161,3 +171,31 @@ def compute_svd(mat, k: int, mode: str = "auto", compute_u: bool = True,
             # U = A V Σ^{-1} (DenseVecMatrix.scala:1632-1650)
             u = mat._wrap((a @ v) / torch.clamp(s, min=1e-30)[None, :])
     return SVDResult(u, s.cpu().numpy(), v.cpu().numpy())
+
+
+def _dist_eigs_ranks(mat, k: int, compute_u: bool, rcond: float, seed: int
+                     ) -> SVDResult:
+    """``dist-eigs`` on row blocks over ranks (see the module docstring)."""
+    from ..matrix.dense import _reduce
+
+    rows = mat if len(mat.spec) < 2 or mat.spec[1] is None \
+        else mat.to_dense_vec_matrix()
+    a = rows.data
+    axis = rows.spec[0]
+    n = mat.num_cols()
+    with precision_scope("highest"):
+        evals_k, v = lanczos_op(lambda x: _reduce(a.T @ (a @ x), rows.mesh,
+                                                  (axis,)),
+                                n, k, a.dtype, a.device, seed=seed)
+        s = torch.sqrt(torch.clamp(evals_k, min=0.0))
+        keep = int(torch.sum(s > (s[0] * rcond)))
+        s, v = s[:keep], v[:, :keep]
+        u = None
+        if compute_u:
+            u_rows = (a @ v) / torch.clamp(s, min=1e-30)[None, :]
+            u = rows._from_local(u_rows, (mat.num_rows(), keep),
+                                 (axis, None))
+            if u.spec != mat.spec:
+                u = u.reshard(mat.spec)
+    return SVDResult(u, s.cpu().numpy(), v.cpu().numpy())
+

@@ -23,7 +23,9 @@ class DistributedMatrix(abc.ABC):
 
     @abc.abstractmethod
     def to_numpy(self) -> np.ndarray:
-        """Collect and assemble a local dense matrix (toBreeze analog)."""
+        """Collect and assemble a local dense matrix (toBreeze analog). On a
+        mesh over ``torch.distributed`` ranks it is collective: every rank
+        calls it, and each gets the whole matrix by one all-gather."""
 
     @abc.abstractmethod
     def add(self, other): ...

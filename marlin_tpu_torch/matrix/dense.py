@@ -5,14 +5,27 @@ distributed types, row-partitioned ``DenseVecMatrix``
 (matrix/DenseVecMatrix.scala:41-44) and 2-D block-partitioned ``BlockMatrix``
 (matrix/BlockMatrix.scala:28); the JAX package makes both one global array
 with a sharding ``("rows", None)`` or ``("rows", "cols")`` over a mesh. Here
-the mesh is a world of one (mesh.py), so a matrix is one tensor on one device
-and the spec is kept as the layout's name.
+a matrix is a tensor, its logical ``shape``, a mesh and the spec:
 
-``data`` may be zero-padded beyond the logical ``shape`` (the JAX package
-pads to the mesh grid; at world size 1 the grid divides everything, so
-padding arises only from data built that way). The invariant *pad region is
-always zero* holds as in the JAX package: ops that would break it (scalar
-add, divides) re-mask.
+- In a world of one (no process group) the tensor is the whole matrix on
+  one device. ``data`` may be zero-padded beyond ``shape`` only where it
+  was built that way: the grid divides everything.
+- On a mesh over ``torch.distributed`` ranks (``mesh.over_ranks``) ``data``
+  is only this rank's block of the matrix zero-padded to the grid (the JAX
+  package's ``_grid_divisors`` + ``pad_to_multiple`` rule), the block JAX's
+  addressable shard holds at the same grid coordinate; a spec axis that is
+  ``None`` holds the whole dimension. Every method is then collective:
+  every rank calls it, in the same order. Blocks move between layouts
+  through ``parallel/collectives.py`` (transpose, reshard, the ``to_*``
+  conversions, the binds, the slices and ``repeat_by_*`` by
+  :func:`~marlin_tpu_torch.parallel.collectives.remap`); reductions
+  all-reduce over the split axes. The whole logical matrix forms on a rank
+  only in :meth:`logical` / :meth:`to_numpy`, :meth:`__getitem__`, the
+  prints, the text save (on its writer) and the ``local-*`` linalg modes,
+  each by one all-gather.
+
+The invariant *pad region is always zero* holds as in the JAX package: ops
+that would break it (scalar add, divides) re-mask.
 
 The factorizations, ``compute_svd``, ``solve`` and ``lr`` delegate to
 ``marlin_tpu_torch.linalg`` and ``marlin_tpu_torch.ml``, and the ``save_*``
@@ -32,9 +45,9 @@ import torch.nn.functional as F
 from ..config import get_config
 from ..interop import to_tensor
 from ..mesh import (COLS, ROWS, Mesh, Sharding, default_mesh,
-                    pad_to_multiple)
+                    pad_to_multiple, rank_grid)
 from ..ops.local import local_matmul, matvec
-from ..random import random_array
+from ..random import random_array, random_block
 from .base import DistributedMatrix
 
 __all__ = ["DenseMatrix", "DenseVecMatrix", "BlockMatrix"]
@@ -49,8 +62,54 @@ def _grid_divisors(mesh: Mesh, spec: tuple) -> tuple[int, int]:
     return tuple(out)
 
 
+def _col():
+    """``parallel.collectives``, imported at first use (the ``parallel``
+    package imports this module)."""
+    from ..parallel import collectives
+
+    return collectives
+
+
 def _is_scalar(x) -> bool:
     return isinstance(x, (int, float)) or getattr(x, "ndim", None) == 0
+
+
+def _ranked(mesh) -> bool:
+    """Whether ``mesh`` lies over ``torch.distributed`` ranks: its matrices
+    then hold one block each."""
+    return getattr(mesh, "ranks", None) is not None
+
+
+def _cut(arr, bounds):
+    """The block ``bounds`` of ``arr`` zero-padded (a numpy array or a
+    tensor), without padding the whole."""
+    shape = tuple(b - a for a, b in bounds)
+    src = tuple(slice(min(a, n), min(b, n))
+                for (a, b), n in zip(bounds, arr.shape))
+    part = arr[src]
+    if tuple(part.shape) == shape:
+        return part
+    if isinstance(arr, torch.Tensor):
+        out = torch.zeros(shape, dtype=arr.dtype, device=arr.device)
+    else:
+        out = np.zeros(shape, dtype=arr.dtype)
+    out[tuple(slice(0, n) for n in part.shape)] = part
+    return out
+
+
+def _reduce(x: torch.Tensor, mesh, axes, op="sum") -> torch.Tensor:
+    """``x`` summed (or maxed) over the named mesh ``axes`` of a mesh over
+    ranks; itself elsewhere."""
+    if not _ranked(mesh):
+        return x
+    import torch.distributed as dist
+
+    x = x.contiguous().clone()
+    red = dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX
+    for ax in dict.fromkeys(a for a in axes if a is not None):
+        if mesh.shape[ax] > 1:
+            dist.all_reduce(x, red, group=mesh.group(ax))
+    return x
 
 
 class DenseMatrix(DistributedMatrix):
@@ -68,9 +127,45 @@ class DenseMatrix(DistributedMatrix):
     @property
     def sharding(self):
         """The layout as a :class:`~marlin_tpu_torch.mesh.Sharding` over the
-        mesh (the JAX package's ``NamedSharding``); ``.local(data)`` cuts a
-        rank's block. The tensor itself stays whole on every rank."""
+        mesh (the JAX package's ``NamedSharding``). Over ranks ``data`` is
+        its block at this rank's coordinate (:meth:`Sharding.bounds`)."""
         return Sharding(self.mesh, self.spec)
+
+    @property
+    def _over_ranks(self) -> bool:
+        return _ranked(self.mesh)
+
+    @property
+    def _padded_shape(self) -> tuple[int, int]:
+        """The global padded shape whose block ``data`` is."""
+        gr, gc = _grid_divisors(self.mesh, self.spec)
+        return (self.data.shape[0] * gr, self.data.shape[1] * gc)
+
+    def _from_local(self, local: torch.Tensor, shape, spec: tuple | None = None,
+                    mesh: Mesh | None = None) -> "DenseMatrix":
+        """A matrix of this rank's block ``local`` of a ``shape`` result,
+        the class chosen from the spec."""
+        spec = spec if spec is not None else self.spec
+        klass = BlockMatrix if (len(spec) > 1 and spec[1] is not None) \
+            else DenseVecMatrix
+        return klass(local, shape, mesh or self.mesh, spec)
+
+    def _remap(self, items, shape, spec=None, mesh=None, dtype=None
+               ) -> "DenseMatrix":
+        """A ``shape`` result assembled from rectangles of matrices
+        (``(matrix, region, at, transpose)``) in this matrix's layout (or
+        ``spec`` on ``mesh``), by one
+        :func:`~marlin_tpu_torch.parallel.collectives.remap`: the
+        transpose, binds, slices, repeats and re-layouts of every world
+        (a world of one copies its pieces in place)."""
+        mesh = mesh or self.mesh
+        dst = Sharding(mesh, spec if spec is not None else self.spec)
+        local = _col().remap(
+            [(m.data, m.sharding, m._padded_shape, region, at, tr)
+             for m, region, at, tr in items],
+            dst, dst.padded_shape(shape), dtype=dtype or self.dtype,
+            device=mesh.device)
+        return self._from_local(local, shape, dst.spec, mesh)
 
     # ------------------------------------------------------------- factories
     @classmethod
@@ -83,20 +178,39 @@ class DenseMatrix(DistributedMatrix):
     ) -> "DenseMatrix":
         mesh = mesh or default_mesh()
         spec = spec if spec is not None else cls._default_spec
+        if _ranked(mesh):
+            return cls._from_array_ranks(arr, mesh, spec, dtype)
         arr = to_tensor(arr, dtype, mesh.device)
-        if arr.ndim != 2:
-            raise ValueError(f"expected a 2-D array, got shape {tuple(arr.shape)}")
+        cls._check_2d(arr.shape)
         m, n = arr.shape
-        if m == 0 or n == 0:
-            # parity with the reference's empty-RDD IllegalArgumentException
-            # (DistributedMatrixSuite.scala:53-71)
-            raise ValueError(f"cannot build a distributed matrix with shape "
-                             f"{tuple(arr.shape)}")
         gr, gc = _grid_divisors(mesh, spec)
         mp, np_ = pad_to_multiple(m, gr), pad_to_multiple(n, gc)
         if (mp, np_) != (m, n):
             arr = F.pad(arr, (0, np_ - n, 0, mp - m))
         return cls(arr, (m, n), mesh, spec)
+
+    @staticmethod
+    def _check_2d(shape) -> None:
+        if len(shape) != 2:
+            raise ValueError(f"expected a 2-D array, got shape {tuple(shape)}")
+        if shape[0] == 0 or shape[1] == 0:
+            # parity with the reference's empty-RDD IllegalArgumentException
+            # (DistributedMatrixSuite.scala:53-71)
+            raise ValueError(f"cannot build a distributed matrix with shape "
+                             f"{tuple(shape)}")
+
+    @classmethod
+    def _from_array_ranks(cls, arr, mesh, spec, dtype):
+        """This rank's block of ``arr`` (every rank passes the whole), cut
+        before it moves to the device."""
+        if not isinstance(arr, torch.Tensor):
+            arr = np.asarray(arr)
+        cls._check_2d(arr.shape)
+        shape = tuple(int(d) for d in arr.shape)
+        sh = Sharding(mesh, spec)
+        block = _cut(arr, sh.bounds(sh.padded_shape(shape)))
+        return cls(to_tensor(block, dtype, mesh.device).contiguous(), shape,
+                   mesh, spec)
 
     @classmethod
     def random(
@@ -111,15 +225,24 @@ class DenseMatrix(DistributedMatrix):
         **kwargs,
     ) -> "DenseMatrix":
         """Random factory (MTUtils.randomDenVecMatrix / randomBlockMatrix,
-        utils/MTUtils.scala:34-134): the data is generated on the device."""
+        utils/MTUtils.scala:34-134): the data is generated on the device.
+        Over ranks each rank draws only its block, by counter
+        (:func:`~marlin_tpu_torch.random.random_block`): the JAX package's
+        matrix on a device mesh of the same grid."""
         mesh = mesh or default_mesh()
         spec = spec if spec is not None else cls._default_spec
         gr, gc = _grid_divisors(mesh, spec)
         mp, np_ = pad_to_multiple(rows, gr), pad_to_multiple(cols, gc)
-        data = random_array(seed_or_key, (mp, np_), dist=dist, dtype=dtype,
-                            device=mesh.device, **kwargs)
+        if _ranked(mesh):
+            data = random_block(seed_or_key, (mp, np_),
+                                Sharding(mesh, spec).bounds((mp, np_)),
+                                dist=dist, dtype=dtype, device=mesh.device,
+                                **kwargs)
+        else:
+            data = random_array(seed_or_key, (mp, np_), dist=dist,
+                                dtype=dtype, device=mesh.device, **kwargs)
         mat = cls(data, (rows, cols), mesh, spec)
-        if (mp, np_) != (rows, cols):
+        if (mp, np_) != (rows, cols) and dist != "zeros":
             mat.data = mat._mask_padded(mat.data)
         return mat
 
@@ -151,23 +274,29 @@ class DenseMatrix(DistributedMatrix):
         return tuple(self.data.shape) != self._shape
 
     def logical(self) -> torch.Tensor:
-        """The unpadded (m, n) view."""
+        """The unpadded (m, n) view; over ranks the whole matrix, gathered
+        by one all-gather (collective)."""
         m, n = self._shape
+        if self._over_ranks:
+            return _col().gather_logical(self.data, self.sharding, self._shape,
+                                      self._padded_shape)
         return self.data if not self._padded else self.data[:m, :n]
 
     def to_numpy(self) -> np.ndarray:
         """The logical matrix on the host (bf16 comes back as float32: numpy
-        has no bf16 of its own)."""
+        has no bf16 of its own); over ranks gathered on every rank."""
         t = self.logical().detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
     def _mask_padded(self, x: torch.Tensor) -> torch.Tensor:
-        """Restore the zero-pad invariant on a padded-shape tensor."""
+        """Restore the zero-pad invariant on a padded-shape tensor (over
+        ranks: on this rank's block, by its global offsets)."""
         m, n = self._shape
-        if tuple(x.shape) == (m, n):
+        (r0, r1), (c0, c1) = self.sharding.bounds(self._padded_shape)
+        if r1 <= m and c1 <= n:
             return x
-        r = torch.arange(x.shape[0], device=x.device)[:, None] < m
-        c = torch.arange(x.shape[1], device=x.device)[None, :] < n
+        r = torch.arange(r0, r0 + x.shape[0], device=x.device)[:, None] < m
+        c = torch.arange(c0, c0 + x.shape[1], device=x.device)[None, :] < n
         return torch.where(r & c, x, torch.zeros((), dtype=x.dtype,
                                                  device=x.device))
 
@@ -182,7 +311,8 @@ class DenseMatrix(DistributedMatrix):
         return klass.from_array(arr, self.mesh, spec)
 
     def _operand_data(self, other: "DenseMatrix") -> torch.Tensor:
-        """Other's data aligned to self's mesh/spec/padding."""
+        """Other's data aligned to self's mesh/spec/padding (itself where
+        the blocks already agree)."""
         if other.shape != self.shape:
             raise ValueError(f"dimension mismatch: {self.shape} vs {other.shape}")
         if (
@@ -191,8 +321,15 @@ class DenseMatrix(DistributedMatrix):
             and other.data.shape == self.data.shape
         ):
             return other.data
-        aligned = type(self).from_array(other.logical(), self.mesh, self.spec)
-        return aligned.data
+        self._same_world(other)
+        return _col().redistribute(other.data.to(self.device), other.sharding,
+                                   self.sharding, self._shape,
+                                   other._padded_shape, self._padded_shape)
+
+    def _same_world(self, other: "DenseMatrix") -> None:
+        if self._over_ranks != other._over_ranks:
+            raise ValueError("a matrix over ranks meets one of a world of "
+                             "one: build both on meshes over the ranks")
 
     # ----------------------------------------------------------- arithmetic
     def _binary(self, other, fn, remask_scalar=False, remask_matrix=False):
@@ -238,7 +375,8 @@ class DenseMatrix(DistributedMatrix):
     def sum(self) -> torch.Tensor:
         # reductions mask explicitly rather than trusting the zero-pad
         # invariant, as the JAX package does
-        return torch.sum(self._mask_padded(self.data))
+        return _reduce(torch.sum(self._mask_padded(self.data)), self.mesh,
+                       self.spec)
 
     def elements_count(self) -> int:
         return self.num_rows()
@@ -246,9 +384,12 @@ class DenseMatrix(DistributedMatrix):
     def norm(self, mode: str = "fro") -> torch.Tensor:
         """Matrix norms (DenseVecMatrix.norm, DenseVecMatrix.scala:975-999):
         "1" and "inf" (largest column/row sum), "fro", and "2" by power
-        iteration."""
+        iteration. Over ranks each reduction all-reduces over the split
+        axes."""
         m, n = self._shape
         data = self._mask_padded(self.data)  # see sum()
+        if self._over_ranks:
+            return self._norm_ranks(data, mode)
         if mode == "1":
             return torch.max(torch.sum(torch.abs(data), dim=0)[:n])
         if mode == "inf":
@@ -258,6 +399,44 @@ class DenseMatrix(DistributedMatrix):
         if mode == "2":
             return _power_iteration_norm2(data)
         raise ValueError(f"unknown norm mode: {mode}")
+
+    def _norm_ranks(self, data, mode):
+        ra, ca = (self.spec + (None, None))[:2]
+        if mode in ("1", "inf"):
+            dim, along, across = (0, ra, ca) if mode == "1" else (1, ca, ra)
+            sums = _reduce(torch.sum(torch.abs(data), dim=dim), self.mesh,
+                           (along,))
+            return _reduce(torch.max(sums), self.mesh, (across,), "max")
+        if mode == "fro":
+            return torch.sqrt(_reduce(torch.sum(data * data), self.mesh,
+                                      self.spec))
+        if mode == "2":
+            n = self._padded_shape[1]
+            v = torch.ones((n,), dtype=data.dtype, device=data.device) \
+                / math.sqrt(n)
+            for _ in range(50):
+                w = self._rmatvec(self._matvec(v, "highest"), "highest")
+                v = w / (torch.linalg.vector_norm(w) + 1e-30)
+            return torch.linalg.vector_norm(self._matvec(v, "highest"))
+        raise ValueError(f"unknown norm mode: {mode}")
+
+    def _matvec(self, v: torch.Tensor, precision) -> torch.Tensor:
+        """``data @ v`` over ranks: ``v`` and the result whole padded
+        vectors on every rank (each rank's block times its slice of ``v``,
+        summed over the split axes)."""
+        (r0, r1), (c0, c1) = self.sharding.bounds(self._padded_shape)
+        y = torch.zeros((self._padded_shape[0],), dtype=self.dtype,
+                        device=self.device)
+        y[r0:r1] = local_matmul(self.data, v[c0:c1], precision)
+        return _reduce(y, self.mesh, self.spec)
+
+    def _rmatvec(self, y: torch.Tensor, precision) -> torch.Tensor:
+        """``data.T @ y`` over ranks, as :meth:`_matvec`."""
+        (r0, r1), (c0, c1) = self.sharding.bounds(self._padded_shape)
+        z = torch.zeros((self._padded_shape[1],), dtype=self.dtype,
+                        device=self.device)
+        z[c0:c1] = local_matmul(self.data.T, y[r0:r1], precision)
+        return _reduce(z, self.mesh, self.spec)
 
     # -------------------------------------------------------------- matmul
     def multiply(
@@ -272,8 +451,11 @@ class DenseMatrix(DistributedMatrix):
         broadcastThreshold, DenseVecMatrix.scala:196-231; BlockMatrix.multiply,
         BlockMatrix.scala:87-220). Scalars do elementwise scaling; vectors do
         mat-vec; matrices dispatch over the strategies of
-        marlin_tpu_torch.parallel.matmul, each of which is one
-        ``torch.matmul`` on one device."""
+        marlin_tpu_torch.parallel.matmul: one ``torch.matmul`` in a world of
+        one; over ranks each strategy takes the operands' blocks and leaves
+        C in the out spec's blocks (``matmul_padded``), except ``ring`` and
+        an RMM split that does not fill the mesh, which gather their
+        inputs."""
         from ..parallel.matmul import matmul as _matmul
         from ..parallel.matmul import matmul_padded
         from .vector import DistributedVector
@@ -293,9 +475,13 @@ class DenseMatrix(DistributedMatrix):
 
         if isinstance(other, DenseMatrix):
             b_pad, (kb, n) = other.data.to(self.device), other.shape
+            b_layout = (other.sharding, other._padded_shape)
+            if self._over_ranks:
+                self._same_world(other)
         else:
             b_pad = to_tensor(other, device=self.device)
             kb, n = b_pad.shape
+            b_layout = (Sharding(self.mesh, ()), (kb, n))  # whole on every rank
         m, k = self.shape
         if k != kb:
             raise ValueError(f"inner dim mismatch: {self.shape} @ {(kb, n)}")
@@ -303,6 +489,10 @@ class DenseMatrix(DistributedMatrix):
         gr, gc = _grid_divisors(self.mesh, out_spec)
         out_pad = (pad_to_multiple(m, gr), pad_to_multiple(n, gc))
         klass = BlockMatrix if out_spec[1] is not None else DenseVecMatrix
+        layouts = None
+        if self._over_ranks:
+            layouts = ((self.sharding, self._padded_shape), b_layout,
+                       (Sharding(self.mesh, out_spec), out_pad))
 
         c_pad = matmul_padded(
             self.data,
@@ -314,11 +504,15 @@ class DenseMatrix(DistributedMatrix):
             split=split,
             broadcast_threshold_mb=broadcast_threshold_mb,
             precision=precision,
+            layouts=layouts,
         )
         if c_pad is not None:
             return klass(c_pad, (m, n), self.mesh, out_spec)
 
-        # logical-tensor path (ring, or an RMM split that does not fill the mesh)
+        # logical-tensor path (ring, or an RMM split that does not fill the
+        # mesh): over ranks its inputs are gathered
+        if self._over_ranks and not isinstance(other, DenseMatrix):
+            b_pad = b_pad[:kb, :n]
         c = _matmul(
             self.logical(),
             other.logical().to(self.device) if isinstance(other, DenseMatrix)
@@ -344,8 +538,9 @@ class DenseMatrix(DistributedMatrix):
              else to_tensor(vec, device=self.device))
         if v.shape[0] != self.num_cols():
             raise ValueError(f"mat-vec dim mismatch: {self.shape} @ {tuple(v.shape)}")
-        v = F.pad(v.to(self.device), (0, self.data.shape[1] - v.shape[0]))
-        y = matvec(self.data, v, "highest")
+        v = F.pad(v.to(self.device), (0, self._padded_shape[1] - v.shape[0]))
+        y = (self._matvec(v, "highest") if self._over_ranks
+             else matvec(self.data, v, "highest"))
         return DistributedVector.from_array(y[: self.num_rows()], self.mesh)
 
     def multiply_gramian_by(self, v, precision: str | None = None):
@@ -356,8 +551,13 @@ class DenseMatrix(DistributedMatrix):
 
         vec = (v.logical() if isinstance(v, DistributedVector)
                else to_tensor(v, device=self.device))
-        a = self.logical()
         p = precision or get_config().matmul_precision
+        if self._over_ranks:
+            vec = F.pad(vec.to(self.device),
+                        (0, self._padded_shape[1] - vec.shape[0]))
+            out = self._rmatvec(self._matvec(vec, p), p)[:self.num_cols()]
+            return DistributedVector.from_array(out, self.mesh)
+        a = self.logical()
         out = local_matmul(a.T, local_matmul(a, vec, p), p)
         return DistributedVector.from_array(out, self.mesh)
 
@@ -367,6 +567,9 @@ class DenseMatrix(DistributedMatrix):
         perm = np.asarray(permutation)
         if perm.shape[0] != self.num_rows():
             raise ValueError("permutation length must equal the row count")
+        if self._over_ranks:
+            return self._like(_col().permute_rows(self.data, self.sharding,
+                                               self._padded_shape, perm))
         return self._wrap(self.logical()[torch.as_tensor(perm, device=self.device)])
 
     def gramian(self, precision: str | None = None):
@@ -375,23 +578,47 @@ class DenseMatrix(DistributedMatrix):
         DenseVecMatrix.scala:1444-1486)."""
         from ..parallel.matmul import gspmd_matmul
 
-        g = gspmd_matmul(self.data.T, self.data, self.mesh, precision=precision)
         n = self.num_cols()
+        if self._over_ranks:
+            # each row block's AᵀA (its columns gathered along the row),
+            # summed by a reduce-scatter into the result's blocks
+            rows = Sharding(self.mesh, (self.spec[0], None))
+            a = _col().redistribute(self.data, self.sharding, rows, self._shape,
+                                 self._padded_shape,
+                                 (self._padded_shape[0], n))
+            part = local_matmul(a.T, a, precision
+                                or get_config().matmul_precision)
+            out = Sharding(self.mesh, self.spec)
+            g = _col().reduce_to(part, rows.replica_id() == 0, out,
+                              out.padded_shape((n, n)), (n, n))
+            return self._from_local(g, (n, n))
+        g = gspmd_matmul(self.data.T, self.data, self.mesh, precision=precision)
         return self._wrap(g[:n, :n])
 
     # ------------------------------------------------------------ structure ops
+    def _whole(self):
+        return ((0, self._shape[0]), (0, self._shape[1]))
+
     def transpose(self):
-        return self._wrap(self.logical().T)
+        m, n = self._shape
+        return self._remap([(self, self._whole(), (0, 0), True)], (n, m))
 
     def _bind(self, other, axis: int, label: str):
-        other_arr = (other.logical() if isinstance(other, DenseMatrix)
-                     else to_tensor(other, device=self.device))
-        if other_arr.shape[1 - axis] != self._shape[1 - axis]:
+        if not isinstance(other, DenseMatrix):
+            other = type(self).from_array(other, self.mesh, self.spec)
+        self._same_world(other)
+        if other.shape[1 - axis] != self._shape[1 - axis]:
             raise ValueError(
                 f"{label}: {'row' if axis == 1 else 'column'} count mismatch"
             )
-        return self._wrap(torch.cat([self.logical(), other_arr.to(self.device)],
-                                    dim=axis))
+        shape = list(self._shape)
+        shape[axis] += other.shape[axis]
+        at = [0, 0]
+        at[axis] = self._shape[axis]
+        return self._remap([(self, self._whole(), (0, 0), False),
+                            (other, other._whole(), tuple(at), False)],
+                           tuple(shape),
+                           dtype=torch.promote_types(self.dtype, other.dtype))
 
     def c_bind(self, other):
         """Column concatenation (DenseVecMatrix.cBind, DenseVecMatrix.scala:238-252)."""
@@ -405,20 +632,23 @@ class DenseMatrix(DistributedMatrix):
     def slice_by_row(self, start_row: int, end_row: int):
         """Inclusive row range (DenseVecMatrix.sliceByRow, :928-939)."""
         self._check_range(start_row, end_row, self.num_rows())
-        return self._wrap(self.logical()[start_row : end_row + 1, :])
+        return self._sub(start_row, end_row, 0, self.num_cols() - 1)
 
     def slice_by_column(self, start_col: int, end_col: int):
         """Inclusive column range (DenseVecMatrix.sliceByColumn, :941-947)."""
         self._check_range(start_col, end_col, self.num_cols())
-        return self._wrap(self.logical()[:, start_col : end_col + 1])
+        return self._sub(0, self.num_rows() - 1, start_col, end_col)
 
     def get_sub_matrix(self, start_row: int, end_row: int, start_col: int, end_col: int):
         """Inclusive submatrix (DenseVecMatrix.getSubMatrix, :956-964)."""
         self._check_range(start_row, end_row, self.num_rows())
         self._check_range(start_col, end_col, self.num_cols())
-        return self._wrap(
-            self.logical()[start_row : end_row + 1, start_col : end_col + 1]
-        )
+        return self._sub(start_row, end_row, start_col, end_col)
+
+    def _sub(self, r0: int, r1: int, c0: int, c1: int):
+        """The inclusive submatrix."""
+        return self._remap([(self, ((r0, r1 + 1), (c0, c1 + 1)), (0, 0),
+                             False)], (r1 - r0 + 1, c1 - c0 + 1))
 
     @staticmethod
     def _check_range(start, end, limit):
@@ -430,24 +660,30 @@ class DenseMatrix(DistributedMatrix):
         cols×times (MTUtils.repeatByRow, utils/MTUtils.scala:446-464)."""
         if times < 1:
             raise ValueError(f"repeat times: {times} illegal")
-        return self._wrap(torch.tile(self.logical(), (1, times)))
+        m, n = self._shape
+        return self._remap([(self, self._whole(), (0, t * n), False)
+                            for t in range(times)], (m, n * times))
 
     def repeat_by_column(self, times: int):
         """Stack the matrix vertically ``times`` times, growing rows×times
         (MTUtils.repeatByColumn, utils/MTUtils.scala:471-491)."""
         if times < 1:
             raise ValueError(f"repeat times: {times} illegal")
-        return self._wrap(torch.tile(self.logical(), (times, 1)))
+        m, n = self._shape
+        return self._remap([(self, self._whole(), (t * m, 0), False)
+                            for t in range(times)], (m * times, n))
 
     # ------------------------------------------------------------ conversions
     def to_block_matrix(self, mesh: Mesh | None = None) -> "BlockMatrix":
         """The 2-D block layout (DenseVecMatrix.toBlockMatrix,
         DenseVecMatrix.scala:1226-1328)."""
-        return BlockMatrix.from_array(self.logical(), mesh or self.mesh)
+        return self._remap([(self, self._whole(), (0, 0), False)],
+                           self._shape, (ROWS, COLS), mesh)
 
     def to_dense_vec_matrix(self, mesh: Mesh | None = None) -> "DenseVecMatrix":
         """The row layout (BlockMatrix.toDenseVecMatrix, BlockMatrix.scala:575-594)."""
-        return DenseVecMatrix.from_array(self.logical(), mesh or self.mesh)
+        return self._remap([(self, self._whole(), (0, 0), False)],
+                           self._shape, (ROWS, None), mesh)
 
     def to_sparse_vec_matrix(self, tol: float = 0.0):
         """Dense → sparse conversion (DenseVecMatrix.toSparseVecMatrix,
@@ -455,6 +691,10 @@ class DenseMatrix(DistributedMatrix):
         dropped."""
         from .sparse import SparseVecMatrix
 
+        if self._over_ranks:
+            raise NotImplementedError(
+                "to_sparse_vec_matrix over ranks: the sparse matrices hold "
+                "their whole triplets (ROADMAP queue 1 item 15)")
         arr = self.logical()
         if tol > 0.0:
             arr = torch.where(arr.abs() > tol, arr,
@@ -473,15 +713,27 @@ class DenseMatrix(DistributedMatrix):
         )
         if local.shape[1] != self.num_rows():
             raise ValueError(f"inner dim mismatch: {tuple(local.shape)} @ {self.shape}")
+        if self._over_ranks:
+            # the local operand replicated, this matrix's columns over every
+            # rank (broadcast_matmul's "a" split), then the result's blocks
+            flat = rank_grid((self.mesh.size,), ("all",))
+            cols = Sharding(flat, (None, "all"))
+            blk = _col().redistribute(self.data, self.sharding, cols,
+                                   self._shape, self._padded_shape)
+            c = local_matmul(local, blk, precision)
+            shape = (local.shape[0], self.num_cols())
+            out = Sharding(self.mesh, self.spec)
+            return self._from_local(
+                _col().redistribute(c, cols, out, shape,
+                                 cols.padded_shape(shape)), shape)
         out = broadcast_matmul(local, self.logical(), self.mesh, "a", precision)
         return self._wrap(out)
 
     def reshard(self, spec: tuple, mesh: Mesh | None = None) -> "DenseMatrix":
         """General re-layout (the analog of BlockMatrix.toBlockMatrix(r, c)
         re-blocking, BlockMatrix.scala:610-665)."""
-        return self._wrap(self.logical(), spec) if mesh is None else type(self).from_array(
-            self.logical(), mesh, spec
-        )
+        return self._remap([(self, self._whole(), (0, 0), False)],
+                           self._shape, tuple(spec), mesh)
 
     # --------------------------------------------------------- factorizations
     def lu_decompose(self, mode: str = "auto", **kwargs):
@@ -541,7 +793,8 @@ class DenseMatrix(DistributedMatrix):
         save_matrix(self, path, fmt=fmt, description=True)
 
     def print_matrix(self, max_rows: int = 10, max_cols: int = 10):
-        """Truncated dump (DistributedMatrix.print, DenseVecMatrix.scala:1401-1408)."""
+        """Truncated dump (DistributedMatrix.print, DenseVecMatrix.scala:1401-1408);
+        over ranks gathered (collective)."""
         arr = self.to_numpy()
         print(arr[: min(max_rows, arr.shape[0]), : min(max_cols, arr.shape[1])])
 
@@ -551,7 +804,8 @@ class DenseMatrix(DistributedMatrix):
     def __getitem__(self, key):
         """NumPy-style 2-D slicing returning a submatrix (no reference
         analog — sliceByRow/sliceByColumn cover inclusive ranges). Integer
-        indices are bounds-checked."""
+        indices are bounds-checked. Over ranks the matrix is gathered first
+        (collective)."""
         if not isinstance(key, tuple) or len(key) != 2:
             raise TypeError("expected 2-D index like m[rows, cols]")
         for idx, limit in zip(key, self._shape):

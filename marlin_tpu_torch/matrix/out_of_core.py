@@ -151,7 +151,8 @@ class OutOfCoreMatrix:
     def to_dense_vec_matrix(self, mesh=None):
         """Load fully onto the card (only when it fits). float64 data lands
         in the configured default dtype, as the JAX package's float64 host
-        arrays land in float32."""
+        arrays land in float32. On a mesh over ranks each rank reads only
+        its rows."""
         from ..config import get_config
         from ..interop import torch_dtype
         from .dense import DenseVecMatrix
@@ -163,6 +164,8 @@ class OutOfCoreMatrix:
                 data, mesh, dtype=get_config().default_dtype
                 if dt == torch.float64 else None)
 
+        if getattr(mesh, "ranks", None) is not None:
+            return self._rank_rows(mesh)
         if self._source is None:
             return wrap(self._array)
         # fill a single preallocated buffer — buffering all chunks and
@@ -182,6 +185,26 @@ class OutOfCoreMatrix:
         if pos != self._shape[0]:
             raise ValueError(f"chunk source yielded {pos} rows, expected {self._shape[0]}")
         return wrap(buf)
+
+    def _rank_rows(self, mesh):
+        """Over ranks: this rank's block of the rows, read alone
+        (:meth:`slice_rows`: a chunk store's ``read_rows`` window)."""
+        from ..config import get_config
+        from ..interop import to_tensor
+        from ..mesh import Sharding
+        from .dense import DenseVecMatrix
+
+        m, n = self._shape
+        spec = DenseVecMatrix._default_spec
+        sh = Sharding(mesh, spec)
+        (r0, r1), _ = sh.bounds(sh.padded_shape((m, n)))
+        rows = self.slice_rows(min(r0, m), min(r1, m))
+        block = np.zeros((r1 - r0, n), dtype=rows.dtype)
+        block[:rows.shape[0]] = rows
+        dtype = get_config().default_dtype if block.dtype == np.float64 \
+            else None
+        return DenseVecMatrix(to_tensor(block, dtype, mesh.device), (m, n),
+                              mesh, spec)
 
     def __repr__(self):
         if self._store is not None:

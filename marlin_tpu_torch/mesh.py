@@ -19,8 +19,11 @@ over many devices and matrices carry a ``NamedSharding`` on it. Here a
 The sharding helpers (:func:`row_sharding`, :func:`block_sharding`,
 :func:`replicated_sharding`) return a :class:`Sharding`, which names the
 mesh axis each tensor dimension is split over and cuts this rank's block
-(:meth:`Sharding.local`). Nothing places a tensor by its sharding: there is
-no partitioner to defer to (ROADMAP queue 3).
+(:meth:`Sharding.local`). On a mesh over ranks the port's matrices and
+vectors hold only their rank's block of the zero-padded array under their
+sharding (``matrix/dense.py``); :class:`Sharding` gives the padded shape,
+the block bounds of any rank, and the owner of a global index, and
+``parallel/collectives.py:redistribute`` moves blocks between layouts.
 """
 
 from __future__ import annotations
@@ -81,11 +84,14 @@ class Mesh:
     def size(self) -> int:
         return math.prod(self.grid)
 
-    def coords(self) -> dict[str, int]:
-        """This rank's coordinate on each axis (all 0 in a world of one)."""
-        if self.ranks is None:
-            return {a: 0 for a in self.axis_names}
-        pos = self.ranks.index(torch.distributed.get_rank())
+    def coords(self, pos: int | None = None) -> dict[str, int]:
+        """The coordinate on each axis of the rank at row-major position
+        ``pos`` of the grid (default: this rank; all 0 in a world of
+        one)."""
+        if pos is None:
+            if self.ranks is None:
+                return {a: 0 for a in self.axis_names}
+            pos = self.ranks.index(torch.distributed.get_rank())
         out = {}
         for name, n in zip(reversed(self.axis_names), reversed(self.grid)):
             pos, out[name] = divmod(pos, n)
@@ -279,12 +285,75 @@ def set_default_mesh(mesh: Mesh | None) -> None:
 @dataclasses.dataclass(frozen=True)
 class Sharding:
     """Which mesh axis each tensor dimension is split over (``None``:
-    replicated), the counterpart of ``NamedSharding(mesh, P(*spec))``. Its
-    :meth:`local` is the one rank-block cut of the package: the collectives
-    (``parallel/collectives.py:block``) cut through it."""
+    replicated), the counterpart of ``NamedSharding(mesh, P(*spec))``. A
+    split dimension is zero-padded to a multiple of its axis's size (the JAX
+    package's ``pad_to_multiple`` rule) and cut into equal blocks; the rank
+    at grid coordinate ``c`` holds block ``c[axis]`` of each split
+    dimension, as JAX's addressable shard at that coordinate does. The
+    collectives (``parallel/collectives.py``) cut and move blocks through
+    it."""
 
     mesh: Mesh
     spec: tuple
+
+    def axis(self, dim: int) -> str | None:
+        return self.spec[dim] if dim < len(self.spec) else None
+
+    def divisors(self, ndim: int) -> tuple[int, ...]:
+        """How many blocks each of ``ndim`` dimensions is cut into."""
+        axes = [self.axis(d) for d in range(ndim)]
+        return tuple(1 if a is None else self.mesh.shape[a] for a in axes)
+
+    def padded_shape(self, shape) -> tuple[int, ...]:
+        """``shape`` zero-padded so each split dimension divides by its
+        axis."""
+        return tuple(pad_to_multiple(int(n), g)
+                     for n, g in zip(shape, self.divisors(len(shape))))
+
+    def block_shape(self, padded) -> tuple[int, ...]:
+        return tuple(int(n) // g
+                     for n, g in zip(padded, self.divisors(len(padded))))
+
+    def positions(self) -> range:
+        """The row-major grid positions of the mesh's ranks."""
+        return range(self.mesh.size)
+
+    def rank_of(self, pos: int) -> int:
+        """The global rank at grid position ``pos`` (0 in a world of
+        one)."""
+        return 0 if self.mesh.ranks is None else self.mesh.ranks[pos]
+
+    def block_index(self, pos: int | None = None, ndim: int = 2) -> tuple:
+        """The block coordinate (one per dimension) the rank at ``pos``
+        holds (default: this rank)."""
+        here = self.mesh.coords(pos)
+        axes = [self.axis(d) for d in range(ndim)]
+        return tuple(0 if a is None else here[a] for a in axes)
+
+    def bounds(self, padded, pos: int | None = None
+               ) -> tuple[tuple[int, int], ...]:
+        """``(start, stop)`` in each dimension of the block that the rank at
+        ``pos`` (default: this rank) holds of an array of ``padded``
+        shape."""
+        blk = self.block_shape(padded)
+        idx = self.block_index(pos, len(padded))
+        return tuple((i * b, (i + 1) * b) for i, b in zip(idx, blk))
+
+    def owner(self, dim: int, index: int, padded) -> int:
+        """The coordinate, on ``dim``'s axis, of the blocks holding global
+        ``index`` of dimension ``dim`` (0 for a replicated dimension)."""
+        return int(index) // self.block_shape(padded)[dim]
+
+    def replica_id(self, pos: int | None = None) -> int:
+        """Which copy of its block the rank at ``pos`` holds: its row-major
+        index over the mesh axes the spec does not name (JAX's
+        ``replica_id``; 0 where every axis is named)."""
+        here = self.mesh.coords(pos)
+        rid = 0
+        for name, n in zip(self.mesh.axis_names, self.mesh.grid):
+            if name not in self.spec:
+                rid = rid * n + here[name]
+        return rid
 
     def local(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's block of the logical tensor ``x`` (each split

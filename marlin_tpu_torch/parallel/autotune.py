@@ -299,18 +299,37 @@ def tune_multiply(mat, other, strategies=None, reps: int = 3,
 
 def best_strategy(mat, other, precision: str | None = None) -> str:
     """Cached winner for this configuration — memory layer first, then the
-    on-disk layer, tuning only on a miss in both."""
+    on-disk layer, tuning only on a miss in both.
+
+    On a mesh over several ranks every rank must pick the same strategy (its
+    collectives would deadlock otherwise), so rank 0 decides: whether to
+    tune (every rank then times the candidates together, each multiply
+    being collective) and which winner every rank caches."""
     from .matmul import _STRATEGIES
 
     key = _cache_key(mat, other, precision)
-    if key not in _CACHE:
+    agree = _agree if getattr(mat.mesh, "ranks", None) is not None \
+        and len(mat.mesh.ranks) > 1 else (lambda x: x)
+    hit = _CACHE.get(key)
+    if hit is None:
         with _DISK_LOCK:
             persisted = _disk_layer().get(repr(key))
-        if persisted in _STRATEGIES:
-            _CACHE[key] = persisted
-        else:
-            tune_multiply(mat, other, precision=precision)
-    return _CACHE[key]
+        hit = persisted if persisted in _STRATEGIES else None
+    hit = agree(hit)
+    if hit is None:
+        tune_multiply(mat, other, precision=precision)
+        hit = agree(_CACHE[key])
+    _CACHE[key] = hit
+    return hit
+
+
+def _agree(value):
+    """Rank 0's ``value`` on every rank (a collective)."""
+    import torch.distributed as dist
+
+    box = [value]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
 
 
 def _as_tensor(x) -> torch.Tensor:

@@ -24,7 +24,9 @@ replicate, split or reduce. Over ``torch.distributed`` ranks
 
 All functions take/return *logical* (unpadded) tensors, the same on every
 rank, except :func:`matmul_padded`, which takes and returns its matrices'
-padded layouts and runs the strategy's function on the logical slices.
+padded layouts: in a world of one it runs the strategy's function on the
+logical slices; over ranks it takes each operand's block and leaves C in
+the out layout's blocks (:func:`_matmul_blocks`), with no gather of C.
 Each strategy function lands its multiply's analytic cost in the process
 ``ProgramCosts`` registry (:func:`_capture_matmul_cost`) under the JAX
 package's program names and keys, once per rank.
@@ -36,8 +38,8 @@ import torch
 import torch.nn.functional as F
 
 from ..config import get_config, resolve_device
-from ..mesh import (Mesh, default_mesh, distributed, pad_to_multiple,
-                    rank_grid, world_size)
+from ..mesh import (Mesh, Sharding, default_mesh, distributed,
+                    pad_to_multiple, rank_grid, world_size)
 from ..ops.local import local_matmul
 from . import collectives as col
 from .carma import split_method
@@ -271,6 +273,7 @@ def matmul_padded(
     broadcast_threshold_mb: float | None = None,
     precision: str | None = None,
     accum_dtype=None,
+    layouts=None,
 ) -> torch.Tensor | None:
     """Padded-in / padded-out multiply: ``a_pad``/``b_pad`` carry their
     matrices' zero-padded layouts and ``mkn`` the logical (m, k, n); the
@@ -278,12 +281,20 @@ def matmul_padded(
     strategy's own function on the logical slices, so it lands that
     function's cost row.
 
+    Over ranks (``mesh.ranks``) ``a_pad`` and ``b_pad`` are this rank's
+    blocks and ``layouts`` their ``(Sharding, padded shape)`` pairs and the
+    out layout's: the result is this rank's block of C
+    (:func:`_matmul_blocks`).
+
     Returns ``None`` where the JAX package has no fused program either (an
     RMM split that does not fill the mesh, or the ring); callers then take
     :func:`matmul` on the logical tensors."""
     m, k, n = mkn
     strategy = _resolve_strategy(mkn, b_pad.element_size(), strategy,
                                  broadcast_threshold_mb)
+    if mesh.ranks is not None:
+        return _matmul_blocks(a_pad, b_pad, mkn, mesh, layouts, strategy,
+                              split, precision, accum_dtype or a_pad.dtype)
     a, b = a_pad[:m, :k], b_pad[:k, :n]
     accum_dtype = accum_dtype or a_pad.dtype
     if strategy == "rmm":
@@ -304,6 +315,79 @@ def matmul_padded(
     if (mp_out, np_out) != (m, n):
         c = F.pad(c, (0, np_out - n, 0, mp_out - m))
     return c
+
+
+def _meta(shape, like: torch.Tensor) -> torch.Tensor:
+    """A shape-only stand-in for a cost row's operand."""
+    return torch.empty(shape, dtype=like.dtype, device="meta")
+
+
+def _matmul_blocks(a, b, mkn, mesh: Mesh, layouts, strategy, split,
+                   precision, accum_dtype) -> torch.Tensor | None:
+    """The multiply over ranks on blocks: ``a``/``b`` this rank's blocks of
+    the layouts ``layouts[0]``/``layouts[1]``, the result this rank's block
+    of ``layouts[2]``.
+
+    - RMM (and ``gspmd``, its CARMA split): each rank of the (m, k, n) grid
+      fetches the A (m, k) and B (k, n) blocks its coordinate needs from
+      the operands' layouts (one ``remap`` each), multiplies, all-reduces
+      over its k line, and the (m, n) blocks move into the out layout;
+    - broadcast: the small operand is gathered whole once (Spark's
+      ``sc.broadcast``), the big one cut by rows (``"b"``) or columns
+      (``"a"``) over every rank of the mesh (where its layout already is
+      that cut, nothing moves), and the product's blocks move into the out
+      layout.
+
+    Returns ``None`` for the ring and an RMM split that does not fill the
+    mesh (their callers gather the inputs)."""
+    import torch.distributed as dist
+
+    m, k, n = mkn
+    (a_sh, a_pad), (b_sh, b_pad), (out_sh, out_pad) = layouts
+    a_log, b_log = _meta((m, k), a), _meta((k, n), b)
+    if strategy == "ring":
+        return None
+    if strategy in ("rmm", "gspmd"):
+        if strategy == "gspmd":
+            split = split_method(m, k, n, mesh.size)
+            _capture_matmul_cost("gspmd_matmul", a_log, b_log,
+                                 devices=mesh.size)
+        elif split is None:
+            split = split_method(m, k, n, mesh.size)
+        if split[0] * split[1] * split[2] != mesh.size:
+            return None
+        if strategy == "rmm":
+            _capture_matmul_cost("rmm_matmul", a_log, b_log,
+                                 split="x".join(map(str, split)))
+        mesh3 = rank_grid(split, (_M, _K, _N))
+        sa, sb, sc = (Sharding(mesh3, spec)
+                      for spec in ((_M, _K), (_K, _N), (_M, _N)))
+        a3 = col.redistribute(a, a_sh, sa, (m, k), a_pad)
+        b3 = col.redistribute(b, b_sh, sb, (k, n), b_pad)
+        c = local_matmul(a3, b3, precision, accum_dtype).contiguous()
+        if split[1] > 1:
+            dist.all_reduce(c, group=mesh3.group(_K))
+        return col.redistribute(c, sc, out_sh, (m, n), sc.padded_shape((m, n)),
+                                out_pad)
+    replicate = "a" if strategy == "broadcast_a" else "b"
+    _capture_matmul_cost("broadcast_matmul", a_log, b_log,
+                         replicate=replicate)
+    flat = rank_grid((mesh.size,), ("all",))
+    whole = Sharding(flat, ())
+    if replicate == "b":
+        big = Sharding(flat, ("all", None))
+        blk = col.redistribute(a, a_sh, big, (m, k), a_pad)
+        small = col.redistribute(b, b_sh, whole, (k, n), b_pad)
+        c = local_matmul(blk, small, precision, accum_dtype)
+        c_sh = big
+    else:
+        big = Sharding(flat, (None, "all"))
+        small = col.redistribute(a, a_sh, whole, (m, k), a_pad)
+        blk = col.redistribute(b, b_sh, big, (k, n), b_pad)
+        c = local_matmul(small, blk, precision, accum_dtype)
+        c_sh = big
+    return col.redistribute(c, c_sh, out_sh, (m, n), c_sh.padded_shape((m, n)),
+                            out_pad)
 
 
 def matmul(

@@ -23,7 +23,7 @@ import numbers
 import torch
 
 __all__ = ["threefry2x32", "prng_key", "as_key", "fold_in", "split",
-           "random_bits", "uniform", "normal", "randint", "gumbel",
+           "random_bits", "bits_at", "uniform_from_bits", "normal_from_bits", "uniform", "normal", "randint", "gumbel",
            "categorical", "key_words", "split_words", "randint_scalar"]
 
 _M32 = 0xFFFFFFFF
@@ -97,10 +97,16 @@ def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
         n *= s
     i = torch.arange(n, dtype=torch.int64, device=key.device)
     lead = key.shape[:-1]
-    k1 = key[..., 0].reshape(*lead, 1)
-    k2 = key[..., 1].reshape(*lead, 1)
-    a, b = threefry2x32(k1, k2, i >> 32, i & _M32)
-    return (a ^ b).reshape(tuple(lead) + shape)
+    return bits_at(key.reshape(*lead, 1, 2), i).reshape(tuple(lead) + shape)
+
+
+def bits_at(key: torch.Tensor, counters: torch.Tensor) -> torch.Tensor:
+    """The 32-bit words :func:`random_bits` gives at flat indices
+    ``counters`` (an int64 tensor, broadcast against the key's leading
+    axes): element ``i`` of any block of a larger draw, without the rest."""
+    a, b = threefry2x32(key[..., 0], key[..., 1], counters >> 32,
+                        counters & _M32)
+    return a ^ b
 
 
 def _fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
@@ -127,10 +133,15 @@ def uniform(key: torch.Tensor, shape, minval: float = 0.0,
     """``jax.random.uniform`` in f32: 23 random mantissa bits under the
     exponent of 1.0, minus 1, scaled to ``[minval, maxval)`` by one fused
     multiply-add, as XLA computes it — the same bits."""
-    bits = random_bits(key, shape)
+    return uniform_from_bits(random_bits(key, shape), minval, maxval)
+
+
+def uniform_from_bits(bits: torch.Tensor, minval: float = 0.0,
+                      maxval: float = 1.0) -> torch.Tensor:
+    """:func:`uniform`'s values from its 32-bit words."""
     f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    lo = torch.tensor(minval, dtype=torch.float32, device=bits.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=bits.device)
     return torch.maximum(lo, _fma_f32(f, hi - lo, lo.expand_as(f)))
 
 
@@ -142,22 +153,29 @@ def normal(key: torch.Tensor, shape, dtype=torch.float32) -> torch.Tensor:
     (JAX draws 8 bits for types of fewer than 8 mantissa bits). The bits and
     the uniform values are JAX's exactly; ``erfinv`` is PyTorch's, which may
     differ from XLA's in the last place."""
+    return normal_from_bits(random_bits(key, shape), dtype)
+
+
+def normal_from_bits(bits: torch.Tensor, dtype=torch.float32
+                     ) -> torch.Tensor:
+    """:func:`normal`'s values from its 32-bit words."""
     if dtype == torch.float32:
         width, nmant, one, view = 32, 23, 0x3F800000, torch.int32
     elif dtype == torch.bfloat16:
         width, nmant, one, view = 8, 7, 0x3F80, torch.int16
     else:
         raise TypeError(f"normal: float32 or bfloat16, got {dtype}")
-    bits = random_bits(key, shape) & ((1 << width) - 1)
+    bits = bits & ((1 << width) - 1)
+    dev = bits.device
     f = (((bits >> (width - nmant)) | one).to(view).view(dtype)
-         - torch.ones((), dtype=dtype, device=key.device))
+         - torch.ones((), dtype=dtype, device=dev))
     # the largest value below -1 in dtype, and 1, as JAX's bounds
     lo = torch.full((), -(1.0 - 2.0 ** -(nmant + 1)), dtype=dtype,
-                    device=key.device)
-    hi = torch.ones((), dtype=dtype, device=key.device)
+                    device=dev)
+    hi = torch.ones((), dtype=dtype, device=dev)
     u = torch.maximum(lo, f * (hi - lo) + lo)
     return torch.erfinv(u) * torch.full((), math.sqrt(2.0), dtype=dtype,
-                                        device=key.device)
+                                        device=dev)
 
 
 def _mul32(a: torch.Tensor, b: int) -> torch.Tensor:

@@ -21,7 +21,11 @@ subsystem:
 Both are chaos-tested through :mod:`marlin_tpu_torch.utils.faults`: the ``step.run``
 point fires before every step (and can mutate its metric — NaN injection),
 ``device.probe`` fires inside every heartbeat probe, and the checkpoint IO
-underneath carries its own points. Recovery walks *backward* through committed
+underneath carries its own points. The state may hold matrices on a mesh over
+``torch.distributed`` ranks: every rank runs the loop, each checkpoint leaf
+of such a matrix is its ranks' blocks, and a run saved on one world size
+resumes on another (each rank restores its new block) and continues the same
+trajectory. Recovery walks *backward* through committed
 checkpoint generations — a torn or corrupt latest generation
 (:class:`~marlin_tpu_torch.io.checkpoint.CheckpointCorruptError`) falls back to the
 newest one that still verifies instead of killing the run.

@@ -679,6 +679,316 @@ def case_pagerank(inp):
             "rank_weight": _np(op.weight.sum())}
 
 
+# the matrices across ranks: ``inp`` holds the numpy operands; a case
+# returns each rank's block under a ``rank_`` key and the gathered result
+
+def _mats(inp, grid=(2, 2)):
+    import marlin_tpu_torch as tm
+    from marlin_tpu_torch import mesh as mm
+
+    mesh = mm.create_mesh(grid)
+    return tm, mesh
+
+
+def _blocks(prefix, mat):
+    return {f"rank_{prefix}": _np(mat.data), prefix: mat.to_numpy()}
+
+
+def case_dm_layout(inp):
+    """from_array, random, zeros/ones and the vector factories on the (2, 2)
+    and (4, 1) meshes: each rank's block and the gathered matrix."""
+    tm, m22 = _mats(inp)
+    from marlin_tpu_torch import mesh as mm
+
+    m41 = mm.create_mesh((4, 1))
+    a = inp["a"]
+    out = {}
+    for tag, mesh in (("22", m22), ("41", m41)):
+        out.update(_blocks(f"vec{tag}", tm.DenseVecMatrix.from_array(a, mesh)))
+        out.update(_blocks(f"blk{tag}", tm.BlockMatrix.from_array(a, mesh)))
+        out.update(_blocks(f"uni{tag}", tm.DenseVecMatrix.random(
+            7, 10, 7, mesh=mesh, minval=-2.0, maxval=3.0)))
+        out.update(_blocks(f"buni{tag}", tm.BlockMatrix.random(7, 10, 7,
+                                                               mesh=mesh)))
+        out.update(_blocks(f"nrm{tag}", tm.BlockMatrix.random(
+            5, 9, 6, dist="normal", mesh=mesh)))
+        out[f"poi{tag}"] = tm.DenseVecMatrix.random(
+            3, 9, 5, dist="poisson", lam=4.0, mesh=mesh).to_numpy()
+        out.update(_blocks(f"ones{tag}", tm.BlockMatrix.ones(5, 3,
+                                                             mesh=mesh)))
+        v = tm.DistributedVector.from_array(inp["v"], mesh)
+        out[f"rank_dv{tag}"] = _np(v.data)
+        out[f"dv{tag}"] = v.to_numpy()
+        r = tm.DistributedVector.random(11, 9, mesh=mesh)
+        out[f"rank_rv{tag}"] = _np(r.data)
+        out[f"rv{tag}"] = r.to_numpy()
+    return out
+
+
+def case_dm_ops(inp):
+    """Elementwise ops over mixed layouts, reductions, norms, the
+    structure ops and the vector ops on the (2, 2) mesh."""
+    import torch
+
+    tm, mesh = _mats(inp)
+    a = tm.DenseVecMatrix.from_array(inp["a"], mesh)
+    ab = tm.BlockMatrix.from_array(inp["a2"], mesh)
+    c = tm.BlockMatrix.from_array(inp["c"], mesh)
+    out = {}
+    out.update(_blocks("add", a.add(ab)))
+    out.update(_blocks("sub", ab.subtract(a)))
+    out.update(_blocks("div", a.divide(ab)))
+    out.update(_blocks("had", a.dot_product(inp["a2"])))
+    out.update(_blocks("sadd", a.add(1.5)))
+    out.update(_blocks("sdivby", ab.divide_by(2.0)))
+    out.update(_blocks("scale", ab.multiply(3.0)))
+    out["sum"] = _np(a.sum())
+    for mode in ("1", "inf", "fro", "2"):
+        out[f"norm_{mode}"] = _np(ab.norm(mode))
+        out[f"vnorm_{mode}"] = _np(a.norm(mode))
+    out.update(_blocks("t", a.transpose()))
+    out.update(_blocks("tb", ab.transpose()))
+    out.update(_blocks("cbind", a.c_bind(c)))
+    out.update(_blocks("rbind", ab.r_bind(inp["a"])))
+    out.update(_blocks("srow", a.slice_by_row(3, 8)))
+    out.update(_blocks("scol", ab.slice_by_column(2, 5)))
+    out.update(_blocks("sub_m", a.get_sub_matrix(1, 8, 2, 6)))
+    out.update(_blocks("rrow", ab.repeat_by_row(3)))
+    out.update(_blocks("rcol", a.repeat_by_column(2)))
+    out.update(_blocks("toblk", a.to_block_matrix()))
+    out.update(_blocks("tovec", ab.to_dense_vec_matrix()))
+    out.update(_blocks("reshard", a.reshard(("cols", "rows"))))
+    out.update(_blocks("rowx", ab.row_exchange(inp["perm"])))
+    out.update(_blocks("gram", ab.gramian()))
+    out.update(_blocks("gramv", a.gramian()))
+    out.update(_blocks("mulby", ab.multiply_by(inp["l"])))
+    mv = a.multiply_vector(inp["x"])
+    out["rank_mv"], out["mv"] = _np(mv.data), mv.to_numpy()
+    mg = ab.multiply_gramian_by(inp["x"])
+    out["rank_mg"], out["mg"] = _np(mg.data), mg.to_numpy()
+    u = tm.DistributedVector.from_array(inp["u"], mesh)
+    w = tm.DistributedVector.from_array(inp["w"], mesh)
+    out["dot"] = _np(u.dot(w))
+    out["vsum"] = _np(u.sum())
+    out["vnorm"] = _np(u.norm())
+    out["vnorm1"] = _np(u.norm(1))
+    out["vnorminf"] = _np(u.norm(float("inf")))
+    out.update(_blocks("outer", u.multiply(w.transpose())))
+    out["inner"] = _np(u.transpose().multiply(w))
+    out["rank_vadd"] = _np(u.add(w).data)
+    got = ab[2:7, 1:5]
+    out.update(_blocks("getitem", got))
+    out["getrow"] = _np(ab[3, :])
+    out["dtype_kept"] = np.array(a.add(ab).data.dtype == torch.float32)
+    return out
+
+
+def case_dm_multiply(inp):
+    """``a.multiply(b)`` by every strategy on the (2, 2) mesh: the blocks
+    of C and C gathered; with, for the RMM, the element counts every
+    all-gather and all-to-all received."""
+    import torch.distributed as dist
+
+    tm, mesh = _mats(inp)
+    a = tm.DenseVecMatrix.from_array(inp["a"], mesh)
+    b = tm.BlockMatrix.from_array(inp["b"], mesh)
+    out = {}
+    runs = {"rmm221": dict(strategy="rmm", split=(2, 2, 1)),
+            "rmm122": dict(strategy="rmm", split=(1, 2, 2)),
+            "rmm411": dict(strategy="rmm", split=(4, 1, 1)),
+            "rmm_auto": dict(strategy="rmm"), "auto": {},
+            "gspmd": dict(strategy="gspmd"),
+            "broadcast": dict(strategy="broadcast"),
+            "broadcast_a": dict(strategy="broadcast_a"),
+            "ring": dict(strategy="ring"), "tuned": dict(strategy="tuned"),
+            "subset": dict(strategy="rmm", split=(1, 1, 2))}
+    real = (dist.all_gather, dist.all_to_all_single, dist.all_reduce)
+    for tag, kw in runs.items():
+        seen = []
+
+        def gather(parts, t, *x, **k):
+            seen.append(sum(p.numel() for p in parts))
+            return real[0](parts, t, *x, **k)
+
+        def a2a(o, i, *x, **k):  # bytes of float32 elements
+            seen.append(o.numel() // 4)
+            return real[1](o, i, *x, **k)
+
+        def reduce(t, *x, **k):
+            seen.append(t.numel())
+            return real[2](t, *x, **k)
+
+        dist.all_gather, dist.all_to_all_single, dist.all_reduce = \
+            gather, a2a, reduce
+        try:
+            c = a.multiply(b, **kw)
+        finally:
+            dist.all_gather, dist.all_to_all_single, dist.all_reduce = real
+        out.update(_blocks(tag, c))
+        out[f"rank_moved_{tag}"] = np.array(max(seen or [0]))
+    c = a.multiply(inp["b"], strategy="broadcast")
+    out.update(_blocks("dense_b", c))
+    return out
+
+
+def case_dm_io(inp):
+    """The text saves (row, block, description) into ``dir``, the loaders
+    of files the JAX package wrote (row, block, SVM), a chunk store read
+    onto the ranks, and the sparse and MTUtils conversions: each rank's
+    block."""
+    import marlin_tpu_torch.utils.mtutils as mu
+    from marlin_tpu_torch import io as tio
+    from marlin_tpu_torch.io.chunkstore import ChunkStore
+    from marlin_tpu_torch.matrix.out_of_core import OutOfCoreMatrix
+
+    tm, mesh = _mats(inp)
+    d = str(inp["dir"])
+    a = tm.DenseVecMatrix.from_array(inp["a"], mesh)
+    b = tm.BlockMatrix.from_array(inp["a"], mesh)
+    a.save_to_file_system(os.path.join(d, "port_rows.txt"))
+    b.save_to_file_system(os.path.join(d, "port_blocks.txt"), fmt="block")
+    a.save_with_description(os.path.join(d, "desc", "port_desc.txt"))
+    out = {}
+    out.update(_blocks("rows", tio.load_matrix_file(str(inp["rows"]), mesh)))
+    out.update(_blocks("blocks", tio.load_block_matrix_file(
+        str(inp["blocks"]), mesh)))
+    out.update(_blocks("svm", tio.load_svm_den_vec_matrix(
+        str(inp["svm"]), int(inp["svm_len"]), mesh)))
+    with ChunkStore(str(inp["store"])) as store:
+        out.update(_blocks("store", OutOfCoreMatrix(store)
+                           .to_dense_vec_matrix(mesh)))
+    coo = tm.CoordinateMatrix(inp["ci"], inp["cj"], inp["cv"],
+                              shape=tuple(int(x) for x in inp["cshape"]))
+    out.update(_blocks("coo_vec", coo.to_dense_vec_matrix(mesh)))
+    out.update(_blocks("coo_blk", coo.to_block_matrix(mesh)))
+    out.update(_blocks("mtu", mu.array_to_matrix(inp["a"], "block", mesh)))
+    return out
+
+
+# sharded checkpoints across ranks: ``inp`` holds the matrix, the
+# directories and the world's mesh grid
+
+def _grid(inp):
+    from marlin_tpu_torch import mesh as mm
+
+    return mm.create_mesh(tuple(int(g) for g in inp["grid"]))
+
+
+def case_ck_save(inp):
+    """save_sharded of a BlockMatrix from every rank: its block and the
+    file names this rank wrote."""
+    import marlin_tpu_torch as tm
+    from marlin_tpu_torch.io.checkpoint import save_sharded
+
+    mat = tm.BlockMatrix.from_array(inp["a"], _grid(inp))
+    integ = save_sharded(mat, str(inp["dir"]))
+    return {"rank_block": _np(mat.data),
+            "rank_files": np.array(sorted(integ))}
+
+
+def case_ck_load(inp):
+    """load_sharded of a saved (padded) array onto this world's mesh, by
+    rows and by blocks: this rank's regions."""
+    from marlin_tpu_torch.io.checkpoint import load_sharded
+    from marlin_tpu_torch.mesh import Sharding
+
+    mesh = _grid(inp)
+    d = str(inp["dir"])
+    return {"rank_rows": _np(load_sharded(d, Sharding(mesh, ("rows", None)))),
+            "rank_blocks": _np(load_sharded(d, Sharding(mesh,
+                                                        ("rows", "cols"))))}
+
+
+def _elastic(inp, steps, fresh):
+    import marlin_tpu_torch as tm
+    from marlin_tpu_torch.utils.failure import ResilientLoop
+
+    mesh = _grid(inp)
+    target = tm.DenseVecMatrix.from_array(inp["target"], mesh)
+    m, n = target.shape
+
+    def step_fn(state, i):
+        w = state["w"]
+        w2 = w.subtract(w.subtract(target).multiply(0.25))
+        d = w2.subtract(target)
+        return {"w": w2, "bias": state["bias"] + 1.0}, \
+            float(d.dot_product(d).sum()) / (m * n)
+
+    w0 = {"w": tm.DenseVecMatrix.zeros(m, n, mesh=mesh),
+          "bias": np.zeros((3,), np.float32)}
+    if fresh:
+        state, metrics = w0, []
+        for i in range(steps):
+            state, loss = step_fn(state, i)
+            metrics.append(loss)
+        return {"metrics": np.array(metrics),
+                "w": state["w"].to_numpy()}
+    loop = ResilientLoop(step_fn, str(inp["dir"]), checkpoint_every=2)
+    state, metrics = loop.run(w0, steps)
+    return {"metrics": np.array(metrics), "w": state["w"].to_numpy(),
+            "rank_w": _np(state["w"].data), "bias": state["bias"]}
+
+
+def case_ck_elastic_save(inp):
+    return _elastic(inp, 6, False)
+
+
+def case_ck_elastic_resume(inp):
+    return _elastic(inp, 12, False)
+
+
+def case_ck_elastic_fresh(inp):
+    return _elastic(inp, 12, True)
+
+
+def case_la(inp):
+    """The dist-mode factorizations, inverse, solves, SVD and ``lr`` over
+    the ranks, on a DenseVecMatrix of the (4, 1) mesh and a BlockMatrix of
+    the (2, 2) mesh: the factors' blocks and the gathered results."""
+    import marlin_tpu_torch as tm
+    from marlin_tpu_torch import linalg
+    from marlin_tpu_torch import mesh as mm
+
+    b = int(inp["block"])
+    out = {}
+    for tag, grid, klass in (("r", (4, 1), tm.DenseVecMatrix),
+                             ("b", (2, 2), tm.BlockMatrix)):
+        mesh = mm.create_mesh(grid)
+        a = klass.from_array(inp["a"], mesh)
+        spd = klass.from_array(inp["spd"], mesh)
+        for piv, sched in (("block", "shrinking"), ("block", "masked"),
+                           ("panel", "masked")):
+            l, u, perm = linalg.lu_decompose(a, mode="dist", block_size=b,
+                                             pivot=piv, schedule=sched)
+            key = f"{tag}_{piv}_{sched}"
+            out.update(_blocks(f"l_{key}", l))
+            out.update(_blocks(f"u_{key}", u))
+            out[f"perm_{key}"] = _np(perm)
+        for sched in ("shrinking", "masked"):
+            out.update(_blocks(f"chol_{tag}_{sched}", linalg.cholesky_decompose(
+                spd, mode="dist", block_size=b, schedule=sched)))
+        out.update(_blocks(f"inv_{tag}", linalg.inverse(a, mode="dist",
+                                                        block_size=b)))
+        out[f"solve_{tag}"] = _np(linalg.solve(a, inp["rhs"], mode="dist",
+                                               block_size=b))
+        out[f"solvev_{tag}"] = _np(linalg.solve(a, inp["rhs"][:, 0],
+                                                mode="local"))
+        l, u, perm = linalg.lu_decompose(a, mode="dist", block_size=b)
+        out[f"lusolve_{tag}"] = _np(linalg.lu_solve(l, u, perm, inp["rhs"]))
+        lc = linalg.cholesky_decompose(spd, mode="dist", block_size=b)
+        out[f"cholsolve_{tag}"] = _np(linalg.cholesky_solve(lc, inp["rhs"]))
+        tall = klass.from_array(inp["tall"], mesh)
+        for mode in ("dist-eigs", "local-eigs", "local-svd"):
+            res = linalg.compute_svd(tall, 3, mode=mode)
+            out[f"s_{tag}_{mode}"] = res.s
+            out[f"v_{tag}_{mode}"] = res.v
+            out.update(_blocks(f"svdu_{tag}_{mode}", res.u))
+        out[f"lr_{tag}"] = klass.from_array(inp["lr"], mesh).lr(1.0, 20)
+        out[f"local_{tag}"] = linalg.lu_decompose(a, mode="local")[0] \
+            .to_numpy()
+    return out
+
+
 for _name in ("dense", "causal", "uneven", "uneven_causal", "multihead",
               "scale", "tile_pad", "flash", "flash_causal", "flash_multihead",
               "flash_odd", "bf16_xla", "bf16_flash", "grad_xla", "grad_flash",
