@@ -280,7 +280,11 @@ drives the ported paths end to end through the public entry points:
   rank holds; phase 16's 8192² LU legs and Cholesky on row blocks against
   the logical path; phase 17's ``compute_svd`` ``dist-eigs`` on row blocks
   against the logical path; ``save_sharded``/``load_sharded`` of a 20000²
-  matrix bit for bit, and its restore outside the world.
+  matrix bit for bit, and its restore outside the world;
+  ``to_sparse_vec_matrix`` of a rank-local 8192² matrix (95 % of its entries
+  dropped) and its ``multiply(format="bsr")`` by a rank-local 8192 x 256
+  operand through the BSR kernel, against the world of one (the kernel then
+  held against its plain version at that shape).
 - phase 30: the workloads across ranks, in a one-rank NCCL world (their
   plain runs made first, outside it): config_lct on phase 11's stream with
   the stream sharded over the ranks (``TransformerLM.train(mesh=rank
@@ -642,8 +646,14 @@ RANKS_TOL = 1e-4
 # against the logical path (perm equal, LINALG_TOL); compute_svd dist-eigs at
 # SVD_M x SVD_N (s within LINALG_TOL of s[0]); save_sharded/load_sharded of
 # an N x N matrix, bit for bit, restored in the world and outside it. The
-# rank count's analytic bytes a rank holds at MATRIX_RANKS.
+# rank count's analytic bytes a rank holds at MATRIX_RANKS. RANKS_SPARSE: a
+# rank-local n x n uniform [0, 1) DenseVecMatrix through
+# to_sparse_vec_matrix(tol) (the entries above tol, 5 %, kept; triplets equal
+# to the world of one's), times a rank-local n x p operand with
+# multiply(format="bsr") (F64_TOL of the largest |entry| against the world of
+# one's product)
 MATRIX_RANKS = (1, 2, 4)
+RANKS_SPARSE = dict(n=8192, p=256, tol=0.95)
 
 
 def log(msg: str) -> None:
@@ -4870,9 +4880,10 @@ def ranks_references(torch, np, mt, tt):
 
 def matrices_ranks_path(torch, np, mt, ops, smi) -> dict:
     """Phase 31: the matrices across ranks (rank-local blocks, the RMM on
-    blocks, linalg on row blocks, sharded checkpoints) in a one-rank NCCL
-    world, each against the world-of-one path on the same logical inputs.
-    Returns the kernels' launch counts of the phase."""
+    blocks, linalg on row blocks, sharded checkpoints, the sparse
+    conversion and its BSR product) in a one-rank NCCL world, each against
+    the world-of-one path on the same logical inputs. Returns the kernels'
+    launch counts of the phase."""
     import tempfile
 
     import torch.distributed as dist
@@ -4882,7 +4893,9 @@ def matrices_ranks_path(torch, np, mt, ops, smi) -> dict:
 
     log(f"phase 31: the matrices across ranks in a one-rank NCCL world: "
         f"{N}^2 random + multiply, LU/Cholesky at {LINALG_N}^2, dist-eigs at "
-        f"{SVD_M} x {SVD_N}, save/load_sharded at {N}^2; {smi}")
+        f"{SVD_M} x {SVD_N}, save/load_sharded at {N}^2, "
+        f"to_sparse_vec_matrix and multiply(format='bsr') at {RANKS_SPARSE}; "
+        f"{smi}")
     for p in MATRIX_RANKS:
         log(f"  a rank's block of an {N}^2 f32 DenseVecMatrix at p = {p} "
             f"(analytic): {N * N * 4 / p / 1e6:g} MB")
@@ -4908,6 +4921,13 @@ def matrices_ranks_path(torch, np, mt, ops, smi) -> dict:
                 raise AssertionError("phase 31: load_sharded over the rank "
                                      "mesh differs from what was saved")
             del back
+            counts = dict(ops.launch_counts())
+            sp, *sparse, sp_counts = matrices_sparse(torch, mt, ops, mesh)
+            counts = {k: counts[k] + n for k, n in sp_counts.items()}
+            from marlin_tpu_torch.ops import sparse_bsr as sb
+
+            check_bsr(torch, sb, f"phase 31's BSR at {RANKS_SPARSE['n']}^2",
+                      sp.to_bsr(), sparse[1])
         finally:
             mm.shutdown_distributed()
         if dist.is_initialized():
@@ -4923,10 +4943,82 @@ def matrices_ranks_path(torch, np, mt, ops, smi) -> dict:
             f"{dt:.3f} s, bit-identical; restored outside the world "
             f"bit-identical")
         del m, whole
+    matrices_sparse_world_of_one(torch, np, mt, one, *sparse,
+                                 sp._coo_triplets())
+    del sp, sparse
     torch.cuda.empty_cache()
-    counts = dict(ops.launch_counts())
-    log(f"  phase 31 launches: {counts}")
+    log(f"  phase 31 launches (the world's products): {counts}")
     return counts
+
+
+def matrices_sparse(torch, mt, ops, mesh):
+    """Phase 31 (e), in the world: RANKS_SPARSE's rank-local matrix through
+    ``to_sparse_vec_matrix`` and its BSR product by a rank-local operand (a
+    first call, which converts and tunes, then one timed). Returns the
+    sparse matrix, the operands' and the product's logical matrices
+    (gathered over the ranks), the figures (the conversion's s, the timed
+    product's CUDA-event ms, host ms and peak GiB, the BSR kernel's
+    launches by each call) and the launch counts of the two calls. Raises
+    unless the timed product launched the BSR kernel."""
+    s = RANKS_SPARSE
+    m = mt.DenseVecMatrix.random(7, s["n"], s["n"], mesh=mesh)
+    b = mt.DenseVecMatrix.random(8, s["n"], s["p"], mesh=mesh)
+    torch.cuda.synchronize()
+    torch.distributed.barrier()  # each timed call starts on every rank at once
+    t0 = time.perf_counter()
+    sp = m.to_sparse_vec_matrix(s["tol"])
+    torch.cuda.synchronize()
+    conv = time.perf_counter() - t0
+    ops.reset_launch_counts()
+    sp.multiply(b, format="bsr")  # the BSR conversion, the tuning, a product
+    first = dict(ops.launch_counts())
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.distributed.barrier()
+    out, ev, host, peak = _timed_ms(torch, lambda: sp.multiply(
+        b, format="bsr"))
+    timed = dict(ops.launch_counts())
+    fig = dict(to_sparse_s=conv, ms=ev, host_ms=host, peak_gib=peak,
+               first_launches=first["bsr_spmm_pallas"],
+               launches=timed["bsr_spmm_pallas"])
+    log(f"  to_sparse_vec_matrix({s['tol']}) of {s['n']}^2 over the rank "
+        f"mesh: nnz {sp.nnz} in {conv:.3f} s; multiply(format='bsr') by "
+        f"{s['n']} x {s['p']}: block {tuple(out.data.shape)}, {ev:.3f} ms "
+        f"(CUDA events), {host:.3f} ms host, peak +{peak:.2f} GiB; BSR "
+        f"kernel launches: {fig['first_launches']} by the first call (the "
+        f"tuner's and its product), {fig['launches']} by the timed product")
+    if fig["launches"] < 1:
+        raise AssertionError("phase 31: the rank mesh's BSR product did not "
+                             "launch the BSR kernel")
+    return sp, m.logical(), b.logical(), out.logical(), fig, \
+        {k: first[k] + timed[k] for k in first}
+
+
+def matrices_sparse_world_of_one(torch, np, mt, one, md, bd, od, fig,
+                                 triplets):
+    """Phase 31 (e), outside the world: the same conversion and product in
+    the world of one on the rank mesh's logical matrices ``md``, ``bd``,
+    held against the rank mesh's triplets and product ``od``. Returns the
+    world of one's product ms (CUDA events) and the largest relative
+    difference."""
+    s = RANKS_SPARSE
+    sp1 = mt.DenseVecMatrix.from_array(md, one).to_sparse_vec_matrix(s["tol"])
+    if not all(np.array_equal(g, w) for g, w in
+               zip(triplets, sp1._coo_triplets())):
+        raise AssertionError("phase 31: to_sparse_vec_matrix's triplets "
+                             "differ from the world of one's")
+    b1 = mt.DenseVecMatrix.from_array(bd, one)
+    sp1.multiply(b1, format="bsr")
+    out1, ev1, _, _ = _timed_ms(torch, lambda: sp1.multiply(
+        b1, format="bsr"))
+    rel = float((od - out1.data).abs().max()) / float(out1.data.abs().max())
+    log(f"  the world of one: triplets equal; multiply(format='bsr') "
+        f"{ev1:.3f} ms (CUDA events) against the rank mesh's "
+        f"{fig['ms']:.3f}; the rank product's max rel diff {rel:.3e} (tol "
+        f"{F64_TOL})")
+    if not rel <= F64_TOL:
+        raise AssertionError(f"phase 31: the sparse product differs: {rel}")
+    return ev1, rel
 
 
 def _timed_ms(torch, fn):
@@ -5836,7 +5928,7 @@ def main() -> int:
          "source": "marlin_tpu_torch/csrc/bsr_spmm.cu",
          "replaces": "marlin_tpu/ops/sparse_bsr.py:203",
          "launches": sparse_counts["bsr_spmm_pallas"]
-         + cli["bsr_spmm_pallas"],
+         + cli["bsr_spmm_pallas"] + late["bsr_spmm_pallas"],
          "max_abs_err": bsr_err, "ms": tb["ms"], "plain_ms": tb["plain"],
          "bound_ms": tb["bound"], "bound_by": "operations",
          "library_ms": tb["lib"]},

@@ -688,13 +688,11 @@ class DenseMatrix(DistributedMatrix):
     def to_sparse_vec_matrix(self, tol: float = 0.0):
         """Dense → sparse conversion (DenseVecMatrix.toSparseVecMatrix,
         DenseVecMatrix.scala:1333-1353). Entries with |x| <= tol are
-        dropped."""
+        dropped. Over ranks the whole matrix is gathered (one all-gather)
+        and every rank holds the whole triplets, as the JAX package's
+        unplaced BCOO does."""
         from .sparse import SparseVecMatrix
 
-        if self._over_ranks:
-            raise NotImplementedError(
-                "to_sparse_vec_matrix over ranks: the sparse matrices hold "
-                "their whole triplets (ROADMAP queue 1 item 15)")
         arr = self.logical()
         if tol > 0.0:
             arr = torch.where(arr.abs() > tol, arr,

@@ -135,6 +135,40 @@ def case_mesh(inp):
     }
 
 
+def case_peers(inp):
+    """What each rank receives along each axis of a (2, 2) and a (4, 1)
+    mesh: a ring step (``ring_send_recv``), the non-wrapping shift both
+    ways, and an all-to-all, each of a tensor holding the sender's rank;
+    with each axis group's global ranks."""
+    import torch
+    import torch.distributed as dist
+
+    import marlin_tpu_torch.parallel.collectives as col
+    from marlin_tpu_torch import mesh as mm
+
+    me = dist.get_rank()
+    out = {}
+    for grid in ((2, 2), (4, 1)):
+        m = mm.create_mesh(grid)
+        for axis in m.axis_names:
+            if m.shape[axis] == 1:
+                continue
+            tag = f"{grid[0]}{grid[1]}_{axis}"
+            mine = torch.full((3,), float(me))
+            got = col.finish(*col.ring_send_recv([mine, mine + 100], m, axis))
+            out[f"rank_ring_{tag}"] = np.array([float(g[0]) for g in got])
+            out[f"rank_fwd_{tag}"] = np.array(
+                float(col._shift(mine, m, axis, 1)[0]))
+            out[f"rank_back_{tag}"] = np.array(
+                float(col._shift(mine, m, axis, -1)[0]))
+            p = m.shape[axis]
+            sent = torch.stack([mine * 10 + j for j in range(p)])
+            out[f"rank_a2a_{tag}"] = _np(col._all_to_all(sent, m, axis)[:, 0])
+            out[f"rank_group_{tag}"] = np.array(
+                dist.get_process_group_ranks(m.group(axis)))
+    return out
+
+
 def _ring_matmul(inp, grid):
     from marlin_tpu_torch import mesh as mm
     from marlin_tpu_torch.parallel import ring_matmul
@@ -834,8 +868,9 @@ def case_dm_multiply(inp):
 def case_dm_io(inp):
     """The text saves (row, block, description) into ``dir``, the loaders
     of files the JAX package wrote (row, block, SVM), a chunk store read
-    onto the ranks, and the sparse and MTUtils conversions: each rank's
-    block."""
+    onto the ranks, the sparse and MTUtils conversions, and the sparse
+    products of ``to_sparse_vec_matrix(tol)`` by the rank-local ``sb``:
+    each rank's block (the sparse triplets whole)."""
     import marlin_tpu_torch.utils.mtutils as mu
     from marlin_tpu_torch import io as tio
     from marlin_tpu_torch.io.chunkstore import ChunkStore
@@ -862,6 +897,15 @@ def case_dm_io(inp):
     out.update(_blocks("coo_vec", coo.to_dense_vec_matrix(mesh)))
     out.update(_blocks("coo_blk", coo.to_block_matrix(mesh)))
     out.update(_blocks("mtu", mu.array_to_matrix(inp["a"], "block", mesh)))
+    # the dense -> sparse conversion of a rank-local matrix (whole triplets
+    # on every rank), and its product by a rank-local operand in each format
+    sp = a.to_sparse_vec_matrix(float(inp["tol"]))
+    for name, arr in zip(("sp_rows", "sp_cols", "sp_vals"),
+                         sp._coo_triplets()):
+        out[name] = np.asarray(arr)
+    operand = tm.DenseVecMatrix.from_array(inp["sb"], mesh)
+    for fmt in ("bcoo", "ell", "bsr"):
+        out.update(_blocks(f"spmm_{fmt}", sp.multiply(operand, format=fmt)))
     return out
 
 

@@ -38,6 +38,7 @@ def _ab(m, k, n, seed):
 def _inputs():
     cases = {
         "mesh": {},
+        "peers": {},
         "ring_even": _ab(24, 40, 16, 0),
         "ring_uneven": _ab(13, 9, 5, 1),
         "ring_2x2": _ab(24, 40, 16, 2),
@@ -105,6 +106,32 @@ def test_mesh_over_ranks(world):
     np.testing.assert_array_equal(r["repl_local"], x)
     assert r["mesh_shape"].tolist() == [2, 2]
     assert bool(r["hashable"]) and int(r["refused"]) == 1
+
+
+@pytest.mark.parametrize("tag,lines", [
+    ("22_rows", [[0, 2], [1, 3], [0, 2], [1, 3]]),
+    ("22_cols", [[0, 1], [0, 1], [2, 3], [2, 3]]),
+    ("41_rows", [[0, 1, 2, 3]] * 4)])
+def test_point_to_point_peers_are_global_ranks(world, tag, lines):
+    """Along an axis every peer is the global rank of the line's neighbour:
+    on a (2, 2) mesh the rows axis pairs ranks {0, 2} and {1, 3}. The ring
+    step receives from the previous rank of the line (wrapping; two tensors
+    in flight arrive in order), the shift by +1 from the previous rank and
+    by -1 from the next one (zeros past the ends), the all-to-all block j
+    from rank j of the line. Gloo and NCCL take the same global peers."""
+    r = world["peers"]
+    for rank in range(WORLD):
+        line = lines[rank]
+        i, p = line.index(rank), len(line)
+        prev = line[(i - 1) % p]
+        assert r[f"rank_group_{tag}"][rank].tolist() == line
+        assert r[f"rank_ring_{tag}"][rank].tolist() == [prev, prev + 100]
+        assert float(r[f"rank_fwd_{tag}"][rank]) == \
+            (line[i - 1] if i > 0 else 0.0)
+        assert float(r[f"rank_back_{tag}"][rank]) == \
+            (line[i + 1] if i + 1 < p else 0.0)
+        assert r[f"rank_a2a_{tag}"][rank].tolist() == \
+            [src * 10 + i for src in line]
 
 
 @pytest.mark.parametrize("case,grid", [("ring_even", (4, 1)),

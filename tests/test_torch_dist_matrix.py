@@ -36,6 +36,10 @@ WORLD = 4
 RTOL = 1e-5
 ATOL = 1e-6
 NORMAL_TOL = 1e-6
+# to_sparse_vec_matrix drops |x| <= SPARSE_TOL (about 38 % of a standard
+# normal); its products hold within tests/test_torch_sparse.py's TOL
+SPARSE_TOL = 0.5
+SPMM_TOL = 1e-4
 
 
 def _f32(rng, *shape):
@@ -76,7 +80,8 @@ def _inputs(tmp):
                       svm=np.array(str(files / "svm.txt")), svm_len=np.array(6),
                       store=np.array(str(files / "store.mchunk")),
                       ci=ci, cj=cj, cv=rng.random(20).astype(np.float32),
-                      cshape=np.array([9, 6])),
+                      cshape=np.array([9, 6]), tol=np.array(SPARSE_TOL),
+                      sb=_f32(rng, 7, 5)),
     }
 
 
@@ -280,6 +285,41 @@ def test_text_io_and_chunk_store(run, jm):
     _same(got, "coo_vec", coo.to_dense_vec_matrix(mesh), mesh)
     _same(got, "coo_blk", coo.to_block_matrix(mesh), mesh)
     _same(got, "mtu", jmt.BlockMatrix.from_array(inp["a"], mesh), mesh)
+
+
+def test_to_sparse_vec_matrix_over_ranks(run, jm):
+    """A rank-local matrix's dense -> sparse conversion gathers it once and
+    holds the JAX package's triplets whole on every rank (its BCOO is
+    unplaced)."""
+    inputs, out = run
+    inp, got = inputs["dm_io"], out["dm_io"]
+    want = jmt.DenseVecMatrix.from_array(inp["a"], jm["22"]) \
+        .to_sparse_vec_matrix(float(inp["tol"]))
+    for name, w in zip(("sp_rows", "sp_cols", "sp_vals"),
+                       want._coo_triplets()):
+        np.testing.assert_array_equal(got[name], np.asarray(w), err_msg=name)
+    assert 0 < len(got["sp_vals"]) < inp["a"].size
+
+
+@pytest.mark.parametrize("fmt", ["bcoo", "ell", "bsr"])
+def test_sparse_multiply_by_rank_local_operand(run, jm, fmt):
+    """``SparseVecMatrix.multiply`` of the converted matrix by a rank-local
+    operand: each rank holds JAX's shard of ``BlockMatrix.from_array(out,
+    mesh)``."""
+    inputs, out = run
+    inp, got = inputs["dm_io"], out["dm_io"]
+    mesh = jm["22"]
+    sp = jmt.DenseVecMatrix.from_array(inp["a"], mesh).to_sparse_vec_matrix(
+        float(inp["tol"]))
+    want = sp.multiply(jmt.DenseVecMatrix.from_array(inp["sb"], mesh),
+                       format=fmt)
+    assert isinstance(want, jmt.BlockMatrix)
+    shards = _shards(want, mesh)
+    assert got[f"rank_spmm_{fmt}"].shape == shards.shape
+    np.testing.assert_allclose(got[f"rank_spmm_{fmt}"], shards, rtol=SPMM_TOL,
+                               atol=SPMM_TOL)
+    np.testing.assert_allclose(got[f"spmm_{fmt}"], want.to_numpy(),
+                               rtol=SPMM_TOL, atol=SPMM_TOL)
 
 
 def test_layout_moves_trace_under_fuse():

@@ -27,7 +27,8 @@ mesh each rank:
 
 Each rank's log is ``chiprun_out/matrices_ranks/rank{r}.log``; the parent
 prints the ranks' logs and one JSON line of the figures. Exits non-zero
-when any check fails.
+when any check fails, when a rank passes the world's deadline, or when
+WORLD exceeds the cards (``tools/ranks_world.py``).
 """
 
 from __future__ import annotations
@@ -39,7 +40,8 @@ import tempfile
 import time
 import zlib
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+from ranks_world import ROOT, events, run_world, slowest, smi, world_size
+
 OUT = os.path.join(ROOT, "chiprun_out", "matrices_ranks")
 N = int(os.environ.get("N", 20000))
 LINALG_N = int(os.environ.get("LINALG_N", 8192))
@@ -51,22 +53,7 @@ def _crc(t) -> int:
     return zlib.crc32(t.detach().cpu().contiguous().numpy().tobytes())
 
 
-def _events(torch, fn, reps):
-    """(result, ms a call by CUDA events after one warm-up call)."""
-    out = fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        out = fn()
-    end.record()
-    end.synchronize()
-    return out, start.elapsed_time(end) / reps
-
-
-def rank_main(rank: int, world: int, tmp: str) -> None:
-    sys.path.insert(0, ROOT)
+def rank_main(rank: int, world: int, tmp: str, log) -> None:
     import torch
     import torch.distributed as dist
 
@@ -75,22 +62,11 @@ def rank_main(rank: int, world: int, tmp: str) -> None:
     from marlin_tpu_torch.io import checkpoint as ck
     from marlin_tpu_torch.ops.local import local_matmul
 
-    log_f = open(os.path.join(OUT, f"rank{rank}.log"), "w")
-
-    def log(msg):
-        log_f.write(msg + "\n")
-        log_f.flush()
-
     figures = {}
     mm.initialize_distributed(f"file://{tmp}/store", world, rank)
     try:
         mesh = mm.create_mesh((world, 1))
         one = mm.Mesh(torch.device("cuda", rank))
-
-        def slowest(x: float) -> float:
-            t = torch.tensor([x], device="cuda")
-            dist.all_reduce(t, dist.ReduceOp.MAX)
-            return float(t)
 
         # (a) the multiply
         a = mt.DenseVecMatrix.random(0, N, N, mesh=mesh)
@@ -100,7 +76,7 @@ def rank_main(rank: int, world: int, tmp: str) -> None:
         dist.barrier()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        c, ms = _events(torch, lambda: a.multiply(b, precision="high"), REPS)
+        c, ms = events(lambda: a.multiply(b, precision="high"), REPS)
         peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
         log(f"rank {rank}: block {tuple(a.data.shape)}, {held / 1e6:g} MB "
             f"held of each operand; multiply {ms:.3f} ms (CUDA events), "
@@ -109,8 +85,8 @@ def rank_main(rank: int, world: int, tmp: str) -> None:
                        multiply_peak_gib=slowest(peak))
         a_whole, b_whole, c_whole = a.logical(), b.logical(), c.logical()
         if rank == 0:
-            ref, ms1 = _events(torch, lambda: local_matmul(
-                a_whole, b_whole, "high"), REPS)
+            ref, ms1 = events(lambda: local_matmul(a_whole, b_whole, "high"),
+                              REPS)
             rel = float((c_whole - ref).abs().max() / ref.abs().max())
             log(f"rank 0: one card's torch.matmul {ms1:.3f} ms; C vs it "
                 f"{rel:.3e} of max (tol {TOL})")
@@ -203,30 +179,14 @@ def rank_main(rank: int, world: int, tmp: str) -> None:
     if rank == 0:
         with open(os.path.join(OUT, "figures.json"), "w") as f:
             json.dump(figures, f)
-    log_f.close()
 
 
 def main() -> int:
     import torch
-    import torch.multiprocessing as mp
 
-    if not torch.cuda.is_available():
-        print("matrices_ranks: torch.cuda is not available", file=sys.stderr)
-        return 2
-    world = int(sys.argv[1]) if len(sys.argv) > 1 else \
-        torch.cuda.device_count()
-    os.makedirs(OUT, exist_ok=True)
+    world = world_size(sys.argv[1:])
     with tempfile.TemporaryDirectory() as tmp:
-        ctx = mp.start_processes(rank_main, args=(world, tmp), nprocs=world,
-                                 join=False, start_method="spawn")
-        try:
-            while not ctx.join(timeout=600):
-                pass
-        finally:
-            for r in range(world):
-                path = os.path.join(OUT, f"rank{r}.log")
-                if os.path.exists(path):
-                    print(open(path).read(), end="")
+        run_world(rank_main, world, tmp, OUT)
         with open(os.path.join(OUT, "figures.json")) as f:
             figures = json.load(f)
         sys.path.insert(0, ROOT)
@@ -238,9 +198,7 @@ def main() -> int:
             raise AssertionError("the whole restore's CRC differs")
         print(f"parent: the {world}-rank save restored whole on one card, "
               f"CRC equal")
-    smi = os.popen("nvidia-smi --query-gpu=name,power.limit "
-                   "--format=csv,noheader").read().strip().splitlines()
-    print(json.dumps(dict(figures, world=world, cards=smi)))
+    print(json.dumps(dict(figures, world=world, cards=smi())))
     return 0
 
 
