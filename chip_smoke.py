@@ -270,7 +270,11 @@ drives the ported paths end to end through the public entry points:
   4096 × 128 causal, forward and backward, against the plain flash
   versions, ``pipeline_apply`` against its stages in sequence, the
   ``pipeline_training`` CLI, ``pp_lm_loss`` at 2048 tokens against the
-  plain flash version, and the time of a one-float ``all_reduce`` and
+  plain flash version, the pipeline composed with tensor parallelism on
+  the (1, 1) grid (a two-matrix stage with its weights placed over
+  ``cols``, against the stages in sequence; ``pp_lm_loss`` at 2048 tokens
+  with ``pp_tp_placement``, through the flash forward, against the
+  unplaced loss), and the time of a one-float ``all_reduce`` and
   ``all_gather``; the group is destroyed after.
 - phase 31: the matrices across ranks, in a one-rank NCCL world: two
   20000² ``DenseVecMatrix.random`` over the rank mesh (each rank draws its
@@ -607,14 +611,23 @@ FUSE_PRODUCTS = ("matmul", "__matmul__", "mm", "addmm", "bmm", "linear")
 # pipeline over PIPE_SHAPE (batch, width; 2 tanh layers a stage, microbatches
 # of PIPE_MB; PIPE_TOL of max|ref| against the stages in sequence, whose
 # microbatches' products cuBLAS may block apart), the pipeline_training CLI at its defaults on PP_CLI (batch,
-# seq len, steps), and pp_lm_loss at PP_LONG tokens
+# seq len, steps), and pp_lm_loss at PP_LONG tokens. pp x tp: the two-matrix
+# stage (width -> PIPE_FF -> width) with its weights placed over "cols",
+# within PIPE_TOL of the stages in sequence, and pp_lm_loss with
+# pp_tp_placement within PP_TP_RTOL of the unplaced loss (its row-split
+# products are summed by an all-reduce). tools/workloads_ranks.py trains
+# config_decode's model (LM) that way for TRAIN_STEPS steps on a PP_TP_BATCH
+# (sequences, tokens) batch
 OFFLOAD_LAYERS, OFFLOAD_STEPS = (2, 8), 2
 PLAN_TINY_BUDGET = 64 * 2 ** 20
 DIST_N, DIST_TOL = 8192, 1e-4
 DIST_ATTN = (8, 4096, 128)
 PIPE_SHAPE, PIPE_MB, PIPE_TOL = (64, 1024), 8, 1e-5
+PIPE_FF = 4096
 PP_CLI = ("8", "512", "8")
 PP_LONG = 2048
+PP_TP_RTOL = 1e-5
+PP_TP_BATCH = (8, 512)
 # phase 30: the workloads across ranks in a one-rank NCCL world. config_lct
 # on the TRAIN_SEQ stream sharded over the ranks with each of RANKS_ATTN,
 # held against phase 11's logical run with phase 11's tolerances
@@ -4596,6 +4609,75 @@ def planner_leg(torch, np, tt, mt, ops, smi) -> dict:
     return ops.launch_counts()
 
 
+def mlp2_stage(p, xs):
+    """The two-matrix stage of the pp x tp checks (``tests/test_pipeline.py``'s):
+    ``tanh(relu(xs @ w0) @ w1)``."""
+    import torch
+
+    return torch.tanh(torch.relu(xs @ p["w0"]) @ p["w1"])
+
+
+def tp_mlp2_stage(mesh, axis="cols"):
+    """:func:`mlp2_stage` on this rank's blocks of ``w0``'s columns and
+    ``w1``'s rows over ``axis``, with the activation collectives."""
+    import torch
+
+    from marlin_tpu_torch.parallel import collectives as col
+
+    def stage(p, xs):
+        h = torch.relu(col.Replicate.apply(xs, mesh, axis) @ p["w0"])
+        return torch.tanh(col.AllReduce.apply(h @ p["w1"], mesh, axis))
+    return stage
+
+
+def mlp2_placement(mesh) -> dict:
+    """:func:`tp_mlp2_stage`'s placement of the stacked weights."""
+    from marlin_tpu_torch.mesh import Sharding
+
+    return {"w0": Sharding(mesh, ("rows", None, "cols")),
+            "w1": Sharding(mesh, ("rows", "cols", None))}
+
+
+def pp_tp_leg(torch, mt, pl, pipeline_apply, mesh, gen, x, sp, outer, toks,
+              unplaced: float) -> None:
+    """Phase 29 (c), pp x tp: the stage weights placed over "cols" (a group
+    of one rank on the (1, 1) grid), the stages' collectives through it.
+    The two-matrix stage against the stages in sequence, and ``pp_lm_loss``
+    at PP_LONG tokens with ``pp_tp_placement`` through the flash forward
+    (two launches a layer: 2 rows x 2 layers) against ``unplaced``, the
+    same loss without a placement."""
+    from marlin_tpu_torch import ops
+
+    width = x.shape[1]
+    w = {"w0": torch.randn((1, width, PIPE_FF), generator=gen,
+                           device=x.device) / math.sqrt(width),
+         "w1": torch.randn((1, PIPE_FF, width), generator=gen,
+                           device=x.device) / math.sqrt(PIPE_FF)}
+    with mt.ops.local.precision_scope("highest"):
+        split = pipeline_apply(w, tp_mlp2_stage(mesh), x, mesh,
+                               microbatch=PIPE_MB,
+                               placement=mlp2_placement(mesh))
+        seq = mlp2_stage({k: v[0] for k, v in w.items()}, x)
+    rel = float((split - seq).abs().max()) / float(seq.abs().max())
+    log(f"  pipeline_apply, w0/w1 placed over cols ({width} -> {PIPE_FF} "
+        f"-> {width}): max err {rel:.3e} of max|ref| against the stages in "
+        f"sequence (tol {PIPE_TOL:g})")
+    if not rel <= PIPE_TOL:
+        raise AssertionError(f"pipeline_apply placed: {rel}")
+    before = ops.launch_counts()["flash_attention_panel"]
+    with torch.no_grad():
+        placed = float(pl.pp_lm_loss(sp, outer, toks, mesh, heads=2,
+                                     placement=pl.pp_tp_placement(mesh)))
+    n_flash = ops.launch_counts()["flash_attention_panel"] - before
+    rel = abs(placed - unplaced) / abs(unplaced)
+    log(f"  pp_lm_loss at {PP_LONG} tokens, pp_tp_placement: {placed:.6f} "
+        f"against {unplaced:.6f} unplaced, rel {rel:.3e} (tol "
+        f"{PP_TP_RTOL:g}); {n_flash} flash forward launches")
+    if not (rel <= PP_TP_RTOL and n_flash == 2 * 2):
+        raise AssertionError(f"pp_lm_loss placed: rel {rel}, {n_flash} "
+                             f"launches")
+
+
 def nccl_leg(torch, np, mt, tt, fa, ops, smi) -> tuple[dict, dict]:
     """Phase 29 (c): a one-rank NCCL world on the card, its mesh, and the
     multi-rank paths through it against their references. Returns the
@@ -4746,6 +4828,10 @@ def nccl_leg(torch, np, mt, tt, fa, ops, smi) -> tuple[dict, dict]:
             if not (rel <= 1e-5 and n_flash == 2 * 2):
                 raise AssertionError(f"pp_lm_loss at {PP_LONG}: rel {rel}, "
                                      f"{n_flash} launches")
+            ops.reset_launch_counts()
+            pp_tp_leg(torch, mt, pl, pipeline_apply, mesh, gen, x, sp, outer,
+                      toks, float(got))
+            add()
         finally:
             mm.shutdown_distributed()
     if mm.distributed():

@@ -20,16 +20,26 @@ and the input are logical (the same on every rank): each rank takes its own
 stage's slice, and the backward gathers every stage's gradients and sums
 the input's, so every rank ends with the logical gradients.
 
-The JAX package's pp x tp composition (stage weights also sharded over
-another mesh axis, GSPMD inserting the activation collectives inside a
-stage) has no counterpart: there is no partitioner here (ROADMAP queue 3).
+The pipeline composes with tensor parallelism on one mesh, as the JAX
+package's does when stage weights are also sharded over another axis
+(``NamedSharding(mesh, P("rows", None, "cols"))``): ``placement`` names,
+for each stacked leaf, a :class:`~marlin_tpu_torch.mesh.Sharding` whose
+first dimension is the pipeline axis and whose other dimensions may split
+over the other axes. Each rank then takes its block of its stage's slice,
+and the backward gathers the blocks' gradients over those axes before the
+stages' over the pipeline axis, so the contract above still holds. There
+is no partitioner here, so ``stage_fn`` issues the activation collectives
+itself, over the process group of the split axis:
+:class:`~marlin_tpu_torch.parallel.collectives.Replicate` before a product
+by a column-split block, :class:`~marlin_tpu_torch.parallel.collectives.
+AllReduce` after a product by a row-split one (ROADMAP queue 3 item 10).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..mesh import ROWS, default_mesh
+from ..mesh import ROWS, Sharding, default_mesh
 from . import collectives as col
 
 __all__ = ["pipeline_apply", "stack_stage_params", "split_microbatches"]
@@ -77,28 +87,68 @@ def split_microbatches(x, microbatch: int):
     return x.reshape(b // microbatch, microbatch, *x.shape[1:])
 
 
+def _placements(stage_params, placement) -> list:
+    """Each leaf's :class:`Sharding` (``None``: whole), in :func:`_leaves`'
+    order. ``placement`` is a tree like ``stage_params``; a dict may leave
+    out the leaves that stay whole."""
+    if isinstance(stage_params, dict):
+        placement = placement or {}
+        return [sh for k in stage_params
+                for sh in _placements(stage_params[k], placement.get(k))]
+    if isinstance(stage_params, (list, tuple)):
+        placement = placement or [None] * len(stage_params)
+        return [sh for t, p in zip(stage_params, placement)
+                for sh in _placements(t, p)]
+    return [placement]
+
+
+def _split_dims(sh: Sharding | None, mesh, axis: str) -> tuple:
+    """The ``(dim, axis)`` pairs a leaf's stage slice is split over (dims
+    of the slice, without the stage dimension); ``()`` for a whole one."""
+    if sh is None:
+        return ()
+    if sh.mesh != mesh or not sh.spec or sh.spec[0] != axis \
+            or axis in sh.spec[1:]:
+        raise ValueError(f"a stage leaf's placement {sh.spec} must be a "
+                         f"Sharding of this mesh with the pipeline axis "
+                         f"{axis!r} on its first dimension alone")
+    return tuple((d, a) for d, a in enumerate(sh.spec[1:]) if a is not None)
+
+
 class _StageInputs(torch.autograd.Function):
-    """``_StageInputs.apply(mesh, axis, x, *leaves)``: ``x`` and this rank's
-    slice of each stacked leaf. Backward sums ``x``'s gradient over the axis
-    (only stage 0 reads it) and gathers the stages' slices' gradients, in
-    one node, so every rank issues these collectives in the same order."""
+    """``_StageInputs.apply(mesh, axis, splits, x, *leaves)``: ``x`` and
+    this rank's slice of each stacked leaf, cut to this rank's block where
+    ``splits`` (one :func:`_split_dims` a leaf) names a split. Backward sums
+    ``x``'s gradient over the axis (only stage 0 reads it) and gathers each
+    leaf's gradient over its split axes, then over the stages, in one node,
+    so every rank issues these collectives in the same order."""
 
     @staticmethod
-    def forward(ctx, mesh, axis, x, *leaves):
-        ctx.meta = (mesh, axis)
+    def forward(ctx, mesh, axis, splits, x, *leaves):
+        ctx.meta = (mesh, axis, splits)
         s = mesh.index(axis)
-        return (x.clone(), *(leaf[s].clone() for leaf in leaves))
+        mine = []
+        for leaf, split in zip(leaves, splits):
+            leaf = leaf[s]
+            for d, a in split:
+                leaf = col.block(leaf, mesh, a, d)
+            mine.append(leaf.clone())
+        return (x.clone(), *mine)
 
     @staticmethod
     def backward(ctx, gx, *gl):
-        mesh, axis = ctx.meta
+        mesh, axis, splits = ctx.meta
         gx = col.all_reduce_sum(gx, mesh, axis)
-        gl = [col.all_gather_cat(g.unsqueeze(0), mesh, axis, 0) for g in gl]
-        return (None, None, gx, *gl)
+        out = []
+        for g, split in zip(gl, splits):
+            for d, a in split:
+                g = col.all_gather_cat(g, mesh, a, d)
+            out.append(col.all_gather_cat(g.unsqueeze(0), mesh, axis, 0))
+        return (None, None, None, gx, *out)
 
 
 def pipeline_apply(stage_params, stage_fn, x, mesh=None, axis: str = ROWS,
-                   microbatch: int | None = None):
+                   microbatch: int | None = None, placement=None):
     """Run ``x`` through ``S = mesh.shape[axis]`` pipeline stages.
 
     ``stage_params``: a tree whose every leaf has leading axis ``S`` (stage
@@ -118,6 +168,17 @@ def pipeline_apply(stage_params, stage_fn, x, mesh=None, axis: str = ROWS,
     otherwise blows up at 0 yields inf/NaN whose backward products can
     poison gradients even though the output is masked (0 · NaN is NaN).
     Guard such ops with an epsilon (the LM blocks' rmsnorm adds 1e-6).
+
+    ``placement``: a tree like ``stage_params`` (a dict may leave leaves
+    out) of :class:`~marlin_tpu_torch.mesh.Sharding` or ``None``, each
+    ``Sharding(mesh, (axis, ...))`` with the other dimensions split over
+    other mesh axes or not. ``stage_fn`` then gets this rank's blocks and
+    must issue the collectives over those axes itself (see the module
+    docstring), the same on every rank of a line and on every tick, bubbles
+    included. Each leaf's gradient is its logical one on every rank, so a
+    whole leaf the split part of ``stage_fn`` reads must get its gradient
+    whole there too (read it before the ``Replicate``). ``None`` (the
+    default): every leaf whole.
     """
     mesh = mesh or default_mesh()
     n_stages = mesh.shape[axis]
@@ -128,12 +189,14 @@ def pipeline_apply(stage_params, stage_fn, x, mesh=None, axis: str = ROWS,
     xm = split_microbatches(x, microbatch)
     n_micro = xm.shape[0]
     leaves = _leaves(stage_params)
-    if mesh.ranks is None:
+    splits = tuple(_split_dims(sh, mesh, axis)
+                   for sh in _placements(stage_params, placement))
+    if mesh.ranks is None:  # every axis of size 1: each block is whole
         s = 0
         mine = [leaf[0] for leaf in leaves]
     else:
         s = mesh.index(axis)
-        xm, *mine = _StageInputs.apply(mesh, axis, xm, *leaves)
+        xm, *mine = _StageInputs.apply(mesh, axis, splits, xm, *leaves)
     it = iter(mine)
     p_s = _tree_map(lambda _: next(it), stage_params)
     dev = xm.device

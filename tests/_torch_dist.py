@@ -490,6 +490,190 @@ def case_pp_cli(inp):
             "loss_line": np.array(lines[1])}
 
 
+# the pipeline composed with tensor parallelism on a (2, 2) rank mesh:
+# stages over "rows", stage weights split over "cols"
+
+def _pptp_mesh():
+    from marlin_tpu_torch import mesh as mm
+
+    return mm.create_mesh((2, 2))
+
+
+def _mlp2_stage(p, x):
+    """tests/test_pipeline.py's two-matrix stage, whole."""
+    import torch
+
+    return torch.tanh(torch.relu(x @ p["w0"]) @ p["w1"])
+
+
+def _tp_mlp2_stage(mesh):
+    """The same stage on this rank's blocks: ``w0``'s columns and ``w1``'s
+    rows over "cols", the activation collectives its own."""
+    import torch
+
+    from marlin_tpu_torch.parallel import collectives as col
+
+    def stage(p, x):
+        h = torch.relu(col.Replicate.apply(x, mesh, "cols") @ p["w0"])
+        return torch.tanh(col.AllReduce.apply(h @ p["w1"], mesh, "cols"))
+    return stage
+
+
+class _CollectiveLog:
+    """Record every ``torch.distributed`` call the collectives layer makes
+    while entered: its name and its group's ranks (point-to-point calls:
+    their ops and peers)."""
+
+    NAMES = ("all_reduce", "all_gather", "all_to_all_single",
+             "batch_isend_irecv")
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self.calls, self.real = [], {n: getattr(dist, n) for n in self.NAMES}
+
+        def wrap(name, fn):
+            def call(*args, **kw):
+                if name == "batch_isend_irecv":
+                    what = [f"{op.op.__name__}:{op.peer}" for op in args[0]]
+                else:
+                    group = kw.get("group")
+                    what = [str(r) for r in dist.get_process_group_ranks(
+                        group)] if group is not None else ["world"]
+                self.calls.append(f"{name}({','.join(what)})")
+                return fn(*args, **kw)
+            return call
+        for n, fn in self.real.items():
+            setattr(dist, n, wrap(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        for n, fn in self.real.items():
+            setattr(dist, n, fn)
+
+
+def case_pptp_mlp(inp):
+    """The two-matrix stage with w0 split by columns and w1 by rows over
+    "cols": the output, and the gradients of mean((out - y)^2)."""
+    import torch
+
+    from marlin_tpu_torch.mesh import Sharding
+    from marlin_tpu_torch.parallel import pipeline_apply
+
+    mesh = _pptp_mesh()
+    w0, w1, x = (_t(inp[k], True) for k in ("w0", "w1", "x"))
+    place = {"w0": Sharding(mesh, ("rows", None, "cols")),
+             "w1": Sharding(mesh, ("rows", "cols", None))}
+    out = pipeline_apply({"w0": w0, "w1": w1}, _tp_mlp2_stage(mesh), x, mesh,
+                         microbatch=int(inp["microbatch"]), placement=place)
+    loss = torch.mean((out - _t(inp["y"])) ** 2)
+    gw0, gw1, gx = torch.autograd.grad(loss, (w0, w1, x))
+    return {"out": _np(out), "loss": _np(loss), "gw0": _np(gw0),
+            "gw1": _np(gw1), "gx": _np(gx)}
+
+
+def case_pptp_unsplit(inp):
+    """The whole stage on the (2, 2) mesh, with no placement and with one
+    that names no split: outputs, gradients and the collectives each call
+    issues (forward and backward), and the stages applied in sequence to
+    each microbatch."""
+    import torch
+
+    from marlin_tpu_torch.mesh import Sharding
+    from marlin_tpu_torch.parallel import pipeline_apply
+
+    mesh = _pptp_mesh()
+    mb = int(inp["microbatch"])
+    res = {}
+    for tag, place in (("none", None),
+                       ("unsplit", {"w0": Sharding(mesh, ("rows",)),
+                                    "w1": Sharding(mesh, ("rows", None))})):
+        w0, w1, x = (_t(inp[k], True) for k in ("w0", "w1", "x"))
+        with _CollectiveLog() as log:
+            out = pipeline_apply({"w0": w0, "w1": w1}, _mlp2_stage, x, mesh,
+                                 microbatch=mb, placement=place)
+            loss = torch.mean((out - _t(inp["y"])) ** 2)
+            grads = torch.autograd.grad(loss, (w0, w1, x))
+        res.update({f"out_{tag}": _np(out), f"rank_log_{tag}":
+                    np.array(log.calls)})
+        res.update({f"{k}_{tag}": _np(g) for k, g in zip(("gw0", "gw1", "gx"),
+                                                          grads)})
+    w0, w1, x = (_t(inp[k]) for k in ("w0", "w1", "x"))
+    seq = []
+    for xs in x.split(mb):
+        for s in range(w0.shape[0]):
+            xs = _mlp2_stage({"w0": w0[s], "w1": w1[s]}, xs)
+        seq.append(xs)
+    res["seq"] = _np(torch.cat(seq))
+    return res
+
+
+def pptp_lm_case(inp):
+    """pp_lm_loss with the stage weights split the Megatron way over
+    "cols", and (with ``steps``) its gradients, that many pp_lm_train_step
+    losses and the params after them."""
+    import torch
+
+    from marlin_tpu_torch.models import pipeline_lm as pl
+    from marlin_tpu_torch.models import transformer as tt
+
+    mesh = _pptp_mesh()
+    heads, mb, toks = int(inp["heads"]), int(inp["microbatch"]), \
+        inp["tokens"]
+    sp, outer = pl.pp_stage_params(_lm_params(inp), mesh)
+    place = pl.pp_tp_placement(mesh)
+    steps = int(inp.get("steps", 0))
+    tree = tt._tree_map(lambda p: p.detach().requires_grad_(steps > 0),
+                        (sp, outer))
+    loss = pl.pp_lm_loss(tree[0], tree[1], toks, mesh, heads=heads,
+                         microbatch=mb, placement=place)
+    res = {"loss": _np(loss)}
+    if steps:
+        it = iter(torch.autograd.grad(loss, tt._leaves(tree)))
+        g = tt._tree_map(lambda _: next(it), tree)
+        res.update({f"gsp/{k}": v for k, v in _flat(g[0]).items()})
+        res.update({f"gouter/{k}": v for k, v in _flat(g[1]).items()})
+        state = tt.adam_init((sp, outer))
+        losses = []
+        for _ in range(steps):
+            sp, outer, state, l = pl.pp_lm_train_step(
+                sp, outer, state, toks, mesh, heads=heads, microbatch=mb,
+                lr=float(inp["lr"]), placement=place)
+            losses.append(float(l))
+        res["losses"] = np.array(losses)
+        res.update({f"sp/{k}": v for k, v in _flat(sp).items()})
+        res.update({f"outer/{k}": v for k, v in _flat(outer).items()})
+    return res
+
+
+def case_pptp_long(inp):
+    """At 2048 tokens, with no gradients: the split loss and the unsplit
+    one; with a gradient wanted, the refusal under the placement."""
+    import torch
+
+    from marlin_tpu_torch.models import pipeline_lm as pl
+
+    mesh = _pptp_mesh()
+    sp, outer = pl.pp_stage_params(_lm_params(inp), mesh)
+    place = pl.pp_tp_placement(mesh)
+    toks = inp["tokens"]
+    with torch.no_grad():
+        split = pl.pp_lm_loss(sp, outer, toks, mesh, heads=2,
+                              placement=place)
+        whole = pl.pp_lm_loss(sp, outer, toks, mesh, heads=2)
+    leaf = sp["wq"].detach().requires_grad_(True)
+    try:
+        pl.pp_lm_loss(dict(sp, wq=leaf), outer, toks, mesh, heads=2,
+                      placement=place)
+        raised = ""
+    except NotImplementedError as e:
+        raised = str(e)
+    return {"split": _np(split), "whole": _np(whole),
+            "raised": np.array(raised)}
+
+
 # the sequence-sharded trainer: ``inp`` holds the JAX package's params
 # (flattened as above), the stream, ``steps`` and ``knobs`` (the
 # TransformerLM fields, JSON); the mesh is (world, 1)
@@ -1046,6 +1230,8 @@ for _name in ("pipeline_seq", "pipeline_default_mb", "pipeline_mb1",
     globals()[f"case_{_name}"] = pipeline_case
 for _name in ("pp_loss", "pp_gqa", "pp_flagship", "pp_grad", "pp_train"):
     globals()[f"case_{_name}"] = pp_case
+for _name in ("pptp_lm", "pptp_lm_gqa", "pptp_train"):
+    globals()[f"case_{_name}"] = pptp_lm_case
 for _name in ("ring", "ring_xla", "ring_flash", "ulysses", "moe", "moe_span"):
     globals()[f"case_lm_{_name}"] = lm_train_case
 for _name in ("ring", "ulysses", "moe"):

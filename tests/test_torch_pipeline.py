@@ -5,8 +5,8 @@ One 4-rank gloo world (``_torch_dist.run_world``) runs the cases of
 ``tests/test_pipeline.py`` with seeded numpy stages (tanh(x @ w + b) per
 stage); each is compared here with the JAX package's ``pipeline_apply`` on
 the same inputs over a ("rows" 4) mesh, within ``PIPE_TOL`` of max |ref|,
-and with the plain sequential composition. The pp x tp case has no
-counterpart: it needs GSPMD inside a stage (ROADMAP queue 3).
+and with the plain sequential composition. The pp x tp case (stage
+weights also split over "cols") is ``tests/test_torch_pipeline_tp.py``'s.
 """
 
 import numpy as np

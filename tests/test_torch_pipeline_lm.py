@@ -8,8 +8,8 @@ params (carried over as numpy), and the ``pipeline_training`` CLI with
 package on a ("rows" 4) mesh: losses within ``LOSS_RTOL``, gradients within
 the reference test's 1e-4 / 1e-6 against the JAX gradient of the same
 blocks applied in sequence (its oracle), and Adam steps within
-``TRAIN_RTOL``. The pp x tp composition has no counterpart (ROADMAP queue
-3).
+``TRAIN_RTOL``. The pp x tp composition (stage weights split the Megatron
+way over "cols") is held in ``tests/test_torch_pipeline_tp.py``.
 """
 
 import importlib

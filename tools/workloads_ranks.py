@@ -38,7 +38,19 @@ result against it. The models, sizes and tolerances are ``chip_smoke.py``'s
 7. ``pipeline_apply`` over WORLD stages at ``PIPE_SHAPE`` against the stages
    in sequence; the ``pipeline_training`` CLI at ``PP_CLI`` (4 layers of
    width 128) against the same CLI outside the world; ``pp_lm_loss`` at
-   ``PP_LONG`` tokens against the plain flash version;
+   ``PP_LONG`` tokens against the plain flash version; then pp x tp on a
+   (WORLD/2, 2) mesh (2 stages x 2 ``cols`` on four ranks, tp alone on
+   two): the two-matrix stage at ``PIPE_SHAPE`` through ``PIPE_FF`` with
+   its weights placed over ``cols``, against the stages in sequence;
+   config_decode's model (``LM``) with ``pp_tp_placement``, trained
+   ``TRAIN_STEPS`` steps on a ``PP_TP_BATCH`` batch after one warm-up step,
+   against the same steps on one card (phase 11's tolerances), with one
+   step under ``torch.profiler`` (the share of rank 0's device time in the
+   all-reduces over ``cols``), and its loss at ``PP_LONG`` tokens without
+   gradients through the flash forward (ticks x layers a stage x rows a
+   microbatch launches a rank), against the unplaced loss on one card
+   within ``PP_TP_RTOL``; the stage-weight bytes a rank holds beside one
+   card's;
 8. the ``distributed_training`` CLI at two (dp, tp) grids ((2, 2) and
    (4, 1); (2, 1) and (1, 2) on two ranks) against the CLI outside the
    world;
@@ -84,6 +96,7 @@ BUS_BYTES = 256 * 2 ** 20
 MASKED_SHARE = 0.25
 FLASH = ("flash_attention_panel", "flash_attention_bwd_dkv",
          "flash_attention_bwd_dq")
+PP_LR = 3e-3  # the pipelined LM's Adam rate (pp_lm_train_step's default)
 
 
 def _card(rank: int):
@@ -572,6 +585,188 @@ def leg_pipeline(c: Ctx) -> None:
     c.done("pp_lm_loss", ms, launches=launches)
 
 
+def _pptp_mlp(c, stages):
+    """The two-matrix stage's stacked weights and input (pp x tp)."""
+    batch, width = c.cs.PIPE_SHAPE
+    ff = c.cs.PIPE_FF
+    w0, w1, x = _operands(c, 20, (stages, width, ff), (stages, ff, width),
+                          (batch, width))
+    return {"w0": w0 / math.sqrt(width), "w1": w1 / math.sqrt(ff)}, x
+
+
+def _pptp_params(c):
+    lm = c.cs.LM
+    return c.tt.init_transformer(lm["seed"], lm["vocab"], lm["d_model"],
+                                 lm["heads"], lm["layers"])
+
+
+def _pptp_tokens(c):
+    """The training batch and the PP_LONG-token one."""
+    rng = c.np.random.default_rng(20)
+    b, t = c.cs.PP_TP_BATCH
+    vocab = c.cs.LM["vocab"]
+    return (rng.integers(0, vocab, (b, t + 1)).astype(c.np.int32),
+            rng.integers(0, vocab, (2, c.cs.PP_LONG + 1)).astype(c.np.int32))
+
+
+def _held_bytes(tree, place, mesh) -> int:
+    """The bytes of this rank's blocks of the stacked stage weights
+    (``place``: their Shardings; a leaf left out is whole on its stage)."""
+    from marlin_tpu_torch.mesh import Sharding
+
+    total = 0
+    for k, v in tree.items():
+        sh = place.get(k) or Sharding(mesh, ("rows",))
+        total += sh.local(v).numel() * v.element_size()
+    return total
+
+
+def _pp_train(c, mesh, place, steps):
+    """One warm-up step, then ``steps`` Adam steps of config_decode's
+    pipelined model from its initial params; returns (losses, ms a step,
+    (stage params, outer) after, the same before)."""
+    from marlin_tpu_torch.models import pipeline_lm as pl
+
+    torch, heads = c.torch, c.cs.LM["heads"]
+    toks, _ = _pptp_tokens(c)
+    sp, outer = pl.pp_stage_params(_pptp_params(c), mesh)
+    start = (sp, outer)
+    pl.pp_lm_train_step(sp, outer, c.tt.adam_init((sp, outer)), toks, mesh,
+                        heads=heads, lr=PP_LR, placement=place)
+    state = c.tt.adam_init((sp, outer))
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        sp, outer, state, loss = pl.pp_lm_train_step(
+            sp, outer, state, toks, mesh, heads=heads, lr=PP_LR,
+            placement=place)
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    return losses, ms, (sp, outer), start
+
+
+def _logical(sp, outer) -> dict:
+    """Pipelined params as one dict, the stage and layer axes merged (the
+    layers in order), for params_close."""
+    return {"sp": {k: v.reshape(-1, *v.shape[2:]) for k, v in sp.items()},
+            "outer": outer}
+
+
+def _tp_share(c, fn, label, tp_axis="cols"):
+    """One call of ``fn`` under ``torch.profiler`` on every rank, each
+    all-reduce over ``tp_axis`` inside a ``tp_all_reduce`` range; returns
+    rank 0's device time (us) in all, in those ranges' kernels, and in
+    NCCL all-reduce kernels of any group, and logs its table."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    col = c.col
+    real = col.all_reduce_sum
+
+    def labelled(x, mesh, axis):
+        if axis != tp_axis:
+            return real(x, mesh, axis)
+        with record_function("tp_all_reduce"):
+            return real(x, mesh, axis)
+
+    def dev_us(e, self_time):
+        name = ("self_" if self_time else "") + "device_time_total"
+        if hasattr(e, name):
+            return getattr(e, name)
+        return getattr(e, name.replace("device", "cuda"))
+
+    col.all_reduce_sum = labelled
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            c.torch.cuda.synchronize()
+    finally:
+        col.all_reduce_sum = real
+    if c.rank != 0:
+        return None
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation]
+    total = sum(dev_us(e, True) for e in kernels)
+    ranges = [e for e in events if e.name == "tp_all_reduce"
+              and e.device_type == DeviceType.CPU]
+    tp = sum(dev_us(e, False) for e in ranges)
+    nccl = sum(dev_us(e, True) for e in kernels
+               if "nccl" in e.name.lower() and "allreduce" in
+               e.name.lower().replace("_", ""))
+    c.log(f"  {label} on rank 0 under torch.profiler: device {total:.1f} "
+          f"us, the {len(ranges)} all-reduces over {tp_axis} {tp:.1f} us, "
+          f"NCCL all-reduce kernels {nccl:.1f} us; by device time:\n"
+          + prof.key_averages().table(sort_by="self_cuda_time_total",
+                                      row_limit=14))
+    return dict(device_us=total, tp_all_reduces=len(ranges),
+                tp_all_reduce_us=tp,
+                nccl_all_reduce_us=nccl,
+                tp_share=tp / total if total else None)
+
+
+def leg_pptp(c: Ctx) -> None:
+    """Leg 7 (pp x tp): stage weights split over cols.
+
+    The two-matrix stage and config_decode's pipelined model on a
+    (WORLD/2, 2) mesh with their stage weights placed over cols."""
+    from marlin_tpu_torch.models import pipeline_lm as pl
+    from marlin_tpu_torch.parallel import pipeline_apply
+
+    cs, torch = c.cs, c.torch
+    stages = c.world // 2
+    mesh = c.mm.create_mesh((stages, 2))
+    w, x = _pptp_mlp(c, stages)
+    place = cs.mlp2_placement(mesh)
+    c.start()
+    with c.mt.ops.local.precision_scope("highest"):
+        out, ms = events(lambda: pipeline_apply(
+            w, cs.tp_mlp2_stage(mesh), x, mesh, microbatch=cs.PIPE_MB,
+            placement=place), REPS)
+    if c.rank == 0:
+        c.keep["pptp_mlp"] = c.cpu(out)
+    c.done("pptp_mlp", ms, grid=mesh.grid,
+           weight_bytes=_held_bytes(w, place, mesh))
+    del w, x, out
+    place = pl.pp_tp_placement(mesh)
+    c.start()
+    losses, ms, (sp, outer), _ = _pp_train(c, mesh, place, cs.TRAIN_STEPS)
+    if c.rank == 0:
+        c.keep["pptp_train"] = (losses, {k: c.cpu(t) for k, t in cs.flat(
+            _logical(sp, outer)).items()})
+    c.done("pptp_train", ms, grid=mesh.grid, losses=losses,
+           weight_bytes=_held_bytes(sp, place, mesh))
+    toks, long_toks = _pptp_tokens(c)
+    state = c.tt.adam_init((sp, outer))
+    share = _tp_share(c, lambda: pl.pp_lm_train_step(
+        sp, outer, state, toks, mesh, heads=cs.LM["heads"], lr=PP_LR,
+        placement=place), "pp x tp train step")
+    if c.rank == 0:
+        c.figures["pptp_train"]["profile"] = share
+    sp, outer = pl.pp_stage_params(_pptp_params(c), mesh)
+    t0 = c.start()
+    with torch.no_grad():
+        loss = float(pl.pp_lm_loss(sp, outer, long_toks, mesh,
+                                   heads=cs.LM["heads"], placement=place))
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = c.counts()
+    b, layers = long_toks.shape[0], cs.LM["layers"]
+    mb = max(1, b // stages)
+    want = (b // mb + stages - 1) * (layers // stages) * mb
+    c.log(f"  pp_lm_loss at {cs.PP_LONG} tokens, {mesh.grid} pp x tp, "
+          f"{cs.LM['heads'] // 2} heads a rank: {loss!r}; flash forward "
+          f"launches {launches['flash_attention_panel']} (want {want} on "
+          f"each rank)")
+    if any(n != want for n in launches["flash_attention_panel"]):
+        raise AssertionError(f"pp x tp pp_lm_loss: launches {launches}")
+    if c.rank == 0:
+        c.keep["pptp_long"] = loss
+    c.done("pptp_long", ms, launches=launches)
+
+
 def _nn_grids(world):
     if world == 4:
         return ((2, 2), (4, 1))
@@ -697,7 +892,7 @@ def leg_sparse(c: Ctx) -> None:
 
 
 LEGS = (leg_mesh, leg_collectives, leg_ring_matmul, leg_attention, leg_lct,
-        leg_moe, leg_pipeline, leg_nn, leg_ml, leg_sparse)
+        leg_moe, leg_pipeline, leg_pptp, leg_nn, leg_ml, leg_sparse)
 
 
 # ------------------------------------------------- the one-card runs
@@ -717,10 +912,68 @@ def _one_card(c: Ctx, name: str, ms: float, **checks) -> None:
           f"{[round(x, 3) for x in fig['peak_gib']]} GiB; {checks}")
 
 
+def _nested(flat: dict, dev) -> dict:
+    """A ``{"a/b": tensor}`` dict as nested dicts on ``dev`` (the params
+    dicts ``params_close`` takes)."""
+    out = {}
+    for name, t in flat.items():
+        node = out
+        *path, leaf = name.split("/")
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = t.to(dev)
+    return out
+
+
 def _check(label: str, err: float, tol: float) -> float:
     if not (math.isfinite(err) and err <= tol):
         raise AssertionError(f"{label}: {err:.3e} > {tol:g}")
     return err
+
+
+def _pptp_one_card(c: Ctx, one) -> None:
+    """Leg 7's pp x tp on one card: the stages in sequence, the unplaced
+    trainer and loss."""
+    from marlin_tpu_torch.models import pipeline_lm as pl
+
+    cs, torch, k = c.cs, c.torch, c.keep
+    w, x = _pptp_mlp(c, c.world // 2)
+
+    def mlp_in_sequence():
+        y = x
+        for s in range(c.world // 2):
+            y = cs.mlp2_stage({n_: t[s] for n_, t in w.items()}, y)
+        return y
+
+    with c.mt.ops.local.precision_scope("highest"):
+        want, ms = events(mlp_in_sequence, REPS)
+    rel = _check("pp x tp pipeline_apply", _rel(
+        k.pop("pptp_mlp").to(c.dev), want), cs.PIPE_TOL)
+    _one_card(c, "pptp_mlp", ms, max_rel=rel,
+              one_card_weight_bytes=sum(t.numel() * t.element_size()
+                                        for t in w.values()))
+    del w, x, want
+    losses, ms, (sp, outer), (sp0, outer0) = _pp_train(c, one, None,
+                                                       cs.TRAIN_STEPS)
+    got_losses, got = k.pop("pptp_train")
+    worst = cs.losses_close("pp x tp train", got_losses, losses)
+    note = cs.params_close("pp x tp train", _nested(got, c.dev),
+                           _logical(sp, outer),
+                           _logical(sp0, outer0), PP_LR)
+    _one_card(c, "pptp_train", ms, losses_rel=worst, params=note,
+              one_card_losses=losses,
+              one_card_weight_bytes=sum(t.numel() * t.element_size()
+                                        for t in sp0.values()))
+    _, long_toks = _pptp_tokens(c)
+    sp, outer = pl.pp_stage_params(_pptp_params(c), one)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        whole = float(pl.pp_lm_loss(sp, outer, long_toks, one,
+                                    heads=cs.LM["heads"]))
+        ms = (time.perf_counter() - t0) * 1e3
+    rel = _check("pp x tp pp_lm_loss vs unplaced",
+                 abs(k.pop("pptp_long") - whole) / abs(whole), cs.PP_TP_RTOL)
+    _one_card(c, "pptp_long", ms, rel_unplaced=rel)
 
 
 def references(c: Ctx) -> None:
@@ -782,15 +1035,8 @@ def references(c: Ctx) -> None:
             continue
         flat_p, losses = k.pop(f"lct_{attn}")
         worst = cs.losses_close(f"config_lct {attn}", losses, losses_ref)
-        got = {n_: t.to(c.dev) for n_, t in flat_p.items()}
-        unflat = {}
-        for n_, t in got.items():  # params_close takes the params dicts
-            node = unflat
-            *path, leaf = n_.split("/")
-            for s in path:
-                node = node.setdefault(s, {})
-            node[leaf] = t
-        note = cs.params_close(f"config_lct {attn}", unflat, params_ref,
+        note = cs.params_close(f"config_lct {attn}",
+                               _nested(flat_p, c.dev), params_ref,
                                params0, tt.TransformerLM.learning_rate)
         _one_card(c, f"lct_{attn}", ms, losses_rel=worst, params=note,
                   one_card_losses=losses_ref)
@@ -868,6 +1114,7 @@ def references(c: Ctx) -> None:
                  1e-5)
     _one_card(c, "pp_lm_loss", ms, rel_plain=rel,
               one_card_rel_plain=abs(kern - plain) / abs(plain))
+    _pptp_one_card(c, one)
     # 8. the MLP CLI outside the world
     t0 = time.perf_counter()
     losses, lines = _nn_cli(c, os.path.join(c.tmp, "nn_one"))
