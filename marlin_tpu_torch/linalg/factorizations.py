@@ -61,6 +61,7 @@ import torch
 
 from ..config import get_config
 from ..mesh import pad_to_multiple
+from ..obs import trace as obs_trace
 from ..ops.local import precision_scope
 
 __all__ = ["lu_decompose", "cholesky_decompose", "inverse", "PIVOT_STRATEGIES",
@@ -167,22 +168,27 @@ def _blocked_lu(a: torch.Tensor, block: int):
     eye_b = torch.eye(block, dtype=a.dtype, device=dev)
     for i in range(n // block):
         o = i * block
-        lu, p = _lu_block(a[o:o + block, o:o + block])
-        l11_inv, u11_inv = _triangle_inverses(lu, eye_b)
-        # row panel: permute its rows, keep the permuted L part left of the
-        # panel, the combined lu block in the diagonal (U12: the epilogue)
-        rpan = a[o:o + block, :][p]
-        in_block = (idx[None, :] >= o) & (idx[None, :] < o + block)
-        lu_wide = torch.zeros_like(rpan)
-        lu_wide[:, o:o + block] = lu
-        a[o:o + block, :] = torch.where(in_block, lu_wide, rpan)
-        # column panel: rows >= o + b get L21 = A21 U11^-1
-        cpan = a[:, o:o + block]
-        l21 = cpan @ u11_inv
-        below = idx[:, None] >= o + block
-        a[:, o:o + block] = torch.where(below, l21, cpan)
-        _trailing_update(a, o, block, l11_inv @ rpan)
-        gperm[o:o + block] = gperm[o:o + block][p]
+        with obs_trace.span("lu.step"):
+            with obs_trace.span("lu.pivot"):
+                lu, p = _lu_block(a[o:o + block, o:o + block])
+                l11_inv, u11_inv = _triangle_inverses(lu, eye_b)
+            with obs_trace.span("lu.stripe"):
+                # row panel: permute its rows, keep the permuted L part left
+                # of the panel, the combined lu block in the diagonal (U12:
+                # the epilogue)
+                rpan = a[o:o + block, :][p]
+                in_block = (idx[None, :] >= o) & (idx[None, :] < o + block)
+                lu_wide = torch.zeros_like(rpan)
+                lu_wide[:, o:o + block] = lu
+                a[o:o + block, :] = torch.where(in_block, lu_wide, rpan)
+                gperm[o:o + block] = gperm[o:o + block][p]
+            with obs_trace.span("lu.update"):
+                # column panel: rows >= o + b get L21 = A21 U11^-1
+                cpan = a[:, o:o + block]
+                l21 = cpan @ u11_inv
+                below = idx[:, None] >= o + block
+                a[:, o:o + block] = torch.where(below, l21, cpan)
+                _trailing_update(a, o, block, l11_inv @ rpan)
     return a, gperm
 
 
@@ -201,30 +207,34 @@ def _blocked_lu_panel_pivot(a: torch.Tensor, block: int):
     eye_b = torch.eye(block, dtype=a.dtype, device=dev)
     for i in range(n // block):
         o = i * block
-        pan = a[:, o:o + block].clone()
-        pivots = torch.zeros((block,), dtype=torch.int64, device=dev)
-        for j in range(block):
-            c = o + j
-            mag = torch.where(row_idx >= c, pan[:, j].abs(), -1.0)
-            piv = torch.argmax(mag)
-            _swap_rows(pan, c, piv)
-            pivots[j] = piv
-            col = pan[:, j].clone()
-            pivot_val = col[c]
-            safe = torch.where(pivot_val.abs() > 0, pivot_val, 1.0)
-            factor = torch.where(row_idx > c, col / safe, 0.0)
-            pivot_row = torch.where(panel_col_idx > j, pan[c], 0.0)
-            pan -= factor[:, None] * pivot_row[None, :]
-            pan[:, j] = torch.where(row_idx > c, factor, col)
-        for j in range(block):
-            _swap_rows(a, o + j, pivots[j])
-            _swap_rows(gperm, o + j, pivots[j])
-        a[:, o:o + block] = pan
-        # shared epilogue: U12 from the panel's unit-lower triangle
-        l11 = torch.tril(a[o:o + block, o:o + block], -1) + eye_b
-        l11_inv = torch.linalg.solve_triangular(l11, eye_b, upper=False,
-                                                unitriangular=True)
-        _trailing_update(a, o, block, l11_inv @ a[o:o + block, :])
+        with obs_trace.span("lu.step"):
+            with obs_trace.span("lu.pivot"):
+                pan = a[:, o:o + block].clone()
+                pivots = torch.zeros((block,), dtype=torch.int64, device=dev)
+                for j in range(block):
+                    c = o + j
+                    mag = torch.where(row_idx >= c, pan[:, j].abs(), -1.0)
+                    piv = torch.argmax(mag)
+                    _swap_rows(pan, c, piv)
+                    pivots[j] = piv
+                    col = pan[:, j].clone()
+                    pivot_val = col[c]
+                    safe = torch.where(pivot_val.abs() > 0, pivot_val, 1.0)
+                    factor = torch.where(row_idx > c, col / safe, 0.0)
+                    pivot_row = torch.where(panel_col_idx > j, pan[c], 0.0)
+                    pan -= factor[:, None] * pivot_row[None, :]
+                    pan[:, j] = torch.where(row_idx > c, factor, col)
+                # the panel's unit-lower triangle, for U12 in the epilogue
+                l11 = torch.tril(pan[o:o + block], -1) + eye_b
+                l11_inv = torch.linalg.solve_triangular(
+                    l11, eye_b, upper=False, unitriangular=True)
+            with obs_trace.span("lu.stripe"):
+                for j in range(block):
+                    _swap_rows(a, o + j, pivots[j])
+                    _swap_rows(gperm, o + j, pivots[j])
+                a[:, o:o + block] = pan
+            with obs_trace.span("lu.update"):
+                _trailing_update(a, o, block, l11_inv @ a[o:o + block, :])
     return a, gperm
 
 
@@ -238,20 +248,24 @@ def _blocked_lu_shrinking(a: torch.Tensor, block: int):
     eye_b = torch.eye(block, dtype=a.dtype, device=dev)
     for i in range(n // block):
         o, e = i * block, (i + 1) * block
-        lu, p = _lu_block(a[o:e, o:e])
-        l11_inv, u11_inv = _triangle_inverses(lu, eye_b)
-        # permute the whole row stripe (the L entries left of the panel
-        # swap with it, as laswp does)
-        stripe = a[o:e, :][p]
-        gperm[o:e] = gperm[o:e][p]
-        a[o:e, :] = stripe
-        a[o:e, o:e] = lu
-        if e < n:
-            u12 = l11_inv @ stripe[:, e:]
-            l21 = a[e:, o:e] @ u11_inv
-            a[e:, e:].addmm_(l21, u12, alpha=-1.0)
-            a[o:e, e:] = u12
-            a[e:, o:e] = l21
+        with obs_trace.span("lu.step"):
+            with obs_trace.span("lu.pivot"):
+                lu, p = _lu_block(a[o:e, o:e])
+                l11_inv, u11_inv = _triangle_inverses(lu, eye_b)
+            with obs_trace.span("lu.stripe"):
+                # permute the whole row stripe (the L entries left of the
+                # panel swap with it, as laswp does)
+                stripe = a[o:e, :][p]
+                gperm[o:e] = gperm[o:e][p]
+                a[o:e, :] = stripe
+                a[o:e, o:e] = lu
+            with obs_trace.span("lu.update"):
+                if e < n:
+                    u12 = l11_inv @ stripe[:, e:]
+                    l21 = a[e:, o:e] @ u11_inv
+                    a[e:, e:].addmm_(l21, u12, alpha=-1.0)
+                    a[o:e, e:] = u12
+                    a[e:, o:e] = l21
     return a, gperm
 
 
@@ -395,11 +409,14 @@ def lu_decompose(mat, mode: str = "auto", block_size: int | None = None,
         b = min(block_size or get_config().lu_base_size, n)
         n_pad = _padded_size(mat, n, b)
         sched = _resolve_schedule(schedule, n_pad // b, pivot)
-        lu_pad, perm = _lu_factor(sched, pivot)(_pad_with_identity(a, n_pad), b)
-        lu_log = lu_pad[:n, :n]
-        eye = torch.eye(n, dtype=a.dtype, device=a.device)
-        l = torch.tril(lu_log, -1) + eye
-        u = torch.triu(lu_log)
+        with obs_trace.span("lu.pad"):
+            a_pad = _pad_with_identity(a, n_pad)
+        lu_pad, perm = _lu_factor(sched, pivot)(a_pad, b)
+        with obs_trace.span("lu.unpack"):
+            lu_log = lu_pad[:n, :n]
+            eye = torch.eye(n, dtype=a.dtype, device=a.device)
+            l = torch.tril(lu_log, -1) + eye
+            u = torch.triu(lu_log)
     return mat._wrap(l), mat._wrap(u), perm[:n]
 
 

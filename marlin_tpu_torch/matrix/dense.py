@@ -44,6 +44,7 @@ import torch.nn.functional as F
 
 from ..config import get_config
 from ..interop import to_tensor
+from ..obs import trace as obs_trace
 from ..mesh import (COLS, ROWS, Mesh, Sharding, default_mesh,
                     pad_to_multiple, rank_grid)
 from ..ops.local import local_matmul, matvec
@@ -456,74 +457,78 @@ class DenseMatrix(DistributedMatrix):
         C in the out spec's blocks (``matmul_padded``), except ``ring`` and
         an RMM split that does not fill the mesh, which gather their
         inputs."""
-        from ..parallel.matmul import matmul as _matmul
-        from ..parallel.matmul import matmul_padded
-        from .vector import DistributedVector
+        with obs_trace.span("multiply"):
+            from ..parallel.matmul import matmul as _matmul
+            from ..parallel.matmul import matmul_padded
+            from .vector import DistributedVector
 
-        if isinstance(other, (int, float)):
-            return self._like(self.data * other)
-        if isinstance(other, DistributedVector):
-            return self.multiply_vector(other)
-        if getattr(other, "ndim", None) == 1:
-            return self.multiply_vector(DistributedVector.from_array(other, self.mesh))
-        if strategy == "tuned":
-            # empirical dispatch: time the viable engines once per
-            # configuration and use the cached winner (parallel.autotune)
-            from ..parallel.autotune import best_strategy
+            if isinstance(other, (int, float)):
+                return self._like(self.data * other)
+            if isinstance(other, DistributedVector):
+                return self.multiply_vector(other)
+            if getattr(other, "ndim", None) == 1:
+                return self.multiply_vector(
+                    DistributedVector.from_array(other, self.mesh))
+            if strategy == "tuned":
+                # empirical dispatch: time the viable engines once per
+                # configuration and use the cached winner (parallel.autotune)
+                from ..parallel.autotune import best_strategy
 
-            strategy = best_strategy(self, other, precision=precision)
+                strategy = best_strategy(self, other, precision=precision)
 
-        if isinstance(other, DenseMatrix):
-            b_pad, (kb, n) = other.data.to(self.device), other.shape
-            b_layout = (other.sharding, other._padded_shape)
+            if isinstance(other, DenseMatrix):
+                b_pad, (kb, n) = other.data.to(self.device), other.shape
+                b_layout = (other.sharding, other._padded_shape)
+                if self._over_ranks:
+                    self._same_world(other)
+            else:
+                b_pad = to_tensor(other, device=self.device)
+                kb, n = b_pad.shape
+                # whole on every rank
+                b_layout = (Sharding(self.mesh, ()), (kb, n))
+            m, k = self.shape
+            if k != kb:
+                raise ValueError(f"inner dim mismatch: {self.shape} @ {(kb, n)}")
+            out_spec = ((ROWS, COLS) if self.mesh.shape.get(COLS, 1) > 1
+                        else (ROWS, None))
+            gr, gc = _grid_divisors(self.mesh, out_spec)
+            out_pad = (pad_to_multiple(m, gr), pad_to_multiple(n, gc))
+            klass = BlockMatrix if out_spec[1] is not None else DenseVecMatrix
+            layouts = None
             if self._over_ranks:
-                self._same_world(other)
-        else:
-            b_pad = to_tensor(other, device=self.device)
-            kb, n = b_pad.shape
-            b_layout = (Sharding(self.mesh, ()), (kb, n))  # whole on every rank
-        m, k = self.shape
-        if k != kb:
-            raise ValueError(f"inner dim mismatch: {self.shape} @ {(kb, n)}")
-        out_spec = (ROWS, COLS) if self.mesh.shape.get(COLS, 1) > 1 else (ROWS, None)
-        gr, gc = _grid_divisors(self.mesh, out_spec)
-        out_pad = (pad_to_multiple(m, gr), pad_to_multiple(n, gc))
-        klass = BlockMatrix if out_spec[1] is not None else DenseVecMatrix
-        layouts = None
-        if self._over_ranks:
-            layouts = ((self.sharding, self._padded_shape), b_layout,
-                       (Sharding(self.mesh, out_spec), out_pad))
+                layouts = ((self.sharding, self._padded_shape), b_layout,
+                           (Sharding(self.mesh, out_spec), out_pad))
 
-        c_pad = matmul_padded(
-            self.data,
-            b_pad,
-            (m, k, n),
-            self.mesh,
-            out_pad,
-            strategy=strategy,
-            split=split,
-            broadcast_threshold_mb=broadcast_threshold_mb,
-            precision=precision,
-            layouts=layouts,
-        )
-        if c_pad is not None:
-            return klass(c_pad, (m, n), self.mesh, out_spec)
+            c_pad = matmul_padded(
+                self.data,
+                b_pad,
+                (m, k, n),
+                self.mesh,
+                out_pad,
+                strategy=strategy,
+                split=split,
+                broadcast_threshold_mb=broadcast_threshold_mb,
+                precision=precision,
+                layouts=layouts,
+            )
+            if c_pad is not None:
+                return klass(c_pad, (m, n), self.mesh, out_spec)
 
-        # logical-tensor path (ring, or an RMM split that does not fill the
-        # mesh): over ranks its inputs are gathered
-        if self._over_ranks and not isinstance(other, DenseMatrix):
-            b_pad = b_pad[:kb, :n]
-        c = _matmul(
-            self.logical(),
-            other.logical().to(self.device) if isinstance(other, DenseMatrix)
-            else b_pad,
-            mesh=self.mesh,
-            strategy=strategy,
-            split=split,
-            broadcast_threshold_mb=broadcast_threshold_mb,
-            precision=precision,
-        )
-        return self._wrap(c, out_spec)
+            # logical-tensor path (ring, or an RMM split that does not fill
+            # the mesh): over ranks its inputs are gathered
+            if self._over_ranks and not isinstance(other, DenseMatrix):
+                b_pad = b_pad[:kb, :n]
+            c = _matmul(
+                self.logical(),
+                other.logical().to(self.device)
+                if isinstance(other, DenseMatrix) else b_pad,
+                mesh=self.mesh,
+                strategy=strategy,
+                split=split,
+                broadcast_threshold_mb=broadcast_threshold_mb,
+                precision=precision,
+            )
+            return self._wrap(c, out_spec)
 
     def multiply_broadcast(self, other, precision: str | None = None):
         """Force the small-operand broadcast path (DenseVecMatrix.scala:1660-1680,
@@ -737,7 +742,8 @@ class DenseMatrix(DistributedMatrix):
     def lu_decompose(self, mode: str = "auto", **kwargs):
         from ..linalg import lu_decompose
 
-        return lu_decompose(self, mode=mode, **kwargs)
+        with obs_trace.span("lu_decompose"):
+            return lu_decompose(self, mode=mode, **kwargs)
 
     def cholesky_decompose(self, mode: str = "auto", **kwargs):
         from ..linalg import cholesky_decompose
@@ -769,8 +775,9 @@ class DenseMatrix(DistributedMatrix):
         marlin_tpu_torch.ml.logistic_regression."""
         from ..ml.logistic_regression import logistic_regression
 
-        return logistic_regression(self, step_size=step_size,
-                                   iterations=iters).weights
+        with obs_trace.span("lr"):
+            return logistic_regression(self, step_size=step_size,
+                                       iterations=iters).weights
 
     # ----------------------------------------------------------------- print
     def to_dataframe(self):

@@ -17,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..obs import trace as obs_trace
 from ..ops.local import precision_scope
 
 __all__ = ["logistic_regression", "LogisticRegressionModel"]
@@ -32,11 +33,13 @@ def _lr_fori(feats: torch.Tensor, labels: torch.Tensor, step_size: float,
     m = feats.shape[0] if total is None else total[0]
     np_dtype = np.float32 if feats.dtype == torch.float32 else np.float64
     i = np.arange(iters, dtype=np_dtype)
-    scales = torch.from_numpy(
-        np_dtype(step_size) / np_dtype(m) / np.sqrt(i + np_dtype(1.0))
-    ).to(feats.device)
-    w = torch.zeros((feats.shape[1],), dtype=feats.dtype, device=feats.device)
-    with precision_scope("highest"):
+    with obs_trace.span("lr.prepare"):
+        scales = torch.from_numpy(
+            np_dtype(step_size) / np_dtype(m) / np.sqrt(i + np_dtype(1.0))
+        ).to(feats.device)
+        w = torch.zeros((feats.shape[1],), dtype=feats.dtype,
+                        device=feats.device)
+    with precision_scope("highest"), obs_trace.span("lr.iterate"):
         for it in range(iters):
             margin = -(feats @ w)
             mul = 1.0 / (1.0 + torch.exp(margin)) - labels
@@ -72,10 +75,12 @@ def logistic_regression(data, step_size: float = 1.0, iterations: int = 100
     arr = data.logical() if hasattr(data, "logical") else torch.as_tensor(data)
     m = arr.shape[0]
     labels = arr[:, 0]
-    feats = torch.cat([torch.ones((m, 1), dtype=arr.dtype, device=arr.device),
-                       arr[:, 1:]], dim=1)
+    with obs_trace.span("lr.prepare"):
+        feats = torch.cat([torch.ones((m, 1), dtype=arr.dtype,
+                                      device=arr.device), arr[:, 1:]], dim=1)
     w = _lr_fori(feats, labels, float(step_size), int(iterations))
-    return LogisticRegressionModel(w.cpu().numpy())
+    with obs_trace.span("lr.read"):
+        return LogisticRegressionModel(w.cpu().numpy())
 
 
 def _lr_ranks(data, step_size: float, iters: int) -> np.ndarray:
@@ -88,9 +93,11 @@ def _lr_ranks(data, step_size: float, iters: int) -> np.ndarray:
     arr = rows.data
     m, n = rows.shape
     (r0, r1), _ = rows.sharding.bounds(rows._padded_shape)
-    valid = torch.arange(r0, r1, device=arr.device) < m
-    feats = torch.cat([valid[:, None].to(arr.dtype), arr[:, 1:n]], dim=1)
+    with obs_trace.span("lr.prepare"):
+        valid = torch.arange(r0, r1, device=arr.device) < m
+        feats = torch.cat([valid[:, None].to(arr.dtype), arr[:, 1:n]], dim=1)
     w = _lr_fori(feats, arr[:, 0], step_size, iters,
                  (m, valid, lambda g: _reduce(g, rows.mesh, (rows.spec[0],))))
-    return w.cpu().numpy()
+    with obs_trace.span("lr.read"):
+        return w.cpu().numpy()
 

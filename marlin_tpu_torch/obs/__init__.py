@@ -1,14 +1,16 @@
 """Unified observability: metrics registry, exposition, traces, analysis.
 
 Counterpart of ``marlin_tpu/obs/``. Copied (stdlib-only in the JAX package
-too): :mod:`~marlin_tpu_torch.obs.trace`, :mod:`~marlin_tpu_torch.obs.metrics`,
+too): :mod:`~marlin_tpu_torch.obs.metrics`,
 :mod:`~marlin_tpu_torch.obs.report`, :mod:`~marlin_tpu_torch.obs.exposition`
 and :mod:`~marlin_tpu_torch.obs.console`. Rewritten on their device side:
-:mod:`~marlin_tpu_torch.obs.perf` (a per-GPU peak table, analytic program
-costs, ``torch.profiler`` captures), :mod:`~marlin_tpu_torch.obs.memledger`
-(``torch.cuda.memory_allocated`` as the live view, no TPU calibration
-table) and :mod:`~marlin_tpu_torch.obs.collectors` (kernel builds as the
-compile tally, ``torch.cuda.memory_stats`` gauges).
+:mod:`~marlin_tpu_torch.obs.trace` (a span is also a ``torch.profiler``
+range while a capture is on), :mod:`~marlin_tpu_torch.obs.perf` (a per-GPU
+peak table, analytic program costs, ``torch.profiler`` captures),
+:mod:`~marlin_tpu_torch.obs.memledger` (``torch.cuda.memory_allocated`` as
+the live view, no TPU calibration table) and
+:mod:`~marlin_tpu_torch.obs.collectors` (kernel builds as the compile
+tally, ``torch.cuda.memory_stats`` gauges).
 
 - :mod:`~marlin_tpu_torch.obs.metrics` — thread-safe process-global registry
   of labeled ``Counter``/``Gauge``/``Histogram`` families with Prometheus
@@ -16,8 +18,10 @@ compile tally, ``torch.cuda.memory_stats`` gauges).
 - :mod:`~marlin_tpu_torch.obs.exposition` — stdlib ``http.server``
   ``/metrics`` endpoint; :func:`start_from_config` starts it from
   ``obs_http_port``.
-- :mod:`~marlin_tpu_torch.obs.trace` — contextvars span propagation so every
-  EventLog record carries ``trace_id``/``span_id``/``parent_id``.
+- :mod:`~marlin_tpu_torch.obs.trace` — spans: contextvars propagation so
+  every EventLog record carries ``trace_id``/``span_id``/``parent_id``, and
+  under a ``torch.profiler`` capture a ``"marlin." + name`` range on the
+  clock of the device's events.
 - :mod:`~marlin_tpu_torch.obs.report` — the post-hoc analyzer
   (``python -m marlin_tpu_torch.obs.report events.jsonl``).
 - :mod:`~marlin_tpu_torch.obs.timeseries` — bounded in-process windowed

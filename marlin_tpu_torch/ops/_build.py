@@ -25,6 +25,8 @@ import threading
 import time
 from pathlib import Path
 
+from ..obs import trace as obs_trace
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "marlin_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -160,7 +162,8 @@ def load_library() -> ctypes.CDLL:
             fcntl.flock(lock_f, fcntl.LOCK_EX)
             if not (out_dir / LIB_NAME).exists():
                 t0 = time.perf_counter()
-                _compile(out_dir)
+                with obs_trace.span("build"):
+                    _compile(out_dir)
                 from ..obs.collectors import record_compile
 
                 record_compile(time.perf_counter() - t0)

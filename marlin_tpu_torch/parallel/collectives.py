@@ -44,6 +44,7 @@ import torch
 import torch.distributed as dist
 
 from ..mesh import Sharding
+from ..obs import trace as obs_trace
 
 __all__ = ["Scatter", "Gather", "AllReduce", "Replicate", "AllToAll", "Shift",
            "all_gather_cat", "all_reduce_sum", "all_reduce_leaves", "block",
@@ -414,7 +415,10 @@ def remap(items, dst, dst_padded, dtype=None, device=None) -> torch.Tensor:
         x = items[t][0][sl]
         return (x.T if items[t][5] else x).to(device=device, dtype=dtype)
 
-    _exchange(_plan(items, dst, dst_padded), payload, out, dtype)
+    with obs_trace.span("remap.plan"):
+        pieces = _plan(items, dst, dst_padded)
+    with obs_trace.span("remap.exchange"):
+        _exchange(pieces, payload, out, dtype)
     return out
 
 

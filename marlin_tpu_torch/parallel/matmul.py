@@ -40,6 +40,7 @@ import torch.nn.functional as F
 from ..config import get_config, resolve_device
 from ..mesh import (Mesh, Sharding, default_mesh, distributed,
                     pad_to_multiple, rank_grid, world_size)
+from ..obs import trace as obs_trace
 from ..ops.local import local_matmul
 from . import collectives as col
 from .carma import split_method
@@ -362,32 +363,37 @@ def _matmul_blocks(a, b, mkn, mesh: Mesh, layouts, strategy, split,
         mesh3 = rank_grid(split, (_M, _K, _N))
         sa, sb, sc = (Sharding(mesh3, spec)
                       for spec in ((_M, _K), (_K, _N), (_M, _N)))
-        a3 = col.redistribute(a, a_sh, sa, (m, k), a_pad)
-        b3 = col.redistribute(b, b_sh, sb, (k, n), b_pad)
-        c = local_matmul(a3, b3, precision, accum_dtype).contiguous()
+        with obs_trace.span("rmm.fetch"):
+            a3 = col.redistribute(a, a_sh, sa, (m, k), a_pad)
+            b3 = col.redistribute(b, b_sh, sb, (k, n), b_pad)
+        with obs_trace.span("rmm.product"):
+            c = local_matmul(a3, b3, precision, accum_dtype).contiguous()
         if split[1] > 1:
-            dist.all_reduce(c, group=mesh3.group(_K))
-        return col.redistribute(c, sc, out_sh, (m, n), sc.padded_shape((m, n)),
-                                out_pad)
+            with obs_trace.span("rmm.reduce"):
+                dist.all_reduce(c, group=mesh3.group(_K))
+        with obs_trace.span("rmm.place"):
+            return col.redistribute(c, sc, out_sh, (m, n),
+                                    sc.padded_shape((m, n)), out_pad)
     replicate = "a" if strategy == "broadcast_a" else "b"
     _capture_matmul_cost("broadcast_matmul", a_log, b_log,
                          replicate=replicate)
     flat = rank_grid((mesh.size,), ("all",))
     whole = Sharding(flat, ())
-    if replicate == "b":
-        big = Sharding(flat, ("all", None))
-        blk = col.redistribute(a, a_sh, big, (m, k), a_pad)
-        small = col.redistribute(b, b_sh, whole, (k, n), b_pad)
-        c = local_matmul(blk, small, precision, accum_dtype)
-        c_sh = big
-    else:
-        big = Sharding(flat, (None, "all"))
-        small = col.redistribute(a, a_sh, whole, (m, k), a_pad)
-        blk = col.redistribute(b, b_sh, big, (k, n), b_pad)
-        c = local_matmul(small, blk, precision, accum_dtype)
-        c_sh = big
-    return col.redistribute(c, c_sh, out_sh, (m, n), c_sh.padded_shape((m, n)),
-                            out_pad)
+    big = Sharding(flat, ("all", None) if replicate == "b" else (None, "all"))
+    with obs_trace.span("bcast.fetch"):
+        if replicate == "b":
+            blk = col.redistribute(a, a_sh, big, (m, k), a_pad)
+            small = col.redistribute(b, b_sh, whole, (k, n), b_pad)
+        else:
+            small = col.redistribute(a, a_sh, whole, (m, k), a_pad)
+            blk = col.redistribute(b, b_sh, big, (k, n), b_pad)
+    with obs_trace.span("bcast.product"):
+        c = (local_matmul(blk, small, precision, accum_dtype)
+             if replicate == "b"
+             else local_matmul(small, blk, precision, accum_dtype))
+    with obs_trace.span("bcast.place"):
+        return col.redistribute(c, big, out_sh, (m, n),
+                                big.padded_shape((m, n)), out_pad)
 
 
 def matmul(

@@ -2,8 +2,10 @@
 
 Counterpart of ``marlin_tpu/utils/tracing.py``. This module holds:
 
-- :func:`annotate` — names a region so it shows up in ``torch.profiler``
-  traces as a labeled span (``torch.profiler.record_function``).
+- :func:`annotate` — the reference's name for
+  :func:`marlin_tpu_torch.obs.trace.span`, the port's one span mechanism:
+  a region under a ``torch.profiler`` capture shows up in its trace as the
+  range ``"marlin." + name``.
 - :class:`EventLog` — append-only JSON-lines event log (step timings, bytes
   moved, custom counters) for post-hoc analysis without a profiler UI. Every
   record automatically carries the active span context
@@ -24,20 +26,12 @@ import time
 import warnings
 from typing import Any
 
-import torch
-
 from ..config import get_config as _get_config
 from ..obs.trace import context_fields as _span_fields
+from ..obs.trace import span as annotate
 
 __all__ = ["annotate", "EventLog", "matmul_flops", "effective_gflops",
            "set_default_event_log", "get_default_event_log"]
-
-
-@contextlib.contextmanager
-def annotate(name: str):
-    """Label a region in profiler traces; no-ops cheaply outside tracing."""
-    with torch.profiler.record_function(name):
-        yield
 
 
 def matmul_flops(m: int, k: int, n: int) -> float:

@@ -1049,6 +1049,42 @@ def case_dm_multiply(inp):
     return out
 
 
+SPAN_NAMES = ("marlin.multiply", "marlin.rmm.fetch", "marlin.rmm.product",
+              "marlin.rmm.reduce", "marlin.rmm.place", "marlin.remap.plan",
+              "marlin.remap.exchange")
+
+
+def case_dm_spans(inp):
+    """``a.multiply(b)`` by the RMM on the (4, 1) mesh of row blocks, under
+    ``torch.profiler``: each rank's count of every span of ``SPAN_NAMES``,
+    and of its ``marlin.remap.*`` spans, how many lie inside
+    ``marlin.rmm.fetch``, inside ``marlin.rmm.place`` and inside neither."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import marlin_tpu_torch as tm
+    from marlin_tpu_torch import mesh as mm
+
+    mesh = mm.create_mesh((4, 1))
+    a = tm.DenseVecMatrix.from_array(inp["a"], mesh)
+    b = tm.DenseVecMatrix.from_array(inp["b"], mesh)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        c = a.multiply(b, strategy="rmm", split=(2, 2, 1))
+    ev = [(e.time_range.start, e.time_range.end, e.name)
+          for e in prof.events() if e.name.startswith("marlin.")]
+
+    def within(s, e, name):
+        return any(n == name and s0 <= s and e <= e0 for s0, e0, n in ev)
+
+    remaps = [(s, e) for s, e, n in ev if n.startswith("marlin.remap.")]
+    fetch = sum(within(s, e, "marlin.rmm.fetch") for s, e in remaps)
+    place = sum(within(s, e, "marlin.rmm.place") for s, e in remaps)
+    return {"rank_counts": np.array([sum(n == name for _, _, n in ev)
+                                     for name in SPAN_NAMES]),
+            "rank_remap_in": np.array([fetch, place,
+                                       len(remaps) - fetch - place]),
+            "c": c.to_numpy()}
+
+
 def case_dm_io(inp):
     """The text saves (row, block, description) into ``dir``, the loaders
     of files the JAX package wrote (row, block, SVM), a chunk store read

@@ -82,6 +82,7 @@ def _inputs(tmp):
                       ci=ci, cj=cj, cv=rng.random(20).astype(np.float32),
                       cshape=np.array([9, 6]), tol=np.array(SPARSE_TOL),
                       sb=_f32(rng, 7, 5)),
+        "dm_spans": dict(a=_f32(rng, 16, 12), b=_f32(rng, 12, 8)),
     }
 
 
@@ -248,6 +249,21 @@ def test_multiply_gathers_no_tensor_of_c_size(run):
     for tag in ("rmm221", "rmm122", "rmm411", "rmm_auto", "auto", "gspmd",
                 "broadcast", "broadcast_a"):
         assert got[f"rank_moved_{tag}"].max() < 10 * 9, tag
+
+
+def test_rmm_spans_on_every_rank(run):
+    """The (4, 1) RMM multiply under the profiler records, on every rank,
+    one ``marlin.multiply`` holding one fetch, product, reduce and place
+    span, and the ``remap`` plan and exchange of its three moves (A's and
+    B's in fetch, C's in place) nested in them; C is still the product."""
+    inp, got = run[0]["dm_spans"], run[1]["dm_spans"]
+    # multiply, rmm.fetch, .product, .reduce, .place, remap.plan, .exchange
+    assert got["rank_counts"].tolist() == [[1, 1, 1, 1, 1, 3, 3]] * WORLD
+    # two remaps (A, B) in fetch and one (C) in place, each plan + exchange
+    assert got["rank_remap_in"].tolist() == [[4, 2, 0]] * WORLD
+    want = inp["a"].astype(np.float64) @ inp["b"]
+    np.testing.assert_allclose(got["c"], want, rtol=0,
+                               atol=RTOL * np.abs(want).max())
 
 
 def test_text_io_and_chunk_store(run, jm):
