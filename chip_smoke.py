@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from ``marlin_tpu_torch/csrc/`` (one ``nvcc``
-per source, all at once), holds each against its plain PyTorch version, and
+per source, all at once; the lr kernel as a library of its own), holds each
+against its plain PyTorch version, and
 drives the ported paths end to end through the public entry points:
 
 - phases 1-5: the dense 20000² multiply (GEMM and masked-fill kernels): the
@@ -94,7 +95,10 @@ drives the ported paths end to end through the public entry points:
   compute_u=False)`` on a 1,000,000 x 512 ``DenseVecMatrix.random(0, ...)``
   (singular values against the square roots of f64 ``eigvalsh(AᵀA)``) and
   ``lr`` on 262,144 rows of a label and 784 features for 100 iterations
-  (weights against an f64 run).
+  (weights against the plain loop in f64; one launch of the fused lr kernel an
+  iteration), then that kernel's step at ``tall_10m``'s 10^7 rows of a label
+  and 512 features against its plain version and timed beside its byte
+  bound, the plain step and the two cuBLAS gemvs it replaced.
 - phase 18: the serving engine at full width — ``ServeEngine`` over phase
   8's model with buckets ((128, 32), (512, 64)), 8 rows, pages of 16 tokens
   and 256 prompt tokens per worker iteration (a 512-token prompt prefills
@@ -283,7 +287,9 @@ drives the ported paths end to end through the public entry points:
   by CUDA events and the host clock, with the peak memory and the bytes a
   rank holds; phase 16's 8192² LU legs and Cholesky on row blocks against
   the logical path; phase 17's ``compute_svd`` ``dist-eigs`` on row blocks
-  against the logical path; ``save_sharded``/``load_sharded`` of a 20000²
+  against the logical path; ``lr`` (20 iterations, phase 17's shape) on row
+  blocks, through the fused kernel with the rank all-reduce between its sum
+  and its update, equal to the world of one's bit for bit; ``save_sharded``/``load_sharded`` of a 20000²
   matrix bit for bit, and its restore outside the world;
   ``to_sparse_vec_matrix`` of a rank-local 8192² matrix (95 % of its entries
   dropped) and its ``multiply(format="bsr")`` by a rank-local 8192 x 256
@@ -423,6 +429,9 @@ LU_LEGS = (("masked", "block"), ("shrinking", "block"), ("masked", "panel"))
 CHOL_LEGS = ("masked", "shrinking")
 SVD_M, SVD_N, SVD_K = 1_000_000, 512, 8
 LR_M, LR_D, LR_ITERS = 262_144, 784, 100
+# the fused lr kernel's main shape: the benchmark's tall_10m rows (10^7 of a
+# label and 512 features, 20.5 GB), one step timed
+LR_MAIN_M, LR_MAIN_D = 10_000_000, 512
 # the port's own CPU run against the card's at n = 1024, blocks of 128
 LINALG_CPU_N, LINALG_CPU_BLOCK = 1024, 128
 # the serving engine (phase 18) over config_decode's model: two buckets, 8
@@ -2005,22 +2014,77 @@ def linalg_path(torch, np, mt, ops):
     labels = (score > score.median()).float()[:, None]
     data = mt.DenseVecMatrix.from_array(torch.cat([labels, feats], dim=1))
     del labels, feats, score
+    before = ops.launch_counts()["lr_step"]
     w, dt = guarded_call(torch, "lr", lambda: data.lr(1.0, LR_ITERS),
                          flop=4.0 * LR_M * (LR_D + 1) * LR_ITERS,
                          sync_guard=False)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    w64 = mt.ml.logistic_regression(data.logical().double(), 1.0,
-                                    LR_ITERS).weights
+    lr_launches = ops.launch_counts()["lr_step"] - before
+    if lr_launches != LR_ITERS:
+        raise AssertionError(f"lr: {lr_launches} fused kernel launches for "
+                             f"{LR_ITERS} iterations")
+    # the plain loop in float64 (its intercept copy, two mat-vecs an
+    # iteration): on the card logistic_regression takes float64 rows to the
+    # fused kernel too
+    from marlin_tpu_torch.ml.logistic_regression import _lr_fori
+
+    x64 = data.logical().double()
+    w64 = _lr_fori(torch.cat([torch.ones_like(x64[:, :1]), x64[:, 1:]], 1),
+                   x64[:, 0], 1.0, LR_ITERS).cpu().numpy()
+    del x64
     linalg_close(f"  lr weights vs an f64 run (peak device memory "
                  f"{peak:.2f} GiB)", float(np.abs(w - w64).max()),
                  float(np.abs(w64).max()))
-    res["lr"] = dict(s=dt)
     log(f"  launches of the port's kernels on the linalg path: "
         f"{ops.launch_counts()} (its products are torch.matmul, as the JAX "
-        f"package's are jnp.dot outside any Pallas kernel)")
+        f"package's are jnp.dot outside any Pallas kernel; lr's steps are "
+        f"the fused lr kernel, one launch an iteration)")
     del data
     torch.cuda.empty_cache()
+    res["lr"] = dict(s=dt, launches=lr_launches, **lr_times(torch, np))
     return res
+
+
+def lr_times(torch, np) -> dict:
+    """The fused lr step at tall_10m's shape (LR_MAIN_M rows of a label and
+    LR_MAIN_D features uniform on [-1, 1)): one step against the plain step
+    (the move ``w_new - w`` within LINALG_TOL of the plain move's largest
+    entry), then by CUDA events beside its byte bound (one read of the
+    rows), the plain step and the step as the plain loop takes it, the
+    intercept copy's two cuBLAS gemvs (``library_ms``; the copy itself not
+    timed)."""
+    from marlin_tpu_torch.ops import lr_gradient as lg
+
+    m, n = LR_MAIN_M, LR_MAIN_D + 1
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    data = torch.empty((m, n), device="cuda")
+    for r0 in range(0, m, 1_000_000):
+        r1 = min(m, r0 + 1_000_000)
+        data[r0:r1] = torch.rand((r1 - r0, n), generator=gen,
+                                 device="cuda") * 2 - 1
+        data[r0:r1, 0] = (data[r0:r1, 0] > 0).float()
+    w = torch.randn(n, generator=gen, device="cuda") * 0.05
+    scale = torch.full((1,), 1.0 / m, device="cuda")
+    want = lg.lr_step_plain(data, w, scale, m) - w
+    got = lg.lr_step(data, w.clone(), scale, m) - w
+    err = linalg_close(f"  lr step at {m} x {n} vs the plain step",
+                       float((got - want).abs().max()),
+                       float(want.abs().max()))
+    w_run = w.clone()
+    ms = cuda_ms(torch, lambda: lg.lr_step(data, w_run, scale, m), 20)
+    plain = cuda_ms(torch, lambda: lg.lr_step_plain(data, w, scale, m), 5)
+    feats = torch.cat([torch.ones((m, 1), device="cuda"), data[:, 1:]], 1)
+    labels = data[:, 0]
+    lib = cuda_ms(torch, lambda: w - feats.T @ (
+        1.0 / (1.0 + torch.exp(-(feats @ w))) - labels) * scale, 5)
+    bound = 1e3 * 4.0 * m * n / HBM_BYTES_PER_S
+    log(f"  lr step at {m} x {n}: kernel {ms:.3f} ms "
+        f"({4.0 * m * n / ms / 1e6:.1f} GB/s), bound {bound:.3f} ms (bytes), "
+        f"plain {plain:.3f} ms, the two cuBLAS gemvs {lib:.3f} ms (CUDA "
+        f"events)")
+    del data, feats, labels
+    torch.cuda.empty_cache()
+    return dict(ms=ms, plain=plain, lib=lib, bound=bound, err=err)
 
 
 def als_leg(torch, np, mt):
@@ -3427,7 +3491,8 @@ def cli_path(torch, np, mt, ops, pa, smi) -> dict:
         del sa, db, bsr, c
 
         # ---------------------------------------------------------- ml
-        _, lines, _ = run("logistic_regression", *CLI_LR)
+        _, lines, counts = run("logistic_regression", *CLI_LR)
+        expect(counts, "lr_step")
         acc = float(lines[0].split()[-1])
         if not acc > 0.9:
             raise AssertionError(f"logistic_regression: accuracy {acc}")
@@ -5184,8 +5249,8 @@ def matrices_world_of_one(torch, mt, one, ad, bd, cd, rank_times) -> None:
 
 def matrices_linalg(torch, np, mt, mesh, one) -> None:
     """Phase 31 (b, c): phase 16's LU legs and Cholesky and phase 17's
-    dist-eigs SVD on row blocks against the logical path, the same logical
-    matrices."""
+    dist-eigs SVD and lr on row blocks against the logical path, the same
+    logical matrices."""
     # warm-up: each path's first factorization and eigh in the process
     # carry the solver libraries' set-up, so neither is timed cold
     w = 1024
@@ -5255,6 +5320,24 @@ def matrices_linalg(torch, np, mt, mesh, one) -> None:
                  float(np.abs(svd.s - svd1.s).max()), float(svd1.s[0]))
     del m_svd, m1
     torch.cuda.empty_cache()
+    # lr on row blocks: the fused step's gradient goes through the rank
+    # all-reduce between the kernel's sum and its update; over one rank that
+    # sum is exact, so the weights equal the world of one's bit for bit
+    from marlin_tpu_torch.ops import lr_gradient as lg
+
+    rows = torch.rand((LR_M, LR_D + 1), device="cuda", generator=gen) * 2 - 1
+    rows[:, 0] = (rows[:, 0] > 0).float()
+    before = lg.lr_step.launches
+    w_rank = mt.DenseVecMatrix.from_array(rows, mesh).lr(1.0, 20)
+    launches = lg.lr_step.launches - before
+    w_one = mt.DenseVecMatrix.from_array(rows, one).lr(1.0, 20)
+    if launches != 20 or not np.array_equal(w_rank, w_one):
+        raise AssertionError(f"phase 31 lr on row blocks: {launches} fused "
+                             f"launches, max diff "
+                             f"{float(np.abs(w_rank - w_one).max())}")
+    log(f"  lr (20 iterations) on {LR_M} x {LR_D + 1} row blocks: {launches} "
+        f"fused launches, weights equal to the world of one's bit for bit")
+    del rows
 
 
 def ranks_path(torch, np, mt, tt, ops, lct_run, smi) -> dict:
@@ -5509,13 +5592,15 @@ def main() -> int:
     log(f"nvidia-smi: {smi}")
 
     # ----------------------------------------------------------- 2. build
-    t0 = time.perf_counter()
-    _build.load_library()
-    log(f"build: {time.perf_counter() - t0:.1f} s into {_build.build_dir()}")
-    for line in _build.ptxas_report().splitlines():
-        if "Compiling entry" in line or "registers" in line or "spill" in line \
-                or "wgmma" in line:
-            log("  " + line.strip())
+    for lib in ("kernels", "lr"):
+        t0 = time.perf_counter()
+        _build.load_library(lib)
+        log(f"build of the {lib} library: {time.perf_counter() - t0:.1f} s "
+            f"into {_build.build_dir(lib)}")
+        for line in _build.ptxas_report(lib).splitlines():
+            if "Compiling entry" in line or "registers" in line \
+                    or "spill" in line or "wgmma" in line:
+                log("  " + line.strip())
 
     lap("phases 1-2")
     if only is not None:
@@ -5898,7 +5983,7 @@ def main() -> int:
     lap("phase 15")
     del main_bsr, main_b, data
     torch.cuda.empty_cache()
-    linalg_path(torch, np, mt, ops)
+    lr = linalg_path(torch, np, mt, ops)["lr"]
     lap("phases 16-17")
     engine_launches, engine_combines = engine_path(
         torch, np, tt, ops, pa, prompts, streams, serve_bucket_ms, smi)
@@ -6018,6 +6103,14 @@ def main() -> int:
          "max_abs_err": bsr_err, "ms": tb["ms"], "plain_ms": tb["plain"],
          "bound_ms": tb["bound"], "bound_by": "operations",
          "library_ms": tb["lib"]},
+        {"name": "lr_step", "route": "cuda",
+         "source": "marlin_tpu_torch/csrc/lr_gradient.cuh",
+         "replaces": "none (marlin_tpu/ml/logistic_regression.py _lr_fori's "
+                     "two mat-vecs, left to XLA)",
+         "launches": lr["launches"] + cli["lr_step"],
+         "max_abs_err": lr["err"], "ms": lr["ms"], "plain_ms": lr["plain"],
+         "bound_ms": lr["bound"], "bound_by": "bytes",
+         "library_ms": lr["lib"]},
     ]
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(smi)

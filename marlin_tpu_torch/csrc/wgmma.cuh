@@ -1,5 +1,6 @@
 // TMA, mbarrier and wgmma helpers for Hopper (sm_90a), shared by the
-// hand-written GEMM (gemm.cu) and the BSR SpMM (bsr_spmm.cu).
+// hand-written GEMM (gemm.cu), the BSR SpMM (bsr_spmm.cu) and the fused
+// logistic gradient (lr_gradient.cuh).
 //
 // - mbarriers in shared memory: init, arrive, expect_tx, and a wait that
 //   traps after 4 s, so a lost arrival ends the launch with an error instead
@@ -7,7 +8,9 @@
 // - TMA: a 2-D box of 128 bytes x rows into shared memory with the 128-byte
 //   swizzle, completion counted on an mbarrier, zeros past the tensor's edge;
 //   `make_map` encodes the tensor map on the host (cuTensorMapEncodeTiled,
-//   looked up through the runtime, so libcuda is not linked).
+//   looked up through the runtime, so libcuda is not linked); a 1-D bulk
+//   copy of a contiguous byte range (16-byte aligned, a multiple of 16
+//   bytes), completion counted on an mbarrier.
 // - wgmma m64nNk8 (TF32) and m64nNk16 (bf16), N = 64 or 128, f32
 //   accumulators (N / 2 a thread): A and B from K-major shared memory by
 //   descriptor, or (TF32) A from registers. The register fragment of A, per
@@ -69,6 +72,17 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(k0), "r"(row0)
+      : "memory");
+}
+
+// `bytes` contiguous bytes from global memory into shared memory by TMA;
+// both addresses 16-byte aligned, `bytes` a multiple of 16; completion
+// counts on the mbarrier
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
 }
 

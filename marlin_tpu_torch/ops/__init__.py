@@ -13,6 +13,7 @@ from .local import (  # noqa: F401
     triu_to_full,
 )
 from .pallas_kernels import masked_fill, pallas_matmul  # noqa: F401
+from .lr_gradient import lr_step  # noqa: F401
 from .paged_attention import align_page_len, paged_decode_attention  # noqa: F401
 from .flash_attention import (  # noqa: F401
     flash_attention_bwd_dkv,
@@ -32,7 +33,7 @@ from .tile_family import bsr_candidates, gemm_candidates  # noqa: F401
 # every wrapper that launches a hand-written kernel; each counts its launches
 KERNEL_WRAPPERS = (pallas_matmul, masked_fill, paged_decode_attention,
                    flash_attention_panel, flash_attention_bwd_dkv,
-                   flash_attention_bwd_dq, bsr_spmm_pallas)
+                   flash_attention_bwd_dq, bsr_spmm_pallas, lr_step)
 
 
 def reset_launch_counts() -> None:

@@ -1,12 +1,15 @@
 """Build and bind the hand-written CUDA kernels.
 
-The sources in ``marlin_tpu_torch/csrc/`` have a plain C interface. At first
-use each ``.cu`` is compiled by its own ``nvcc`` (all started together) for
+The sources in ``marlin_tpu_torch/csrc/`` have a plain C interface and make
+two libraries: ``"lr"``, the logistic-gradient step (``lr_gradient*.cu``)
+alone, and ``"kernels"``, every other source, so a process that runs only
+logistic regression builds only its kernel. At a library's first use each of
+its ``.cu`` is compiled by its own ``nvcc`` (all started together) for
 ``sm_90a`` and the objects are linked into one shared library, which is loaded
-with ``ctypes``. The library lands in ``build/marlin_tpu_torch/<hash>/`` at the
-repository root, keyed by a hash of the sources, the headers they include
-(``*.cuh``) and the flags, so an edited file rebuilds and an unchanged tree
-loads at once. Nothing is built at import.
+with ``ctypes``. It lands in ``build/marlin_tpu_torch/<hash>/`` at the
+repository root, keyed by a hash of the library's name, its sources, the
+headers they may include (``*.cuh``) and the flags, so an edited file rebuilds
+and an unchanged tree loads at once. Nothing is built at import.
 
 ``nvcc`` is taken from ``$CUDA_HOME/bin``, ``/usr/local/cuda/bin`` or ``PATH``.
 A failed build raises :class:`KernelBuildError` with the compiler's output.
@@ -31,7 +34,9 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "marlin_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-LIB_NAME = "libmarlin_kernels.so"
+# the sources of the "lr" library; the "kernels" library is every other one
+LR_SOURCES = ("lr_gradient.cu", "lr_gradient_bf16.cu", "lr_gradient_f64.cu")
+LIB_NAMES = {"kernels": "libmarlin_kernels.so", "lr": "libmarlin_lr.so"}
 # Flags for one source on top of NVCC_FLAGS. At ptxas's default -O3 the
 # backward kernels' schedule, and that of the forward's d <= 256 instances,
 # holds so many loads in flight that they spill past their 255 registers;
@@ -41,23 +46,29 @@ SOURCE_FLAGS = {"flash_attention_bwd.cu": ("-Xptxas", "-O1"),
                 "flash_attention_wide.cu": ("-Xptxas", "-O1")}
 
 _lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
+_lib: ctypes.CDLL | None = None  # the "kernels" library, once loaded
+_lr_lib: ctypes.CDLL | None = None
 
 
 class KernelBuildError(RuntimeError):
     """nvcc is missing or refused a source."""
 
 
-def _sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu"))
+def _sources(lib: str = "kernels") -> list[Path]:
+    if lib not in LIB_NAMES:
+        raise ValueError(f"no kernel library {lib!r}; the libraries are "
+                         f"{sorted(LIB_NAMES)}")
+    return [p for p in sorted(CSRC.glob("*.cu"))
+            if (p.name in LR_SOURCES) == (lib == "lr")]
 
 
-def _digest() -> str:
-    """A hash of the flags, the sources and the headers they include, so an
-    edited header rebuilds too."""
+def _digest(lib: str = "kernels") -> str:
+    """A hash of the library's name, the flags, its sources and the headers
+    they may include, so an edited header rebuilds too."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     h.update(repr(sorted(SOURCE_FLAGS.items())).encode())
-    for src in _sources() + sorted(CSRC.glob("*.cuh")):
+    h.update(lib.encode())
+    for src in _sources(lib) + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -75,17 +86,17 @@ def _nvcc() -> str:
     return found
 
 
-def build_dir() -> Path:
-    return BUILD_ROOT / _digest()
+def build_dir(lib: str = "kernels") -> Path:
+    return BUILD_ROOT / _digest(lib)
 
 
-def _compile(out_dir: Path) -> None:
+def _compile(out_dir: Path, lib: str = "kernels") -> None:
     """One nvcc per source, all running at once, then one link. The compiler's
     ``-Xptxas -v`` report (registers, shared memory, spills per kernel) is kept
     in ``ptxas.log`` beside the library."""
     nvcc = _nvcc()
     procs = []
-    for src in _sources():
+    for src in _sources(lib):
         obj = out_dir / (src.stem + ".o")
         cmd = [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(src.name, ()), "-c", str(src),
                "-o", str(obj)]
@@ -100,13 +111,13 @@ def _compile(out_dir: Path) -> None:
     (out_dir / "ptxas.log").write_text("\n".join(logs))
     if failed:
         raise KernelBuildError(f"nvcc failed on {failed}:\n" + "\n".join(logs))
-    tmp = out_dir / (LIB_NAME + ".tmp")
+    tmp = out_dir / (LIB_NAMES[lib] + ".tmp")
     link = subprocess.run(
         [nvcc, "-shared", "-o", str(tmp), *(str(o) for _, o, _ in procs)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if link.returncode != 0:
         raise KernelBuildError(f"nvcc link failed:\n{link.stdout}")
-    os.replace(tmp, out_dir / LIB_NAME)
+    os.replace(tmp, out_dir / LIB_NAMES[lib])
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -144,36 +155,59 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.marlin_bsr_spmm_tc.argtypes = [i, i, i, p, p, p, p, p, ll, ll, ll, i,
                                        ll, ll, p]
     lib.marlin_bsr_spmm_tc.restype = i
-    lib.marlin_error_string.argtypes = [i]
+    return _bind_error_string(lib)
+
+
+def _bind_lr(lib: ctypes.CDLL) -> ctypes.CDLL:
+    p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    # dtype, x, rows, n, stride, w, partial, slab_rows, chunk_rows, chunks,
+    # grid, stream
+    lib.marlin_lr_grad.argtypes = [i, p, ll, ll, ll, p, p, i, ll, ll, i, p]
+    lib.marlin_lr_grad.restype = i
+    # dtype, partial, parts, n, g, w, scale, stream
+    lib.marlin_lr_reduce.argtypes = [i, p, ll, ll, p, p, p, p]
+    lib.marlin_lr_reduce.restype = i
+    return _bind_error_string(lib)
+
+
+def _bind_error_string(lib: ctypes.CDLL) -> ctypes.CDLL:
+    lib.marlin_error_string.argtypes = [ctypes.c_int]
     lib.marlin_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def load_library() -> ctypes.CDLL:
-    """The kernel library, built on first use. Concurrent processes serialise
-    on a lock file in the build directory; threads on a lock here."""
-    global _lib
+def load_library(lib: str = "kernels") -> ctypes.CDLL:
+    """The kernel library ``lib`` (``"kernels"`` or ``"lr"``), built on
+    first use. Concurrent processes serialise on a lock file in the build
+    directory; threads on a lock here."""
+    global _lib, _lr_lib
     with _lock:
-        if _lib is not None:
-            return _lib
-        out_dir = build_dir()
+        loaded = _lr_lib if lib == "lr" else _lib
+        if loaded is not None:
+            return loaded
+        out_dir = build_dir(lib)
         out_dir.mkdir(parents=True, exist_ok=True)
         with open(out_dir / "lock", "w") as lock_f:
             fcntl.flock(lock_f, fcntl.LOCK_EX)
-            if not (out_dir / LIB_NAME).exists():
+            if not (out_dir / LIB_NAMES[lib]).exists():
                 t0 = time.perf_counter()
                 with obs_trace.span("build"):
-                    _compile(out_dir)
+                    _compile(out_dir, lib)
                 from ..obs.collectors import record_compile
 
                 record_compile(time.perf_counter() - t0)
-        _lib = _bind(ctypes.CDLL(str(out_dir / LIB_NAME)))
+        so = ctypes.CDLL(str(out_dir / LIB_NAMES[lib]))
+        if lib == "lr":
+            _lr_lib = _bind_lr(so)
+            return _lr_lib
+        _lib = _bind(so)
         return _lib
 
 
-def ptxas_report() -> str:
-    """The ``-Xptxas -v`` output of the current build ("" before a build)."""
-    log = build_dir() / "ptxas.log"
+def ptxas_report(lib: str = "kernels") -> str:
+    """The ``-Xptxas -v`` output of the library's current build ("" before
+    a build)."""
+    log = build_dir(lib) / "ptxas.log"
     return log.read_text() if log.exists() else ""
 
 

@@ -167,7 +167,7 @@ def test_cpu_path_counts_no_launch():
     assert ops.launch_counts() == {
         "pallas_matmul": 0, "masked_fill": 0, "paged_decode_attention": 0,
         "flash_attention_panel": 0, "flash_attention_bwd_dkv": 0,
-        "flash_attention_bwd_dq": 0, "bsr_spmm_pallas": 0}
+        "flash_attention_bwd_dq": 0, "bsr_spmm_pallas": 0, "lr_step": 0}
 
 
 def test_ctypes_binding_passes_pointers_as_void_p():

@@ -23,7 +23,15 @@ mesh each rank:
 - saves its block of an N x N matrix with ``save_sharded`` and reads its
   region back with ``load_sharded`` (bit for bit); after the world ends
   the parent restores the whole matrix onto card 0 and holds its CRC32
-  against the one rank 0 took of the gathered matrix.
+  against the one rank 0 took of the gathered matrix;
+- fits ``lr(1.0, LR_ITERS)`` on row blocks of LR_M rows of a label and
+  LR_D features (env ``LR_M``, default 1,000,003, so the last of four ranks
+  holds a padded row): each rank's fused lr kernel sums its real rows, the
+  all-reduce over the ranks goes between that sum and the update, and each
+  rank launches the kernel once an iteration. A warm-up fit, then one timed
+  (the slowest rank's host clock); rank 0 holds the weights against the
+  world of one's fit of the same rows on its card (LR_TOL of the largest
+  |weight|: the sum over ranks adds in another order).
 
 Each rank's log is ``chiprun_out/matrices_ranks/rank{r}.log``; the parent
 prints the ranks' logs and one JSON line of the figures. Exits non-zero
@@ -47,6 +55,12 @@ N = int(os.environ.get("N", 20000))
 LINALG_N = int(os.environ.get("LINALG_N", 8192))
 REPS = 3
 TOL = 1e-4
+LR_M = int(os.environ.get("LR_M", 1_000_003))
+LR_D, LR_ITERS = 512, 30
+# the ranks' float32 sums meet in another order than one card's; a float32
+# fit reads 1.8e-07-3.5e-07 of max |w| from float64 at 10^7 rows (PERF.md
+# §6), so 1e-5 leaves room for the order and none for a lost or doubled row
+LR_TOL = 1e-5
 
 
 def _crc(t) -> int:
@@ -174,6 +188,46 @@ def rank_main(rank: int, world: int, tmp: str, log) -> None:
             log(f"rank 0: save_sharded + load_sharded {N}^2 over {world} "
                 f"ranks {secs:.3f} s, each rank's region bit-identical")
         del m, back, whole
+        torch.cuda.empty_cache()
+
+        # (d) logistic regression on row blocks, the last rank's padded
+        from marlin_tpu_torch.ops import lr_gradient as lg
+
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        rows = torch.rand((LR_M, LR_D + 1), generator=gen,
+                          device="cuda") * 2 - 1
+        rows[:, 0] = (rows[:, 0] > 0).float()
+        m = mt.DenseVecMatrix.from_array(rows, mesh)
+        (r0, r1), _ = m.sharding.bounds(m._padded_shape)
+        m.lr(1.0, LR_ITERS)  # warm-up: the kernel's library, the group
+        torch.cuda.synchronize()
+        dist.barrier()
+        before = lg.lr_step.launches
+        t0 = time.perf_counter()
+        w = m.lr(1.0, LR_ITERS)
+        secs = slowest(time.perf_counter() - t0)
+        launches = lg.lr_step.launches - before
+        log(f"rank {rank}: lr rows [{r0}, {r1}), {min(r1, LR_M) - r0} real; "
+            f"{launches} kernel launches")
+        if launches != LR_ITERS:
+            raise AssertionError(f"rank {rank}: {launches} lr launches for "
+                                 f"{LR_ITERS} iterations")
+        if rank == 0:
+            mine = mt.DenseVecMatrix.from_array(rows, one)
+            mine.lr(1.0, LR_ITERS)
+            t0 = time.perf_counter()
+            w1 = mine.lr(1.0, LR_ITERS)
+            secs1 = time.perf_counter() - t0
+            rel = float(abs(w - w1).max() / abs(w1).max())
+            log(f"rank 0: lr {LR_M} x {LR_D + 1}, {LR_ITERS} iterations on "
+                f"row blocks {secs:.3f} s, one card {secs1:.3f} s; weights "
+                f"vs one card {rel:.3e} of max (tol {LR_TOL})")
+            if not rel <= LR_TOL:
+                raise AssertionError(f"lr differs: {rel}")
+            figures.update(lr_s=secs, lr_one_card_s=secs1, lr_rel=rel,
+                           lr_padded_rows=int(m._padded_shape[0] - LR_M))
+            del mine
+        del rows, m
     finally:
         mm.shutdown_distributed()
     if rank == 0:
