@@ -309,7 +309,16 @@ drives the ported paths end to end through the public entry points:
   outside the world; blocked ALS and edge-sharded PageRank through their
   rank paths against their plain paths.
 
-``python3 chip_smoke.py --phases 21,22,23`` (any subset of phases 19-31;
+- phase 32: the flash forward, dK/dV and dQ kernels at DeepSeek-V2's
+  (q/k 192, v 128) widths against their plain versions at 16 heads x 32768,
+  f32 and bf16 (one panel, the strided single panel, two panels; each
+  kernel's launches counted), then one ``TransformerLM.deepseek`` train
+  step of the ``dsv2_lite`` cell's model and settings (bf16, remat, 32768
+  tokens): its flash launches (twice a layer forward, once a layer each
+  backward kernel) go into the kernels line, its loss that of random
+  weights.
+
+``python3 chip_smoke.py --phases 21,22,23`` (any subset of phases 19-32;
 20 runs 19 first) builds the kernels and runs only those phases, printing no
 result lines.
 
@@ -368,6 +377,20 @@ TRAIN_SEQ, TRAIN_STEPS = 32768, 3
 # backward kernels' d <= 256 instances also at the training shape
 # (2 x 32768 x 256)
 WIDE_TRAIN_DH, WIDE_TRAIN_SEQ = 256, 4096
+# phase 32: DeepSeek-V2-Lite's latent attention, q/k 192 (128 + 64 rotary)
+# and v 128 over 16 heads of one 32768-token stream, and one train step of
+# the benchmark's dsv2_lite model (portbench/configs/dsv2_lite.json: the
+# published widths, experts 0-7 of 64 held, a vocabulary of 12800, 14
+# layers) as its cell runs it
+MLA_HEADS, MLA_DQK, MLA_DV, MLA_SEQ = 16, 192, 128, 32768
+DSV2 = dict(vocab=12800, d_model=2048, layers=14, heads=16, kv_lora_rank=512,
+            qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128,
+            d_ff=10944, moe_d_ff=1408, n_routed_experts=64,
+            n_shared_experts=2, experts_per_token=6, first_k_dense_replace=1,
+            held_experts=(0, 8))
+DSV2_STEP = dict(attn="ring", remat=True, precision="default",
+                 loss_chunk=4096, compute_dtype="bfloat16",
+                 learning_rate=4.2e-4, moe_aux_weight=1e-3)
 # flash backward kernels vs plain, per element: f32 |err| <= BWD_F32_ATOL *
 # max|plain| + BWD_F32_RTOL * |plain|. Each dk/dv element sums up to 32768
 # rows whose terms cancel (each row's ds sums to 0), in 64-row tiles on the
@@ -911,23 +934,25 @@ def paged_times(torch, pa, gen, label, B, kvh, dh, page_len, W) -> dict:
     return dict(ms=ms, plain=plain, lib=lib, bound=bound)
 
 
-def check_flash(torch, fa, gen, H, P, d, valid, dtype) -> float:
+def check_flash(torch, fa, gen, H, P, d, valid, dtype, dv=None) -> float:
     """One panel at (H, P, d) with valid_len < P; the same through
     ``flash_attention_single_panel`` on the strided views ``_prefill_attn``
     passes (head stride d, row stride H * d); then a two-panel run with
     carried state and nonzero offsets that are no multiple of the tile. The
     plain version tiles by 1024 keys and the kernel by 32 or 64, so in bf16
-    they round p at different running maxima (see BF16_ATTN_ATOL)."""
+    they round p at different running maxima (see BF16_ATTN_ATOL). ``dv``
+    (d by default) is v's width, and the output's."""
     import math
 
     import torch.nn.functional as F
+    dv = dv or d
     scale = 1.0 / math.sqrt(d)
     dt = str(dtype)[6:]
-    q, k, v = (torch.randn((H, P, d), generator=gen, device="cuda").to(dtype)
-               for _ in range(3))
+    q, k, v = (torch.randn((H, P, w), generator=gen, device="cuda").to(dtype)
+               for w in (d, d, dv))
     m = torch.full((H, P), -1e30, device="cuda")
     l = torch.zeros((H, P), device="cuda")
-    acc = torch.zeros((H, P, d), device="cuda")
+    acc = torch.zeros((H, P, dv), device="cuda")
     got = fa.flash_attention_panel(q, k, v, m, l, acc, 0, 0, valid,
                                    causal=True, scale=scale)
     want = fa.flash_attention_panel_plain(q, k, v, m, l, acc, 0, 0, valid,
@@ -935,18 +960,18 @@ def check_flash(torch, fa, gen, H, P, d, valid, dtype) -> float:
     outs = [st[2] / st[1].clamp(min=1e-30)[..., None] for st in (got, want)]
     torch.cuda.synchronize()
     m_err = float((got[0] - want[0]).abs().max())
-    log(f"  flash_attention_panel H={H} P={P} d={d} valid={valid} {dt} one "
-        f"panel: max|err| m {m_err:.3e} (tol {ATTN_F32_TOL:g})")
+    log(f"  flash_attention_panel H={H} P={P} d={d} dv={dv} valid={valid} "
+        f"{dt} one panel: max|err| m {m_err:.3e} (tol {ATTN_F32_TOL:g})")
     if not m_err <= ATTN_F32_TOL:
         raise AssertionError(f"flash one panel P={P} {dtype}: m {m_err}")
     err = attn_close(torch, f"flash_attention_panel H={H} P={P} {dt} one "
                      f"panel out", outs[0], outs[1], dtype)
     del got, want, outs, m, l, acc
     # (valid, H, d) activations padded to P and viewed as (H, P, d)
-    qs, ks, vs = (F.pad(torch.randn((valid, H, d), generator=gen,
+    qs, ks, vs = (F.pad(torch.randn((valid, H, w), generator=gen,
                                     device="cuda").to(dtype),
                         (0, 0, 0, 0, 0, P - valid)).permute(1, 0, 2)
-                  for _ in range(3))
+                  for w in (d, d, dv))
     if qs.stride() != (d, H * d, 1):
         raise AssertionError(f"strided views have strides {qs.stride()}")
     got, _ = fa.flash_attention_single_panel(qs, ks, vs, valid, causal=True,
@@ -959,10 +984,10 @@ def check_flash(torch, fa, gen, H, P, d, valid, dtype) -> float:
     del qs, ks, vs, got, want
     m = torch.full((H, P), -1e30, device="cuda")
     l = torch.zeros((H, P), device="cuda")
-    acc = torch.zeros((H, P, d), device="cuda")
+    acc = torch.zeros((H, P, dv), device="cuda")
     half = P // 2
     k2 = torch.randn((H, half, d), generator=gen, device="cuda").to(dtype)
-    v2 = torch.randn((H, half, d), generator=gen, device="cuda").to(dtype)
+    v2 = torch.randn((H, half, dv), generator=gen, device="cuda").to(dtype)
     qo, ko = 777, 131
     st_g = st_w = (m, l, acc)
     for kk, vv, off in ((k[:, :half], v[:, :half], ko), (k2, v2, ko + half)):
@@ -1005,23 +1030,26 @@ def bwd_close(torch, label, got, want, dtype, f32_atol=BWD_F32_ATOL,
 
 
 def bwd_inputs(torch, fa, gen, H, sq, skv, d, dtype, strided, panels, q_off,
-               valid, causal):
-    """q and dO (H, sq, d); K/V panels (H, skv, d) with their key offsets;
-    ``lse`` and ``delta`` from the plain forward over all panels. With
-    ``strided``, (seq, heads, d) tensors viewed as (heads, seq, d), as
-    ``_block`` hands them to ring attention."""
-    def make(n):
+               valid, causal, dv=None):
+    """q (H, sq, d) and dO (H, sq, dv); K/V panels (H, skv, d) and (H, skv,
+    dv) with their key offsets (``dv`` d by default); ``lse`` and ``delta``
+    from the plain forward over all panels. With ``strided``, (seq, heads,
+    width) tensors viewed as (heads, seq, width), as ``_block`` hands them to
+    ring attention."""
+    dv = dv or d
+
+    def make(n, w):
         if strided:
-            t = torch.randn((n, H, d), generator=gen, device="cuda")
+            t = torch.randn((n, H, w), generator=gen, device="cuda")
             return t.to(dtype).permute(1, 0, 2)
-        return torch.randn((H, n, d), generator=gen, device="cuda").to(dtype)
+        return torch.randn((H, n, w), generator=gen, device="cuda").to(dtype)
 
     scale = 1.0 / d ** 0.5
-    q, do = make(sq), make(sq)
-    kv = [(make(skv), make(skv), off) for off in panels]
+    q, do = make(sq, d), make(sq, dv)
+    kv = [(make(skv, d), make(skv, dv), off) for off in panels]
     st = (torch.full((H, sq), -1e30, device="cuda"),
           torch.zeros((H, sq), device="cuda"),
-          torch.zeros((H, sq, d), device="cuda"))
+          torch.zeros((H, sq, dv), device="cuda"))
     for k, v, off in kv:
         st = fa.flash_attention_panel_plain(q, k, v, *st, q_off, off, valid,
                                             causal=causal, scale=scale)
@@ -1033,14 +1061,14 @@ def bwd_inputs(torch, fa, gen, H, sq, skv, d, dtype, strided, panels, q_off,
 
 
 def check_bwd(torch, fa, gen, label, H, sq, d, valid, dtype, causal=True,
-              strided=False, panels=(0,), skv=None, q_off=0):
+              strided=False, panels=(0,), skv=None, q_off=0, dv=None):
     """The dK/dV and dQ kernels against the plain backward on each K/V
     panel (bwd_close's bounds; bf16 above d = 128 BWD_BF16_WIDE_ATOL);
     returns the largest |err| of dq, dk and dv, and the largest
-    err/bound."""
+    err/bound. ``dv`` (d by default) is v's and dO's width."""
     q, do, kv, lse, delta, scale = bwd_inputs(
         torch, fa, gen, H, sq, skv or sq, d, dtype, strided, panels, q_off,
-        valid, causal)
+        valid, causal, dv)
     if strided and q.stride()[:2] != (d, H * d):
         raise AssertionError(f"strided views have strides {q.stride()}")
     errs, worst = dict(dq=0.0, dk=0.0, dv=0.0), 0.0
@@ -1317,11 +1345,13 @@ def wide_step(torch, tt, ops, resolve_attention_backend, stream) -> None:
 
 
 def flash_label(dtype: str, args: list) -> str:
-    """A flash kernel instance's label from its template arguments (head dim,
-    vectorised copies, and for the backward whether it is dK/dV)."""
-    kind = "" if len(args) < 3 else ("dkv " if args[2] else "dq ")
-    return (f"{kind}{dtype} d<={args[0]}"
-            f"{'' if args[1] else ' element-wise'}")
+    """A flash kernel instance's label from its template arguments (q/k and
+    v widths, vectorised copies, and for the backward whether it is
+    dK/dV)."""
+    kind = "" if len(args) < 4 else ("dkv " if args[3] else "dq ")
+    width = f"{args[0]}" if args[0] == args[1] else f"({args[0]}, {args[1]})"
+    return (f"{kind}{dtype} d<={width}"
+            f"{'' if args[2] else ' element-wise'}")
 
 
 def ptxas_table(_build, source: str, kernel: str, count: int,
@@ -1479,7 +1509,8 @@ def train_times(torch, fa, gen, _build):
         f"valid={P_T - 1} (CUDA events)")
     ptxas_table(_build, "flash_attention.cu", "flash_fwd_kernel", 8)
     ptxas_table(_build, "flash_attention_wide.cu", "flash_fwd_kernel", 4)
-    ptxas_table(_build, "flash_attention_bwd.cu", "flash_bwd_kernel", 24)
+    ptxas_table(_build, "flash_attention_mla.cu", "flash_fwd_kernel", 4)
+    ptxas_table(_build, "flash_attention_bwd.cu", "flash_bwd_kernel", 32)
     pairs = H_T * live_pairs(P_T, P_T - 1)
     log(f"  {pairs} live (query, key) pairs")
     t, bargs, kw = bwd_times(torch, fa, gen, torch.float32, pairs)
@@ -5029,6 +5060,84 @@ def ranks_references(torch, np, mt, tt):
     return ref
 
 
+def mla_path(torch, tt, fa, ops, smi) -> dict:
+    """Phase 32: the flash forward, dK/dV and dQ kernels at DeepSeek-V2's
+    (192, 128) widths against the plain versions at 16 x 32768, f32 and
+    bf16 (check_flash's and check_bwd's cases and bounds, each kernel's
+    launches counted from 0), then one ``TransformerLM.deepseek`` train
+    step at the dsv2_lite cell's widths and settings: the flash kernels
+    launch twice a layer forward (remat) and once a layer for dK/dV and dQ,
+    and the loss is the one random weights give. Returns that step's
+    launches."""
+    log(f"phase 32: the flash kernels at (q/k {MLA_DQK}, v {MLA_DV}), "
+        f"H={MLA_HEADS} P={MLA_SEQ} causal, against the plain versions; one "
+        f"DeepSeek-V2-Lite train step {DSV2}")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(32)
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype)[6:]
+        ops.reset_launch_counts()
+        check_flash(torch, fa, gen, MLA_HEADS, MLA_SEQ, MLA_DQK, MLA_SEQ - 1,
+                    dtype, dv=MLA_DV)
+        _, r = check_bwd(torch, fa, gen, f"({MLA_DQK}, {MLA_DV}) H={MLA_HEADS}"
+                         f" P={MLA_SEQ} valid={MLA_SEQ - 1} {dt}", MLA_HEADS,
+                         MLA_SEQ, MLA_DQK, MLA_SEQ - 1, dtype, dv=MLA_DV)
+        worst = max(worst, r)
+        counts = ops.launch_counts()
+        # one panel, the single panel, two panels; one of each backward
+        want = {"flash_attention_panel": 4, "flash_attention_bwd_dkv": 1,
+                "flash_attention_bwd_dq": 1}
+        if any(counts[k] != n for k, n in want.items()):
+            raise AssertionError(f"phase 32 {dt}: launches {counts}, want "
+                                 f"{want}")
+        log(f"  {dt} launches {want}")
+        torch.cuda.empty_cache()
+    log(f"  largest err/bound of the backward at ({MLA_DQK}, {MLA_DV}): "
+        f"{worst:.3f}")
+    from marlin_tpu_torch.models import DeepSeekConfig, adam_init
+
+    cfg = DeepSeekConfig(**DSV2)
+    model = tt.TransformerLM.deepseek(cfg, seed=32, **DSV2_STEP)
+    params = model.init_params(device="cuda")
+    opt = adam_init(params)
+    tokens = torch.randint(0, DSV2["vocab"], (MLA_SEQ + 1,), generator=gen,
+                           device="cuda")
+    model.train_step(params, opt, tokens)  # builds and warms every shape
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    _, _, loss = model.train_step(params, opt, tokens)
+    loss = float(loss)
+    secs = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    layers = DSV2["layers"]
+    want = {"flash_attention_panel": 2 * layers,
+            "flash_attention_bwd_dkv": layers,
+            "flash_attention_bwd_dq": layers}
+    # at init the logits are normal with variance init_std^2 d_model (the
+    # final norm's output has unit RMS), so the loss is log(vocab) plus
+    # half that; each MoE layer's balance term is about 1 (uniform routing)
+    want_loss = (math.log(DSV2["vocab"])
+                 + cfg.init_std ** 2 * DSV2["d_model"] / 2
+                 + DSV2_STEP["moe_aux_weight"]
+                 * sum(cfg.is_moe(i) for i in range(DSV2["layers"])))
+    log(f"  train step: {secs:.3f} s, loss {loss:.6f} (expected "
+        f"{want_loss:.6f}), peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, launches "
+        f"{counts}; {smi}")
+    if any(counts[k] != n for k, n in want.items()):
+        raise AssertionError(f"phase 32: the step's launches {counts}, want "
+                             f"{want}")
+    if not abs(loss - want_loss) < 0.02:
+        raise AssertionError(f"phase 32: the step's loss {loss}, expected "
+                             f"{want_loss}")
+    del model, params, opt
+    torch.cuda.empty_cache()
+    return counts
+
+
 def matrices_ranks_path(torch, np, mt, ops, smi) -> dict:
     """Phase 31: the matrices across ranks (rank-local blocks, the RMM on
     blocks, linalg on row blocks, sharded checkpoints, the sparse
@@ -5553,13 +5662,13 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=None,
-                    help="run the build, then only these of phases 19-31 "
+                    help="run the build, then only these of phases 19-32 "
                          "(comma-separated; 20 runs 19 first), and print no "
                          "result lines")
     only = ap.parse_args().phases
     only = None if only is None else {int(p) for p in only.split(",")}
-    if only is not None and not only <= set(range(19, 32)):
-        ap.error("--phases takes a subset of 19,20,...,31")
+    if only is not None and not only <= set(range(19, 33)):
+        ap.error("--phases takes a subset of 19,20,...,32")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available", file=sys.stderr)
         return 2
@@ -5652,6 +5761,11 @@ def main() -> int:
         if 31 in only:
             matrices_ranks_path(torch, np, mt, ops, smi)
             lap("phase 31")
+        if 32 in only:
+            from marlin_tpu_torch.ops import flash_attention as fa
+
+            mla_path(torch, tt, fa, ops, smi)
+            lap("phase 32")
         log(f"phases {sorted(only)}: every check passed in "
             f"{time.perf_counter() - t_start:.1f} s")
         return 0
@@ -6022,8 +6136,10 @@ def main() -> int:
     lap("phase 30")
     lc31 = matrices_ranks_path(torch, np, mt, ops, smi)
     lap("phase 31")
+    lc32 = mla_path(torch, tt, fa, ops, smi)
+    lap("phase 32")
     late = {k: moe_train[k] + moe_serve[k] + slab_counts[k] + slab_paged[k]
-            + lc29[k] + lc30[k] + lc31[k] for k in moe_train}
+            + lc29[k] + lc30[k] + lc31[k] + lc32[k] for k in moe_train}
     paged_launches = path_counts["paged_decode_attention"] + \
         engine_launches + prog_split + cli["paged_decode_attention"] + \
         fleet_split + late["paged_decode_attention"]
@@ -6047,7 +6163,8 @@ def main() -> int:
             f"{before + cli[kname] + late[kname]} (phases 8/11/14 {before}, "
             f"phase 24 {cli[kname]}, phase 26 {moe_train[kname]}, phase 27 "
             f"{slab_counts[kname]}, phase 29 {lc29[kname]}, phase 30 "
-            f"{lc30[kname]}, phase 31 {lc31[kname]})")
+            f"{lc30[kname]}, phase 31 {lc31[kname]}, phase 32 "
+            f"{lc32[kname]})")
 
     # ---------------------------------------------------- kernels line
     kernels = [

@@ -1,7 +1,8 @@
 // One flash-attention forward panel with carried state, hand-written for
 // Hopper (sm_90a) on its tensor cores: the kernel, shared by the translation
 // units that instantiate it (flash_attention.cu: d <= 64 and d <= 128, and
-// the C entry; flash_attention_wide.cu: d <= 256).
+// the C entry; flash_attention_wide.cu: d <= 256; flash_attention_mla.cu:
+// q/k 192 and v 128 wide, the heads of latent attention).
 //
 // Replaces: marlin_tpu/ops/flash_attention.py `_panel_kernel` (reached through
 // `flash_attention_panel` and `flash_attention_single_panel`), a Pallas TPU
@@ -16,11 +17,13 @@
 //   m' = max(m, max s); alpha = exp(m - m'); p = live ? exp(s - m') : 0
 //   (a fully masked row stays exactly zero);
 //   l' = l * alpha + sum p; acc' = acc * alpha + (p in the input type) . v.
-// m, l (H, sq) and acc (H, sq, d) are f32 in and out; q, k, v are f32 or bf16.
+// q and k are dqk wide, v and acc dv wide (dqk == dv but for latent
+// attention's 192 and 128). m, l (H, sq) and acc (H, sq, dv) are f32 in and
+// out; q, k, v are f32 or bf16.
 //
-// Bound on an H100 SXM (NVIDIA data sheet, 700 W): operations, 4 * d per live
-// (query, key) pair (S = Q K^T and P V), at 495 / 3 = 165 TFLOP/s for f32 in
-// three TF32 passes and 989 TFLOP/s for bf16.
+// Bound on an H100 SXM (NVIDIA data sheet, 700 W): operations, 2 (dqk + dv)
+// per live (query, key) pair (S = Q K^T and P V), at 495 / 3 = 165 TFLOP/s
+// for f32 in three TF32 passes and 989 TFLOP/s for bf16.
 //
 // Design (the backward's, flash_attention_bwd.cu, with one resident matrix
 // and the online softmax between the two products):
@@ -57,16 +60,19 @@
 // - Tiles (Tiles): 128 resident rows, 8 warps; f32 streams 64-key tiles at
 //   d <= 64 and 32-key tiles at d <= 128 (wider tiles spill registers at
 //   ptxas -O3); f32 d <= 256 keeps 64 rows (4 warps) x 32 keys; bf16 64-key
-//   tiles, 32 at d <= 256. 16-byte chunks are XOR-swizzled by row so the
-//   fragment loads hit distinct banks.
+//   tiles, 32 at d <= 256. The (192, 128) instances tile as d <= 128 does:
+//   their 64 accumulator floats a thread are d = 128's, and the wider Q and
+//   K rows only lengthen the score products' loop. 16-byte chunks are
+//   XOR-swizzled by row so the fragment loads hit distinct banks; a row of
+//   192 is 24 (bf16) or 48 (f32) chunks, whole groups of the swizzle's 8.
 // - The 1-D grid puts a q tile's heads together and the last q tiles (the
 //   longest loops when causal) first, so the short ones fill the tail.
 // - Ragged edges (sq, skv not multiples of the tiles, d below the compiled
 //   width) are zero-filled by the copies and masked; strides for q, k, v let
 //   the caller pass a (seq, heads, d) layout without a transposed copy;
-//   offsets are 64-bit. For pointers, strides or rows (d * element size) that
-//   are not 16-byte aligned the host picks the same kernel with element-wise
-//   copies (VEC = false).
+//   offsets are 64-bit. For pointers, strides or rows (dqk or dv * element
+//   size) that are not 16-byte aligned the host picks the same kernel with
+//   element-wise copies (VEC = false).
 
 #pragma once
 
@@ -88,22 +94,24 @@ struct Args {
   const void *q, *k, *v;
   const float *m_in, *l_in, *acc_in;
   float *m_out, *l_out, *acc_out;
-  int H, sq, skv, d;
+  int H, sq, skv, dqk, dv;
   int64_t q_sh, q_si, k_sh, k_si, v_sh, v_si;
   int q_offset, k_offset, valid_len, causal;
   float scale;
   cudaStream_t stream;
 };
 
-// resident rows BR (16 per warp), streamed rows BC and threads of an instance
-template <typename T, int DP>
+// resident rows BR (16 per warp), streamed rows BC and threads of an
+// instance: q and k DQ wide, v DV wide
+template <typename T, int DQ, int DV>
 struct Tiles {
   static constexpr bool F32 = std::is_same_v<T, float>;
-  static constexpr int BR = (F32 && DP == 256) ? 64 : 128;
-  static constexpr int BC = (DP == 256 || (F32 && DP == 128)) ? 32 : 64;
+  static constexpr int BR = (F32 && DQ == 256) ? 64 : 128;
+  static constexpr int BC = (DQ == 256 || (F32 && DQ >= 128)) ? 32 : 64;
   static constexpr int NT = 2 * BR;
   // Q and the ring of K/V stages
-  static constexpr size_t smem = ((size_t)BR * DP + (size_t)STAGES * 2 * BC * DP) * sizeof(T);
+  static constexpr size_t smem =
+      ((size_t)BR * DQ + (size_t)STAGES * BC * (DQ + DV)) * sizeof(T);
 };
 
 __device__ __forceinline__ bool is_live(int qi, int kj, const Args& a) {
@@ -287,14 +295,14 @@ __device__ __forceinline__ int out_col(int i, int e, int t) {
   return 8 * i + 2 * t + e;
 }
 
-template <typename T, int DP, bool VEC>
-__global__ void __launch_bounds__(Tiles<T, DP>::NT, 1) flash_fwd_kernel(const Args a) {
-  using C = Tiles<T, DP>;
+template <typename T, int DQ, int DV, bool VEC>
+__global__ void __launch_bounds__(Tiles<T, DQ, DV>::NT, 1) flash_fwd_kernel(const Args a) {
+  using C = Tiles<T, DQ, DV>;
   constexpr int BR = C::BR, BC = C::BC, NT = C::NT;
-  constexpr int NJ = BC / 8, NI = DP / 8;
+  constexpr int NJ = BC / 8, NI = DV / 8;
   extern __shared__ uint4 smem[];
-  T* Qs = reinterpret_cast<T*>(smem);  // [BR][DP]
-  T* Ys = Qs + BR * DP;                // [STAGES][2][BC][DP]: K, V
+  T* Qs = reinterpret_cast<T*>(smem);  // [BR][DQ]
+  T* Ys = Qs + BR * DQ;                // [STAGES]: K [BC][DQ], then V [BC][DV]
 
   const int lane = threadIdx.x & 31;
   const int w = threadIdx.x >> 5;
@@ -319,12 +327,12 @@ __global__ void __launch_bounds__(Tiles<T, DP>::NT, 1) flash_fwd_kernel(const Ar
   const int ntiles = c_end > 0 ? (int)((c_end + BC - 1) / BC) : 0;
 
   auto load_stage = [&](int it) {
-    T* K0 = Ys + (it % STAGES) * 2 * BC * DP;
-    tc::load_tile<T, DP, VEC, NT>(K0, k, a.k_si, it * BC, BC, a.skv, a.d);
-    tc::load_tile<T, DP, VEC, NT>(K0 + BC * DP, v, a.v_si, it * BC, BC, a.skv, a.d);
+    T* K0 = Ys + (it % STAGES) * BC * (DQ + DV);
+    tc::load_tile<T, DQ, VEC, NT>(K0, k, a.k_si, it * BC, BC, a.skv, a.dqk);
+    tc::load_tile<T, DV, VEC, NT>(K0 + BC * DQ, v, a.v_si, it * BC, BC, a.skv, a.dv);
   };
   if (ntiles > 0) {  // a block with no tile copies the state through
-    tc::load_tile<T, DP, VEC, NT>(Qs, q, a.q_si, r0, BR, a.sq, a.d);
+    tc::load_tile<T, DQ, VEC, NT>(Qs, q, a.q_si, r0, BR, a.sq, a.dqk);
     load_stage(0);
     tc::cp_async_commit();
   }
@@ -344,7 +352,7 @@ __global__ void __launch_bounds__(Tiles<T, DP>::NT, 1) flash_fwd_kernel(const Ar
     for (int e = 0; e < 4; ++e) {
       const int row = wr0 + g + 8 * (e >> 1);
       const int c = out_col<T>(i, e & 1, t);
-      acc[i][e] = (row < a.sq && c < a.d) ? a.acc_in[(row0 + row) * a.d + c] : 0.f;
+      acc[i][e] = (row < a.sq && c < a.dv) ? a.acc_in[(row0 + row) * a.dv + c] : 0.f;
     }
 
   // the position of the warp's last row; a tile whose first key lies past it
@@ -359,12 +367,12 @@ __global__ void __launch_bounds__(Tiles<T, DP>::NT, 1) flash_fwd_kernel(const Ar
       tc::cp_async_commit();
     }
     const int c0 = it * BC;
-    const T* K = Ys + (it % STAGES) * 2 * BC * DP;
-    const T* V = K + BC * DP;
+    const T* K = Ys + (it % STAGES) * BC * (DQ + DV);
+    const T* V = K + BC * DQ;
     if (wr0 >= a.sq || (a.causal && w_qlast < (int64_t)a.k_offset + c0)) continue;
 
     float S[NJ][4];
-    score_tile<T, DP, NJ>(S, Qs, K, w, g, t);
+    score_tile<T, DQ, NJ>(S, Qs, K, w, g, t);
     const bool full =
         wr0 + 16 <= a.sq && c0 + BC <= a.skv && (int64_t)a.k_offset + c0 + BC <= a.valid_len &&
         (!a.causal || (int64_t)a.q_offset + wr0 >= (int64_t)a.k_offset + c0 + BC - 1);
@@ -401,7 +409,7 @@ __global__ void __launch_bounds__(Tiles<T, DP>::NT, 1) flash_fwd_kernel(const Ar
       l[hh] = l[hh] * alpha[hh] + tc::quad_sum(rs[hh]);
       m[hh] = m_new[hh];
     }
-    accumulate_pv<T, DP, NJ>(acc, S, alpha, V, lane);
+    accumulate_pv<T, DV, NJ>(acc, S, alpha, V, lane);
   }
 
 #pragma unroll
@@ -412,21 +420,21 @@ __global__ void __launch_bounds__(Tiles<T, DP>::NT, 1) flash_fwd_kernel(const Ar
       a.m_out[row0 + row] = m[hh];
       a.l_out[row0 + row] = l[hh];
     }
-    const int64_t off = (row0 + row) * a.d;
+    const int64_t off = (row0 + row) * a.dv;
 #pragma unroll
     for (int i = 0; i < NI; ++i)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int c = out_col<T>(i, e, t);
-        if (c < a.d) a.acc_out[off + c] = acc[i][2 * hh + e];
+        if (c < a.dv) a.acc_out[off + c] = acc[i][2 * hh + e];
       }
   }
 }
 
-template <typename T, int DP, bool VEC>
+template <typename T, int DQ, int DV, bool VEC>
 cudaError_t launch(const Args& a) {
-  using C = Tiles<T, DP>;
-  auto kern = flash_fwd_kernel<T, DP, VEC>;
+  using C = Tiles<T, DQ, DV>;
+  auto kern = flash_fwd_kernel<T, DQ, DV, VEC>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::smem);
   if (err != cudaSuccess) return err;
@@ -437,7 +445,7 @@ cudaError_t launch(const Args& a) {
 }
 
 // 16-byte copies need 16-byte-aligned base pointers, head and row strides and
-// rows of d elements
+// rows of dqk and dv elements
 inline bool aligned16(const Args& a, int elt) {
   const void* ptrs[3] = {a.q, a.k, a.v};
   for (const void* p : ptrs)
@@ -445,16 +453,19 @@ inline bool aligned16(const Args& a, int elt) {
   const int64_t strides[6] = {a.q_sh, a.q_si, a.k_sh, a.k_si, a.v_sh, a.v_si};
   for (int64_t s : strides)
     if (s * elt % 16) return false;
-  return (int64_t)a.d * elt % 16 == 0;
+  return (int64_t)a.dqk * elt % 16 == 0 && (int64_t)a.dv * elt % 16 == 0;
 }
 
-// the instance of width DP for a's alignment
-template <typename T, int DP>
+// the instance of widths (DQ, DV) for a's alignment
+template <typename T, int DQ, int DV>
 cudaError_t launch_width(const Args& a) {
-  return aligned16(a, (int)sizeof(T)) ? launch<T, DP, true>(a) : launch<T, DP, false>(a);
+  return aligned16(a, (int)sizeof(T)) ? launch<T, DQ, DV, true>(a)
+                                      : launch<T, DQ, DV, false>(a);
 }
 
-// the d <= 256 instances (flash_attention_wide.cu); dtype 0 = f32, 1 = bf16
+// dtype 0 = f32, 1 = bf16: the d <= 256 instances (flash_attention_wide.cu)
+// and the (192, 128) ones (flash_attention_mla.cu)
 cudaError_t launch_wide(int dtype, const Args& a);
+cudaError_t launch_mla(int dtype, const Args& a);
 
 }  // namespace flash_fwd

@@ -18,13 +18,15 @@
 //   dV_j += p . dO_i           and  dK_j += ds . q_i * scale   (kernel 1)
 //   dQ_i += ds . k_j * scale                                   (kernel 2)
 // with p and ds rounded to the input type before their products, as the TPU
-// kernels cast them down before each dot. q, k, v, dO are f32 or bf16; lse and
-// delta (H, sq) f32; dq (H, sq, d), dk and dv (H, skv, d) f32 out.
+// kernels cast them down before each dot. q, k, v, dO are f32 or bf16, q and k
+// dqk wide, v and dO dv wide (dqk == dv but for latent attention's 192 and
+// 128); lse and delta (H, sq) f32; dq (H, sq, dqk), dk (H, skv, dqk) and dv
+// (H, skv, dv) f32 out.
 //
-// Bound on an H100 SXM (NVIDIA data sheet, 700 W): operations — 8 * d per
-// live (query, key) pair for dK/dV (the s and dO.V recomputes, p.dO and ds.Q)
-// and 6 * d for dQ (s, dO.V, ds.K) — at 495 / 3 = 165 TFLOP/s for f32 (three
-// TF32 passes) and 989 TFLOP/s for bf16.
+// Bound on an H100 SXM (NVIDIA data sheet, 700 W): operations — 4 (dqk + dv)
+// per live (query, key) pair for dK/dV (the s and dO.V recomputes, p.dO and
+// ds.Q) and 4 dqk + 2 dv for dQ (s, dO.V, ds.K) — at 495 / 3 = 165 TFLOP/s
+// for f32 (three TF32 passes) and 989 TFLOP/s for bf16.
 //
 // Design:
 // - Two kernels, as on the TPU, so every output element has one writer: no
@@ -48,6 +50,16 @@
 //   exchange through shared memory and no barrier between them. f32 streams
 //   BC = 16-row tiles so the ring and its small halves fit beside the 128 KB
 //   of resident rows; bf16 keeps BC = 32.
+// - q/k 192 and v 128 wide (latent attention) keep the d = 128 plan, each
+//   warp over both whole widths: bf16 dK/dV holds 96 + 64 accumulator
+//   floats a thread, 160 against d = 128's 128, with no score product run
+//   twice (in bf16 a warp's 96 dK columns of a column half would start
+//   mid-way through a group of the swizzle's 8 chunks). f32 dQ streams
+//   BC = 16-row tiles, so that 160 KB of resident Q and dO, the ring and its
+//   small halves fit in a block's 227 KB. f32 dK/dV at 160 accumulator
+//   floats spilled 48 bytes (ptxas -O1, 255 registers), so it takes the
+//   column halves of d = 256: 64 resident rows, 96 + 64 columns a warp (80
+//   floats), 32-row tiles; 96 f32 columns are 24 chunks, whole groups of 8.
 // - Products on the tensor cores with mma.sync (m16n8k8 TF32, m16n8k16 bf16),
 //   fragments loaded from shared memory by the threads. wgmma was not taken:
 //   it reads TF32 operands from shared memory only K-major, and three of the
@@ -110,29 +122,35 @@ namespace {
 constexpr int NT = 256;  // 8 warps
 constexpr int STAGES = 2;
 
-// The tile plan of an instance (see the head note): up to d = 128, 8 row
-// groups of 16 resident rows, each warp over the full width; at DP = 256, 4
-// row groups x 2 column halves.
-template <typename T, int DP>
+// The tile plan of an instance (see the head note), q and k DQ wide, v and
+// dO DV wide: up to d = 128 and at (192, 128), 8 row groups of 16 resident
+// rows, each warp over the full widths; at DQ = 256, 4 row groups x 2 column
+// halves.
+template <typename T, int DQ, int DV, bool DKV>
 struct Plan {
-  static constexpr int NCH = DP > 128 ? 2 : 1;  // column halves of d
-  static constexpr int DW = DP / NCH;           // output columns of a warp
+  static constexpr bool F32 = std::is_same_v<T, float>;
+  // column halves of the widths
+  static constexpr int NCH = DQ > 192 || (F32 && DKV && DQ > 128) ? 2 : 1;
+  static constexpr int DWQ = DQ / NCH;          // dK or dQ columns of a warp
+  static constexpr int DWV = DV / NCH;          // dV columns of a warp
   static constexpr int NRG = NT / 32 / NCH;     // row groups of 16
   static constexpr int BR = 16 * NRG;           // resident rows of a block
-  static constexpr int BC = DP > 128 && std::is_same_v<T, float> ? 16 : 32;  // streamed rows
+  // streamed rows: f32 at 128 resident rows of more than 128 + 128
+  // columns, or at DQ = 256, streams 16 to fit the block's shared memory
+  static constexpr int BC = F32 && DQ > 128 && (NCH == 1 || DQ == 256) ? 16 : 32;
   static constexpr int NJ = BC / 8;  // 8-column accumulator tiles of a score tile
   // the dO.V scores at d <= 256 sum each 64 columns in a fresh accumulator
   // (score_tile's SEG): ds = p (dO.V - delta) cancels where dO.V is near
   // delta, and with the 256 columns in one accumulator a dq element whose
   // exact value is 0 came out 1.06e-5 on an H100
-  static constexpr int SEG_DS = DP > 128 ? 64 / (4 * (16 / (int)sizeof(T))) : 0;
+  static constexpr int SEG_DS = DV > 128 ? 64 / (4 * (16 / (int)sizeof(T))) : 0;
 };
 
 struct Args {
   const void *q, *k, *v, *dout;
   const float *lse, *delta;
   float *out0, *out1;
-  int H, sq, skv, d;
+  int H, sq, skv, dqk, dv;
   int64_t q_sh, q_si, k_sh, k_si, v_sh, v_si, o_sh, o_si;
   int q_offset, k_offset, valid_len, causal;
   float scale;
@@ -373,35 +391,39 @@ __device__ __forceinline__ int out_col(int i, int e, int t) {
   return 8 * i + 2 * t + (e & 1);
 }
 
-template <typename T, int DP>
+template <typename T, int DQ, int DV, bool DKV>
 constexpr size_t smem_bytes() {
-  using P = Plan<T, DP>;
-  return (2 * (size_t)P::BR * DP + (size_t)STAGES * 2 * P::BC * DP) * sizeof(T) +
+  using P = Plan<T, DQ, DV, DKV>;
+  return ((size_t)P::BR * (DQ + DV) + (size_t)STAGES * P::BC * (DQ + DV)) * sizeof(T) +
          (size_t)STAGES * 2 * P::BC * sizeof(float) +
-         (std::is_same_v<T, float> ? 2 * (size_t)P::BC * DP * sizeof(float) : 0);
+         (std::is_same_v<T, float> ? (size_t)P::BC * (DQ + DV) * sizeof(float) : 0);
 }
-static_assert(smem_bytes<float, 256>() <= 232448, "f32 d <= 256 past a block's shared memory");
-static_assert(smem_bytes<float, 128>() <= 232448, "f32 d <= 128 past a block's shared memory");
+static_assert(smem_bytes<float, 256, 256, true>() <= 232448, "f32 d <= 256 past a block's shared memory");
+static_assert(smem_bytes<float, 128, 128, true>() <= 232448, "f32 d <= 128 past a block's shared memory");
+static_assert(smem_bytes<float, 192, 128, true>() <= 232448, "f32 (192, 128) dK/dV past a block's shared memory");
+static_assert(smem_bytes<float, 192, 128, false>() <= 232448, "f32 (192, 128) dQ past a block's shared memory");
 
 // DKV: the dK/dV kernel (resident K, V; streamed Q, dO; out0 = dk, out1 =
 // dv). Otherwise the dQ kernel (resident Q, dO; streamed K, V; out0 = dq).
-template <typename T, int DP, bool VEC, bool DKV>
+template <typename T, int DQ, int DV, bool VEC, bool DKV>
 __global__ void __launch_bounds__(NT, 1) flash_bwd_kernel(const Args a) {
-  using P_ = Plan<T, DP>;
-  constexpr int BR = P_::BR, BC = P_::BC, NJ = P_::NJ, DW = P_::DW;
-  constexpr int NI = DW / 8;
+  using P_ = Plan<T, DQ, DV, DKV>;
+  constexpr int BR = P_::BR, BC = P_::BC, NJ = P_::NJ, DWQ = P_::DWQ, DWV = P_::DWV;
+  constexpr int NIQ = DWQ / 8, NIV = DWV / 8;
   extern __shared__ uint4 smem[];
-  T* X0 = reinterpret_cast<T*>(smem);  // K or Q, [BR][DP]
-  T* X1 = X0 + BR * DP;                // V or dO
-  T* Ys = X1 + BR * DP;                // [STAGES][2][BC][DP]: Q, dO or K, V
-  float* lse_s = reinterpret_cast<float*>(Ys + STAGES * 2 * BC * DP);  // [STAGES][BC]
+  T* X0 = reinterpret_cast<T*>(smem);  // K or Q, [BR][DQ]
+  T* X1 = X0 + BR * DQ;                // V or dO, [BR][DV]
+  // [STAGES]: Q [BC][DQ] then dO [BC][DV], or K then V
+  T* Ys = X1 + BR * DV;
+  float* lse_s = reinterpret_cast<float*>(Ys + STAGES * BC * (DQ + DV));  // [STAGES][BC]
   float* dlt_s = lse_s + STAGES * BC;
   float* Ysm = dlt_s + STAGES * BC;  // f32: the small TF32 halves of the current tile
 
   const int lane = threadIdx.x & 31;
   const int w = threadIdx.x >> 5;
   const int rg = w % P_::NRG;  // row group: resident rows 16 rg..16 rg + 15
-  const int c0w = w / P_::NRG * DW;  // the warp's first output column
+  const int c0q = w / P_::NRG * DWQ;  // the warp's first dK or dQ column
+  const int c0v = w / P_::NRG * DWV;  // and dV column
   const int g = lane >> 2;
   const int t = lane & 3;
   const int nr = DKV ? a.skv : a.sq;  // rows of the resident matrices
@@ -448,14 +470,14 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_kernel(const Args a) {
   }
   const int ntiles = c_end > c_first ? (int)((c_end - c_first + BC - 1) / BC) : 0;
 
-  load_rows<T, DP, VEC>(X0, x0, x0_si, r0, BR, nr, a.d);
-  load_rows<T, DP, VEC>(X1, x1, x1_si, r0, BR, nr, a.d);
+  load_rows<T, DQ, VEC>(X0, x0, x0_si, r0, BR, nr, a.dqk);
+  load_rows<T, DV, VEC>(X1, x1, x1_si, r0, BR, nr, a.dv);
   tc::cp_async_commit();
 
   auto load_stage = [&](int s, int c0) {
-    T* Y0 = Ys + s * 2 * BC * DP;
-    load_rows<T, DP, VEC>(Y0, y0, y0_si, c0, BC, nc, a.d);
-    load_rows<T, DP, VEC>(Y0 + BC * DP, y1, y1_si, c0, BC, nc, a.d);
+    T* Y0 = Ys + s * BC * (DQ + DV);
+    load_rows<T, DQ, VEC>(Y0, y0, y0_si, c0, BC, nc, a.dqk);
+    load_rows<T, DV, VEC>(Y0 + BC * DQ, y1, y1_si, c0, BC, nc, a.dv);
     if (DKV && threadIdx.x < 2 * BC) {
       const int i = threadIdx.x % BC;
       const bool ok = c0 + i < a.sq;
@@ -478,15 +500,17 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_kernel(const Args a) {
     }
   }
 
-  float acc_p[DKV ? NI : 1][4];   // dV: P^T dO
-  float acc_ds[NI][4];            // dK: dS^T Q, or dQ: dS K
+  float acc_p[DKV ? NIV : 1][4];  // dV: P^T dO
+  float acc_ds[NIQ][4];           // dK: dS^T Q, or dQ: dS K
 #pragma unroll
-  for (int i = 0; i < NI; ++i)
+  for (int i = 0; i < NIQ; ++i)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      acc_ds[i][e] = 0.f;
-      if constexpr (DKV) acc_p[i][e] = 0.f;
-    }
+    for (int e = 0; e < 4; ++e) acc_ds[i][e] = 0.f;
+  if constexpr (DKV)
+#pragma unroll
+    for (int i = 0; i < NIV; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc_p[i][e] = 0.f;
 
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
@@ -502,14 +526,14 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_kernel(const Args a) {
 
     const int s = it % STAGES;
     const int c0 = (int)c_first + it * BC;
-    T* Y0 = Ys + s * 2 * BC * DP;
-    T* Y1 = Y0 + BC * DP;
+    T* Y0 = Ys + s * BC * (DQ + DV);
+    T* Y1 = Y0 + BC * DQ;
     if constexpr (std::is_same_v<T, float>) {
       // split the streamed tile once for all warps: the big halves in place,
       // the small ones beside them
       uint4* yb = reinterpret_cast<uint4*>(Y0);
       uint4* ysm = reinterpret_cast<uint4*>(Ysm);
-      for (int i = threadIdx.x; i < 2 * BC * DP / 4; i += NT) {
+      for (int i = threadIdx.x; i < BC * (DQ + DV) / 4; i += NT) {
         const uint4 x = yb[i];
         const uint32_t xs[4] = {x.x, x.y, x.z, x.w};
         const tc::Split<4> sp = tc::split_tf32(xs);
@@ -522,7 +546,7 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_kernel(const Args a) {
     // never both held through a product: the accumulators take 128 of the
     // 255 registers a thread may have
     float P[NJ][4], dS[NJ][4];
-    score_tile<T, DP, NJ, 0>(P, X0, Y0, Ysm, rg, g, t);
+    score_tile<T, DQ, NJ, 0>(P, X0, Y0, Ysm, rg, g, t);
     const int64_t q_lo = DKV ? c0 : r0, q_hi = DKV ? c0 + BC : r0 + BR;
     const int64_t k_lo = DKV ? r0 : c0, k_hi = DKV ? r0 + BR : c0 + BC;
     const bool full = q_hi <= a.sq && k_hi <= a.skv && a.k_offset + k_hi <= a.valid_len &&
@@ -549,8 +573,8 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_kernel(const Args a) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) P[j][e] = expf(P[j][e]);
     if constexpr (DKV)
-      accumulate<T, DP, DW, NJ>(acc_p, P, Y1 + c0w, Ysm + BC * DP + c0w, lane);
-    score_tile<T, DP, NJ, P_::SEG_DS>(dS, X1, Y1, Ysm + BC * DP, rg, g, t);
+      accumulate<T, DV, DWV, NJ>(acc_p, P, Y1 + c0v, Ysm + BC * DQ + c0v, lane);
+    score_tile<T, DV, NJ, P_::SEG_DS>(dS, X1, Y1, Ysm + BC * DQ, rg, g, t);
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
 #pragma unroll
@@ -558,7 +582,7 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_kernel(const Args a) {
         const float dl = DKV ? dlt_s[s * BC + 8 * j + 2 * t + (e & 1)] : dlt_r[e >> 1];
         dS[j][e] = P[j][e] * (dS[j][e] - dl);
       }
-    accumulate<T, DP, DW, NJ>(acc_ds, dS, Y0 + c0w, Ysm + c0w, lane);
+    accumulate<T, DQ, DWQ, NJ>(acc_ds, dS, Y0 + c0q, Ysm + c0q, lane);
     __syncthreads();  // stage s is refilled by the next iteration's copy
   }
 
@@ -568,28 +592,35 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_kernel(const Args a) {
   for (int hh = 0; hh < 2; ++hh) {
     const int row = r0 + 16 * rg + g + 8 * hh;
     if (row >= nr) continue;
-    const int64_t off = (base + row) * a.d;
+    const int64_t offq = (base + row) * a.dqk;
 #pragma unroll
-    for (int i = 0; i < NI; ++i)
+    for (int i = 0; i < NIQ; ++i)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int c = c0w + out_col<T>(i, e, t);
-        if (c < a.d) {
-          out_ds[off + c] = acc_ds[i][2 * hh + e] * a.scale;
-          if constexpr (DKV) a.out1[off + c] = acc_p[i][2 * hh + e];
-        }
+        const int c = c0q + out_col<T>(i, e, t);
+        if (c < a.dqk) out_ds[offq + c] = acc_ds[i][2 * hh + e] * a.scale;
       }
+    if constexpr (DKV) {
+      const int64_t offv = (base + row) * a.dv;
+#pragma unroll
+      for (int i = 0; i < NIV; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = c0v + out_col<T>(i, e, t);
+          if (c < a.dv) a.out1[offv + c] = acc_p[i][2 * hh + e];
+        }
+    }
   }
 }
 
-template <typename T, int DP, bool VEC, bool DKV>
+template <typename T, int DQ, int DV, bool VEC, bool DKV>
 cudaError_t launch(const Args& a) {
-  const size_t smem = smem_bytes<T, DP>();
-  auto kern = flash_bwd_kernel<T, DP, VEC, DKV>;
+  const size_t smem = smem_bytes<T, DQ, DV, DKV>();
+  auto kern = flash_bwd_kernel<T, DQ, DV, VEC, DKV>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  constexpr int BR = Plan<T, DP>::BR;
+  constexpr int BR = Plan<T, DQ, DV, DKV>::BR;
   const int64_t blocks = (int64_t)(((DKV ? a.skv : a.sq) + BR - 1) / BR) * a.H;
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
   kern<<<(unsigned)blocks, NT, smem, a.stream>>>(a);
@@ -597,7 +628,7 @@ cudaError_t launch(const Args& a) {
 }
 
 // 16-byte copies need 16-byte-aligned base pointers, head and row strides and
-// rows of d elements
+// rows of dqk and dv elements
 bool aligned16(const Args& a, int elt) {
   const void* ptrs[4] = {a.q, a.k, a.v, a.dout};
   for (const void* p : ptrs)
@@ -605,25 +636,30 @@ bool aligned16(const Args& a, int elt) {
   const int64_t strides[8] = {a.q_sh, a.q_si, a.k_sh, a.k_si, a.v_sh, a.v_si, a.o_sh, a.o_si};
   for (int64_t s : strides)
     if (s * elt % 16) return false;
-  return (int64_t)a.d * elt % 16 == 0;
+  return (int64_t)a.dqk * elt % 16 == 0 && (int64_t)a.dv * elt % 16 == 0;
 }
 
+template <typename T, int DQ, int DV, bool DKV>
+cudaError_t launch_width(const Args& a) {
+  return aligned16(a, (int)sizeof(T)) ? launch<T, DQ, DV, true, DKV>(a)
+                                      : launch<T, DQ, DV, false, DKV>(a);
+}
+
+// the narrowest instance that holds both widths (the forward's rule)
 template <bool DKV, typename T>
 cudaError_t dispatch(const Args& a) {
-  const bool vec = aligned16(a, (int)sizeof(T));
-  if (a.d <= 64)
-    return vec ? launch<T, 64, true, DKV>(a) : launch<T, 64, false, DKV>(a);
-  if (a.d <= 128)
-    return vec ? launch<T, 128, true, DKV>(a) : launch<T, 128, false, DKV>(a);
-  if (a.d <= 256)
-    return vec ? launch<T, 256, true, DKV>(a) : launch<T, 256, false, DKV>(a);
+  const int d = a.dqk > a.dv ? a.dqk : a.dv;
+  if (d <= 64) return launch_width<T, 64, 64, DKV>(a);
+  if (d <= 128) return launch_width<T, 128, 128, DKV>(a);
+  if (a.dqk <= 192 && a.dv <= 128) return launch_width<T, 192, 128, DKV>(a);
+  if (d <= 256) return launch_width<T, 256, 256, DKV>(a);
   return cudaErrorInvalidValue;
 }
 
 template <bool DKV>
 int run(int dtype, const Args& a) {
   if (a.H <= 0 || (DKV ? a.skv : a.sq) <= 0) return (int)cudaSuccess;
-  if (a.d <= 0 || a.sq < 0 || a.skv < 0) return (int)cudaErrorInvalidValue;
+  if (a.dqk <= 0 || a.dv <= 0 || a.sq < 0 || a.skv < 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0) return (int)dispatch<DKV, float>(a);
   if (dtype == 1) return (int)dispatch<DKV, __nv_bfloat16>(a);
   return (int)cudaErrorInvalidValue;
@@ -631,13 +667,13 @@ int run(int dtype, const Args& a) {
 
 Args make_args(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* out0, void* out1, int H, int sq,
-               int skv, int d, long long q_sh, long long q_si, long long k_sh,
+               int skv, int dqk, int dv, long long q_sh, long long q_si, long long k_sh,
                long long k_si, long long v_sh, long long v_si, long long o_sh,
                long long o_si, int q_offset, int k_offset, int valid_len, int causal,
                float scale, void* stream) {
   return Args{q, k, v, dout, static_cast<const float*>(lse),
               static_cast<const float*>(delta), static_cast<float*>(out0),
-              static_cast<float*>(out1), H, sq, skv, d, q_sh, q_si, k_sh, k_si, v_sh,
+              static_cast<float*>(out1), H, sq, skv, dqk, dv, q_sh, q_si, k_sh, k_si, v_sh,
               v_si, o_sh, o_si, q_offset, k_offset, valid_len, causal, scale,
               static_cast<cudaStream_t>(stream)};
 }
@@ -646,30 +682,32 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. q and dout (H, sq, d), k and v (H, skv, d),
-// given by their head and row strides in elements (the last dimension
-// contiguous); lse and delta (H, sq) contiguous f32; dk and dv (H, skv, d)
-// contiguous f32, written whole. Returns the launch's cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16. q (H, sq, dqk), dout (H, sq, dv), k (H,
+// skv, dqk) and v (H, skv, dv), given by their head and row strides in
+// elements (the last dimension contiguous); lse and delta (H, sq) contiguous
+// f32; dk_out (H, skv, dqk) and dv_out (H, skv, dv) contiguous f32, written
+// whole. Returns the launch's cudaError_t.
 int marlin_flash_bwd_dkv(int dtype, const void* q, const void* k, const void* v,
-                         const void* dout, const void* lse, const void* delta, void* dk,
-                         void* dv, int H, int sq, int skv, int d, long long q_sh,
-                         long long q_si, long long k_sh, long long k_si, long long v_sh,
-                         long long v_si, long long o_sh, long long o_si, int q_offset,
-                         int k_offset, int valid_len, int causal, float scale,
+                         const void* dout, const void* lse, const void* delta, void* dk_out,
+                         void* dv_out, int H, int sq, int skv, int dqk, int dv,
+                         long long q_sh, long long q_si, long long k_sh, long long k_si,
+                         long long v_sh, long long v_si, long long o_sh, long long o_si,
+                         int q_offset, int k_offset, int valid_len, int causal, float scale,
                          void* stream) {
-  return run<true>(dtype, make_args(q, k, v, dout, lse, delta, dk, dv, H, sq, skv, d, q_sh,
-                                    q_si, k_sh, k_si, v_sh, v_si, o_sh, o_si, q_offset,
-                                    k_offset, valid_len, causal, scale, stream));
+  return run<true>(dtype, make_args(q, k, v, dout, lse, delta, dk_out, dv_out, H, sq, skv,
+                                    dqk, dv, q_sh, q_si, k_sh, k_si, v_sh, v_si, o_sh, o_si,
+                                    q_offset, k_offset, valid_len, causal, scale, stream));
 }
 
-// As marlin_flash_bwd_dkv; dq (H, sq, d) contiguous f32, written whole.
+// As marlin_flash_bwd_dkv; dq (H, sq, dqk) contiguous f32, written whole.
 int marlin_flash_bwd_dq(int dtype, const void* q, const void* k, const void* v,
                         const void* dout, const void* lse, const void* delta, void* dq,
-                        int H, int sq, int skv, int d, long long q_sh, long long q_si,
-                        long long k_sh, long long k_si, long long v_sh, long long v_si,
-                        long long o_sh, long long o_si, int q_offset, int k_offset,
-                        int valid_len, int causal, float scale, void* stream) {
-  return run<false>(dtype, make_args(q, k, v, dout, lse, delta, dq, nullptr, H, sq, skv, d,
+                        int H, int sq, int skv, int dqk, int dv, long long q_sh,
+                        long long q_si, long long k_sh, long long k_si, long long v_sh,
+                        long long v_si, long long o_sh, long long o_si, int q_offset,
+                        int k_offset, int valid_len, int causal, float scale,
+                        void* stream) {
+  return run<false>(dtype, make_args(q, k, v, dout, lse, delta, dq, nullptr, H, sq, skv, dqk, dv,
                                      q_sh, q_si, k_sh, k_si, v_sh, v_si, o_sh, o_si,
                                      q_offset, k_offset, valid_len, causal, scale, stream));
 }

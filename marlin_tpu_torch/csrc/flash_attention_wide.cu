@@ -9,8 +9,8 @@
 namespace flash_fwd {
 
 cudaError_t launch_wide(int dtype, const Args& a) {
-  if (dtype == 0) return launch_width<float, 256>(a);
-  return launch_width<__nv_bfloat16, 256>(a);
+  if (dtype == 0) return launch_width<float, 256, 256>(a);
+  return launch_width<__nv_bfloat16, 256, 256>(a);
 }
 
 }  // namespace flash_fwd

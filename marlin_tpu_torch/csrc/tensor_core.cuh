@@ -181,6 +181,10 @@ __device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src, int
                  ok ? 16 : 0);
     }
   } else {
+    // one synchronous load in flight a thread, as the backward's load_rows:
+    // unrolled, the loads held at once spilled the forward's f32 (192, 128)
+    // instance at ptxas -O3
+#pragma unroll 1
     for (int idx = threadIdx.x; idx < nrows * DP; idx += NT) {
       const int r = idx / DP;
       const int c = idx % DP;

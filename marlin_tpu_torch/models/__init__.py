@@ -4,7 +4,8 @@ The reference's "models" are workloads built from its matrix primitives: a
 2-layer MLP, logistic regression, PageRank and ALS matrix factorization,
 implemented in :mod:`marlin_tpu_torch.ml` and re-exported here (resolved
 at first use: ``ml`` imports the trainer's Adam from this package). The
-causal transformer LM (training, serving), its mixture-of-experts FFN, the
+causal transformer LM (training, serving), its mixture-of-experts FFN,
+DeepSeek-V2's latent attention and DeepSeekMoE on its trainer, the
 pipeline-parallel LM and the memory planner complete it.
 """
 
@@ -28,6 +29,7 @@ def __getattr__(name):
 def __dir__():
     return sorted(set(globals()) | set(_ML))
 
+from .deepseek import DeepSeekConfig, init_deepseek  # noqa: F401
 from .moe import init_moe, moe_ffn, shard_moe_params  # noqa: F401
 from .pipeline_lm import pp_lm_loss, pp_lm_train_step, pp_stage_params  # noqa: F401
 from .planner import (  # noqa: F401

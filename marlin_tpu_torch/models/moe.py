@@ -34,6 +34,16 @@ and lets XLA insert the all-to-alls. Here, on a mesh over
 
 A mesh that is not over ranks but has more than one device on the expert
 axis raises ``ValueError``.
+
+DeepSeekMoE (:func:`deepseek_moe_ffn`, DeepSeek-V2's layer, in a world of
+one) routes differently: softmax scores over every routed expert in f32,
+greedy top-k with the scores as weights (no renormalisation), no capacity
+and so no dropped token, ``n_shared_experts`` SiLU-gated experts that every
+token passes, and the sequence-wise expert-level balance term. The layer
+holds a range of the routed experts and computes their part of the result:
+the tokens routed to them are gathered by expert, each held expert runs one
+gate/up/down product set over its tokens, and the outputs are added back
+weighted (the experts' grouped products, with no one-hot dispatch tensor).
 """
 
 from __future__ import annotations
@@ -46,12 +56,15 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import resolve_device
 from ..mesh import ROWS, Sharding, over_ranks
+from ..obs import trace as obs_trace
+from ..obs.metrics import get_registry
 from ..ops.local import precision_scope
 from ..parallel import collectives as col
+from .deepseek import swiglu
 from .transformer import _f32_einsum, _gelu
 
 __all__ = ["init_moe", "moe_ffn", "moe_decode_ffn", "moe_capacity",
-           "shard_moe_params"]
+           "shard_moe_params", "init_deepseek_moe", "deepseek_moe_ffn"]
 
 
 def init_moe(key, d_model: int, d_ff: int, n_experts: int,
@@ -390,3 +403,114 @@ def moe_decode_ffn(mp: dict, h, top_k: int = 2):
     out = torch.einsum("bkf,bkfd->bkd", hh, w2)
     out = torch.sum(out * topv[..., None].to(out.dtype), dim=1).to(cd)
     return out[0] if single else out
+
+
+# ------------------------------------------------------------ DeepSeekMoE
+
+
+def init_deepseek_moe(normal, cfg) -> dict:
+    """A DeepSeekMoE layer's params from ``normal(*shape)`` (a draw of the
+    init distribution): the router ``wg`` (d, E) over every routed expert,
+    the held experts' ``w_gate``/``w_up`` (E_held, d, f) and ``w_down``
+    (E_held, f, d), and the shared experts fused into one SiLU FFN of width
+    ``n_shared_experts * f`` (``shared_gate``, ``shared_up``,
+    ``shared_down``), as ``modeling_deepseek`` builds them."""
+    d, f = cfg.d_model, cfg.moe_d_ff
+    lo, hi = cfg.held
+    fs = cfg.n_shared_experts * f
+    mp = {"wg": normal(d, cfg.n_routed_experts),
+          "w_gate": normal(hi - lo, d, f), "w_up": normal(hi - lo, d, f),
+          "w_down": normal(hi - lo, f, d)}
+    if fs:
+        mp.update(shared_gate=normal(d, fs), shared_up=normal(d, fs),
+                  shared_down=normal(fs, d))
+    return mp
+
+
+_moe_families = None
+
+
+def _moe_metrics():
+    """(tokens dispatched to held experts, counted at every dispatch; the
+    last dispatch's largest held-expert load over the held mean)."""
+    global _moe_families
+    if _moe_families is None:
+        reg = get_registry()
+        _moe_families = (
+            reg.counter("marlin_moe_dispatched_tokens_total",
+                        "(token, expert) pairs routed to the experts a "
+                        "DeepSeekMoE layer holds, at every dispatch (a "
+                        "remat recompute dispatches again)"),
+            reg.gauge("marlin_moe_held_load_ratio",
+                      "The last dispatch's largest held-expert load over "
+                      "the mean load of the held experts"))
+    return _moe_families
+
+
+def deepseek_moe_ffn(mp: dict, h, cfg):
+    """DeepSeekMoE over ``h`` (tokens, d) in a world of one (``cfg`` a
+    :class:`~.deepseek.DeepSeekConfig`); returns ``(out, aux)`` in ``h``'s
+    dtype and f32. ``modeling_deepseek``'s ``MoEGate`` and
+    ``DeepseekV2MoE``, term by term:
+
+    - scores ``softmax(h W_g)`` over all ``n_routed_experts`` in f32; each
+      token's greedy top ``experts_per_token`` with their scores times
+      ``routed_scaling_factor`` as weights (``norm_topk_prob`` false);
+    - ``aux = sum_e ce_e * mean_t(score_te)``, ``ce_e`` expert ``e``'s
+      share of the choices over its uniform share (the sequence-wise term
+      at one sequence; the caller scales it by ``aux_loss_alpha``);
+    - the held experts ``cfg.held`` run over the tokens routed to them, with
+      no capacity: each expert's tokens are gathered (one host read of the
+      experts' counts sizes the groups), run through its SiLU FFN in
+      ``h``'s dtype and added back at their weights in f32; the shared
+      experts run over every token.
+
+    The experts that are not held add nothing: their part of the result is
+    the other chips' of an expert-parallel deployment."""
+    n, d = h.shape
+    e, k = cfg.n_routed_experts, cfg.experts_per_token
+    lo, hi = cfg.held
+    with obs_trace.span("moe.route"):
+        scores = torch.softmax(h.float() @ mp["wg"].float(), dim=-1)
+        topv, topi = torch.topk(scores, k, dim=-1)
+        topv = topv * cfg.routed_scaling_factor
+        flat = topi.reshape(-1)
+        counts = torch.bincount(flat, minlength=e)
+        aux = torch.sum(counts.float() / (n * k / e) * scores.mean(dim=0))
+    with obs_trace.span("moe.dispatch"):
+        # every (token, choice) slot by expert; the held experts' run of
+        # them is sized by the layer's one host read
+        order = torch.argsort(flat, stable=True)
+        sizes = counts.tolist()
+        pick = order[sum(sizes[:lo]):sum(sizes[:hi])]
+        sizes = sizes[lo:hi]
+        tok = pick // k
+        xs = h[tok]
+        chosen, families = sum(sizes), _moe_metrics()
+        families[0].inc(chosen)
+        if sizes:
+            families[1].set(max(sizes) * len(sizes) / chosen if chosen
+                            else 0.0)
+    with obs_trace.span("moe.experts"):
+        # the held experts' weights cast once, not once an expert
+        w_gate, w_up, w_down = (mp[key].to(h.dtype)
+                                for key in ("w_gate", "w_up", "w_down"))
+        parts, start = [], 0
+        for j, size in enumerate(sizes):
+            if size:
+                parts.append(swiglu(xs[start:start + size], w_gate[j],
+                                    w_up[j], w_down[j]))
+            start += size
+        shared = None
+        if "shared_gate" in mp:
+            shared = swiglu(h, mp["shared_gate"], mp["shared_up"],
+                            mp["shared_down"])
+    with obs_trace.span("moe.combine"):
+        out = torch.zeros((n, d), dtype=torch.float32, device=h.device)
+        if parts:
+            y = torch.cat(parts).float() * topv.reshape(-1)[pick][:, None]
+            out = out.index_add(0, tok, y)
+        out = out.to(h.dtype)
+        if shared is not None:
+            out = out + shared
+    return out, aux

@@ -57,6 +57,7 @@ from torch.utils.checkpoint import checkpoint
 from .. import threefry
 from ..config import get_config, resolve_device
 from ..mesh import ROWS, default_mesh, distributed, over_ranks
+from ..obs import trace as obs_trace
 from ..ops import flash_attention as _flash
 from ..ops.local import precision_scope
 from ..ops.paged_attention import paged_decode_attention
@@ -67,6 +68,7 @@ from ..parallel.ring_attention import (resolve_attention_backend,
                                        ring_padded_len)
 from ..parallel.ulysses import (ulysses_attention, ulysses_attention_shard,
                                 ulysses_padded_len)
+from . import deepseek as _ds
 
 __all__ = ["TransformerLM", "init_transformer", "transformer_forward",
            "lm_loss", "lm_value_and_grad", "lm_train_step", "AdamState",
@@ -95,7 +97,7 @@ def synthetic_stream(seq: int, vocab: int = 64, seed: int = 0,
 def init_transformer(key, vocab: int, d_model: int, heads: int, layers: int,
                      d_ff: int | None = None, dtype=torch.float32,
                      kv_heads: int | None = None, n_experts: int | None = None,
-                     moe_every: int = 1, device=None) -> dict:
+                     moe_every: int = 1, device=None, arch=None) -> dict:
     """Scaled-normal init with a tied embedding; ``kv_heads`` enables GQA
     (wk/wv project to ``kv_heads·dh``). ``n_experts`` turns the FFN of every
     ``moe_every``-th layer (from layer ``moe_every - 1``) into a
@@ -103,7 +105,21 @@ def init_transformer(key, vocab: int, d_model: int, heads: int, layers: int,
     key, in place of ``w1``/``w2``). ``key`` is an int seed of a
     ``torch.Generator`` on ``device``; the draws differ from ``jax.random``'s
     (carry JAX weights over with
-    :func:`marlin_tpu_torch.interop.lm_params_from_numpy`)."""
+    :func:`marlin_tpu_torch.interop.lm_params_from_numpy`).
+
+    ``arch`` (a :class:`~.deepseek.DeepSeekConfig`) draws a DeepSeek-V2
+    model instead (:func:`~.deepseek.init_deepseek`), for callers of
+    :func:`lm_train_step` that hold no ``TransformerLM``; the other
+    arguments must then be the config's sizes and the toy model's
+    defaults."""
+    if arch is not None:
+        if (vocab, d_model, heads, layers, d_ff, kv_heads, n_experts) != (
+                arch.vocab, arch.d_model, arch.heads, arch.layers, None,
+                None, None):
+            raise ValueError("sizes that are not the config's: a DeepSeek "
+                             "config sets vocab, d_model, heads and layers, "
+                             "and takes no d_ff, kv_heads or n_experts")
+        return _ds.init_deepseek(key, arch, dtype, device)
     d_ff = d_ff or 4 * d_model
     kvh = heads if kv_heads is None else kv_heads
     if kvh < 1 or heads % kvh:
@@ -151,10 +167,10 @@ def _layer(params: dict, i: int) -> dict:
     return params[f"l{i}"]
 
 
-def _rmsnorm(x, g):
+def _rmsnorm(x, g, eps: float = 1e-6):
     """Statistics in f32 whatever the activation dtype; output in x's."""
     xf = x.float()
-    y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + 1e-6)
+    y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
     return (y * g).to(x.dtype)
 
 
@@ -470,6 +486,7 @@ def lm_generate(params, prompt, key, heads: int, max_len: int, steps: int,
     in that dtype (logits and softmax stay f32); ``moe`` is the MoE layers'
     ``(top_k, capacity_factor, group)``. Returns the ``(n_prompt + steps,)``
     token tensor on the params' device."""
+    _ds.refuse_latent(params, "lm_generate")
     dev = params["emb"].device
     prompt = _ints(prompt, dev)
     n = prompt.shape[0]
@@ -506,6 +523,7 @@ def lm_generate_batch(params, prompts, lengths, key, heads: int,
     its own position. Returns (B, max_len) tokens; row b's generation fills
     ``[lengths[b], lengths[b] + steps)``. Sampling knobs as
     :func:`lm_generate` (one key per step for the whole batch)."""
+    _ds.refuse_latent(params, "lm_generate_batch")
     dev = params["emb"].device
     prompts = _ints(prompts, dev)
     lengths = _ints(lengths, dev)
@@ -550,6 +568,7 @@ def init_kv_slab(params, rows: int, max_len: int, heads: int,
                  compute_dtype=None):
     """Zeroed persistent KV pool on the params' device: layer -> (k, v), each
     (rows, max_len, kv_heads, dh) in the compute dtype, one slot a row."""
+    _ds.refuse_latent(params, "init_kv_slab")
     d = params["emb"].shape[1]
     dh = d // heads
     kvh = params["l0"]["wk"].shape[1] // dh
@@ -572,6 +591,7 @@ def lm_prefill_slot(params, caches, tokens, slot, prompt, length, heads: int,
     length. The slot's whole cache row is written (a previous occupant's K/V
     is overwritten), and its token row becomes ``prompt + first_token``.
     Returns ``(caches, tokens, first_token)``, the token a 0-d tensor."""
+    _ds.refuse_latent(params, "lm_prefill_slot")
     dev = params["emb"].device
     prompt = _ints(prompt, dev)
     P = prompt.shape[0]
@@ -611,6 +631,7 @@ def lm_decode_rows(params, caches, tokens, positions, steps_done, seeds,
     = greedy; pass numpy to keep the greedy check on the host). Writes each
     row's next token at ``positions + 1`` and returns ``(caches, tokens,
     next_tokens)``."""
+    _ds.refuse_latent(params, "lm_decode_rows")
     dev = params["emb"].device
     B = tokens.shape[0]
     rows = torch.arange(B, device=dev)
@@ -638,6 +659,7 @@ def init_kv_pages(params, num_pages: int, page_len: int, heads: int,
                   compute_dtype=None):
     """Zeroed page slab on the params' device: layer -> (k, v), each
     (num_pages, page_len, kv_heads, dh) in the compute dtype."""
+    _ds.refuse_latent(params, "init_kv_pages")
     if num_pages < 2:
         raise ValueError(f"num_pages must be >= 2 (page 0 is the dummy), "
                          f"got {num_pages}")
@@ -670,6 +692,7 @@ def lm_prefill_paged(params, pages, table, chunk, chunk_start, length,
     writes exactly the ``C/page_len`` pages it covers — never a shared page
     before ``chunk_start``. Returns ``(pages, first)``, ``first`` the sampled
     token after position ``length - 1`` (meaningful on the final chunk)."""
+    _ds.refuse_latent(params, "lm_prefill_paged")
     dev = params["emb"].device
     table = _page_ids(table, pages, dev)
     chunk = _ints(chunk, dev)
@@ -810,6 +833,7 @@ def lm_decode_paged(params, pages, tables, positions, cur_tokens,
     entry each row produced; ``'pallas'`` runs the CUDA kernel over the slab
     in place (the plain version on the CPU). Greedy streams agree (logits to
     float reassociation). Returns ``(pages, next_tokens)``."""
+    _ds.refuse_latent(params, "lm_decode_paged")
     dev = params["emb"].device
     kernel = resolve_decode_kernel(kernel, dev)
     tables = _page_ids(tables, pages, dev)
@@ -1003,7 +1027,7 @@ def _remat_block(blk, lp, x, offload: bool):
 
 def _trunk(params, tokens, mesh, heads, attn, remat, precision,
            compute_dtype=None, mlp_chunk=None, offload_residuals=False,
-           moe=None, shards=None):
+           moe=None, shards=None, arch=None):
     """Final-norm hidden states (seq, d_model) and the summed MoE aux: the
     forward minus the LM head. ``remat`` recomputes each block in the
     backward (``torch.utils.checkpoint``), keeping only the block inputs;
@@ -1012,9 +1036,18 @@ def _trunk(params, tokens, mesh, heads, attn, remat, precision,
     With ``shards`` (a rank mesh) ``tokens`` are the whole stream's ids and
     the result is this rank's ``(shards.rows, d_model)`` block (the pad past
     ``seq`` embeds token 0 and is masked downstream) and its share of the
-    aux."""
+    aux. ``arch`` (a :class:`~.deepseek.DeepSeekConfig`) runs DeepSeek-V2's
+    blocks (:func:`~.deepseek.deepseek_block`: MLA through the ring
+    backend ``attn`` names, in a world of one, and the SiLU or DeepSeekMoE
+    FFN); ``heads``, ``mlp_chunk`` and ``moe`` are then not read."""
     if attn not in (*_ATTN_BACKENDS, "ulysses"):
         raise ValueError(f"unknown attention strategy: {attn!r}")
+    if arch is not None:
+        if shards is not None:
+            _ds.refuse_latent(params, "a mesh over ranks")
+        if attn not in _ATTN_BACKENDS:
+            raise ValueError(f"latent attention runs the ring backends "
+                             f"{sorted(_ATTN_BACKENDS)}, not {attn!r}")
     if offload_residuals:
         if not remat:
             raise ValueError("offload_residuals requires remat=True (without "
@@ -1033,16 +1066,23 @@ def _trunk(params, tokens, mesh, heads, attn, remat, precision,
     x = params["emb"][ids]
     if compute_dtype is not None:
         x = x.to(_cdtype(compute_dtype, params))
-    blk = functools.partial(_block, heads=heads, mesh=mesh, attn=attn,
-                            precision=precision, mlp_chunk=mlp_chunk, moe=moe,
-                            shards=shards)
+    if arch is None:
+        blk = functools.partial(_block, heads=heads, mesh=mesh, attn=attn,
+                                precision=precision, mlp_chunk=mlp_chunk,
+                                moe=moe, shards=shards)
+    else:
+        cos, sin = _ds.rope_tables(arch, x.shape[0], x.device)
+        blk = functools.partial(_ds.deepseek_block, cfg=arch, cos=cos,
+                                sin=sin, backend=_ATTN_BACKENDS[attn],
+                                precision=precision)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(_n_layers(params)):
         lp = _layer(params, i)
         x, a = (_remat_block(blk, lp, x, offload_residuals) if remat
                 else blk(lp, x))
         aux = aux + a
-    return _rmsnorm(x, params["ln_f"]), aux
+    eps = 1e-6 if arch is None else arch.rms_norm_eps
+    return _rmsnorm(x, params["ln_f"], eps), aux
 
 
 def _shards_for(params, tokens, mesh, heads, attn):
@@ -1055,25 +1095,33 @@ def _shards_for(params, tokens, mesh, heads, attn):
                        params["emb"].device)
 
 
+def _lm_head(params):
+    """The LM head's ``(vocab, d)`` weight: ``head`` where the model has
+    one (untied, as DeepSeek-V2's), else the tied embedding."""
+    return params["head"] if "head" in params else params["emb"]
+
+
 def transformer_forward(params: dict, tokens, mesh=None, heads: int = 4,
                         attn: str = "ring", remat: bool = False,
                         precision: str = "high", compute_dtype=None,
                         mlp_chunk: int | None = None,
-                        offload_residuals: bool = False, moe=None):
+                        offload_residuals: bool = False, moe=None,
+                        arch=None):
     """f32 logits (seq, vocab) for next-token prediction over ``tokens``
     (seq,). ``attn``: ``"ring"`` (backend picked by
     :func:`~marlin_tpu_torch.parallel.ring_attention.resolve_attention_backend`),
     ``"ring_flash"`` / ``"ring_xla"`` (pinned), or ``"ulysses"``. ``moe``:
-    the MoE layers' ``(top_k, capacity_factor, group)``. On a rank mesh the
-    trunk runs on each rank's block of the stream and the logits are
-    gathered whole on every rank."""
+    the MoE layers' ``(top_k, capacity_factor, group)``; ``arch``: a
+    :class:`~.deepseek.DeepSeekConfig` for a DeepSeek-V2 model. On a rank
+    mesh the trunk runs on each rank's block of the stream and the logits
+    are gathered whole on every rank."""
     mesh = _train_mesh(mesh)
     shards = _shards_for(params, tokens, mesh, heads, attn)
     with precision_scope("highest"):
         x, _ = _trunk(params, tokens, mesh, heads, attn, remat, precision,
                       compute_dtype, mlp_chunk, offload_residuals, moe,
-                      shards)
-        logits = _head_logits(x, params["emb"])
+                      shards, arch)
+        logits = _head_logits(x, _lm_head(params))
         if shards is None:
             return logits
         logits = col.Gather.apply(logits, shards.mesh, shards.axis, 0)
@@ -1110,14 +1158,17 @@ def lm_loss(params, tokens, mesh=None, heads: int = 4, attn: str = "ring",
             remat: bool = False, precision: str = "high",
             loss_chunk: int | None = None, compute_dtype=None,
             mlp_chunk: int | None = None, offload_residuals: bool = False,
-            moe=None, moe_aux_weight: float = 1e-2):
+            moe=None, moe_aux_weight: float = 1e-2, arch=None):
     """Mean next-token cross-entropy over the stream, an f32 scalar tensor
     with its autograd graph. ``loss_chunk`` runs the LM head over that many
     tokens at a time (:func:`_chunked_nll`); ``compute_dtype`` runs the
     activations in that dtype (the loss stays f32). For MoE models
     ``moe_aux_weight`` times the summed Switch load-balance term joins the
     loss (``moe`` carries the routing knobs); a dense model's term is an
-    exact zero, as in the JAX package.
+    exact zero, as in the JAX package. ``arch`` (a
+    :class:`~.deepseek.DeepSeekConfig`) trains a DeepSeek-V2 model: the
+    head is its untied ``head``, and ``moe_aux_weight`` scales its MoE
+    layers' sequence-wise balance terms (``aux_loss_alpha``).
 
     On a mesh over ranks each rank runs its block of the stream and the NLL
     of its own rows; the value is their sum over the sequence axis (the
@@ -1126,7 +1177,7 @@ def lm_loss(params, tokens, mesh=None, heads: int = 4, attn: str = "ring",
     them)."""
     if loss_chunk is not None and loss_chunk < 1:
         raise ValueError(f"loss_chunk must be >= 1 or None, got {loss_chunk}")
-    emb = params["emb"]
+    emb = _lm_head(params)
     tokens = _ints(tokens, emb.device)
     tgt = tokens[1:]
     mesh = _train_mesh(mesh)
@@ -1134,7 +1185,7 @@ def lm_loss(params, tokens, mesh=None, heads: int = 4, attn: str = "ring",
     with precision_scope("highest"):
         x, aux = _trunk(params, tokens[:-1], mesh, heads, attn, remat,
                         precision, compute_dtype, mlp_chunk,
-                        offload_residuals, moe, shards)
+                        offload_residuals, moe, shards, arch)
         if shards is not None:
             return _shard_loss(x, aux, emb, tgt, shards, loss_chunk,
                                moe_aux_weight)
@@ -1251,16 +1302,19 @@ def lm_train_step(params, opt_state: AdamState, tokens, mesh, heads: int,
                   loss_chunk: int | None = None, compute_dtype=None,
                   mlp_chunk: int | None = None,
                   offload_residuals: bool = False, moe=None,
-                  moe_aux_weight=1e-2):
+                  moe_aux_weight=1e-2, arch=None):
     """One Adam step on the stream ``tokens``: :func:`lm_value_and_grad`,
     then the update. Returns ``(params, opt_state, loss)`` — new params and
     state (the inputs are left as they were) and the loss as a 0-d tensor on
-    the device."""
-    loss, grads = lm_value_and_grad(
-        params, tokens, mesh, heads, attn, remat, precision, loss_chunk,
-        compute_dtype, mlp_chunk, offload_residuals, moe, moe_aux_weight)
-    params, opt_state = _adam_update(params, grads, opt_state, lr)
-    return params, opt_state, loss
+    the device. The step is the span ``lm.step``, its update ``lm.adam``."""
+    with obs_trace.span("lm.step"):
+        loss, grads = lm_value_and_grad(
+            params, tokens, mesh, heads, attn, remat, precision, loss_chunk,
+            compute_dtype, mlp_chunk, offload_residuals, moe, moe_aux_weight,
+            arch)
+        with obs_trace.span("lm.adam"):
+            params, opt_state = _adam_update(params, grads, opt_state, lr)
+        return params, opt_state, loss
 
 
 @dataclasses.dataclass
@@ -1297,6 +1351,17 @@ class TransformerLM:
     moe_capacity_factor: float = _MOE_DEFAULTS[1]
     moe_group: int = _MOE_DEFAULTS[2]
     moe_aux_weight: float = 1e-2
+    # a DeepSeek-V2 model (models/deepseek.py: MLA and DeepSeekMoE) in
+    # place of the toy blocks; build with TransformerLM.deepseek
+    arch: _ds.DeepSeekConfig | None = None
+
+    @classmethod
+    def deepseek(cls, arch: _ds.DeepSeekConfig, **kwargs) -> "TransformerLM":
+        """A trainer of the DeepSeek-V2 model ``arch``, its sizes taken
+        from the config; ``kwargs`` set the trainer's other fields
+        (``moe_aux_weight`` is the config's ``aux_loss_alpha``)."""
+        return cls(vocab=arch.vocab, d_model=arch.d_model, heads=arch.heads,
+                   layers=arch.layers, arch=arch, **kwargs)
 
     def _moe(self) -> tuple | None:
         if self.n_experts is None:
@@ -1304,10 +1369,21 @@ class TransformerLM:
         return (self.moe_top_k, self.moe_capacity_factor, self.moe_group)
 
     def init_params(self, dtype=torch.float32, device=None) -> dict:
+        if self.arch is not None:
+            return _ds.init_deepseek(self.seed, self.arch, dtype, device)
         return init_transformer(self.seed, self.vocab, self.d_model,
                                 self.heads, self.layers, self.d_ff, dtype,
                                 self.kv_heads, self.n_experts, self.moe_every,
                                 device=device)
+
+    def train_step(self, params, opt_state: AdamState, tokens, mesh=None):
+        """One :func:`lm_train_step` with this trainer's settings; returns
+        ``(params, opt_state, loss)``."""
+        return lm_train_step(
+            params, opt_state, tokens, mesh, self.heads, self.attn,
+            self.remat, self.precision, self.learning_rate, self.loss_chunk,
+            self.compute_dtype, self.mlp_chunk, self.offload_residuals,
+            self._moe(), self.moe_aux_weight, self.arch)
 
     def train(self, tokens, steps: int = 20, mesh=None, params=None,
               checkpoint_dir: str | None = None, checkpoint_every: int = 0,
@@ -1361,11 +1437,8 @@ class TransformerLM:
                                        nu=local(opt_state.nu))
         losses = []
         for it in range(start, steps):
-            params, opt_state, loss = lm_train_step(
-                params, opt_state, tokens, mesh, self.heads, self.attn,
-                self.remat, self.precision, self.learning_rate,
-                self.loss_chunk, self.compute_dtype, self.mlp_chunk,
-                self.offload_residuals, self._moe(), self.moe_aux_weight)
+            params, opt_state, loss = self.train_step(params, opt_state,
+                                                      tokens, mesh)
             losses.append(float(loss))
             if log_every and (it + 1) % log_every == 0:
                 print(f"step {it + 1}: loss {losses[-1]:.4f}")

@@ -138,11 +138,15 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     # stream
     lib.marlin_paged_attention.argtypes = [i] + [p] * 7 + [i] * 11 + [f, p]
     lib.marlin_paged_attention.restype = i
+    # dtype, q, k, v, m, l, acc in and out, H, sq, skv, dqk, dv, strides, ...
     lib.marlin_flash_fwd.argtypes = [i, p, p, p, p, p, p, p, p, p, i, i, i, i,
-                                     ll, ll, ll, ll, ll, ll, i, i, i, i, f, p]
+                                     i, ll, ll, ll, ll, ll, ll, i, i, i, i, f,
+                                     p]
     lib.marlin_flash_fwd.restype = i
     # dtype, q, k, v, dout, lse, delta, outputs..., then the shared tail
-    bwd_tail = [i, i, i, i, ll, ll, ll, ll, ll, ll, ll, ll, i, i, i, i, f, p]
+    # (H, sq, skv, dqk, dv, strides, ...)
+    bwd_tail = [i, i, i, i, i, ll, ll, ll, ll, ll, ll, ll, ll, i, i, i, i, f,
+                p]
     lib.marlin_flash_bwd_dkv.argtypes = [i] + [p] * 8 + bwd_tail
     lib.marlin_flash_bwd_dkv.restype = i
     lib.marlin_flash_bwd_dq.argtypes = [i] + [p] * 7 + bwd_tail

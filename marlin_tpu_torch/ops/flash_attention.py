@@ -3,8 +3,9 @@ two-pass recompute backward.
 
 Counterpart of ``marlin_tpu/ops/flash_attention.py``. Its Pallas TPU panel
 kernel becomes the CUDA kernel ``csrc/flash_attention.cuh`` (instantiated by
-``csrc/flash_attention.cu``, and for d <= 256 by
-``csrc/flash_attention_wide.cu``) and its two backward kernels
+``csrc/flash_attention.cu``, for d <= 256 by ``csrc/flash_attention_wide.cu``
+and for q/k 192 and v 128 wide by ``csrc/flash_attention_mla.cu``) and its
+two backward kernels
 ``csrc/flash_attention_bwd.cu`` (built and bound by ``ops/_build.py``).
 Forward: score tiles stay in registers, the running max ``m``, denominator
 ``l`` and f32 accumulator are carried across the kv tiles, and tiles with no
@@ -24,7 +25,11 @@ global offsets ``q_offset``/``k_offset`` of row and key 0, and ``valid_len``
 last panel. Here a leading heads axis is accepted as well — ``q`` ``(H, sq,
 d)``, ``m`` ``(H, sq)`` — and one kernel launch covers all heads (the JAX
 callers ``vmap`` over heads). ``m``/``l`` stay 1-D per head: the TPU's packed
-``(sq//128, 128)`` form exists only for its (8, 128) tiling.
+``(sq//128, 128)`` form exists only for its (8, 128) tiling. ``v`` may be
+narrower or wider than ``q`` and ``k`` (latent attention's q/k 192 against v
+128): ``v``, ``acc``, the output and ``do`` are then ``dv`` wide, ``q``,
+``k``, ``dq`` and ``dk`` ``dqk`` wide, and the kernels run their instance at
+(192, 128) unpadded.
 
 f32 inputs keep f32 accuracy everywhere (the TPU kernels pin
 ``Precision.HIGHEST``): the plain versions multiply in IEEE f32, the forward
@@ -32,7 +37,8 @@ and backward kernels on the tensor cores in three TF32 passes (a single TF32
 pass would be ~1e-3 off); bf16 inputs run bf16 products. ``p`` and ``ds``
 are rounded to the input type before their products, as the TPU kernels
 cast them down. The forward kernel and the backward kernels take head dims
-up to :data:`FWD_MAX_D` and :data:`BWD_MAX_D` (both 256).
+(each of ``dqk`` and ``dv``) up to :data:`FWD_MAX_D` and :data:`BWD_MAX_D`
+(both 256).
 
 :func:`flash_attention_panel` runs the kernel for CUDA tensors (raising on a
 failed build or launch) and :func:`flash_attention_panel_plain` for CPU
@@ -80,27 +86,28 @@ def block_divisor(n: int, cap: int | None = None) -> int:
     return b
 
 
-def _as_heads(q, k, v, rows: dict, like_q: dict):
+def _as_heads(q, k, v, rows: dict, like_o: dict):
     """``q``, ``k``, ``v``, the per-row tensors ``rows`` (name: ``(sq,)``
     tensor — the state ``m``/``l``, or the backward's ``lse``/``delta``) and
-    the q-shaped ``like_q`` (``acc``, or ``do``) with a leading heads axis,
-    their shapes checked and q, k, v of one dtype; first, whether the caller
-    passed the single-head form. Returns ``(single, q, k, v, *rows,
-    *like_q)``."""
-    rest = [*rows.values(), *like_q.values()]
+    the output-shaped ``like_o`` (``acc``, or ``do``: q's rows, v's width)
+    with a leading heads axis, their shapes checked and q, k, v of one
+    dtype; first, whether the caller passed the single-head form. Returns
+    ``(single, q, k, v, *rows, *like_o)``."""
+    rest = [*rows.values(), *like_o.values()]
     single = q.ndim == 2
     if single:
         q, k, v, *rest = (t.unsqueeze(0) for t in (q, k, v, *rest))
-    if q.ndim != 3 or k.ndim != 3 or v.shape != k.shape:
-        raise ValueError(f"expected q (H, sq, d) and k/v (H, skv, d), got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
+    if q.ndim != 3 or k.ndim != 3 or v.ndim != 3 \
+            or v.shape[:2] != k.shape[:2]:
+        raise ValueError(f"expected q (H, sq, dqk), k (H, skv, dqk) and v "
+                         f"(H, skv, dv), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
     H, sq, d = q.shape
     if k.shape[0] != H or k.shape[2] != d:
         raise ValueError(f"k/v {tuple(k.shape)} do not match q "
                          f"{tuple(q.shape)}")
-    want = [(H, sq)] * len(rows) + [q.shape] * len(like_q)
-    for name, t, shape in zip([*rows, *like_q], rest, want):
+    want = [(H, sq)] * len(rows) + [(H, sq, v.shape[2])] * len(like_o)
+    for name, t, shape in zip([*rows, *like_o], rest, want):
         if t.shape != shape:
             raise ValueError(f"{name} {tuple(t.shape)} does not match q "
                              f"{tuple(q.shape)}: want {tuple(shape)}")
@@ -111,24 +118,25 @@ def _as_heads(q, k, v, rows: dict, like_q: dict):
 
 
 # the widest head each kernel is compiled for: the forward's instances and
-# the dK/dV and dQ kernels' cover d <= 64, 128 and 256
+# the dK/dV and dQ kernels' cover d <= 64, 128 and 256, and q/k 192 wide
+# beside v 128 wide
 FWD_MAX_D = 256
 BWD_MAX_D = 256
 
 
-def _check_kernel(name: str, max_d: int, q, **others) -> None:
-    """Raise unless the kernel behind ``name`` takes ``q`` and ``others``:
-    all on one CUDA device, q float32 or bfloat16, head dim at most
-    ``max_d`` (:data:`FWD_MAX_D` or :data:`BWD_MAX_D`)."""
+def _check_kernel(name: str, max_d: int, q, v, **others) -> None:
+    """Raise unless the kernel behind ``name`` takes ``q``, ``v`` and
+    ``others``: all on one CUDA device, q float32 or bfloat16, head dims of
+    q and v at most ``max_d`` (:data:`FWD_MAX_D` or :data:`BWD_MAX_D`)."""
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
     if q.dtype not in _DTYPES:
         raise TypeError(f"{name}: the kernel takes float32 or bfloat16, got "
                         f"{q.dtype}")
-    if q.shape[-1] > max_d:
-        raise ValueError(f"{name}: head dim {q.shape[-1]} exceeds the "
-                         f"kernel's {max_d}")
-    for other, t in others.items():
+    if max(q.shape[-1], v.shape[-1]) > max_d:
+        raise ValueError(f"{name}: head dim {max(q.shape[-1], v.shape[-1])} "
+                         f"exceeds the kernel's {max_d}")
+    for other, t in dict(others, v=v).items():
         if t.device != q.device:
             raise ValueError(f"{name}: {other} on {t.device}, q on "
                              f"{q.device}")
@@ -197,10 +205,10 @@ def flash_attention_panel(q, k, v, m, l, acc, q_offset, k_offset, valid_len,
             scale=scale, bq=bq, bkv=bkv)
     single, q, k, v, m, l, acc = _as_heads(q, k, v, dict(m=m, l=l),
                                            dict(acc=acc))
-    _check_kernel("flash_attention_panel", FWD_MAX_D, q, k=k, v=v, m=m, l=l,
+    _check_kernel("flash_attention_panel", FWD_MAX_D, q, v, k=k, m=m, l=l,
                   acc=acc)
     H, sq, d = q.shape
-    skv = k.shape[1]
+    skv, dv = k.shape[1], v.shape[2]
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     m, l, acc = (t.float().contiguous() for t in (m, l, acc))
     m_out, l_out, acc_out = (torch.empty_like(t) for t in (m, l, acc))
@@ -210,7 +218,7 @@ def flash_attention_panel(q, k, v, m, l, acc, q_offset, k_offset, valid_len,
         err = lib.marlin_flash_fwd(
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             m.data_ptr(), l.data_ptr(), acc.data_ptr(), m_out.data_ptr(),
-            l_out.data_ptr(), acc_out.data_ptr(), H, sq, skv, d,
+            l_out.data_ptr(), acc_out.data_ptr(), H, sq, skv, d, dv,
             q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
             v.stride(1), int(q_offset), int(k_offset), int(valid_len),
             int(bool(causal)), float(scale), stream)
@@ -231,7 +239,8 @@ def _single_panel(panel, q, k, v, valid_len, causal, scale):
     lead = q.shape[:-1]
     m = torch.full(lead, _NEG, dtype=torch.float32, device=q.device)
     l = torch.zeros(lead, dtype=torch.float32, device=q.device)
-    acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    acc = torch.zeros((*lead, v.shape[-1]), dtype=torch.float32,
+                      device=q.device)
     m, l, acc = panel(q, k, v, m, l, acc, 0, 0, valid_len, causal=causal,
                       scale=scale, bq=b, bkv=b)
     lf = torch.clamp(l, min=1e-30)
@@ -243,7 +252,8 @@ def flash_attention_single_panel(q, k, v, valid_len, *, causal: bool,
     """Full-sequence attention as ONE panel: initialise ``(m, l, acc)``, one
     :func:`flash_attention_panel` pass over all keys, normalise with the
     1e-30 floor on ``l``. Returns ``(out, lse)``: ``out`` f32 in q's shape
-    (``(seq, d)`` or ``(H, seq, d)``), ``lse = m + log l`` per row."""
+    (``(seq, d)`` or ``(H, seq, d)``; v's width), ``lse = m + log l`` per
+    row."""
     return _single_panel(flash_attention_panel, q, k, v, valid_len, causal,
                          scale)
 
@@ -282,7 +292,7 @@ def _bwd_plain(q, k, v, do, lse, delta, q_offset, k_offset, valid_len,
     dt, dev = q.dtype, q.device
     dq = torch.zeros((H, sq, d), dtype=torch.float32, device=dev)
     dk = torch.zeros((H, skv, d), dtype=torch.float32, device=dev)
-    dv = torch.zeros_like(dk)
+    dv = torch.zeros((H, skv, v.shape[2]), dtype=torch.float32, device=dev)
     lse, delta = lse.float(), delta.float()
     with precision_scope("highest"):
         for i0 in range(0, sq, bq):
@@ -337,9 +347,9 @@ def _bwd_launch(name, symbol, outs_like, q, k, v, do, lse, delta, q_offset,
     raises), launch ``symbol`` and return its f32 outputs, one shaped like
     each input named in ``outs_like``; raises on a refused launch."""
     single, q, k, v, do, lse, delta = _bwd_as_heads(q, k, v, do, lse, delta)
-    _check_kernel(name, BWD_MAX_D, q, k=k, v=v, do=do, lse=lse, delta=delta)
+    _check_kernel(name, BWD_MAX_D, q, v, k=k, do=do, lse=lse, delta=delta)
     H, sq, d = q.shape
-    skv = k.shape[1]
+    skv, dv = k.shape[1], v.shape[2]
     like = dict(q=q, k=k, v=v)
     outs = [torch.empty(like[n].shape, dtype=torch.float32, device=q.device)
             for n in outs_like]
@@ -352,7 +362,7 @@ def _bwd_launch(name, symbol, outs_like, q, k, v, do, lse, delta, q_offset,
         err = getattr(lib, symbol)(
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            *(o.data_ptr() for o in outs), H, sq, skv, d, q.stride(0),
+            *(o.data_ptr() for o in outs), H, sq, skv, d, dv, q.stride(0),
             q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
             do.stride(0), do.stride(1), int(q_offset), int(k_offset),
             int(valid_len), int(bool(causal)), float(scale), stream)
@@ -416,7 +426,8 @@ class FlashAttention(torch.autograd.Function):
     ``parallel/ulysses.py:50-78``).
 
     ``FlashAttention.apply(q, k, v, valid_len, causal, scale)`` takes ``(seq,
-    d)`` or ``(H, seq, d)`` tensors and returns the output in q's dtype. The
+    d)`` or ``(H, seq, d)`` tensors (v's width may differ from q's and k's)
+    and returns the output, v's width, in q's dtype. The
     forward saves ``(q, k, v, out, lse)``; the backward forms ``delta =
     rowsum(dO·out)`` in f32, runs :func:`flash_attention_panel_bwd` and casts
     the f32 grads to the inputs' dtypes. Both kernels are looked up in this

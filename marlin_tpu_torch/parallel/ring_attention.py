@@ -132,7 +132,8 @@ def _xla_attention(q, k, v, valid_len: int, causal: bool, scale: float):
     lead = q.shape[:-1]
     m = torch.full(lead, _NEG, dtype=torch.float32, device=q.device)
     l = torch.zeros(lead, dtype=torch.float32, device=q.device)
-    acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    acc = torch.zeros((*lead, v.shape[-1]), dtype=torch.float32,
+                      device=q.device)
     q_pos = torch.arange(sq, device=q.device)
     for off in range(0, skv, tile):
         k_pos = off + torch.arange(tile, device=q.device)
@@ -184,7 +185,8 @@ class _RingAttention(torch.autograd.Function):
         m = torch.full(q.shape[:-1], _NEG, dtype=torch.float32,
                        device=q.device)
         l = torch.zeros_like(m)
-        acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+        acc = torch.zeros((*m.shape, v.shape[-1]), dtype=torch.float32,
+                          device=q.device)
         k_cur, v_cur = k, v
         for i in range(p):
             if i < p - 1:  # the next panel travels while this one folds in
@@ -216,7 +218,7 @@ class _RingAttention(torch.autograd.Function):
             bq, bkv = sq, tile
         dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
         dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
-        dv = torch.zeros_like(dk)
+        dv = torch.zeros(v.shape, dtype=torch.float32, device=q.device)
         k_cur, v_cur = k, v
         for i in range(p):
             if i < p - 1:
@@ -264,8 +266,8 @@ def ring_attention_shard(q, k, v, mesh, valid_len: int, axis: str = ROWS,
     sequence than its panel and the one in flight."""
     if precision not in ("high", "default"):
         raise ValueError(f"unknown ring attention precision: {precision!r}")
-    flash = resolve_attention_backend(backend, q.device, q.shape[-1]) == \
-        "flash"
+    flash = resolve_attention_backend(
+        backend, q.device, max(q.shape[-1], v.shape[-1])) == "flash"
     out_dtype = q.dtype
     if precision == "default":
         q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
@@ -281,7 +283,8 @@ def ring_attention(q, k, v, mesh=None, axis: str = ROWS, causal: bool = False,
                    scale: float | None = None, backend: str = "auto",
                    precision: str = "high"):
     """Exact attention; ``q``/``k``/``v`` ``(seq, d)``, ``(heads, seq, d)``
-    or any leading batch dims, one shape. Sequences longer than ``_KV_TILE``
+    or any leading batch dims, one shape but for v's width, which may differ
+    from q's and k's (the output takes it). Sequences longer than ``_KV_TILE``
     are padded to tile multiples, and on the flash path to 1024 multiples
     above 1024 tokens (else 128), the JAX package's contract; ``valid_len``
     masks the pad exactly. ``precision="default"`` casts q/k/v to bfloat16
@@ -290,7 +293,7 @@ def ring_attention(q, k, v, mesh=None, axis: str = ROWS, causal: bool = False,
     has q's dtype and shape. Over ranks every rank passes the whole
     sequence: its panels are cut, :func:`ring_attention_shard` runs, and the
     output panels are gathered."""
-    if q.ndim < 2 or k.shape != q.shape or v.shape != q.shape:
+    if q.ndim < 2 or k.shape != q.shape or v.shape[:-1] != q.shape[:-1]:
         raise ValueError(f"q/k/v shape mismatch: {tuple(q.shape)} "
                          f"{tuple(k.shape)} {tuple(v.shape)}")
     if q.ndim > 3:
@@ -302,7 +305,8 @@ def ring_attention(q, k, v, mesh=None, axis: str = ROWS, causal: bool = False,
     if precision not in ("high", "default"):
         raise ValueError(f"unknown ring attention precision: {precision!r}")
     seq, d = q.shape[-2], q.shape[-1]
-    flash = resolve_attention_backend(backend, q.device, d) == "flash"
+    flash = resolve_attention_backend(backend, q.device,
+                                      max(d, v.shape[-1])) == "flash"
     if mesh is None and distributed():
         mesh = default_mesh()
     ranks = over_ranks(mesh, (axis,))

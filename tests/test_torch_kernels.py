@@ -193,13 +193,15 @@ def test_ctypes_binding_passes_pointers_as_void_p():
     assert p[-2] is ctypes.c_float
     fl = lib.marlin_flash_fwd.argtypes
     assert fl[1:10] == [ctypes.c_void_p] * 9 and fl[-1] is ctypes.c_void_p
-    assert fl[14:20] == [ctypes.c_longlong] * 6 and fl[-2] is ctypes.c_float
+    assert fl[10:15] == [ctypes.c_int] * 5  # H, sq, skv, dqk, dv
+    assert fl[15:21] == [ctypes.c_longlong] * 6 and fl[-2] is ctypes.c_float
     for fn, n_ptr in (("marlin_flash_bwd_dkv", 8), ("marlin_flash_bwd_dq", 7)):
         b = getattr(lib, fn).argtypes
         assert b[0] is ctypes.c_int and b[-1] is ctypes.c_void_p
         assert b[1:1 + n_ptr] == [ctypes.c_void_p] * n_ptr
-        assert b[5 + n_ptr:13 + n_ptr] == [ctypes.c_longlong] * 8
-        assert b[-2] is ctypes.c_float and len(b) == n_ptr + 19
+        assert b[1 + n_ptr:6 + n_ptr] == [ctypes.c_int] * 5
+        assert b[6 + n_ptr:14 + n_ptr] == [ctypes.c_longlong] * 8
+        assert b[-2] is ctypes.c_float and len(b) == n_ptr + 20
     s = lib.marlin_bsr_spmm.argtypes
     assert s[0] is ctypes.c_int and s[1:6] == [ctypes.c_void_p] * 5
     assert s[6:9] == [ctypes.c_longlong] * 3 and s[9] is ctypes.c_int
@@ -231,7 +233,8 @@ def test_build_dir_is_keyed_by_sources():
     assert d.parent == _build.BUILD_ROOT and len(d.name) == 16
     assert {p.name for p in _build._sources()} == {
         "gemm.cu", "masked_fill.cu", "paged_attention.cu", "flash_attention.cu",
-        "flash_attention_wide.cu", "flash_attention_bwd.cu", "bsr_spmm.cu"}
+        "flash_attention_wide.cu", "flash_attention_mla.cu",
+        "flash_attention_bwd.cu", "bsr_spmm.cu"}
     assert d == _build.build_dir()
 
 
