@@ -312,11 +312,12 @@ drives the ported paths end to end through the public entry points:
 - phase 32: the flash forward, dK/dV and dQ kernels at DeepSeek-V2's
   (q/k 192, v 128) widths against their plain versions at 16 heads x 32768,
   f32 and bf16 (one panel, the strided single panel, two panels; each
-  kernel's launches counted), then one ``TransformerLM.deepseek`` train
+  kernel's launches counted, the bf16 forwards all on the wgmma design and
+  the f32 ones on mma.sync), then one ``TransformerLM.deepseek`` train
   step of the ``dsv2_lite`` cell's model and settings (bf16, remat, 32768
-  tokens): its flash launches (twice a layer forward, once a layer each
-  backward kernel) go into the kernels line, its loss that of random
-  weights.
+  tokens): its flash launches (twice a layer forward, every one on the
+  wgmma design, once a layer each backward kernel) go into the kernels
+  line, its loss that of random weights.
 
 ``python3 chip_smoke.py --phases 21,22,23`` (any subset of phases 19-32;
 20 runs 19 first) builds the kernels and runs only those phases, printing no
@@ -5085,13 +5086,17 @@ def mla_path(torch, tt, fa, ops, smi) -> dict:
                          MLA_SEQ, MLA_DQK, MLA_SEQ - 1, dtype, dv=MLA_DV)
         worst = max(worst, r)
         counts = ops.launch_counts()
-        # one panel, the single panel, two panels; one of each backward
+        # one panel, the single panel, two panels; one of each backward;
+        # bf16 forwards on the wgmma design, f32 on mma.sync
         want = {"flash_attention_panel": 4, "flash_attention_bwd_dkv": 1,
                 "flash_attention_bwd_dq": 1}
-        if any(counts[k] != n for k, n in want.items()):
-            raise AssertionError(f"phase 32 {dt}: launches {counts}, want "
-                                 f"{want}")
-        log(f"  {dt} launches {want}")
+        want_wgmma = 4 if dtype == torch.bfloat16 else 0
+        wgmma = fa.flash_attention_panel.launches_wgmma
+        if any(counts[k] != n for k, n in want.items()) \
+                or wgmma != want_wgmma:
+            raise AssertionError(f"phase 32 {dt}: launches {counts}, wgmma "
+                                 f"{wgmma}, want {want}, wgmma {want_wgmma}")
+        log(f"  {dt} launches {want}, of the forward's on wgmma {wgmma}")
         torch.cuda.empty_cache()
     log(f"  largest err/bound of the backward at ({MLA_DQK}, {MLA_DV}): "
         f"{worst:.3f}")
@@ -5112,6 +5117,7 @@ def mla_path(torch, tt, fa, ops, smi) -> dict:
     loss = float(loss)
     secs = time.perf_counter() - t0
     counts = ops.launch_counts()
+    wgmma = fa.flash_attention_panel.launches_wgmma
     layers = DSV2["layers"]
     want = {"flash_attention_panel": 2 * layers,
             "flash_attention_bwd_dkv": layers,
@@ -5126,10 +5132,11 @@ def mla_path(torch, tt, fa, ops, smi) -> dict:
     log(f"  train step: {secs:.3f} s, loss {loss:.6f} (expected "
         f"{want_loss:.6f}), peak "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, launches "
-        f"{counts}; {smi}")
-    if any(counts[k] != n for k, n in want.items()):
-        raise AssertionError(f"phase 32: the step's launches {counts}, want "
-                             f"{want}")
+        f"{counts}, of the forward's on wgmma {wgmma}; {smi}")
+    # every forward of the step on the wgmma design
+    if any(counts[k] != n for k, n in want.items()) or wgmma != 2 * layers:
+        raise AssertionError(f"phase 32: the step's launches {counts}, wgmma "
+                             f"{wgmma}, want {want}, wgmma {2 * layers}")
     if not abs(loss - want_loss) < 0.02:
         raise AssertionError(f"phase 32: the step's loss {loss}, expected "
                              f"{want_loss}")

@@ -1,6 +1,7 @@
 // TMA, mbarrier and wgmma helpers for Hopper (sm_90a), shared by the
-// hand-written GEMM (gemm.cu), the BSR SpMM (bsr_spmm.cu) and the fused
-// logistic gradient (lr_gradient.cuh).
+// hand-written GEMM (gemm.cu), the BSR SpMM (bsr_spmm.cu), the fused
+// logistic gradient (lr_gradient.cuh) and the bf16 flash forward
+// (flash_attention_sm90.cuh).
 //
 // - mbarriers in shared memory: init, arrive, expect_tx, and a wait that
 //   traps after 4 s, so a lost arrival ends the launch with an error instead
@@ -8,7 +9,8 @@
 // - TMA: a 2-D box of 128 bytes x rows into shared memory with the 128-byte
 //   swizzle, completion counted on an mbarrier, zeros past the tensor's edge;
 //   `make_map` encodes the tensor map on the host (cuTensorMapEncodeTiled,
-//   looked up through the runtime, so libcuda is not linked); a 1-D bulk
+//   looked up through the runtime, so libcuda is not linked), `make_map_3d`
+//   one of (heads, rows, w) with any row and head strides; a 1-D bulk
 //   copy of a contiguous byte range (16-byte aligned, a multiple of 16
 //   bytes), completion counted on an mbarrier.
 // - wgmma m64nNk8 (TF32) and m64nNk16 (bf16), N = 64 or 128, f32
@@ -18,6 +20,13 @@
 //   t = lane % 4: a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4),
 //   as mma.sync m16n8k8's. The accumulator: d[4 j + 2 h + c] is row
 //   g + 8 h, column 8 j + 2 t + c of the warp's 16 rows.
+// - bf16 wgmma m64nNk16 with A from registers (mma.sync m16n8k16's
+//   fragment: a0 columns (2t, 2t + 1) of row g, a1 of row g + 8, a2 columns
+//   (2t + 8, 2t + 9) of row g, a3 of row g + 8, lo in the low half) and B
+//   MN-major (the N index contiguous, as a row-major (k, n) matrix stores it:
+//   rows of 64 bf16 of n with the 128-byte swizzle, 8-row groups of k 1024
+//   bytes apart, the next 64 of n `lbo` bytes on).
+// - Named barriers: a warpgroup waits at one while another arrives.
 
 #pragma once
 
@@ -75,6 +84,16 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// the same from a 3-D tensor map: the box at (k0, row0, z)
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int k0, int row0, int z) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(k0), "r"(row0), "r"(z)
+      : "memory");
+}
+
 // `bytes` contiguous bytes from global memory into shared memory by TMA;
 // both addresses 16-byte aligned, `bytes` a multiple of 16; completion
 // counts on the mbarrier
@@ -92,6 +111,24 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
 __device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) |
          (1ull << 62);
+}
+
+// wgmma shared-memory descriptor of an MN-major B tile stored as rows of
+// 128 bytes of n with TMA's 128-byte swizzle: 8-row groups of k 1024 bytes
+// apart (stride offset), the next 64 bf16 of n `lbo` bytes on (leading
+// offset)
+__device__ __forceinline__ uint64_t smem_desc_mn(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// named barriers 1..15 over n threads (a multiple of 32): sync waits until n
+// threads have arrived or synced; arrive does not wait
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -227,6 +264,47 @@ __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+// wgmma m64nNk16 bf16 with A from registers (the fragment in the head note)
+// and B MN-major in shared memory (smem_desc_mn); scale_d = 0 starts from
+// zero
+__device__ __forceinline__ void wgmma_bf16_rs_mn(float (&d)[32], const uint32_t (&a)[4],
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_bf16_rs_mn(float (&d)[64], const uint32_t (&a)[4],
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 // keeps the compiler from moving reads and writes of an A fragment across
 // the asynchronous products that read it
 __device__ __forceinline__ void fence_frag(uint32_t (&r)[4]) {
@@ -275,6 +353,27 @@ inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int64_t rows, int
       const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// a (heads, rows, w) tensor of T with row stride si and head stride sh (in
+// elements), boxes of 128 bytes x box_rows x 1 head, with the 128-byte
+// swizzle, zeros past the edge: TMA needs a 16-byte-aligned base and
+// strides of a multiple of 16 bytes
+template <typename T>
+inline cudaError_t make_map_3d(CUtensorMap* map, const void* ptr, int64_t heads, int64_t rows,
+                               int64_t w, int64_t si, int64_t sh, int box_rows) {
+  PFN_cuTensorMapEncodeTiled encode = encode_fn();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)w, (cuuint64_t)rows, (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)si * sizeof(T), (cuuint64_t)sh * sizeof(T)};
+  const cuuint32_t box[3] = {128 / sizeof(T), (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+      const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 

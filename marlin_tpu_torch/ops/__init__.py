@@ -37,9 +37,11 @@ KERNEL_WRAPPERS = (pallas_matmul, masked_fill, paged_decode_attention,
 
 
 def reset_launch_counts() -> None:
-    """Set the launch count of every kernel wrapper to 0."""
+    """Set the launch count of every kernel wrapper to 0 (the flash
+    forward's count of its wgmma design's launches too)."""
     for w in KERNEL_WRAPPERS:
         w.launches = 0
+    flash_attention_panel.launches_wgmma = 0
 
 
 def launch_counts() -> dict[str, int]:

@@ -143,6 +143,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                                      i, ll, ll, ll, ll, ll, ll, i, i, i, i, f,
                                      p]
     lib.marlin_flash_fwd.restype = i
+    # the wgmma design's entry takes the same arguments
+    lib.marlin_flash_fwd_sm90.argtypes = lib.marlin_flash_fwd.argtypes
+    lib.marlin_flash_fwd_sm90.restype = i
     # dtype, q, k, v, dout, lse, delta, outputs..., then the shared tail
     # (H, sq, skv, dqk, dv, strides, ...)
     bwd_tail = [i, i, i, i, i, ll, ll, ll, ll, ll, ll, ll, ll, i, i, i, i, f,

@@ -2,11 +2,15 @@
 two-pass recompute backward.
 
 Counterpart of ``marlin_tpu/ops/flash_attention.py``. Its Pallas TPU panel
-kernel becomes the CUDA kernel ``csrc/flash_attention.cuh`` (instantiated by
-``csrc/flash_attention.cu``, for d <= 256 by ``csrc/flash_attention_wide.cu``
-and for q/k 192 and v 128 wide by ``csrc/flash_attention_mla.cu``) and its
-two backward kernels
-``csrc/flash_attention_bwd.cu`` (built and bound by ``ops/_build.py``).
+kernel becomes two CUDA designs of the forward, chosen per call by
+:func:`fwd_design`: ``csrc/flash_attention_sm90.cuh`` (TMA, ``wgmma`` on two
+consumer warpgroups; bf16 at widths (64, 64), (128, 128) and (192, 128),
+instantiated by ``csrc/flash_attention_sm90.cu`` and ``_sm90_mla.cu``) and
+``csrc/flash_attention.cuh`` (``mma.sync``; everything else: f32, unaligned
+views, other widths; instantiated by ``csrc/flash_attention.cu``, for d <=
+256 by ``csrc/flash_attention_wide.cu`` and for q/k 192 and v 128 wide by
+``csrc/flash_attention_mla.cu``). Its two backward kernels become
+``csrc/flash_attention_bwd.cu`` (all built and bound by ``ops/_build.py``).
 Forward: score tiles stay in registers, the running max ``m``, denominator
 ``l`` and f32 accumulator are carried across the kv tiles, and tiles with no
 live entry (past ``valid_len``, or wholly above the causal diagonal) are
@@ -45,13 +49,16 @@ failed build or launch) and :func:`flash_attention_panel_plain` for CPU
 tensors; :func:`flash_attention_panel_bwd` likewise runs
 :func:`flash_attention_bwd_dkv` and :func:`flash_attention_bwd_dq` or
 :func:`flash_attention_panel_bwd_plain`. Each kernel wrapper counts its
-launches in ``.launches``.
+launches in ``.launches``; the forward's count of the ``wgmma`` design's is
+``flash_attention_panel.launches_wgmma``, and both designs' go to the
+metrics registry as ``marlin_flash_fwd_launches_total{design=...}``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..obs.metrics import get_registry
 from . import _build
 from .local import precision_scope
 
@@ -59,7 +66,7 @@ __all__ = ["flash_attention_panel", "flash_attention_panel_plain",
            "flash_attention_single_panel", "flash_attention_single_panel_plain",
            "flash_attention_panel_bwd", "flash_attention_panel_bwd_plain",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
-           "FlashAttention", "block_divisor"]
+           "FlashAttention", "block_divisor", "fwd_design"]
 
 _NEG = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -192,13 +199,68 @@ def flash_attention_panel_plain(q, k, v, m, l, acc, q_offset, k_offset,
     return m_out, l_out, acc_out
 
 
+# (dqk, dv) of the wgmma design's instances (csrc/flash_attention_sm90*.cu)
+WGMMA_WIDTHS = frozenset({(64, 64), (128, 128), (192, 128)})
+
+
+def fwd_design(dtype: torch.dtype, dqk: int, dv: int, tma_ready: bool) -> str:
+    """The forward kernel design a CUDA call takes: ``"wgmma"``
+    (``csrc/flash_attention_sm90.cuh``) for bfloat16 at widths an instance
+    covers (:data:`WGMMA_WIDTHS`) with :func:`_tma_ready` operands, else
+    ``"mma_sync"`` (``csrc/flash_attention.cuh``): f32, whose three TF32
+    passes read V as a K-major operand that TF32 ``wgmma`` cannot, unaligned
+    views, and every other width. No knob: the inputs decide."""
+    if dtype == torch.bfloat16 and (dqk, dv) in WGMMA_WIDTHS and tma_ready:
+        return "wgmma"
+    return "mma_sync"
+
+
+def _tma_ready(*ts) -> bool:
+    """TMA's rule for the wgmma design's tensor maps over ``(H, rows, d)``
+    tensors with unit last stride: 16-byte-aligned base pointers, and head
+    and row strides of a positive multiple of 16 bytes wherever the
+    dimension holds more than one head or row (``csrc/
+    flash_attention_sm90.cuh: tma_ready``)."""
+    for t in ts:
+        if t.data_ptr() % 16:
+            return False
+        for dim in (0, 1):
+            st = t.stride(dim)
+            if t.shape[dim] > 1 and (st <= 0 or st * t.element_size() % 16):
+                return False
+    return True
+
+
+_fwd_launch_family = None
+
+
+def _fwd_launches():
+    """The registry's ``marlin_flash_fwd_launches_total`` family."""
+    global _fwd_launch_family
+    if _fwd_launch_family is None:
+        _fwd_launch_family = get_registry().counter(
+            "marlin_flash_fwd_launches_total",
+            "Launches of the flash forward kernel, by design (wgmma: the "
+            "TMA/wgmma bf16 kernel; mma_sync: every other input)",
+            labelnames=("design",))
+    return _fwd_launch_family
+
+
+def _count_fwd_launch(design: str) -> None:
+    _fwd_launches().labels(design=design).inc()
+    flash_attention_panel.launches += 1
+    if design == "wgmma":
+        flash_attention_panel.launches_wgmma += 1
+
+
 def flash_attention_panel(q, k, v, m, l, acc, q_offset, k_offset, valid_len,
                           *, causal: bool, scale: float, bq: int = 1024,
                           bkv: int = 1024):
     """One flash pass of queries ``q`` against a K/V panel, updating the
     running state; returns the new ``(m, l, acc)`` (module docstring). CUDA
-    tensors run the kernel, whose tiles are its own (``bq``/``bkv`` are read
-    by the plain version only); CPU tensors the plain version."""
+    tensors run the kernel of :func:`fwd_design`, whose tiles are its own
+    (``bq``/``bkv`` are read by the plain version only); CPU tensors the
+    plain version."""
     if q.device.type == "cpu":
         return flash_attention_panel_plain(
             q, k, v, m, l, acc, q_offset, k_offset, valid_len, causal=causal,
@@ -212,25 +274,29 @@ def flash_attention_panel(q, k, v, m, l, acc, q_offset, k_offset, valid_len,
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     m, l, acc = (t.float().contiguous() for t in (m, l, acc))
     m_out, l_out, acc_out = (torch.empty_like(t) for t in (m, l, acc))
+    design = fwd_design(q.dtype, d, dv, _tma_ready(q, k, v))
     lib = _build.load_library()
+    entry = lib.marlin_flash_fwd_sm90 if design == "wgmma" \
+        else lib.marlin_flash_fwd
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.marlin_flash_fwd(
+        err = entry(
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             m.data_ptr(), l.data_ptr(), acc.data_ptr(), m_out.data_ptr(),
             l_out.data_ptr(), acc_out.data_ptr(), H, sq, skv, d, dv,
             q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
             v.stride(1), int(q_offset), int(k_offset), int(valid_len),
             int(bool(causal)), float(scale), stream)
-    _build.check(lib, err, f"flash_attention_panel q {tuple(q.shape)} "
-                           f"kv {tuple(k.shape)}")
-    flash_attention_panel.launches += 1
+    _build.check(lib, err, f"flash_attention_panel ({design}) q "
+                           f"{tuple(q.shape)} kv {tuple(k.shape)}")
+    _count_fwd_launch(design)
     if single:
         return m_out[0], l_out[0], acc_out[0]
     return m_out, l_out, acc_out
 
 
 flash_attention_panel.launches = 0
+flash_attention_panel.launches_wgmma = 0
 
 
 def _single_panel(panel, q, k, v, valid_len, causal, scale):

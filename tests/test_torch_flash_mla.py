@@ -213,3 +213,130 @@ def test_mla_kernels_match_plain_on_card(cuda, dtype, H, seq):
     torch.cuda.synchronize()
     for g, w in zip((dq, dk, dv), plain):
         _close(g, w, dtype)
+
+
+# ------------------------------------------- the forward's two designs
+
+
+def _wgmma_counts():
+    return (fa.flash_attention_panel.launches,
+            fa.flash_attention_panel.launches_wgmma)
+
+
+def _fresh_state(H, sq, dv, device):
+    m0 = torch.full((H, sq), -1e30, device=device)
+    return m0, torch.zeros_like(m0), torch.zeros((H, sq, dv), device=device)
+
+
+def _fwd_both(q, k, v, st, q_off, k_off, valid, causal, scale):
+    """The kernel's and the plain version's (m, l, acc) of one panel; checks
+    that the panel went to the wgmma design."""
+    n, w = _wgmma_counts()
+    got = fa.flash_attention_panel(q, k, v, *st[0], q_off, k_off, valid,
+                                   causal=causal, scale=scale)
+    want = fa.flash_attention_panel_plain(q, k, v, *st[1], q_off, k_off,
+                                          valid, causal=causal, scale=scale)
+    assert _wgmma_counts() == (n + 1, w + 1), "not the wgmma design"
+    return got, want
+
+
+def _state_close(got, want):
+    """m within F32_TOL, out = acc / l within bf16's bound, and the rows
+    with no live key exactly as the plain version leaves them."""
+    torch.cuda.synchronize()
+    live = want[1] > 0
+    np.testing.assert_allclose(_np(got[0][live]), _np(want[0][live]), rtol=0,
+                               atol=F32_TOL)
+    out_g, out_w = (s[2][live] / s[1][live][..., None] for s in (got, want))
+    assert_bf16_close(out_g, out_w)
+    dead = ~live
+    assert torch.equal(got[1][dead], want[1][dead])
+    assert torch.equal(got[2][dead], want[2][dead])
+    assert torch.equal(got[0][dead], want[0][dead])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dqk,dv", [(DQK, DV), (128, 128), (64, 64)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_wgmma_forward_matches_plain_on_card(cuda, dqk, dv, causal):
+    """The wgmma design against the plain panel in bf16: ragged sq and skv
+    (no tile multiples), valid_len inside a tile, then two panels with
+    carried state at offsets that are no tile multiple (ring attention's
+    panels), and rows with no live key (k_offset past them, causal) left
+    exactly as the plain version leaves them."""
+    H, sq, skv = 3, 1000, 1100
+    q, k, v, _ = _inputs(H, sq, skv, dqk, dv, dqk + dv + causal,
+                         torch.bfloat16, cuda)
+    scale = 1.0 / math.sqrt(dqk)
+    st = _fresh_state(H, sq, dv, cuda)
+    # one panel, valid_len inside a tile
+    _state_close(*_fwd_both(q, k, v, (st, st), 0, 0, 1037, causal, scale))
+    # two panels with carried state, offsets off the tiles
+    half = skv // 2
+    sg = sw = st
+    for kk, vv, off in ((k[:, :half], v[:, :half], 131),
+                        (k[:, half:], v[:, half:], 131 + half)):
+        sg, sw = _fwd_both(q, kk, vv, (sg, sw), 777, off, 1500, causal,
+                           scale)
+    _state_close(sg, sw)
+    # k_offset past the first rows: with causal, rows 0..99 see no key
+    got, want = _fwd_both(q, k, v, (st, st), 0, 100, skv + 100, causal,
+                          scale)
+    _state_close(got, want)
+    if causal:
+        assert bool((got[1][:, :100] == 0).all())
+        assert bool((got[2][:, :100] == 0).all())
+        assert bool((got[0][:, :100] == -1e30).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dqk,dv", [(DQK, DV), (128, 128)])
+def test_wgmma_forward_strided_views_on_card(cuda, dqk, dv):
+    """(seq, heads, d) activations viewed as (heads, seq, d), as the models
+    pass them: the tensor maps take the strides, no copy; the single panel
+    through the wgmma design against the plain one."""
+    H, seq, valid = 4, 2500, 2431
+    g = torch.Generator(device=cuda).manual_seed(dqk)
+    q, k, v = (torch.randn((seq, H, w), generator=g, device=cuda)
+               .to(torch.bfloat16).transpose(0, 1) for w in (dqk, dqk, dv))
+    assert q.stride() == (dqk, H * dqk, 1)
+    scale = 1.0 / math.sqrt(dqk)
+    n, w = _wgmma_counts()
+    got, lse_g = fa.flash_attention_single_panel(q, k, v, valid, causal=True,
+                                                 scale=scale)
+    assert _wgmma_counts() == (n + 1, w + 1)
+    want, lse_w = fa.flash_attention_single_panel_plain(
+        q, k, v, valid, causal=True, scale=scale)
+    torch.cuda.synchronize()
+    assert_bf16_close(got, want)
+    np.testing.assert_allclose(_np(lse_g), _np(lse_w), rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_forward_design_routing_on_card(cuda):
+    """f32, an unaligned view and d = 16 go to the mma.sync design (and
+    still match the plain version); the launch counts say which ran."""
+    H, sq = 2, 300
+    scale = 0.125
+    g = torch.Generator(device=cuda).manual_seed(7)
+    buf = torch.randn(H * sq * DQK + 8, generator=g, device=cuda).to(
+        torch.bfloat16)
+    unaligned = buf[1:1 + H * sq * DQK].view(H, sq, DQK)
+    assert unaligned.data_ptr() % 16
+    cases = [
+        ("f32", *_inputs(H, sq, sq, DQK, DV, 1, torch.float32, cuda)[:3]),
+        ("unaligned", unaligned, unaligned,
+         _inputs(H, sq, sq, DQK, DV, 2, torch.bfloat16, cuda)[2]),
+        ("d16", *_inputs(H, sq, sq, 16, 16, 3, torch.bfloat16, cuda)[:3]),
+    ]
+    for name, q, k, v in cases:
+        st = _fresh_state(H, sq, v.shape[-1], cuda)
+        n, w = _wgmma_counts()
+        got = fa.flash_attention_panel(q, k, v, *st, 0, 0, sq, causal=True,
+                                       scale=scale)
+        assert _wgmma_counts() == (n + 1, w), name
+        want = fa.flash_attention_panel_plain(q, k, v, *st, 0, 0, sq,
+                                              causal=True, scale=scale)
+        torch.cuda.synchronize()
+        out_g, out_w = (s[2] / s[1][..., None] for s in (got, want))
+        _close(out_g, out_w, q.dtype)

@@ -27,6 +27,7 @@ from marlin_tpu.ops.pallas_kernels import masked_fill as jax_masked_fill
 from marlin_tpu.ops.pallas_kernels import pallas_matmul as jax_pallas_matmul
 from marlin_tpu_torch import ops
 from marlin_tpu_torch.ops import _build
+from marlin_tpu_torch.ops import flash_attention as fa
 from marlin_tpu_torch.ops import pallas_kernels as pk
 from marlin_tpu_torch.ops.local import gemm
 from marlin_tpu_torch.ops.tile_family import BK_AXIS, BM_AXIS, BN_AXIS
@@ -175,9 +176,9 @@ def test_ctypes_binding_passes_pointers_as_void_p():
     32 bits; every one must be declared c_void_p."""
     lib = types.SimpleNamespace(**{f: types.SimpleNamespace() for f in (
         "marlin_gemm_prep", "marlin_gemm", "marlin_masked_fill",
-        "marlin_paged_attention", "marlin_flash_fwd", "marlin_flash_bwd_dkv",
-        "marlin_flash_bwd_dq", "marlin_bsr_spmm", "marlin_bsr_spmm_tc",
-        "marlin_error_string")})
+        "marlin_paged_attention", "marlin_flash_fwd", "marlin_flash_fwd_sm90",
+        "marlin_flash_bwd_dkv", "marlin_flash_bwd_dq", "marlin_bsr_spmm",
+        "marlin_bsr_spmm_tc", "marlin_error_string")})
     _build._bind(lib)
     g = lib.marlin_gemm.argtypes
     assert g[4:7] == [ctypes.c_void_p] * 3 and g[-2:] == [ctypes.c_void_p] * 2
@@ -195,6 +196,7 @@ def test_ctypes_binding_passes_pointers_as_void_p():
     assert fl[1:10] == [ctypes.c_void_p] * 9 and fl[-1] is ctypes.c_void_p
     assert fl[10:15] == [ctypes.c_int] * 5  # H, sq, skv, dqk, dv
     assert fl[15:21] == [ctypes.c_longlong] * 6 and fl[-2] is ctypes.c_float
+    assert lib.marlin_flash_fwd_sm90.argtypes == fl  # the same arguments
     for fn, n_ptr in (("marlin_flash_bwd_dkv", 8), ("marlin_flash_bwd_dq", 7)):
         b = getattr(lib, fn).argtypes
         assert b[0] is ctypes.c_int and b[-1] is ctypes.c_void_p
@@ -212,9 +214,67 @@ def test_ctypes_binding_passes_pointers_as_void_p():
     assert t[12:14] == [ctypes.c_longlong] * 2 and t[-1] is ctypes.c_void_p
     for fn in ("marlin_gemm_prep", "marlin_gemm", "marlin_masked_fill",
                "marlin_paged_attention", "marlin_flash_fwd",
-               "marlin_flash_bwd_dkv", "marlin_flash_bwd_dq",
+               "marlin_flash_fwd_sm90", "marlin_flash_bwd_dkv",
+               "marlin_flash_bwd_dq",
                "marlin_bsr_spmm", "marlin_bsr_spmm_tc"):
         assert getattr(lib, fn).restype is ctypes.c_int
+
+
+@pytest.mark.parametrize("dtype,dqk,dv,ready,design", [
+    (torch.bfloat16, 192, 128, True, "wgmma"),     # latent attention
+    (torch.bfloat16, 128, 128, True, "wgmma"),
+    (torch.bfloat16, 64, 64, True, "wgmma"),
+    (torch.float32, 192, 128, True, "mma_sync"),   # 3xTF32 reads V K-major
+    (torch.float32, 128, 128, True, "mma_sync"),
+    (torch.bfloat16, 192, 128, False, "mma_sync"),  # no tensor map
+    (torch.bfloat16, 128, 128, False, "mma_sync"),
+    (torch.bfloat16, 16, 16, True, "mma_sync"),    # serving prefill's heads
+    (torch.bfloat16, 256, 256, True, "mma_sync"),  # no instance
+    (torch.bfloat16, 128, 64, True, "mma_sync"),
+    (torch.bfloat16, 96, 96, True, "mma_sync"),
+])
+def test_flash_fwd_design_rule(dtype, dqk, dv, ready, design):
+    """The forward's design is a function of the inputs alone: bf16 at an
+    instance's widths with TMA-ready operands takes the wgmma kernel,
+    everything else the mma.sync one."""
+    assert fa.fwd_design(dtype, dqk, dv, ready) == design
+
+
+def test_flash_fwd_tma_ready():
+    """TMA's alignment rule on the views the callers pass: contiguous and
+    (seq, heads, d) layouts are ready; a base pointer off 16 bytes, a row
+    stride off 16 bytes or a zero head stride is not; a dimension of one
+    head or one row may have any stride."""
+    x = torch.zeros((4, 64, 192), dtype=torch.bfloat16)
+    assert fa._tma_ready(x, x, x[..., :128])
+    seq_major = torch.zeros((64, 4, 192), dtype=torch.bfloat16).transpose(0, 1)
+    assert seq_major.stride() == (192, 768, 1) and fa._tma_ready(seq_major)
+    buf = torch.zeros(4 * 64 * 192 + 8, dtype=torch.bfloat16)
+    off = buf[1:1 + 4 * 64 * 192].view(4, 64, 192)
+    assert off.data_ptr() % 16 and not fa._tma_ready(off)
+    ragged = torch.zeros((4, 64, 196), dtype=torch.bfloat16)[..., :192]
+    assert not fa._tma_ready(ragged)  # rows 392 bytes apart
+    assert not fa._tma_ready(x[:1].expand(4, 64, 192))
+    one = torch.zeros((1, 1, 200), dtype=torch.bfloat16)[..., :192]
+    assert one.stride()[:2] == (200, 200) and fa._tma_ready(one)
+
+
+def test_flash_fwd_launch_counter_by_design(monkeypatch):
+    """Each forward launch counts in ``launches`` and in the registry's
+    ``marlin_flash_fwd_launches_total`` under its design; the wgmma
+    design's also in ``launches_wgmma``."""
+    fam = fa._fwd_launches()
+    before = {d: fam.labels(design=d).value for d in ("wgmma", "mma_sync")}
+    monkeypatch.setattr(fa.flash_attention_panel, "launches", 0)
+    monkeypatch.setattr(fa.flash_attention_panel, "launches_wgmma", 0)
+    for design in ("wgmma", "mma_sync", "wgmma"):
+        fa._count_fwd_launch(design)
+    assert fa.flash_attention_panel.launches == 3
+    assert fa.flash_attention_panel.launches_wgmma == 2
+    assert fam.labels(design="wgmma").value == before["wgmma"] + 2
+    assert fam.labels(design="mma_sync").value == before["mma_sync"] + 1
+    ops.reset_launch_counts()
+    assert fa.flash_attention_panel.launches_wgmma == 0
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -234,6 +294,7 @@ def test_build_dir_is_keyed_by_sources():
     assert {p.name for p in _build._sources()} == {
         "gemm.cu", "masked_fill.cu", "paged_attention.cu", "flash_attention.cu",
         "flash_attention_wide.cu", "flash_attention_mla.cu",
+        "flash_attention_sm90.cu", "flash_attention_sm90_mla.cu",
         "flash_attention_bwd.cu", "bsr_spmm.cu"}
     assert d == _build.build_dir()
 

@@ -3,6 +3,10 @@ attention's head widths, q/k 192 and v 128 (the (192, 128) instances),
 against the same attention with v zero-padded to 192 (the 256-wide
 instances, the only way the kernels ran it before), and at the square 128
 for scale; prints ``ptxas`` registers and spills of every flash instance.
+Each row names the forward's design (``fwd_design``: wgmma for bf16 at
+(192, 128) and 128, mma.sync for f32 and the padded widths) and gives the
+kernel's bound at 989 TFLOP/s bf16 or 165 TFLOP/s f32 (three TF32 passes)
+beside its time.
 
     python tools/flash_mla_bench.py [--heads 16] [--seq 32768] [--reps 5]
 
@@ -75,6 +79,8 @@ def one(H, S, dqk, dv, dtype, reps, pad_v=False):
     delta = (do.float() * (acc / l1[..., None])).sum(-1)
     args = (q, k, v, do, lse, delta, 0, 0, S)
     pairs = H * S * (S + 1) / 2
+    peak = 989e12 if dtype == torch.bfloat16 else 165e12
+    design = fa.fwd_design(dtype, dqk, v.shape[-1], fa._tma_ready(q, k, v))
     rows = []
     for name, fn, per_pair in (
             ("fwd", fwd, 2 * (dqk + dv)),
@@ -87,7 +93,9 @@ def one(H, S, dqk, dv, dtype, reps, pad_v=False):
                      "H": H, "S": S, "dqk": dqk, "dv": dv,
                      "instance": ("256, v padded" if pad_v else
                                   f"{dqk}x{dv}" if dqk != dv else str(dqk)),
-                     "ms": ms, "tflop_s": pairs * per_pair / ms / 1e9})
+                     "design": design if name == "fwd" else "mma_sync",
+                     "ms": ms, "bound_ms": pairs * per_pair / peak * 1e3,
+                     "tflop_s": pairs * per_pair / ms / 1e9})
     return rows
 
 
